@@ -91,9 +91,9 @@ def load_library() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(build())
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.rt_closest.argtypes = [P] * 10 + [I, I] + [P] * 6
-    lib.rt_occluded.argtypes = [P] * 10 + [I, I] + [P] * 3
-    lib.rt_frame.argtypes = [P] * 11 + [I, I, I, I, I] + [P] * 3
+    lib.rt_closest.argtypes = [P] * 10 + [I] + [P] * 6
+    lib.rt_occluded.argtypes = [P] * 10 + [I] + [P] * 3
+    lib.rt_frame.argtypes = [P] * 11 + [I, I, I] + [P] * 3
     for fn in (lib.rt_closest, lib.rt_occluded, lib.rt_frame):
         fn.restype = I
     lib.rt_error_string.argtypes = [I]

@@ -116,11 +116,13 @@ class RenderConfig:
     true_sah: bool = True
 
     # Trace shadow segments from the light toward the hit points (the
-    # distance window maps exactly, see ops/shade.shade_hit).
+    # distance window maps exactly, see ops/shade.shade_hit). False is not
+    # ported and raises NotImplementedError.
     reverse_shadows: bool = True
 
-    # Triangles per leaf group row (power of two <= 8); None = largest
-    # that fits the 128-lane row (8).
+    # Triangles per leaf group row; None = largest that fits the 128-lane
+    # row (8). The kernels hold 8: any other value raises
+    # NotImplementedError.
     leaf_size: Optional[int] = None
 
     presplit: float = 0.0

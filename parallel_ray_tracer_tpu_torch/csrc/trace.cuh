@@ -26,6 +26,16 @@
 // tile-major order, so a warp holds 32 neighbouring pixels and its threads
 // walk similar paths.
 //
+// Leaves hold L = 8 triangles (one 128-float row), the only leaf size the
+// port prepares; shadow rays are always traced from the light (the
+// reference's reverse_shadows=True).
+//
+// Work counters: each kernel has a counting instance (COUNT = true) that
+// also sums, per launch, the node visits, the box tests of valid children,
+// the leaf visits, the triangle tests of live slots (n != 0; padding slots
+// can never hit) and the traversals. The timed instance (COUNT = false)
+// compiles the counting out.
+//
 // Numerics: built with -fmad=false and without fast math, so each product
 // and division rounds as in the JAX kernels and the plain PyTorch versions,
 // and a triangle test gives the same bits in all three. Absent BVH4
@@ -41,6 +51,7 @@
 #define RT_LANES 128           // floats per tri / attr row
 #define RT_TRI_STRIDE 12       // [v0, e1, e2, n] per triangle
 #define RT_ATTR_STRIDE 9       // [kd, ks, kr] per triangle
+#define RT_LEAF 8              // triangles per leaf row
 #define RT_BLOCK 128           // threads per block
 
 #define RT_FN __device__ __forceinline__
@@ -60,8 +71,19 @@ struct RtRay {
   float3 o, d, inv, oi;  // inv: clipped 1/d; oi = o * inv (hoisted slab term)
 };
 
+// Per-thread work counts; with ON = false every method is empty.
+enum { RT_C_INNER, RT_C_BOX, RT_C_LEAF, RT_C_TRI, RT_C_RAYS, RT_NCOUNTS };
+
+template <bool ON>
 struct RtCounts {
-  unsigned inner, leaf, rays;
+  unsigned v[RT_NCOUNTS] = {0u, 0u, 0u, 0u, 0u};
+  RT_FN void add(int k, unsigned n = 1u) {
+    if (ON) v[k] += n;
+  }
+  // one triangle test; it counts only when the slot is live (n != 0)
+  RT_FN void tri(float4 c) {
+    if (ON) v[RT_C_TRI] += (c.y != 0.f || c.z != 0.f || c.w != 0.f) ? 1u : 0u;
+  }
 };
 
 RT_FN float rt_clip_inv(float d) {
@@ -121,8 +143,9 @@ RT_FN float rt_mt(const RtRay& r, float4 a, float4 b, float4 c, bool& neg) {
 // Visit quad row e: test its valid children against t_cut, sort them
 // near-first (the _sort4 network) and push far-to-near, so the nearest
 // child pops first. Each entry keeps its entry distance.
+template <class C>
 RT_FN void rt_visit(const RtScene& s, int e, const RtRay& r, float t_cut,
-                    int* stk, float* dst, int& sp) {
+                    int* stk, float* dst, int& sp, C& cnt) {
   float b[32];
   const float4* row = s.cbox + (size_t)e * 8;
 #pragma unroll
@@ -138,8 +161,12 @@ RT_FN void rt_visit(const RtScene& s, int e, const RtRay& r, float t_cut,
   int es[4] = {enc.x, enc.y, enc.z, enc.w};
   int vs[4] = {val.x, val.y, val.z, val.w};
   float ms[4];
+  cnt.add(RT_C_INNER);
 #pragma unroll
-  for (int k = 0; k < 4; ++k) ms[k] = vs[k] > 0 ? rt_slab(b + 6 * k, r, t_cut) : RT_TMAX;
+  for (int k = 0; k < 4; ++k) {
+    cnt.add(RT_C_BOX, vs[k] > 0 ? 1u : 0u);
+    ms[k] = vs[k] > 0 ? rt_slab(b + 6 * k, r, t_cut) : RT_TMAX;
+  }
   const int net[5][2] = {{0, 1}, {2, 3}, {0, 2}, {1, 3}, {1, 2}};
 #pragma unroll
   for (int c = 0; c < 5; ++c) {
@@ -159,11 +186,11 @@ RT_FN void rt_visit(const RtScene& s, int e, const RtRay& r, float t_cut,
   }
 }
 
-// Closest hit of one ray: returns the slot g*L + j (or -1) and sets t and
-// neg (det < 0 of the winner). Strict < keeps the first of equal hits.
-template <int L>
+// Closest hit of one ray: returns the slot g*RT_LEAF + j (or -1) and sets
+// t and neg (det < 0 of the winner). Strict < keeps the first of equal hits.
+template <class C>
 RT_FN int rt_closest(const RtScene& s, const RtRay& r, float& t, bool& neg,
-                     RtCounts& cnt) {
+                     C& cnt) {
   int stk[RT_STACK];
   float dst[RT_STACK];
   int sp = 1, idx = -1;
@@ -171,29 +198,29 @@ RT_FN int rt_closest(const RtScene& s, const RtRay& r, float& t, bool& neg,
   dst[0] = -RT_TMAX;
   t = RT_TMAX;
   neg = false;
-  cnt.rays += 1;
+  cnt.add(RT_C_RAYS);
   while (sp > 0) {
     --sp;
     int e = stk[sp];
     if (dst[sp] >= t) continue;  // box starts beyond the current hit
     if (e < 0) {
       int g = -e - 1;
-      cnt.leaf += 1;
+      cnt.add(RT_C_LEAF);
       const float4* row = s.tri + (size_t)g * (RT_LANES / 4);
 #pragma unroll
-      for (int j = 0; j < L; ++j) {
+      for (int j = 0; j < RT_LEAF; ++j) {
         bool nj;
-        float tj = rt_mt(r, __ldg(row + 3 * j), __ldg(row + 3 * j + 1),
-                         __ldg(row + 3 * j + 2), nj);
+        float4 c = __ldg(row + 3 * j + 2);
+        cnt.tri(c);
+        float tj = rt_mt(r, __ldg(row + 3 * j), __ldg(row + 3 * j + 1), c, nj);
         if (tj < t) {
           t = tj;
-          idx = g * L + j;
+          idx = g * RT_LEAF + j;
           neg = nj;
         }
       }
     } else {
-      cnt.inner += 1;
-      rt_visit(s, e, r, t, stk, dst, sp);
+      rt_visit(s, e, r, t, stk, dst, sp, cnt);
     }
   }
   return idx;
@@ -201,32 +228,32 @@ RT_FN int rt_closest(const RtScene& s, const RtRay& r, float& t, bool& neg,
 
 // Any hit of one ray with t*t < max_dist2 (pallas_trace._run_occluded_dual);
 // boxes are cut at sqrt(max_dist2), the ray stops at its first blocker.
-template <int L>
+template <class C>
 RT_FN bool rt_occluded(const RtScene& s, const RtRay& r, float max_dist2,
-                       RtCounts& cnt) {
+                       C& cnt) {
   int stk[RT_STACK];
   float dst[RT_STACK];
   int sp = 1;
   stk[0] = 0;
   const float t_limit = sqrtf(max_dist2);
-  cnt.rays += 1;
+  cnt.add(RT_C_RAYS);
   while (sp > 0) {
     --sp;
     int e = stk[sp];
     if (e < 0) {
       int g = -e - 1;
-      cnt.leaf += 1;
+      cnt.add(RT_C_LEAF);
       const float4* row = s.tri + (size_t)g * (RT_LANES / 4);
 #pragma unroll
-      for (int j = 0; j < L; ++j) {
+      for (int j = 0; j < RT_LEAF; ++j) {
         bool nj;
-        float tj = rt_mt(r, __ldg(row + 3 * j), __ldg(row + 3 * j + 1),
-                         __ldg(row + 3 * j + 2), nj);
+        float4 c = __ldg(row + 3 * j + 2);
+        cnt.tri(c);
+        float tj = rt_mt(r, __ldg(row + 3 * j), __ldg(row + 3 * j + 1), c, nj);
         if (tj < RT_TMAX && tj * tj < max_dist2) return true;
       }
     } else {
-      cnt.inner += 1;
-      rt_visit(s, e, r, t_limit, stk, dst, sp);
+      rt_visit(s, e, r, t_limit, stk, dst, sp, cnt);
     }
   }
   return false;
@@ -235,9 +262,8 @@ RT_FN bool rt_occluded(const RtScene& s, const RtRay& r, float max_dist2,
 RT_FN float rt_rsq(float v) { return 1.0f / sqrtf(fmaxf(v, 1e-30f)); }
 
 // Raw normal and kd/ks/kr of slot idx (HitFull layout: n, kd, ks, kr).
-template <int L>
 RT_FN void rt_slot_attrs(const RtScene& s, int idx, float* av) {
-  int g = idx / L, j = idx - (idx / L) * L;
+  int g = idx / RT_LEAF, j = idx - g * RT_LEAF;
   const float* trow = reinterpret_cast<const float*>(s.tri) + (size_t)g * RT_LANES;
   const float* arow = s.attr + (size_t)g * RT_LANES;
 #pragma unroll
@@ -248,10 +274,10 @@ RT_FN void rt_slot_attrs(const RtScene& s, int idx, float* av) {
 
 // The whole Whitted bounce loop of one ray (pallas_trace._frame_fused_kernel,
 // without spheres). lamb: nl light rows (pos.xyz, kl.rgb, 0, 0) + ambient.
-template <int L>
+// Shadow rays run from the light to the hit point, window (dist - EPS)^2.
+template <class C>
 RT_FN float3 rt_frame_ray(const RtScene& s, const float* lamb, int nl,
-                          float3 o, float3 d, int bounces, bool reverse,
-                          RtCounts& cnt) {
+                          float3 o, float3 d, int bounces, C& cnt) {
   const float EPS2 = (float)(1e-3 * 1e-3);
   const float ax = lamb[8 * nl], ay = lamb[8 * nl + 1], az = lamb[8 * nl + 2];
   float mx = 1.f, my = 1.f, mz = 1.f;
@@ -260,7 +286,7 @@ RT_FN float3 rt_frame_ray(const RtScene& s, const float* lamb, int nl,
     float t = RT_TMAX;
     bool neg = false;
     int idx = -1;
-    if (!rt_dead(d)) idx = rt_closest<L>(s, rt_ray(o, d), t, neg, cnt);
+    if (!rt_dead(d)) idx = rt_closest(s, rt_ray(o, d), t, neg, cnt);
     if (!(t < RT_TMAX)) {  // miss: multiplier * ambient, the ray ends
       fx = fx + mx * ax;
       fy = fy + my * ay;
@@ -268,7 +294,7 @@ RT_FN float3 rt_frame_ray(const RtScene& s, const float* lamb, int nl,
       break;
     }
     float av[12];
-    rt_slot_attrs<L>(s, idx, av);
+    rt_slot_attrs(s, idx, av);
     float ninv = rt_rsq(av[0] * av[0] + av[1] * av[1] + av[2] * av[2]);
     float sgn = (neg ? -1.f : 1.f) * ninv;
     float nx = av[0] * sgn, ny = av[1] * sgn, nz = av[2] * sgn;
@@ -289,15 +315,10 @@ RT_FN float3 rt_frame_ray(const RtScene& s, const float* lamb, int nl,
       bool backface = (lvx * nx + lvy * ny + lvz * nz) < 0.f;
       bool blocked = false;
       if (!backface) {
-        if (reverse) {  // light -> hit point, window (dist - EPS)^2
-          float q = fmaxf(mag2 * imag - RT_EPS, 0.f);
-          blocked = rt_occluded<L>(
-              s, rt_ray(make_float3(lr[0], lr[1], lr[2]), make_float3(-lx, -ly, -lz)),
-              q * q, cnt);
-        } else {
-          blocked = rt_occluded<L>(s, rt_ray(make_float3(px, py, pz), make_float3(lx, ly, lz)),
-                                   mag2, cnt);
-        }
+        float q = fmaxf(mag2 * imag - RT_EPS, 0.f);
+        blocked = rt_occluded(
+            s, rt_ray(make_float3(lr[0], lr[1], lr[2]), make_float3(-lx, -ly, -lz)),
+            q * q, cnt);
       }
       float vis = (backface ? 0.f : 1.f) * (1.f - (blocked ? 1.f : 0.f));
       float w = vis / fmaxf(mag2, 1e-30f);
@@ -323,16 +344,14 @@ RT_FN float3 rt_frame_ray(const RtScene& s, const float* lamb, int nl,
   return make_float3(fx, fy, fz);
 }
 
-// Per-warp sums of the visit counts, one atomic per warp.
-RT_FN void rt_count(unsigned long long* counts, const RtCounts& c) {
-  if (counts == nullptr) return;
-  unsigned inner = __reduce_add_sync(0xffffffffu, c.inner);
-  unsigned leaf = __reduce_add_sync(0xffffffffu, c.leaf);
-  unsigned rays = __reduce_add_sync(0xffffffffu, c.rays);
-  if ((threadIdx.x & 31) == 0) {
-    atomicAdd(counts, (unsigned long long)inner);
-    atomicAdd(counts + 1, (unsigned long long)leaf);
-    atomicAdd(counts + 2, (unsigned long long)rays);
+// Per-warp sums of the work counts, one atomic per count and warp.
+template <bool ON>
+RT_FN void rt_count(unsigned long long* counts, const RtCounts<ON>& c) {
+  if (!ON) return;
+#pragma unroll
+  for (int k = 0; k < RT_NCOUNTS; ++k) {
+    unsigned sum = __reduce_add_sync(0xffffffffu, c.v[k]);
+    if ((threadIdx.x & 31) == 0) atomicAdd(counts + k, (unsigned long long)sum);
   }
 }
 
@@ -347,26 +366,26 @@ RT_FN void rt_load(const RtRays& p, int i, float3& o, float3& d) {
 
 // One thread per ray; the grid covers n rays exactly once. Threads past n
 // stay for the warp-wide count reduction.
-template <int L, bool FULL>
+template <bool FULL, bool COUNT>
 __global__ void __launch_bounds__(RT_BLOCK)
 closest_kernel(RtRays rays, RtScene s, int n, float* t_out, int* idx_out,
                int* nd_out, float* attr_out, unsigned long long* counts) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
-  RtCounts cnt = {0u, 0u, 0u};
+  RtCounts<COUNT> cnt;
   if (i < n) {
     float3 o, d;
     rt_load(rays, i, o, d);
     float t = RT_TMAX;
     bool neg = false;
     int idx = -1;
-    if (!rt_dead(d)) idx = rt_closest<L>(s, rt_ray(o, d), t, neg, cnt);
+    if (!rt_dead(d)) idx = rt_closest(s, rt_ray(o, d), t, neg, cnt);
     t_out[i] = t;
     idx_out[i] = idx;
     nd_out[i] = neg ? 1 : 0;
     if (FULL) {
       float av[12];
       if (idx >= 0) {
-        rt_slot_attrs<L>(s, idx, av);
+        rt_slot_attrs(s, idx, av);
       } else {
 #pragma unroll
         for (int k = 0; k < 12; ++k) av[k] = 0.f;
@@ -378,37 +397,36 @@ closest_kernel(RtRays rays, RtScene s, int n, float* t_out, int* idx_out,
   rt_count(counts, cnt);
 }
 
-template <int L>
+template <bool COUNT>
 __global__ void __launch_bounds__(RT_BLOCK)
 occluded_kernel(RtRays rays, const float* max_dist2, RtScene s, int n,
                 int* blocked_out, unsigned long long* counts) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
-  RtCounts cnt = {0u, 0u, 0u};
+  RtCounts<COUNT> cnt;
   if (i < n) {
     float3 o, d;
     rt_load(rays, i, o, d);
     bool blocked = false;
-    if (!rt_dead(d)) blocked = rt_occluded<L>(s, rt_ray(o, d), max_dist2[i], cnt);
+    if (!rt_dead(d)) blocked = rt_occluded(s, rt_ray(o, d), max_dist2[i], cnt);
     blocked_out[i] = blocked ? 1 : 0;
   }
   rt_count(counts, cnt);
 }
 
 // The light table is copied to shared memory once per block.
-template <int L>
+template <bool COUNT>
 __global__ void __launch_bounds__(RT_BLOCK)
 frame_kernel(RtRays rays, RtScene s, const float* lamb, int nl, int n,
-             int bounces, int reverse, float* col_out,
-             unsigned long long* counts) {
+             int bounces, float* col_out, unsigned long long* counts) {
   extern __shared__ float lamb_s[];
   for (int q = threadIdx.x; q < 8 * (nl + 1); q += blockDim.x) lamb_s[q] = lamb[q];
   __syncthreads();
   int i = blockIdx.x * blockDim.x + threadIdx.x;
-  RtCounts cnt = {0u, 0u, 0u};
+  RtCounts<COUNT> cnt;
   if (i < n) {
     float3 o, d;
     rt_load(rays, i, o, d);
-    float3 c = rt_frame_ray<L>(s, lamb_s, nl, o, d, bounces, reverse != 0, cnt);
+    float3 c = rt_frame_ray(s, lamb_s, nl, o, d, bounces, cnt);
     col_out[i] = c.x;
     col_out[(size_t)n + i] = c.y;
     col_out[2 * (size_t)n + i] = c.z;

@@ -3,9 +3,10 @@
 //
 // Each function launches one kernel on the given stream, does not
 // synchronise and allocates nothing: the Python wrapper allocates the
-// outputs. It returns cudaGetLastError() after the launch (0 on success),
-// or cudaErrorInvalidValue for a leaf size the kernels are not built for.
+// outputs. It returns cudaGetLastError() after the launch (0 on success).
 // Ray planes are n floats each; attr_out / col_out hold 12 / 3 planes of n.
+// With counts non-null the counting instance runs and adds RT_NCOUNTS
+// sums (trace.cuh) into counts; with counts null the timed instance runs.
 
 #include "trace.cuh"
 
@@ -27,36 +28,17 @@ RtScene make_scene(const float* cbox, const int* cmeta, const float* tri,
 
 int blocks_for(int n) { return (n + RT_BLOCK - 1) / RT_BLOCK; }
 
-template <int L>
-int launch_closest(RtRays rays, RtScene s, int n, float* t, int* idx, int* nd,
-                   float* attr_out, unsigned long long* counts,
-                   cudaStream_t st) {
-  if (attr_out != nullptr) {
-    closest_kernel<L, true><<<blocks_for(n), RT_BLOCK, 0, st>>>(
+template <bool FULL>
+void launch_closest(RtRays rays, RtScene s, int n, float* t, int* idx, int* nd,
+                    float* attr_out, unsigned long long* counts,
+                    cudaStream_t st) {
+  if (counts != nullptr) {
+    closest_kernel<FULL, true><<<blocks_for(n), RT_BLOCK, 0, st>>>(
         rays, s, n, t, idx, nd, attr_out, counts);
   } else {
-    closest_kernel<L, false><<<blocks_for(n), RT_BLOCK, 0, st>>>(
+    closest_kernel<FULL, false><<<blocks_for(n), RT_BLOCK, 0, st>>>(
         rays, s, n, t, idx, nd, attr_out, counts);
   }
-  return (int)cudaGetLastError();
-}
-
-template <int L>
-int launch_occluded(RtRays rays, const float* m2, RtScene s, int n,
-                    int* blocked, unsigned long long* counts, cudaStream_t st) {
-  occluded_kernel<L><<<blocks_for(n), RT_BLOCK, 0, st>>>(rays, m2, s, n,
-                                                         blocked, counts);
-  return (int)cudaGetLastError();
-}
-
-template <int L>
-int launch_frame(RtRays rays, RtScene s, const float* lamb, int nl, int n,
-                 int bounces, int reverse, float* col,
-                 unsigned long long* counts, cudaStream_t st) {
-  size_t smem = sizeof(float) * 8 * (size_t)(nl + 1);
-  frame_kernel<L><<<blocks_for(n), RT_BLOCK, smem, st>>>(
-      rays, s, lamb, nl, n, bounces, reverse, col, counts);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -66,61 +48,55 @@ extern "C" {
 int rt_closest(const float* ox, const float* oy, const float* oz,
                const float* dx, const float* dy, const float* dz,
                const float* cbox, const int* cmeta, const float* tri,
-               const float* attr, int n, int leaf_size, float* t, int* idx,
-               int* nd, float* attr_out, unsigned long long* counts,
-               void* stream) {
+               const float* attr, int n, float* t, int* idx, int* nd,
+               float* attr_out, unsigned long long* counts, void* stream) {
   RtRays rays = make_rays(ox, oy, oz, dx, dy, dz);
   RtScene s = make_scene(cbox, cmeta, tri, attr);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define RT_CALL(Lv) launch_closest<Lv>(rays, s, n, t, idx, nd, attr_out, counts, st)
-  switch (leaf_size) {
-    case 1: return RT_CALL(1);
-    case 2: return RT_CALL(2);
-    case 4: return RT_CALL(4);
-    case 8: return RT_CALL(8);
-    default: return (int)cudaErrorInvalidValue;
+  if (attr_out != nullptr) {
+    launch_closest<true>(rays, s, n, t, idx, nd, attr_out, counts, st);
+  } else {
+    launch_closest<false>(rays, s, n, t, idx, nd, attr_out, counts, st);
   }
-#undef RT_CALL
+  return (int)cudaGetLastError();
 }
 
 int rt_occluded(const float* ox, const float* oy, const float* oz,
                 const float* dx, const float* dy, const float* dz,
                 const float* max_dist2, const float* cbox, const int* cmeta,
-                const float* tri, int n, int leaf_size, int* blocked,
+                const float* tri, int n, int* blocked,
                 unsigned long long* counts, void* stream) {
   RtRays rays = make_rays(ox, oy, oz, dx, dy, dz);
   RtScene s = make_scene(cbox, cmeta, tri, nullptr);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define RT_CALL(Lv) launch_occluded<Lv>(rays, max_dist2, s, n, blocked, counts, st)
-  switch (leaf_size) {
-    case 1: return RT_CALL(1);
-    case 2: return RT_CALL(2);
-    case 4: return RT_CALL(4);
-    case 8: return RT_CALL(8);
-    default: return (int)cudaErrorInvalidValue;
+  if (counts != nullptr) {
+    occluded_kernel<true><<<blocks_for(n), RT_BLOCK, 0, st>>>(
+        rays, max_dist2, s, n, blocked, counts);
+  } else {
+    occluded_kernel<false><<<blocks_for(n), RT_BLOCK, 0, st>>>(
+        rays, max_dist2, s, n, blocked, counts);
   }
-#undef RT_CALL
+  return (int)cudaGetLastError();
 }
 
 int rt_frame(const float* ox, const float* oy, const float* oz,
              const float* dx, const float* dy, const float* dz,
              const float* cbox, const int* cmeta, const float* tri,
              const float* attr, const float* lamb, int num_lights, int n,
-             int leaf_size, int bounces, int reverse_shadows, float* col,
-             unsigned long long* counts, void* stream) {
+             int bounces, float* col, unsigned long long* counts,
+             void* stream) {
   RtRays rays = make_rays(ox, oy, oz, dx, dy, dz);
   RtScene s = make_scene(cbox, cmeta, tri, attr);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define RT_CALL(Lv) \
-  launch_frame<Lv>(rays, s, lamb, num_lights, n, bounces, reverse_shadows, col, counts, st)
-  switch (leaf_size) {
-    case 1: return RT_CALL(1);
-    case 2: return RT_CALL(2);
-    case 4: return RT_CALL(4);
-    case 8: return RT_CALL(8);
-    default: return (int)cudaErrorInvalidValue;
+  size_t smem = sizeof(float) * 8 * (size_t)(num_lights + 1);
+  if (counts != nullptr) {
+    frame_kernel<true><<<blocks_for(n), RT_BLOCK, smem, st>>>(
+        rays, s, lamb, num_lights, n, bounces, col, counts);
+  } else {
+    frame_kernel<false><<<blocks_for(n), RT_BLOCK, smem, st>>>(
+        rays, s, lamb, num_lights, n, bounces, col, counts);
   }
-#undef RT_CALL
+  return (int)cudaGetLastError();
 }
 
 const char* rt_error_string(int code) {

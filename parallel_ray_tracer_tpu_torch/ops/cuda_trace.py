@@ -19,8 +19,12 @@ raises: there is no fallback. Each wrapper checks device, dtype, shape and
 contiguity, counts its launches in `LAUNCHES`, and raises if the launch
 reported an error.
 
-`counters=True` (CUDA only) also returns an int64 tensor of 3 counts summed
-over the rays: (inner node visits, leaf group visits, traversals).
+The kernels hold L = 8 triangles per leaf row and trace shadow rays from
+the light: `leaf_size` other than 8 and `reverse_shadows=False` raise
+NotImplementedError, on every device.
+
+`counters=True` (CUDA only) launches the kernel's counting instance and also
+returns an int64 tensor of the `COUNTS` sums over the rays.
 """
 
 from __future__ import annotations
@@ -38,7 +42,11 @@ from .trace_plain import Hit, HitFull, closest_full_plain, closest_plain, occlud
 from .vecmath import Vec3
 
 STACK_SIZE = 64          # per-thread stack entries, RT_STACK in csrc/trace.cuh
-LEAF_SIZES = (1, 2, 4, 8)
+LEAF_SIZE = 8            # triangles per leaf row, RT_LEAF in csrc/trace.cuh
+# What counters=True returns, in order (RT_C_* in csrc/trace.cuh): node
+# visits, box tests of valid children, leaf visits, triangle tests of live
+# slots, traversals.
+COUNTS = ("inner_visits", "box_tests", "leaf_visits", "tri_tests", "traversals")
 
 LAUNCHES = {"closest": 0, "closest_full": 0, "occluded": 0, "frame": 0}
 
@@ -72,8 +80,9 @@ def _check_inputs(cbox, cmeta, tri, attr, lamb, planes, leaf_size):
     device = cbox.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
-    if leaf_size not in LEAF_SIZES:
-        raise ValueError(f"leaf_size {leaf_size} not in {LEAF_SIZES}")
+    if leaf_size != LEAF_SIZE:
+        raise NotImplementedError(
+            f"leaf_size {leaf_size} is not ported: the kernels hold {LEAF_SIZE}")
     _check("cbox", cbox, torch.float32, (None, 32), device)
     _check("cmeta", cmeta, torch.int32, (cbox.shape[0], 8), device)
     _check("tri", tri, torch.float32, (None, LANES), device)
@@ -96,7 +105,8 @@ def _launch_setup(cmeta, stack_depth, counters):
             f"{STACK_SIZE} (RT_STACK in csrc/trace.cuh)"
         )
     counts = (
-        torch.zeros(3, dtype=torch.int64, device=cmeta.device) if counters else None
+        torch.zeros(len(COUNTS), dtype=torch.int64, device=cmeta.device)
+        if counters else None
     )
     return load_library(), counts
 
@@ -128,7 +138,7 @@ def closest_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, leaf_size: int,
     nd = torch.empty((rows, LANES), dtype=torch.int32, device=device)
     rc = lib.rt_closest(
         *(_ptr(p) for p in (*o, *d)), _ptr(cbox), _ptr(cmeta), _ptr(tri),
-        _ptr(None), rows * LANES, leaf_size, _ptr(t), _ptr(idx), _ptr(nd),
+        _ptr(None), rows * LANES, _ptr(t), _ptr(idx), _ptr(nd),
         _ptr(None), _ptr(counts), _stream(device),
     )
     LAUNCHES["closest"] += 1
@@ -152,7 +162,7 @@ def closest_tiles_full(cbox, cmeta, tri, attr, o: Vec3, d: Vec3, leaf_size: int,
     av = torch.empty((12, rows, LANES), dtype=torch.float32, device=device)
     rc = lib.rt_closest(
         *(_ptr(p) for p in (*o, *d)), _ptr(cbox), _ptr(cmeta), _ptr(tri),
-        _ptr(attr), rows * LANES, leaf_size, _ptr(t), _ptr(idx), _ptr(nd),
+        _ptr(attr), rows * LANES, _ptr(t), _ptr(idx), _ptr(nd),
         _ptr(av), _ptr(counts), _stream(device),
     )
     LAUNCHES["closest_full"] += 1
@@ -178,7 +188,7 @@ def occluded_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, max_dist2, leaf_size: int
     blocked = torch.empty((rows, LANES), dtype=torch.int32, device=device)
     rc = lib.rt_occluded(
         *(_ptr(p) for p in (*o, *d)), _ptr(max_dist2), _ptr(cbox), _ptr(cmeta),
-        _ptr(tri), rows * LANES, leaf_size, _ptr(blocked), _ptr(counts),
+        _ptr(tri), rows * LANES, _ptr(blocked), _ptr(counts),
         _stream(device),
     )
     LAUNCHES["occluded"] += 1
@@ -192,18 +202,19 @@ def frame_tiles(cbox, cmeta, tri, attr, lamb, o: Vec3, d: Vec3, *, bounces: int,
     """Fused whole-frame render over (rows, 128) ray planes -> unclamped
     colour planes (Vec3). `lamb` is the (num_lights + 1, 8) light table of
     ops/pack.pack_lights."""
+    if not reverse_shadows:
+        raise NotImplementedError("reverse_shadows=False is not ported")
     device, rows = _check_inputs(cbox, cmeta, tri, attr, lamb, (*o, *d), leaf_size)
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
         return frame_plain(tri, attr, lamb, o, d, bounces=bounces,
-                           leaf_size=leaf_size, reverse_shadows=reverse_shadows)
+                           leaf_size=leaf_size)
     lib, counts = _launch_setup(cmeta, stack_depth, counters)
     col = torch.empty((3, rows, LANES), dtype=torch.float32, device=device)
     rc = lib.rt_frame(
         *(_ptr(p) for p in (*o, *d)), _ptr(cbox), _ptr(cmeta), _ptr(tri),
         _ptr(attr), _ptr(lamb), int(lamb.shape[0]) - 1, rows * LANES,
-        leaf_size, int(bounces), int(bool(reverse_shadows)), _ptr(col),
-        _ptr(counts), _stream(device),
+        int(bounces), _ptr(col), _ptr(counts), _stream(device),
     )
     LAUNCHES["frame"] += 1
     _raise_on(rc, "frame_kernel")
@@ -212,7 +223,7 @@ def frame_tiles(cbox, cmeta, tri, attr, lamb, o: Vec3, d: Vec3, *, bounces: int,
 
 
 def frame_plain(tri, attr, lamb, o: Vec3, d: Vec3, *, bounces: int,
-                leaf_size: int, reverse_shadows: bool = True) -> Vec3:
+                leaf_size: int) -> Vec3:
     """Plain version of frame_kernel: the pass-based bounce loop
     (ops/shade.trace_rays) over the plain traversals, on any device."""
     ds = device_scene_from_lights(lamb)
@@ -220,5 +231,5 @@ def frame_plain(tri, attr, lamb, o: Vec3, d: Vec3, *, bounces: int,
         ds,
         lambda o, d: closest_full_plain(tri, attr, o, d, leaf_size),
         lambda o, d, m2: occluded_plain(tri, o, d, m2, leaf_size),
-        o, d, bounces, reverse_shadows=reverse_shadows,
+        o, d, bounces,
     )

@@ -97,22 +97,22 @@ def _to_image(col: Vec3, width, height, tile_rows, tile_cols) -> torch.Tensor:
 
 
 def render_bvh_fused(ds, tables, cam: Camera, width: int, height: int,
-                     bounces: int = 4, tile_rows: int = 32, tile_cols: int = 32,
-                     reverse_shadows: bool = True) -> torch.Tensor:
+                     bounces: int = 4, tile_rows: int = 32,
+                     tile_cols: int = 32) -> torch.Tensor:
     """Whole-frame render with one launch of the fused frame kernel
     (cuda_trace.frame_tiles) -> (H, W, 3) f32 in [0, 1]."""
     o, d = _tiled_planes(cam, width, height, tile_rows, tile_cols, ds.device)
     col = cuda_trace.frame_tiles(
         tables.cbox, tables.cmeta, tables.tri, tables.attr, tables.lamb, o, d,
         bounces=bounces, leaf_size=tables.leaf_size,
-        stack_depth=tables.stack_depth, reverse_shadows=reverse_shadows,
+        stack_depth=tables.stack_depth,
     )
     return _to_image(col, width, height, tile_rows, tile_cols)
 
 
 def render_bvh_pallas(ds, tables, cam: Camera, width: int, height: int,
-                      bounces: int = 4, tile_rows: int = 32, tile_cols: int = 32,
-                      reverse_shadows: bool = True) -> torch.Tensor:
+                      bounces: int = 4, tile_rows: int = 32,
+                      tile_cols: int = 32) -> torch.Tensor:
     """Pass-based render: per bounce one closest-hit launch and one any-hit
     launch per light (cuda_trace.closest_tiles_full / occluded_tiles), with
     the shading in torch (ops/shade.trace_rays)."""
@@ -129,6 +129,5 @@ def render_bvh_pallas(ds, tables, cam: Camera, width: int, height: int,
             tables.cbox, tables.cmeta, tables.tri, o, d, max_dist2, **kw,
         )
 
-    col = trace_rays(ds, closest, occluded, o, d, bounces,
-                     reverse_shadows=reverse_shadows)
+    col = trace_rays(ds, closest, occluded, o, d, bounces)
     return _to_image(col, width, height, tile_rows, tile_cols)

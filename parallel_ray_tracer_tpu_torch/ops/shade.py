@@ -10,7 +10,10 @@ Semantics, as in the reference GPU renderer (gpu/src/raytracer.cu:61-116):
   - Blinn-Phong without exponent, kd*max(0,n.l) + ks*max(0,n.h), with the
     unnormalised view -d in the half vector;
   - kd*ambient on hit, ambient on miss; 1/r^2 falloff; backface test
-    dot(L-P, n) < 0; shadows by any-hit;
+    dot(L-P, n) < 0; shadows by any-hit, traced from the light toward the
+    hit point with the window (dist - EPSILON)^2 (the JAX package's
+    reverse_shadows=True; see its shade_hit docstring for why the window
+    maps exactly);
   - reflection r = normalize(d + n*2|d.n|), multiplier *= kr, and the
     |multiplier|^2 < EPSILON^2 exit taken before the kr update.
 Only attribute-bearing hits (HitFull) are taken: the port's tracers always
@@ -51,14 +54,10 @@ def surface_attrs(hit: HitFull):
 
 
 def shade_hit(ds, occluded_fn: OccludedFn, o: Vec3, d: Vec3, hit: HitFull,
-              active=None, reverse_shadows: bool = False) -> Vec3:
+              active=None) -> Vec3:
     """Direct lighting at the hit points (no reflection term): the
-    reference's per-bounce kd*amb + sum over lights. Miss lanes hold
-    garbage; callers mask.
-
-    reverse_shadows traces each shadow segment from the light toward the
-    hit point, with the window (dist - EPSILON)^2 (see the JAX package's
-    shade_hit docstring for why the window maps exactly)."""
+    reference's per-bounce kd*amb + sum over lights, with reversed shadow
+    rays. Miss lanes hold garbage; callers mask."""
     is_hit = hit.idx >= 0
     t_safe = torch.where(is_hit, hit.t, 1.0)
     if active is None:
@@ -85,13 +84,9 @@ def shade_hit(ds, occluded_fn: OccludedFn, o: Vec3, d: Vec3, hit: HitFull,
         col_ray = kd * n_dot_l.clamp(min=0.0) + ks * coeff
         backface = lvec.dot(n) < 0.0
         need = active & ~backface
-        if reverse_shadows:
-            ro_m, rd_m = mask_dead_rays(lp, -l, need)
-            rng2 = (mag - EPSILON).clamp(min=0.0) ** 2
-            occ = occluded_fn(ro_m, rd_m, rng2)
-        else:
-            p_m, l_m = mask_dead_rays(p, l, need)
-            occ = occluded_fn(p_m, l_m, mag2)
+        ro_m, rd_m = mask_dead_rays(lp, -l, need)
+        rng2 = (mag - EPSILON).clamp(min=0.0) ** 2
+        occ = occluded_fn(ro_m, rd_m, rng2)
         vis = (~backface).to(torch.float32) * (1.0 - occ.to(torch.float32))
         contrib = kl * col_ray / mag2.clamp(min=1e-30)
         col = col + contrib * vis
@@ -100,7 +95,7 @@ def shade_hit(ds, occluded_fn: OccludedFn, o: Vec3, d: Vec3, hit: HitFull,
 
 
 def trace_rays(ds, closest_fn: ClosestFn, occluded_fn: OccludedFn, o: Vec3,
-               d: Vec3, bounces: int, reverse_shadows: bool = False) -> Vec3:
+               d: Vec3, bounces: int) -> Vec3:
     """Full masked bounce loop; returns the unclamped colour per ray."""
     zero = Vec3(o.x * 0, o.y * 0, o.z * 0)
     final = zero
@@ -118,8 +113,7 @@ def trace_rays(ds, closest_fn: ClosestFn, occluded_fn: OccludedFn, o: Vec3,
         final = final + (mult * amb).where(miss_now, zero)
         alive = alive & is_hit
 
-        col = shade_hit(ds, occluded_fn, o, d, hit, active=alive,
-                        reverse_shadows=reverse_shadows)
+        col = shade_hit(ds, occluded_fn, o, d, hit, active=alive)
         final = final + (mult * col).where(alive, zero)
 
         # Early exit check happens BEFORE the kr update (raytracer.cu:103-106).

@@ -23,7 +23,8 @@ from .models.scene import Scene, load_scene, load_scene_npz, synthetic_scene
 from .ops import render as render_ops
 from .ops.bvh import build_bvh
 from .ops.bvh_flat import FlatBVH, flatten_bvh
-from .ops.pack import LANES, TRI_STRIDE, pack_attr, pack_bvh4, pack_lights
+from .ops.cuda_trace import LEAF_SIZE
+from .ops.pack import pack_attr, pack_bvh4, pack_lights
 
 VARIANTS = ("auto", "fused", "pallas")
 
@@ -67,7 +68,7 @@ class Pipeline:
         return fn(
             self.ds, self.tables, cam or self.camera(), width or cfg.width,
             height or cfg.height, bounces=cfg.bounces, tile_rows=cfg.tile_rows,
-            tile_cols=cfg.tile_cols, reverse_shadows=cfg.reverse_shadows,
+            tile_cols=cfg.tile_cols,
         )
 
 
@@ -80,6 +81,8 @@ def _check_ported(cfg: RenderConfig) -> None:
         "fast_light=False": not cfg.fast_light,
         "presplit > 0": cfg.presplit > 0,
         "num_devices != 1": cfg.num_devices != 1,
+        f"leaf_size={cfg.leaf_size}": cfg.leaf_size not in (None, LEAF_SIZE),
+        "reverse_shadows=False": not cfg.reverse_shadows,
         f"variant={cfg.variant!r}": cfg.variant not in VARIANTS,
     }
     bad = [k for k, v in unported.items() if v]
@@ -125,12 +128,9 @@ def prepare(cfg: RenderConfig, scene: Optional[Scene] = None, device=None) -> Pi
     if scene.num_spheres:
         raise NotImplementedError("scenes with spheres are not ported yet")
 
-    # Largest power of two whose triangles fit one 128-lane row (8).
-    leaf_size = cfg.leaf_size or max(
-        c for c in (8, 4, 2, 1) if c * TRI_STRIDE <= LANES
-    )
-    if leaf_size * TRI_STRIDE > LANES:
-        raise ValueError(f"leaf_size {leaf_size} does not fit a {LANES}-lane row")
+    # The largest power of two whose triangles fit one 128-lane row, and
+    # the only leaf size the kernels are built for.
+    leaf_size = LEAF_SIZE
     tv = scene.triangle_vertices()
     t0 = time.perf_counter()
     bvh = build_bvh(

@@ -79,7 +79,7 @@ def test_prepare_without_device_raises_when_no_cuda():
     dict(bvh_width=2), dict(bvh_width=8), dict(bf16_bvh=True),
     dict(stream="on"), dict(use_bvh=False), dict(fast_light=False),
     dict(presplit=0.1), dict(variant="jax"), dict(variant="bruteforce"),
-    dict(num_devices=2),
+    dict(num_devices=2), dict(leaf_size=4), dict(reverse_shadows=False),
 ])
 def test_unported_knobs_raise(kw):
     with pytest.raises(NotImplementedError):
@@ -124,8 +124,12 @@ def test_wrappers_check_inputs():
         cuda_trace.closest_tiles(T.cbox, T.cmeta, T.tri,
                                  Vec3(*(p.t() for p in _rays(128)[0])),
                                  _rays(128)[1], leaf_size=8)
-    with pytest.raises(ValueError):
-        cuda_trace.closest_tiles(T.cbox, T.cmeta, T.tri, o, d, leaf_size=3)
+    for leaf_size in (3, 4):
+        with pytest.raises(NotImplementedError):
+            cuda_trace.closest_tiles(T.cbox, T.cmeta, T.tri, o, d, leaf_size=leaf_size)
+    with pytest.raises(NotImplementedError):
+        cuda_trace.frame_tiles(T.cbox, T.cmeta, T.tri, T.attr, T.lamb, o, d,
+                               bounces=1, leaf_size=8, reverse_shadows=False)
     with pytest.raises(ValueError, match="counters"):
         cuda_trace.occluded_tiles(T.cbox, T.cmeta, T.tri, o, d, o.x, leaf_size=8,
                                   counters=True)
