@@ -12,10 +12,18 @@ events, runs each plain version once at the frame's shapes, and shows
 through the launch counters that each path ran exactly its kernels: the
 fused render() one frame kernel, the pass-based render one closest-hit and
 one any-hit launch per bounce and light, the primary pass one closest-hit
-launch. Each phase
-prints one JSON line; all of them, and the rendered frame, also go to
-DIR (default: chip_smoke_out/ beside this script). Any failed check exits
-non-zero before the last line; the last line is
+launch.
+
+Its `arity` phase does the same for the other node tables: bvh_width 2
+(whose "auto" render is the pass-based path), bvh_width 8, and bvh_width 4
+with dual_pop=False. The plain versions read no node table, so the
+width-4 plain results serve every width; each width's frame is also held
+against the reference BMP and the width-4 frame, and the command line
+(`python -m parallel_ray_tracer_tpu_torch`) renders the width-8 frame once.
+
+Each phase prints one JSON line; all of them, and the rendered frames, also
+go to DIR (default: chip_smoke_out/ beside this script). Any failed check
+exits non-zero before the last line; the last line is
 {"ok": true, "device": {...}}.
 
 It needs a CUDA device and this repository's package beside it, and exits
@@ -60,6 +68,28 @@ CFG = dict(scene="car_boxed", width=1920, height=1080, bounces=4,
            bvh_heuristic=6, tile_rows=32, tile_cols=32)
 REFERENCE_BMP = os.path.join(HERE, "tests", "goldens", "reference",
                              "car_boxed_1080p.bmp.gz")
+# The arity phase: the other node tables, and the single-pop schedule
+# (which reaches the width-4 kernels, on the width-4 tables).
+ARITY_CASES = {"w2": dict(bvh_width=2), "w8": dict(bvh_width=8),
+               "w4_single": dict(dual_pop=False)}
+# The kernels line: (instance, the tables it runs on, kernel, line of the
+# TPU kernel it replaces in parallel_ray_tracer_tpu/ops/pallas_trace.py).
+KERNEL_ROWS = (
+    ("frame_kernel<4>", "w4", "frame", 2536),
+    ("closest_kernel<4, false>", "w4", "closest", 1774),
+    ("closest_kernel<4, true>", "w4", "closest_full", 1774),
+    ("occluded_kernel<4>", "w4", "occluded", 1835),
+    ("frame_kernel<8>", "w8", "frame", 2536),
+    ("closest_kernel<8, false>", "w8", "closest", 1774),
+    ("closest_kernel<8, true>", "w8", "closest_full", 1774),
+    ("occluded_kernel<8>", "w8", "occluded", 1835),
+    ("closest_kernel<4, false>, single pop", "w4_single", "closest", 825),
+    ("occluded_kernel<4>, single pop", "w4_single", "occluded", 886),
+    ("closest_kernel<4, true>, single pop", "w4_single", "closest_full", 2437),
+    ("closest_kernel<2, true>", "w2", "closest_full", 2437),
+    ("closest_kernel<2, false>", "w2", "closest", 610),
+    ("occluded_kernel<2>", "w2", "occluded", 676),
+)
 
 RECORDS = []
 FAILURES = []
@@ -115,7 +145,7 @@ def bound(counts, names, in_bytes, out_bytes):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out-dir", default=os.path.join(HERE, "chip_smoke_out"),
-                    help="where the JSON records and the frame's BMP go")
+                    help="where the JSON records and the frames' BMPs go")
     out_dir = ap.parse_args().out_dir
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -128,7 +158,7 @@ def main() -> int:
         from parallel_ray_tracer_tpu_torch.ops import trace_plain as tp
         from parallel_ray_tracer_tpu_torch.ops.intersect import EPSILON, T_MAX
         from parallel_ray_tracer_tpu_torch.ops.vecmath import Vec3
-        from parallel_ray_tracer_tpu_torch.utils.bmp import read_bmp, write_bmp
+        from parallel_ray_tracer_tpu_torch.utils.bmp import bmp_bytes, read_bmp, write_bmp
     except ImportError as e:
         print(f"chip_smoke: the port package is not beside this script: {e}",
               file=sys.stderr)
@@ -148,10 +178,12 @@ def main() -> int:
     ptxas = []
     if _build.BUILD_INFO.get("log"):
         ptxas = [ln.strip() for ln in open(_build.BUILD_INFO["log"])
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    spills = [ln for ln in ptxas
+              if "spill" in ln and ", 0 bytes spill stores, 0 bytes spill loads" not in ln]
     emit({"phase": "build", "seconds": build_s, "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "ptxas": ptxas})
+          "ptxas": ptxas, "spilling_kernels": len(spills)})
 
     # ---- 2. prepare -----------------------------------------------------
     t0 = time.perf_counter()
@@ -164,7 +196,7 @@ def main() -> int:
           "bvh_build_ms": pipe.build_ms, "triangles": pipe.scene.num_triangles,
           "cbox": list(T.cbox.shape), "tri": list(T.tri.shape),
           "tree_depth": pipe.flat.depth, "stack_need": T.stack_depth,
-          "stack_size": ct.STACK_SIZE})
+          "stack_size": ct.STACK_SIZE[T.arity]})
     W, H, TR, TC = cfg.width, cfg.height, cfg.tile_rows, cfg.tile_cols
     o, d = R._tiled_planes(pipe.camera(), W, H, TR, TC, pipe.device)
     tiles_x = -(-W // TC)
@@ -253,14 +285,18 @@ def main() -> int:
             c["band_plain_ms"], c["band_ms"] = plain_ms, band_ms
         c.setdefault("bands", []).append(res)
 
+    # The bands' inputs and plain results, kept for the arity phase.
+    band_ref = {}
     for y0 in BANDS:
         bo, bd = band(o, y0), band(d, y0)
         rays = {"primary": (bo, bd)}
         hp, _ = timed_once(lambda: tp.closest_full_plain(T.tri, T.attr, bo, bd, L))
         rays["shadow"] = shadow_rays(bo, bd, hp)[:2]
+        ref = band_ref[y0] = {"rays": rays}
         for kind, (ro, rd) in rays.items():
             hk = ct.closest_tiles(T.cbox, T.cmeta, T.tri, ro, rd, **kw)
             hpp, pms = timed_once(lambda: tp.closest_plain(T.tri, ro, rd, L))
+            ref["closest", kind] = hpp
             res = cmp_hits(f"closest/{kind}@{y0}", hk, hpp, False)
             bms = time_ms(lambda: ct.closest_tiles(T.cbox, T.cmeta, T.tri, ro, rd, **kw), 2, 5)
             note("closest", dict(res, rays=kind, y0=y0), pms, bms["median"])
@@ -268,14 +304,16 @@ def main() -> int:
             hk = ct.closest_tiles_full(T.cbox, T.cmeta, T.tri, T.attr, ro, rd, **kw)
             hpp, pms = timed_once(
                 lambda: tp.closest_full_plain(T.tri, T.attr, ro, rd, L))
+            ref["closest_full", kind] = hpp
             res = cmp_hits(f"closest_full/{kind}@{y0}", hk, hpp, True)
             bms = time_ms(lambda: ct.closest_tiles_full(
                 T.cbox, T.cmeta, T.tri, T.attr, ro, rd, **kw), 2, 5)
             note("closest_full", dict(res, rays=kind, y0=y0), pms, bms["median"])
 
-        so, sd, m2 = shadow_rays(bo, bd, hp)
+        so, sd, m2 = ref["shadow_rays"] = shadow_rays(bo, bd, hp)
         bk = ct.occluded_tiles(T.cbox, T.cmeta, T.tri, so, sd, m2, **kw)
         bp, pms = timed_once(lambda: tp.occluded_plain(T.tri, so, sd, m2, L))
+        ref["occluded"] = bp
         res = cmp_blocked(f"occluded@{y0}", bk, bp)
         bms = time_ms(lambda: ct.occluded_tiles(T.cbox, T.cmeta, T.tri, so, sd, m2, **kw), 2, 5)
         note("occluded", dict(res, y0=y0), pms, bms["median"])
@@ -284,6 +322,7 @@ def main() -> int:
                             bounces=cfg.bounces, **kw)
         fp, pms = timed_once(lambda: ct.frame_plain(
             T.tri, T.attr, T.lamb, bo, bd, bounces=cfg.bounces, leaf_size=L))
+        ref["frame"] = fp
         res = cmp_frame(f"frame@{y0}", fk, fp)
         bms = time_ms(lambda: ct.frame_tiles(
             T.cbox, T.cmeta, T.tri, T.attr, T.lamb, bo, bd, bounces=cfg.bounces,
@@ -304,131 +343,300 @@ def main() -> int:
         want = {k: expect.get(k, 0) for k in counts}
         check(name, counts == want, f"launches {counts}, expected {want}")
         emit({"phase": "launches", "path": name, "seconds": seconds,
-              "launches": counts})
+              "launches": {k: n for k, n in counts.items() if n}})
         return out, counts
 
     nl = T.lamb.shape[0] - 1
     img, on_fused = on_path("render_fused", pipe.render,  # "auto" -> fused
-                            {"frame": 1})
+                            {"frame<4>": 1})
     img_pass, on_pass = on_path(
         "render_pass_based", lambda: pipe.render(variant="pallas"),
-        {"closest_full": cfg.bounces, "occluded": cfg.bounces * nl})
+        {"closest_full<4>": cfg.bounces, "occluded<4>": cfg.bounces * nl})
     prim, on_prim = on_path(
         "primary_closest_pass",
         lambda: ct.closest_tiles(T.cbox, T.cmeta, T.tri, o, d, **kw),
-        {"closest": 1})
-    launches = {"frame": on_fused["frame"],
-                "closest_full": on_pass["closest_full"],
-                "occluded": on_pass["occluded"], "closest": on_prim["closest"]}
-    for k, n in launches.items():
+        {"closest<4>": 1})
+    launches = {"w4": {"frame": on_fused["frame<4>"],
+                       "closest_full": on_pass["closest_full<4>"],
+                       "occluded": on_pass["occluded<4>"],
+                       "closest": on_prim["closest<4>"]}}
+    for k, n in launches["w4"].items():
         check("main_path", n > 0, f"{k} kernel not launched")
 
-    ref = read_reference(read_bmp)
-    ours = (img.clamp(0, 1) * 255.0).to(torch.uint8).cpu().numpy()
-    write_bmp(os.path.join(out_dir, "car_boxed_1080p.bmp"), ours)
-    check("reference", ours.shape == ref.shape, f"shape {ours.shape}")
-    dd = np.abs(ours.astype(np.int32) - ref.astype(np.int32)).max(axis=-1)
-    parity = {"frac_any": float((dd > 0).mean()), "frac_big": float((dd > 2).mean()),
-              "mean": float(dd.mean())}
-    check("reference", parity["frac_any"] < 5e-3, f"frac_any {parity['frac_any']}")
-    check("reference", parity["frac_big"] < 2e-3, f"frac_big {parity['frac_big']}")
-    check("reference", parity["mean"] < 0.1, f"mean {parity['mean']}")
-    check("reference", bool(torch.isfinite(img).all()), "non-finite pixels")
-    emit({"phase": "reference_image", "shape": list(img.shape), **parity})
+    ref_bmp = read_reference(read_bmp)
 
-    diff = (img - img_pass).abs()
-    within = (diff.amax(-1) < 1e-3).float().mean().item()
-    med = diff.median().item()
-    check("fused_vs_pass", within >= 0.9999, f"{within} of pixels within 1e-3")
-    check("fused_vs_pass", med < 1e-5, f"median {med}")
-    check("fused_vs_pass", img.std().item() > 0.01, "flat image")
-    emit({"phase": "fused_vs_pass", "within_1e-3": within, "median": med,
-          "max": diff.max().item(), "hit_frac": (prim.idx >= 0).float().mean().item()})
+    def hold_reference(name, img):
+        """The frame against the reference binary's BMP, within the bounds
+        of tests/test_reference_parity.py::_assert_parity."""
+        ours = (img.clamp(0, 1) * 255.0).to(torch.uint8).cpu().numpy()
+        write_bmp(os.path.join(out_dir, f"{name}.bmp"), ours)
+        check(name, ours.shape == ref_bmp.shape, f"shape {ours.shape}")
+        dd = np.abs(ours.astype(np.int32) - ref_bmp.astype(np.int32)).max(axis=-1)
+        parity = {"frac_any": float((dd > 0).mean()),
+                  "frac_big": float((dd > 2).mean()), "mean": float(dd.mean())}
+        check(name, parity["frac_any"] < 5e-3, f"frac_any {parity['frac_any']}")
+        check(name, parity["frac_big"] < 2e-3, f"frac_big {parity['frac_big']}")
+        check(name, parity["mean"] < 0.1, f"mean {parity['mean']}")
+        check(name, bool(torch.isfinite(img).all()), "non-finite pixels")
+        return parity
+
+    def hold_frames(name, a, b):
+        """Two renders of one frame: >= 99.99% of pixels within 1e-3,
+        median < 1e-5."""
+        diff = (a - b).abs()
+        within = (diff.amax(-1) < 1e-3).float().mean().item()
+        med = diff.median().item()
+        check(name, within >= 0.9999, f"{within} of pixels within 1e-3")
+        check(name, med < 1e-5, f"median {med}")
+        check(name, a.std().item() > 0.01, "flat image")
+        return {"within_1e-3": within, "median": med, "max": diff.max().item()}
+
+    parity = hold_reference("car_boxed_1080p", img)
+    emit({"phase": "reference_image", "shape": list(img.shape), **parity})
+    emit({"phase": "fused_vs_pass", **hold_frames("fused_vs_pass", img, img_pass),
+          "hit_frac": (prim.idx >= 0).float().mean().item()})
 
     # ---- 6. timing at the main path's shapes -----------------------------
     hf = ct.closest_tiles_full(T.cbox, T.cmeta, T.tri, T.attr, o, d, **kw)
     so, sd, m2 = shadow_rays(o, d, hf)
     n_rays = o.x.numel()
     ray_b = nbytes(*o, *d)
-    scene_b = nbytes(T.cbox, T.cmeta, T.tri)
     out_plane = n_rays * 4
-    runs = {
-        "closest": (lambda: ct.closest_tiles(T.cbox, T.cmeta, T.tri, o, d, **kw),
-                    lambda: ct.closest_tiles(T.cbox, T.cmeta, T.tri, o, d,
-                                             counters=True, **kw)[1],
-                    ray_b + scene_b, 3 * out_plane),
-        "closest_full": (
-            lambda: ct.closest_tiles_full(T.cbox, T.cmeta, T.tri, T.attr, o, d, **kw),
-            lambda: ct.closest_tiles_full(T.cbox, T.cmeta, T.tri, T.attr, o, d,
-                                          counters=True, **kw)[1],
-            ray_b + scene_b + nbytes(T.attr), 15 * out_plane),
-        "occluded": (
-            lambda: ct.occluded_tiles(T.cbox, T.cmeta, T.tri, so, sd, m2, **kw),
-            lambda: ct.occluded_tiles(T.cbox, T.cmeta, T.tri, so, sd, m2,
-                                      counters=True, **kw)[1],
-            ray_b + out_plane + scene_b, out_plane),
-        "frame": (
-            lambda: ct.frame_tiles(T.cbox, T.cmeta, T.tri, T.attr, T.lamb, o, d,
-                                   bounces=cfg.bounces, **kw),
-            lambda: ct.frame_tiles(T.cbox, T.cmeta, T.tri, T.attr, T.lamb, o, d,
-                                   bounces=cfg.bounces, counters=True, **kw)[1],
-            ray_b + scene_b + nbytes(T.attr, T.lamb), 3 * out_plane),
-    }
-    timing = {}
-    for name, (fn, counted, in_b, out_b) in runs.items():
-        t = time_ms(fn)
-        b = bound(counted().cpu().tolist(), ct.COUNTS, in_b, out_b)
-        timing[name] = dict(t, rays=n_rays, rays_per_s=n_rays / (t["median"] * 1e-3), **b)
+
+    def kernel_runs(A):
+        """Each kernel of tables A at the main path's shapes: the timed call,
+        the counting call, input bytes, output bytes."""
+        akw = dict(leaf_size=A.leaf_size, stack_depth=A.stack_depth)
+        scene_b = nbytes(A.cbox, A.cmeta, A.tri)
+        runs = {
+            "closest": (lambda: ct.closest_tiles(A.cbox, A.cmeta, A.tri, o, d, **akw),
+                        lambda: ct.closest_tiles(A.cbox, A.cmeta, A.tri, o, d,
+                                                 counters=True, **akw)[1],
+                        ray_b + scene_b, 3 * out_plane),
+            "closest_full": (
+                lambda: ct.closest_tiles_full(A.cbox, A.cmeta, A.tri, A.attr, o, d, **akw),
+                lambda: ct.closest_tiles_full(A.cbox, A.cmeta, A.tri, A.attr, o, d,
+                                              counters=True, **akw)[1],
+                ray_b + scene_b + nbytes(A.attr), 15 * out_plane),
+            "occluded": (
+                lambda: ct.occluded_tiles(A.cbox, A.cmeta, A.tri, so, sd, m2, **akw),
+                lambda: ct.occluded_tiles(A.cbox, A.cmeta, A.tri, so, sd, m2,
+                                          counters=True, **akw)[1],
+                ray_b + out_plane + scene_b, out_plane),
+        }
+        if A.arity in ct.ARITIES["frame"]:
+            runs["frame"] = (
+                lambda: ct.frame_tiles(A.cbox, A.cmeta, A.tri, A.attr, A.lamb, o, d,
+                                       bounces=cfg.bounces, **akw),
+                lambda: ct.frame_tiles(A.cbox, A.cmeta, A.tri, A.attr, A.lamb, o, d,
+                                       bounces=cfg.bounces, counters=True, **akw)[1],
+                ray_b + scene_b + nbytes(A.attr, A.lamb), 3 * out_plane)
+        return runs
+
+    def time_kernels(A):
+        timing = {}
+        for name, (fn, counted, in_b, out_b) in kernel_runs(A).items():
+            t = time_ms(fn)
+            b = bound(counted().cpu().tolist(), ct.COUNTS, in_b, out_b)
+            timing[name] = dict(t, rays=n_rays, rays_per_s=n_rays / (t["median"] * 1e-3), **b)
+        return timing
+
+    timing = {"w4": time_kernels(T)}
     for variant in ("fused", "pallas"):
         e2e = time_ms(lambda: pipe.render(variant=variant))
-        timing[f"render_{variant}_end_to_end"] = dict(
+        timing["w4"][f"render_{variant}_end_to_end"] = dict(
             e2e, pixels=W * H, pixels_per_s=W * H / (e2e["median"] * 1e-3))
-    emit({"phase": "timing", "card": card, "timing": timing})
+    emit({"phase": "timing", "card": card, "timing": timing["w4"]})
     emit({"phase": "profile", "card": card,
           "fused": profile(lambda: pipe.render()),
           "pallas": profile(lambda: pipe.render(variant="pallas"))})
 
     # ---- 7. plain versions at the main path's shapes, one run each -------
     # The kernel and its plain version on the same full-frame inputs: the
-    # plain time beside the kernel's, and one more comparison.
+    # plain time beside the kernel's, and one more comparison. The plain
+    # results are kept for the arity phase.
+    plain = {}
     hk = ct.closest_tiles(T.cbox, T.cmeta, T.tri, o, d, **kw)
-    hp, pms = timed_once(lambda: tp.closest_plain(T.tri, o, d, L))
-    full = {"closest": dict(cmp_hits("closest/frame", hk, hp, False), plain_ms=pms)}
-    hp, pms = timed_once(lambda: tp.closest_full_plain(T.tri, T.attr, o, d, L))
-    full["closest_full"] = dict(cmp_hits("closest_full/frame", hf, hp, True),
-                                plain_ms=pms)
-    del hk, hp
+    plain["closest"], pms = timed_once(lambda: tp.closest_plain(T.tri, o, d, L))
+    full = {"closest": dict(cmp_hits("closest/frame", hk, plain["closest"], False),
+                            plain_ms=pms)}
+    del hk
+    plain["closest_full"], pms = timed_once(
+        lambda: tp.closest_full_plain(T.tri, T.attr, o, d, L))
+    full["closest_full"] = dict(
+        cmp_hits("closest_full/frame", hf, plain["closest_full"], True), plain_ms=pms)
     bk = ct.occluded_tiles(T.cbox, T.cmeta, T.tri, so, sd, m2, **kw)
-    bp, pms = timed_once(lambda: tp.occluded_plain(T.tri, so, sd, m2, L))
-    full["occluded"] = dict(cmp_blocked("occluded/frame", bk, bp), plain_ms=pms)
+    plain["occluded"], pms = timed_once(lambda: tp.occluded_plain(T.tri, so, sd, m2, L))
+    full["occluded"] = dict(cmp_blocked("occluded/frame", bk, plain["occluded"]),
+                            plain_ms=pms)
     fk = ct.frame_tiles(T.cbox, T.cmeta, T.tri, T.attr, T.lamb, o, d,
                         bounces=cfg.bounces, **kw)
-    fp, pms = timed_once(lambda: ct.frame_plain(
+    plain["frame"], pms = timed_once(lambda: ct.frame_plain(
         T.tri, T.attr, T.lamb, o, d, bounces=cfg.bounces, leaf_size=L))
-    full["frame"] = dict(cmp_frame("frame/frame", fk, fp), plain_ms=pms)
+    full["frame"] = dict(cmp_frame("frame/frame", fk, plain["frame"]), plain_ms=pms)
+    del bk, fk
     emit({"phase": "plain_at_frame_shapes", "rays": n_rays, "kernels": full})
+    max_err = {"w4": {k: max(cmp[k]["max_abs_err"], full[k]["max_abs_err"])
+                      for k in full}}
 
-    # ---- 8. the kernels line --------------------------------------------
-    replaces = {
-        "closest": ("closest_kernel<false>", "parallel_ray_tracer_tpu/ops/pallas_trace.py:1774"),
-        "closest_full": ("closest_kernel<true>", "parallel_ray_tracer_tpu/ops/pallas_trace.py:1774"),
-        "occluded": ("occluded_kernel", "parallel_ray_tracer_tpu/ops/pallas_trace.py:1835"),
-        "frame": ("frame_kernel", "parallel_ray_tracer_tpu/ops/pallas_trace.py:2536"),
-    }
+    # ---- 8. the other node arities, and single pop ------------------------
+    # The plain versions brute-force every triangle slot and read no node
+    # table, so the width-4 plain results above hold for every width once
+    # tri and attr are the same.
+    w8_img = None
+    for key, extra in ARITY_CASES.items():
+        t0 = time.perf_counter()
+        acfg = RenderConfig(**CFG, **extra)
+        apipe = pipeline.prepare(acfg)
+        torch.cuda.synchronize()
+        A = apipe.tables
+        a = A.arity
+        akw = dict(leaf_size=A.leaf_size, stack_depth=A.stack_depth)
+        check(key, a == acfg.bvh_width, f"arity {a}")
+        check(key, torch.equal(A.tri, T.tri) and torch.equal(A.attr, T.attr),
+              "tri / attr differ from the width-4 tables")
+        rec = {"phase": "arity", "case": key, **extra,
+               "prepare_s": time.perf_counter() - t0, "cbox": list(A.cbox.shape),
+               "cmeta": list(A.cmeta.shape), "stack_need": A.stack_depth,
+               "stack_size": ct.STACK_SIZE[a]}
+
+        # each instance against the plain results: the bands, the frame
+        errs = {k: 0.0 for k in ("closest", "closest_full", "occluded", "frame")}
+        if a not in ct.ARITIES["frame"]:
+            del errs["frame"]
+
+        def keep(k, res):
+            errs[k] = max(errs[k], res["max_abs_err"])
+
+        for y0, ref in band_ref.items():
+            for kind, (ro, rd) in ref["rays"].items():
+                keep("closest", cmp_hits(
+                    f"{key}/closest/{kind}@{y0}",
+                    ct.closest_tiles(A.cbox, A.cmeta, A.tri, ro, rd, **akw),
+                    ref["closest", kind], False))
+                keep("closest_full", cmp_hits(
+                    f"{key}/closest_full/{kind}@{y0}",
+                    ct.closest_tiles_full(A.cbox, A.cmeta, A.tri, A.attr, ro, rd, **akw),
+                    ref["closest_full", kind], True))
+            bso, bsd, bm2 = ref["shadow_rays"]
+            keep("occluded", cmp_blocked(
+                f"{key}/occluded@{y0}",
+                ct.occluded_tiles(A.cbox, A.cmeta, A.tri, bso, bsd, bm2, **akw),
+                ref["occluded"]))
+            if "frame" in errs:
+                bo, bd = ref["rays"]["primary"]
+                keep("frame", cmp_frame(
+                    f"{key}/frame@{y0}",
+                    ct.frame_tiles(A.cbox, A.cmeta, A.tri, A.attr, A.lamb, bo, bd,
+                                   bounces=cfg.bounces, **akw),
+                    ref["frame"]))
+        keep("closest", cmp_hits(
+            f"{key}/closest/frame",
+            ct.closest_tiles(A.cbox, A.cmeta, A.tri, o, d, **akw),
+            plain["closest"], False))
+        keep("closest_full", cmp_hits(
+            f"{key}/closest_full/frame",
+            ct.closest_tiles_full(A.cbox, A.cmeta, A.tri, A.attr, o, d, **akw),
+            plain["closest_full"], True))
+        keep("occluded", cmp_blocked(
+            f"{key}/occluded/frame",
+            ct.occluded_tiles(A.cbox, A.cmeta, A.tri, so, sd, m2, **akw),
+            plain["occluded"]))
+        if "frame" in errs:
+            keep("frame", cmp_frame(
+                f"{key}/frame/frame",
+                ct.frame_tiles(A.cbox, A.cmeta, A.tri, A.attr, A.lamb, o, d,
+                               bounces=cfg.bounces, **akw),
+                plain["frame"]))
+        max_err[key] = errs
+
+        # each path with its counts from 0: exactly its arity's kernels
+        auto = apipe.resolved_variant()
+        check(key, auto == ("fused" if a >= 4 else "pallas"), f"auto -> {auto}")
+        pass_counts = {f"closest_full<{a}>": cfg.bounces,
+                       f"occluded<{a}>": cfg.bounces * nl}
+        aimg, on_auto = on_path(f"{key}/render_auto", apipe.render,
+                                {f"frame<{a}>": 1} if auto == "fused" else pass_counts)
+        if auto == "fused":
+            aimg_pass, on_apass = on_path(
+                f"{key}/render_pass_based", lambda: apipe.render(variant="pallas"),
+                pass_counts)
+        else:
+            aimg_pass, on_apass = aimg, on_auto
+        _, on_aprim = on_path(
+            f"{key}/primary_closest_pass",
+            lambda: ct.closest_tiles(A.cbox, A.cmeta, A.tri, o, d, **akw),
+            {f"closest<{a}>": 1})
+        launches[key] = {"closest": on_aprim[f"closest<{a}>"],
+                         "closest_full": on_apass[f"closest_full<{a}>"],
+                         "occluded": on_apass[f"occluded<{a}>"]}
+        if auto == "fused":
+            launches[key]["frame"] = on_auto[f"frame<{a}>"]
+
+        # the frames: the reference BMP, and the width-4 fused frame
+        rec["reference_image"] = hold_reference(f"car_boxed_1080p_{key}", aimg)
+        rec["vs_width4_fused"] = hold_frames(f"{key}/vs_width4_fused", aimg, img)
+        if auto == "fused":
+            rec["pass_based_vs_width4_fused"] = hold_frames(
+                f"{key}/pass_based_vs_width4_fused", aimg_pass, img)
+        if key == "w8":
+            w8_img = aimg
+
+        # timing: every kernel of these tables, and render()
+        timing[key] = time_kernels(A)
+        for variant in ("auto", "pallas") if auto == "fused" else ("auto",):
+            e2e = time_ms(lambda: apipe.render(variant=variant))
+            timing[key][f"render_{variant}_end_to_end"] = dict(
+                e2e, pixels=W * H, pixels_per_s=W * H / (e2e["median"] * 1e-3))
+        rec.update(max_abs_err=errs, launches=launches[key], timing=timing[key])
+        emit(rec)
+        del apipe, A, aimg, aimg_pass
+
+    # the command line renders the width-8 frame once
+    cli_bmp = os.path.join(out_dir, "cli_w8.bmp")
+    cli_json = os.path.join(out_dir, "cli_w8.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "parallel_ray_tracer_tpu_torch", "--scene", "car_boxed",
+         "--resolution", "1080p", "--heuristic", "6", "--bvh-width", "8",
+         "--warmup", "5", "--iterations", "30", "--output", cli_bmp,
+         "--metrics-json", cli_json],
+        capture_output=True, text=True, cwd=HERE, timeout=300,
+    )
+    cli_rec = {"phase": "cli", "rc": proc.returncode,
+               "seconds": time.perf_counter() - t0,
+               "stdout_tail": proc.stdout[-1500:], "stderr_tail": proc.stderr[-1500:]}
+    check("cli", proc.returncode == 0, f"exit {proc.returncode}")
+    if proc.returncode == 0:
+        with open(cli_bmp, "rb") as f:
+            same = f.read() == bmp_bytes(w8_img.cpu().numpy())
+        check("cli", same, "its BMP is not the in-process width-8 frame")
+        with open(cli_json) as f:
+            metrics = json.load(f)
+        check("cli", metrics.get("iterations") == 30,
+              f"iterations {metrics.get('iterations')}")
+        cli_rec.update(bmp_equal=same, iterations=metrics.get("iterations"),
+                       backend=metrics.get("backend"),
+                       device_name=metrics.get("device_name"),
+                       median_ms=metrics.get("median_ms"),
+                       mean_ms=metrics.get("mean_ms"), ci99_ms=metrics.get("ci99_ms"))
+    emit(cli_rec)
+
+    # ---- 9. the kernels line --------------------------------------------
     kernels = []
-    for key, (kname, rep) in replaces.items():
-        t = timing[key]
+    for name, key, kernel, line in KERNEL_ROWS:
+        t = timing[key][kernel]
         kernels.append({
-            "name": kname, "route": "cuda",
+            "name": name, "route": "cuda",
             "source": "parallel_ray_tracer_tpu_torch/csrc/trace.cuh",
-            "replaces": rep, "launches": launches[key],
-            "max_abs_err": max(cmp[key]["max_abs_err"], full[key]["max_abs_err"]),
-            "ms": t["median"], "plain_ms": full[key]["plain_ms"],
+            "replaces": f"parallel_ray_tracer_tpu/ops/pallas_trace.py:{line}",
+            "tables": key, "launches": launches[key][kernel],
+            "max_abs_err": max_err[key][kernel],
+            "ms": t["median"], "plain_ms": full[kernel]["plain_ms"],
+            "plain_of": "width-4 tables, the same rays (the plain version "
+                        "reads no node table)",
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None,
-            "band_ms": cmp[key]["band_ms"],
-            "band_plain_ms": cmp[key]["band_plain_ms"], "band_rays": BAND_ROWS * W,
-            "rays": n_rays,
+            "library_ms": None, "rays": n_rays,
         })
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"records": RECORDS, "kernels": kernels, "failures": FAILURES}, f,

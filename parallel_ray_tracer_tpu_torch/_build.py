@@ -1,10 +1,12 @@
 """Build and load the CUDA kernels (csrc/) as a plain C shared library.
 
-nvcc compiles csrc/trace_kernels.cu for sm_90a into `_build/<hash>/`, where
-the hash covers the sources and the flags, so a changed source builds anew
-and an unchanged one is reused. The build happens at first use, inside the
-call that launches a kernel; importing this module builds nothing. The
-library is loaded with ctypes; pointers and the stream pass as c_void_p.
+nvcc compiles each unit of csrc/ for sm_90a, all of them at once (one
+process per unit: the C entry points and one unit per node arity), and links
+them into `_build/<hash>/libtrace.so`, where the hash covers the sources and
+the flags, so a changed source builds anew and an unchanged one is reused.
+The build happens at first use, inside the call that launches a kernel;
+importing this module builds nothing. The library is loaded with ctypes;
+pointers and the stream pass as c_void_p.
 """
 
 from __future__ import annotations
@@ -20,15 +22,16 @@ from typing import Optional
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("trace.cuh", "trace_kernels.cu")
+UNITS = ("trace_kernels.cu", "trace_a2.cu", "trace_a4.cu", "trace_a8.cu")
+SOURCES = ("trace.cuh", "trace_launch.cuh") + UNITS
 BUILD_ROOT = os.path.join(_PKG, "_build")
 
 # -fmad=false: products round on their own, as in the plain versions and the
 # JAX kernels (see csrc/trace.cuh). No --use_fast_math: division and sqrt
 # stay IEEE-exact.
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + (
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
 
 _lib: Optional[ctypes.CDLL] = None
@@ -60,27 +63,43 @@ def library_path() -> str:
 def build() -> str:
     """Compile the library unless this source hash is built; returns its path.
 
-    The .so is written under a temporary name and renamed into place, so a
+    The units compile in parallel into a temporary directory, and the .so
+    is linked under a temporary name and renamed into place, so a
     concurrent or interrupted build never leaves a partial library."""
     out = library_path()
     if os.path.isfile(out):
         BUILD_INFO.update(path=out, seconds=0.0, cached=True)
         return out
     os.makedirs(os.path.dirname(out), exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out))
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, "trace_kernels.cu")]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
     log = os.path.join(os.path.dirname(out), "build.log")
-    with open(log, "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
-    BUILD_INFO.update(path=out, seconds=seconds, cached=False, log=log)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(out)) as tmp, \
+            open(log, "w") as logf:
+        objs, procs = [], []
+        for unit in UNITS:
+            obj = os.path.join(tmp, unit + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC, unit)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for cmd, proc in procs:
+            text = proc.communicate()[0]
+            logf.write(" ".join(cmd) + "\n" + text)
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(cmd[-1])} ({proc.returncode}):\n{text[-4000:]}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        so = os.path.join(tmp, "libtrace.so")
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", so, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logf.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        os.replace(so, out)
+    BUILD_INFO.update(path=out, seconds=time.perf_counter() - t0, cached=False,
+                      log=log)
     return out
 
 
@@ -91,9 +110,9 @@ def load_library() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(build())
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.rt_closest.argtypes = [P] * 10 + [I] + [P] * 6
-    lib.rt_occluded.argtypes = [P] * 10 + [I] + [P] * 3
-    lib.rt_frame.argtypes = [P] * 11 + [I, I, I] + [P] * 3
+    lib.rt_closest.argtypes = [P] * 10 + [I, I] + [P] * 6
+    lib.rt_occluded.argtypes = [P] * 10 + [I, I] + [P] * 3
+    lib.rt_frame.argtypes = [P] * 11 + [I, I, I, I] + [P] * 3
     for fn in (lib.rt_closest, lib.rt_occluded, lib.rt_frame):
         fn.restype = I
     lib.rt_error_string.argtypes = [I]

@@ -75,9 +75,11 @@ class RenderConfig:
     tile_rows: int = 8
     tile_cols: int = 128
 
-    # "auto" and "fused": the fused frame kernel; "pallas": the pass-based
-    # path over the closest / any-hit kernels. The JAX package's "jax" and
-    # "bruteforce" variants are not ported.
+    # "fused": the fused frame kernel; "pallas": the pass-based path over
+    # the closest / any-hit kernels; "auto": fused where the JAX package
+    # would take it (bvh_width >= 4, fast_light, 1024-ray tiles), else
+    # pallas. The JAX package's "jax" and "bruteforce" variants are not
+    # ported.
     variant: str = "auto"
     bf16_bvh: bool = False           # bf16 boxes: not ported
 
@@ -98,13 +100,19 @@ class RenderConfig:
     # Fields of the JAX package's TPU paths, kept so that both packages'
     # configs build from one set of keyword arguments. The port ignores
     # use_native (it always builds with numpy; the image does not depend on
-    # the builder), dual_pop, pop_width and adaptive_pop (packet schedules;
-    # one thread traces one ray here) and mxu_leaf (its leaf test is always
-    # the FP32 one). num_devices != 1 (no sharding yet), bvh_width != 4,
-    # presplit > 0 and stream="on" raise NotImplementedError.
+    # the builder), pop_width and adaptive_pop (packet schedules; one
+    # thread traces one ray here) and mxu_leaf (its leaf test is always
+    # the FP32 one). num_devices != 1 (no sharding yet), presplit > 0 and
+    # stream="on" raise NotImplementedError.
     num_devices: int = 1
     use_native: bool = True
+    # Node arity of the packed BVH: 2 (the binary tree), 4 or 8. Each has
+    # its own kernel instances; the fused frame needs 4 or 8, so "auto"
+    # renders width 2 by the pass-based path. Other values raise ValueError.
     bvh_width: int = 4
+    # Single-pop (False) or dual-pop (True) packet schedule of the TPU
+    # kernels. Both compute the same hits; here both reach the same
+    # one-ray-per-thread kernels.
     dual_pop: bool = True
     pop_width: int = 8
     adaptive_pop: bool = True

@@ -12,31 +12,35 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .ops.pack import stack_need
+from .ops.pack import ARITY_OF_WIDTH, META_WIDTH, stack_need
 
 
 class SceneTables(NamedTuple):
     """Device-resident tables the traversal kernels read (ops/pack.py)."""
 
-    cbox: torch.Tensor      # (Nq+1, 32) f32
-    cmeta: torch.Tensor     # (Nq+1, 8) i32
+    cbox: torch.Tensor      # (N, 16 | 32 | 64) f32
+    cmeta: torch.Tensor     # (N, 8 | 8 | 16) i32
     tri: torch.Tensor       # (G+1, 128) f32
     attr: torch.Tensor      # (G+1, 128) f32
     lamb: torch.Tensor      # (nl+1, 8) f32
     leaf_size: int
     stack_depth: int        # entries one ray's traversal stack needs
+    arity: int              # node arity: 2, 4 or 8, by the cbox row width
 
 
 def packed_from_numpy(cbox, cmeta, tri, attr, lamb, *, device, leaf_size: int = 8) -> SceneTables:
-    """Upload packed numpy tables to `device` as contiguous tensors."""
+    """Upload packed numpy tables to `device` as contiguous tensors. The
+    node arity follows the cbox row width: 16 -> 2, 32 -> 4, 64 -> 8."""
     cbox = np.ascontiguousarray(cbox, np.float32)
     cmeta = np.ascontiguousarray(cmeta, np.int32)
     tri = np.ascontiguousarray(tri, np.float32)
     attr = np.ascontiguousarray(attr, np.float32)
     lamb = np.ascontiguousarray(lamb, np.float32)
-    if cbox.ndim != 2 or cbox.shape[1] != 32 or cmeta.shape != (cbox.shape[0], 8):
+    arity = ARITY_OF_WIDTH.get(cbox.shape[1]) if cbox.ndim == 2 else None
+    if arity is None or cmeta.shape != (cbox.shape[0], META_WIDTH[arity]):
         raise ValueError(
-            f"expected BVH4 tables (N, 32) / (N, 8), got {cbox.shape} / {cmeta.shape}"
+            "expected node tables (N, 16) / (N, 8), (N, 32) / (N, 8) or "
+            f"(N, 64) / (N, 16), got {cbox.shape} / {cmeta.shape}"
         )
     if tri.ndim != 2 or tri.shape[1] != 128 or attr.shape != tri.shape:
         raise ValueError(f"expected (G+1, 128) rows, got {tri.shape} / {attr.shape}")
@@ -49,5 +53,5 @@ def packed_from_numpy(cbox, cmeta, tri, attr, lamb, *, device, leaf_size: int = 
     return SceneTables(
         cbox=up(cbox), cmeta=up(cmeta), tri=up(tri), attr=up(attr),
         lamb=up(lamb), leaf_size=int(leaf_size),
-        stack_depth=stack_need(cmeta),
+        stack_depth=stack_need(cmeta, arity), arity=arity,
     )

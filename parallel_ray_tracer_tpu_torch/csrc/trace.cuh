@@ -1,30 +1,36 @@
-// BVH4 traversal kernels for Hopper (sm_90a): closest hit, closest hit with
-// attributes, any hit, and the fused whole-frame bounce loop.
+// BVH traversal kernels for Hopper (sm_90a): closest hit, closest hit with
+// attributes, any hit, and the fused whole-frame bounce loop, each for node
+// arity A = 2, 4 and 8 (the frame for A = 4 and 8 only, as in JAX).
 //
 // They replace the Pallas TPU kernels of parallel_ray_tracer_tpu/ops/
 // pallas_trace.py and compute the same functions:
-//   closest_kernel<false>  <- _closest_dual_kernel(n_attr=0)   :1774
-//   closest_kernel<true>   <- _closest_dual_kernel(n_attr=12)  :1774
-//   occluded_kernel        <- _occluded_dual_kernel            :1835
-//   frame_kernel           <- _frame_fused_kernel              :2536
-// with the traversal bodies of _run_closest_dual (:1483) and
-// _run_occluded_dual (:1646). The TPU kernels trace a 1024-ray packet with
-// one scalar stack; the TPU schedule knobs (dual / wide pops, SMEM meta,
-// MXU leaf) change the visit order, not the result. Here one thread traces
-// one ray with a private stack, the design of the reference CUDA renderer.
+//   closest_kernel<A, false>  <- _closest_dual_kernel(n_attr=0) :1774 (A 4, 8),
+//                                _closest4_kernel :825 (A 4, 8),
+//                                _closest_kernel :610 (A 2)
+//   closest_kernel<A, true>   <- _closest_dual_kernel(n_attr=12) :1774 (A 4, 8),
+//                                _closest_attr_kernel :2437 (A 2, 4, 8)
+//   occluded_kernel<A>        <- _occluded_dual_kernel :1835 (A 4, 8),
+//                                _occluded4_kernel :886 (A 4, 8),
+//                                _occluded_kernel :676 (A 2)
+//   frame_kernel<A>           <- _frame_fused_kernel :2536 (A 4, 8)
+// The TPU kernels trace a 1024-ray packet with one scalar stack, popping one
+// node (single pop) or two (dual pop) per step; the schedule changes the
+// visit order, not the result. Here one thread traces one ray with a
+// private stack, the design of the reference CUDA renderer, so single-pop
+// and dual-pop callers reach the same instance.
 //
 // What bounds them on this card: the traversal is a data-dependent loop of
 // dependent loads (node row -> child boxes -> pushed entry -> next row), so
 // latency of L1/L2 reads and warp divergence bound it, far below both the
 // FP32 rate and the memory rate. The scene tables (about 9 MB for car_boxed)
-// sit in the 50 MB L2. What the design does about it: node rows are
-// 128-byte aligned and read as 8 float4 loads through the read-only path,
-// leaf triangles as 3 float4 loads each; children are sorted near-first and
-// each stack entry keeps its box entry distance, so a closest-hit pop whose
-// box lies beyond the current hit is dropped without a load; an any-hit ray
-// stops at its first blocker; dead rays do not traverse. Rays are in
-// tile-major order, so a warp holds 32 neighbouring pixels and its threads
-// walk similar paths.
+// sit in the 50 MB L2. What the design does about it: node rows are read as
+// float4 loads through the read-only path, three per pair of children (the
+// 8-wide row is not held in registers whole), leaf triangles as 3 float4
+// loads each; children are sorted near-first and each stack entry keeps its
+// box entry distance, so a closest-hit pop whose box lies beyond the current
+// hit is dropped without a load; an any-hit ray stops at its first blocker;
+// dead rays do not traverse. Rays are in tile-major order, so a warp holds
+// 32 neighbouring pixels and its threads walk similar paths.
 //
 // Leaves hold L = 8 triangles (one 128-float row), the only leaf size the
 // port prepares; shadow rays are always traced from the light (the
@@ -38,16 +44,15 @@
 //
 // Numerics: built with -fmad=false and without fast math, so each product
 // and division rounds as in the JAX kernels and the plain PyTorch versions,
-// and a triangle test gives the same bits in all three. Absent BVH4
+// and a triangle test gives the same bits in all three. Absent BVH4 / BVH8
 // children are NaN boxes; they are skipped by the validity flags in cmeta,
 // never by NaN arithmetic (fminf/fmaxf drop a NaN operand, jnp.minimum
-// keeps it).
+// keeps it). The binary table has no flags: both children always exist.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
-#define RT_STACK 64            // per-ray stack entries; the wrapper checks the tree
 #define RT_LANES 128           // floats per tri / attr row
 #define RT_TRI_STRIDE 12       // [v0, e1, e2, n] per triangle
 #define RT_ATTR_STRIDE 9       // [kd, ks, kr] per triangle
@@ -60,9 +65,19 @@ static constexpr float RT_EPS = 1e-3f;
 static constexpr float RT_TMAX = 3.4028235e38f;
 static constexpr float RT_INV_DIR_MAX = 1e30f;
 
+// Node table layout per arity (ops/pack.py): floats per cbox row, ints per
+// cmeta row, and the per-ray stack entries. A visit grows the stack by at
+// most A - 1, so the default bvh_max_depth = 32 needs 34 / 50 / 79 entries
+// (pallas_trace.required_stack_depth); the wrapper checks the tree's own
+// need against STACK before any launch.
+template <int A> struct RtArity;
+template <> struct RtArity<2> { enum { BOX = 16, META = 8, STACK = 48 }; };
+template <> struct RtArity<4> { enum { BOX = 32, META = 8, STACK = 64 }; };
+template <> struct RtArity<8> { enum { BOX = 64, META = 16, STACK = 96 }; };
+
 struct RtScene {
-  const float4* cbox;   // (Nq+1) rows of 8 float4: child k = floats [6k, 6k+6)
-  const int4* cmeta;    // (Nq+1) rows of 2 int4: encodings, validity flags
+  const float4* cbox;   // (N+1) rows of BOX floats: child k = floats [6k, 6k+6)
+  const int4* cmeta;    // (N+1) rows of META ints: encodings, validity flags
   const float4* tri;    // (G+1) rows of 32 float4
   const float* attr;    // (G+1) rows of 128 floats, or null
 };
@@ -101,19 +116,19 @@ RT_FN RtRay rt_ray(float3 o, float3 d) {
 
 RT_FN bool rt_dead(float3 d) { return d.x == 0.f && d.y == 0.f && d.z == 0.f; }
 
-// Entry distance into one child box, or RT_TMAX when the box is missed or
-// starts at or beyond t_cut (pallas_trace._slab_masked).
-RT_FN float rt_slab(const float* b, const RtRay& r, float t_cut) {
-  float tx1 = b[0] * r.inv.x - r.oi.x;
-  float tx2 = b[3] * r.inv.x - r.oi.x;
+// Entry distance into one child box [lo, hi], or RT_TMAX when the box is
+// missed or starts at or beyond t_cut (pallas_trace._slab_masked).
+RT_FN float rt_slab(float3 lo, float3 hi, const RtRay& r, float t_cut) {
+  float tx1 = lo.x * r.inv.x - r.oi.x;
+  float tx2 = hi.x * r.inv.x - r.oi.x;
   float tmin = fminf(tx1, tx2);
   float tmax = fmaxf(tx1, tx2);
-  float ty1 = b[1] * r.inv.y - r.oi.y;
-  float ty2 = b[4] * r.inv.y - r.oi.y;
+  float ty1 = lo.y * r.inv.y - r.oi.y;
+  float ty2 = hi.y * r.inv.y - r.oi.y;
   tmin = fmaxf(tmin, fminf(ty1, ty2));
   tmax = fminf(tmax, fmaxf(ty1, ty2));
-  float tz1 = b[2] * r.inv.z - r.oi.z;
-  float tz2 = b[5] * r.inv.z - r.oi.z;
+  float tz1 = lo.z * r.inv.z - r.oi.z;
+  float tz2 = hi.z * r.inv.z - r.oi.z;
   tmin = fmaxf(tmin, fminf(tz1, tz2));
   tmax = fminf(tmax, fmaxf(tz1, tz2));
   bool ok = (tmax >= tmin) && (tmax > 0.f) && (tmin < t_cut);
@@ -140,44 +155,83 @@ RT_FN float rt_mt(const RtRay& r, float4 a, float4 b, float4 c, bool& neg) {
   return hit ? t : RT_TMAX;
 }
 
-// Visit quad row e: test its valid children against t_cut, sort them
-// near-first (the _sort4 network) and push far-to-near, so the nearest
-// child pops first. Each entry keeps its entry distance.
-template <class C>
-RT_FN void rt_visit(const RtScene& s, int e, const RtRay& r, float t_cut,
-                    int* stk, float* dst, int& sp, C& cnt) {
-  float b[32];
-  const float4* row = s.cbox + (size_t)e * 8;
+// Ascending sort of (distance, encoding) pairs by a comparator network that
+// swaps on strict >, so equal distances keep their child order, as
+// pallas_trace._sortn (:780-803) and the binary `left_near = ml <= mr`.
+template <int N, int A>
+RT_FN void rt_network(const int (&net)[N][2], float (&ms)[A], int (&es)[A]) {
 #pragma unroll
-  for (int q = 0; q < 8; ++q) {
-    float4 v = __ldg(row + q);
-    b[4 * q] = v.x;
-    b[4 * q + 1] = v.y;
-    b[4 * q + 2] = v.z;
-    b[4 * q + 3] = v.w;
-  }
-  int4 enc = __ldg(s.cmeta + 2 * (size_t)e);
-  int4 val = __ldg(s.cmeta + 2 * (size_t)e + 1);
-  int es[4] = {enc.x, enc.y, enc.z, enc.w};
-  int vs[4] = {val.x, val.y, val.z, val.w};
-  float ms[4];
-  cnt.add(RT_C_INNER);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    cnt.add(RT_C_BOX, vs[k] > 0 ? 1u : 0u);
-    ms[k] = vs[k] > 0 ? rt_slab(b + 6 * k, r, t_cut) : RT_TMAX;
-  }
-  const int net[5][2] = {{0, 1}, {2, 3}, {0, 2}, {1, 3}, {1, 2}};
-#pragma unroll
-  for (int c = 0; c < 5; ++c) {
+  for (int c = 0; c < N; ++c) {
     int i = net[c][0], j = net[c][1];
     if (ms[i] > ms[j]) {
       float tm = ms[i]; ms[i] = ms[j]; ms[j] = tm;
       int te = es[i]; es[i] = es[j]; es[j] = te;
     }
   }
+}
+
+template <int A>
+RT_FN void rt_sort(float (&ms)[A], int (&es)[A]) {
+  if constexpr (A == 2) {
+    const int net[1][2] = {{0, 1}};
+    rt_network(net, ms, es);
+  } else if constexpr (A == 4) {
+    const int net[5][2] = {{0, 1}, {2, 3}, {0, 2}, {1, 3}, {1, 2}};
+    rt_network(net, ms, es);
+  } else {
+    const int net[19][2] = {{0, 1}, {2, 3}, {4, 5}, {6, 7}, {0, 2}, {1, 3},
+                            {4, 6}, {5, 7}, {1, 2}, {5, 6}, {0, 4}, {3, 7},
+                            {1, 5}, {2, 6}, {1, 4}, {3, 6}, {2, 4}, {3, 5},
+                            {3, 4}};
+    rt_network(net, ms, es);
+  }
+}
+
+// Visit node row e: test its valid children against t_cut, sort them
+// near-first and push far-to-near, so the nearest child pops first. Each
+// entry keeps its entry distance. Children 2m and 2m+1 share float4s
+// 3m..3m+2 of the row, so the row is read pair by pair.
+template <int A, class C>
+RT_FN void rt_visit(const RtScene& s, int e, const RtRay& r, float t_cut,
+                    int* stk, float* dst, int& sp, C& cnt) {
+  const float4* row = s.cbox + (size_t)e * (RtArity<A>::BOX / 4);
+  const int4* meta = s.cmeta + (size_t)e * (RtArity<A>::META / 4);
+  int es[A];
+  bool ok[A];
+  if constexpr (A == 2) {
+    int4 m = __ldg(meta);  // the binary row: two encodings, no flags
+    es[0] = m.x;
+    es[1] = m.y;
+    ok[0] = ok[1] = true;
+  } else {
 #pragma unroll
-  for (int k = 3; k >= 0; --k) {
+    for (int q = 0; q < A / 4; ++q) {
+      int4 enc = __ldg(meta + q);
+      int4 val = __ldg(meta + A / 4 + q);
+      es[4 * q] = enc.x; es[4 * q + 1] = enc.y;
+      es[4 * q + 2] = enc.z; es[4 * q + 3] = enc.w;
+      ok[4 * q] = val.x > 0; ok[4 * q + 1] = val.y > 0;
+      ok[4 * q + 2] = val.z > 0; ok[4 * q + 3] = val.w > 0;
+    }
+  }
+  float ms[A];
+  cnt.add(RT_C_INNER);
+#pragma unroll
+  for (int m = 0; m < A / 2; ++m) {
+    float4 p = __ldg(row + 3 * m);
+    float4 q = __ldg(row + 3 * m + 1);
+    float4 u = __ldg(row + 3 * m + 2);
+    cnt.add(RT_C_BOX, (ok[2 * m] ? 1u : 0u) + (ok[2 * m + 1] ? 1u : 0u));
+    ms[2 * m] = ok[2 * m] ? rt_slab(make_float3(p.x, p.y, p.z),
+                                    make_float3(p.w, q.x, q.y), r, t_cut)
+                          : RT_TMAX;
+    ms[2 * m + 1] = ok[2 * m + 1] ? rt_slab(make_float3(q.z, q.w, u.x),
+                                            make_float3(u.y, u.z, u.w), r, t_cut)
+                                  : RT_TMAX;
+  }
+  rt_sort<A>(ms, es);
+#pragma unroll
+  for (int k = A - 1; k >= 0; --k) {
     if (ms[k] < RT_TMAX) {
       stk[sp] = es[k];
       dst[sp] = ms[k];
@@ -188,11 +242,11 @@ RT_FN void rt_visit(const RtScene& s, int e, const RtRay& r, float t_cut,
 
 // Closest hit of one ray: returns the slot g*RT_LEAF + j (or -1) and sets
 // t and neg (det < 0 of the winner). Strict < keeps the first of equal hits.
-template <class C>
+template <int A, class C>
 RT_FN int rt_closest(const RtScene& s, const RtRay& r, float& t, bool& neg,
                      C& cnt) {
-  int stk[RT_STACK];
-  float dst[RT_STACK];
+  int stk[RtArity<A>::STACK];
+  float dst[RtArity<A>::STACK];
   int sp = 1, idx = -1;
   stk[0] = 0;
   dst[0] = -RT_TMAX;
@@ -220,7 +274,7 @@ RT_FN int rt_closest(const RtScene& s, const RtRay& r, float& t, bool& neg,
         }
       }
     } else {
-      rt_visit(s, e, r, t, stk, dst, sp, cnt);
+      rt_visit<A>(s, e, r, t, stk, dst, sp, cnt);
     }
   }
   return idx;
@@ -228,11 +282,11 @@ RT_FN int rt_closest(const RtScene& s, const RtRay& r, float& t, bool& neg,
 
 // Any hit of one ray with t*t < max_dist2 (pallas_trace._run_occluded_dual);
 // boxes are cut at sqrt(max_dist2), the ray stops at its first blocker.
-template <class C>
+template <int A, class C>
 RT_FN bool rt_occluded(const RtScene& s, const RtRay& r, float max_dist2,
                        C& cnt) {
-  int stk[RT_STACK];
-  float dst[RT_STACK];
+  int stk[RtArity<A>::STACK];
+  float dst[RtArity<A>::STACK];
   int sp = 1;
   stk[0] = 0;
   const float t_limit = sqrtf(max_dist2);
@@ -253,7 +307,7 @@ RT_FN bool rt_occluded(const RtScene& s, const RtRay& r, float max_dist2,
         if (tj < RT_TMAX && tj * tj < max_dist2) return true;
       }
     } else {
-      rt_visit(s, e, r, t_limit, stk, dst, sp, cnt);
+      rt_visit<A>(s, e, r, t_limit, stk, dst, sp, cnt);
     }
   }
   return false;
@@ -275,7 +329,7 @@ RT_FN void rt_slot_attrs(const RtScene& s, int idx, float* av) {
 // The whole Whitted bounce loop of one ray (pallas_trace._frame_fused_kernel,
 // without spheres). lamb: nl light rows (pos.xyz, kl.rgb, 0, 0) + ambient.
 // Shadow rays run from the light to the hit point, window (dist - EPS)^2.
-template <class C>
+template <int A, class C>
 RT_FN float3 rt_frame_ray(const RtScene& s, const float* lamb, int nl,
                           float3 o, float3 d, int bounces, C& cnt) {
   const float EPS2 = (float)(1e-3 * 1e-3);
@@ -286,7 +340,7 @@ RT_FN float3 rt_frame_ray(const RtScene& s, const float* lamb, int nl,
     float t = RT_TMAX;
     bool neg = false;
     int idx = -1;
-    if (!rt_dead(d)) idx = rt_closest(s, rt_ray(o, d), t, neg, cnt);
+    if (!rt_dead(d)) idx = rt_closest<A>(s, rt_ray(o, d), t, neg, cnt);
     if (!(t < RT_TMAX)) {  // miss: multiplier * ambient, the ray ends
       fx = fx + mx * ax;
       fy = fy + my * ay;
@@ -316,7 +370,7 @@ RT_FN float3 rt_frame_ray(const RtScene& s, const float* lamb, int nl,
       bool blocked = false;
       if (!backface) {
         float q = fmaxf(mag2 * imag - RT_EPS, 0.f);
-        blocked = rt_occluded(
+        blocked = rt_occluded<A>(
             s, rt_ray(make_float3(lr[0], lr[1], lr[2]), make_float3(-lx, -ly, -lz)),
             q * q, cnt);
       }
@@ -366,7 +420,7 @@ RT_FN void rt_load(const RtRays& p, int i, float3& o, float3& d) {
 
 // One thread per ray; the grid covers n rays exactly once. Threads past n
 // stay for the warp-wide count reduction.
-template <bool FULL, bool COUNT>
+template <int A, bool FULL, bool COUNT>
 __global__ void __launch_bounds__(RT_BLOCK)
 closest_kernel(RtRays rays, RtScene s, int n, float* t_out, int* idx_out,
                int* nd_out, float* attr_out, unsigned long long* counts) {
@@ -378,7 +432,7 @@ closest_kernel(RtRays rays, RtScene s, int n, float* t_out, int* idx_out,
     float t = RT_TMAX;
     bool neg = false;
     int idx = -1;
-    if (!rt_dead(d)) idx = rt_closest(s, rt_ray(o, d), t, neg, cnt);
+    if (!rt_dead(d)) idx = rt_closest<A>(s, rt_ray(o, d), t, neg, cnt);
     t_out[i] = t;
     idx_out[i] = idx;
     nd_out[i] = neg ? 1 : 0;
@@ -397,7 +451,7 @@ closest_kernel(RtRays rays, RtScene s, int n, float* t_out, int* idx_out,
   rt_count(counts, cnt);
 }
 
-template <bool COUNT>
+template <int A, bool COUNT>
 __global__ void __launch_bounds__(RT_BLOCK)
 occluded_kernel(RtRays rays, const float* max_dist2, RtScene s, int n,
                 int* blocked_out, unsigned long long* counts) {
@@ -407,17 +461,18 @@ occluded_kernel(RtRays rays, const float* max_dist2, RtScene s, int n,
     float3 o, d;
     rt_load(rays, i, o, d);
     bool blocked = false;
-    if (!rt_dead(d)) blocked = rt_occluded(s, rt_ray(o, d), max_dist2[i], cnt);
+    if (!rt_dead(d)) blocked = rt_occluded<A>(s, rt_ray(o, d), max_dist2[i], cnt);
     blocked_out[i] = blocked ? 1 : 0;
   }
   rt_count(counts, cnt);
 }
 
 // The light table is copied to shared memory once per block.
-template <bool COUNT>
+template <int A, bool COUNT>
 __global__ void __launch_bounds__(RT_BLOCK)
 frame_kernel(RtRays rays, RtScene s, const float* lamb, int nl, int n,
              int bounces, float* col_out, unsigned long long* counts) {
+  static_assert(A >= 4, "the fused frame exists for arity 4 and 8 only");
   extern __shared__ float lamb_s[];
   for (int q = threadIdx.x; q < 8 * (nl + 1); q += blockDim.x) lamb_s[q] = lamb[q];
   __syncthreads();
@@ -426,10 +481,32 @@ frame_kernel(RtRays rays, RtScene s, const float* lamb, int nl, int n,
   if (i < n) {
     float3 o, d;
     rt_load(rays, i, o, d);
-    float3 c = rt_frame_ray(s, lamb_s, nl, o, d, bounces, cnt);
+    float3 c = rt_frame_ray<A>(s, lamb_s, nl, o, d, bounces, cnt);
     col_out[i] = c.x;
     col_out[(size_t)n + i] = c.y;
     col_out[2 * (size_t)n + i] = c.z;
   }
   rt_count(counts, cnt);
 }
+
+// Host launchers, one set per arity: defined in trace_launch.cuh and
+// instantiated in trace_a2.cu, trace_a4.cu and trace_a8.cu, which nvcc
+// compiles in parallel. Each launches one kernel on stream st (the counting
+// instance when counts is non-null), does not synchronise, and returns
+// cudaGetLastError() after the launch.
+template <int A>
+struct RtLaunch {
+  static int closest(const RtRays& rays, const RtScene& s, int n, float* t,
+                     int* idx, int* nd, float* attr_out,
+                     unsigned long long* counts, cudaStream_t st);
+  static int occluded(const RtRays& rays, const float* max_dist2,
+                      const RtScene& s, int n, int* blocked,
+                      unsigned long long* counts, cudaStream_t st);
+};
+
+template <int A>
+struct RtFrameLaunch {
+  static int frame(const RtRays& rays, const RtScene& s, const float* lamb,
+                   int num_lights, int n, int bounces, float* col,
+                   unsigned long long* counts, cudaStream_t st);
+};

@@ -1,27 +1,31 @@
 """Port of the device half of parallel_ray_tracer_tpu/ops/pallas_trace.py: the
-wrappers of the four CUDA traversal kernels (csrc/trace.cuh).
+wrappers of the CUDA traversal kernels (csrc/trace.cuh), at node arity 2, 4
+and 8.
 
-| wrapper              | kernel                  | replaces (pallas_trace.py)              |
-| -------------------- | ----------------------- | --------------------------------------- |
-| `closest_tiles`      | `closest_kernel<false>` | `_closest_dual_kernel(n_attr=0)` :1774  |
-| `closest_tiles_full` | `closest_kernel<true>`  | `_closest_dual_kernel(n_attr=12)` :1774 |
-| `occluded_tiles`     | `occluded_kernel`       | `_occluded_dual_kernel` :1835           |
-| `frame_tiles`        | `frame_kernel`          | `_frame_fused_kernel` :2536             |
+| wrapper              | kernel                     | replaces (pallas_trace.py)                                                  |
+| -------------------- | -------------------------- | --------------------------------------------------------------------------- |
+| `closest_tiles`      | `closest_kernel<A, false>` | `_closest_dual_kernel(n_attr=0)` :1774, `_closest4_kernel` :825, `_closest_kernel` :610 |
+| `closest_tiles_full` | `closest_kernel<A, true>`  | `_closest_dual_kernel(n_attr=12)` :1774, `_closest_attr_kernel` :2437       |
+| `occluded_tiles`     | `occluded_kernel<A>`       | `_occluded_dual_kernel` :1835, `_occluded4_kernel` :886, `_occluded_kernel` :676 |
+| `frame_tiles`        | `frame_kernel<A>`, A 4, 8  | `_frame_fused_kernel` :2536                                                 |
 
-Rays come as (rows, 128) f32 planes in the tile-major order of
-ops/render.generate_rays_tiled. The signatures are the JAX ones without the
-TPU schedule knobs (dual, npop, adaptive, smem_meta, stream, sort, cmat):
-one thread traces one ray, so none of them applies.
+The arity A comes from the node table (cbox row width 16, 32 or 64, as
+pallas_trace.py:3068). Rays come as (rows, 128) f32 planes in the tile-major
+order of ops/render.generate_rays_tiled. The signatures are the JAX ones
+without the TPU schedule knobs (dual, npop, adaptive, smem_meta, stream,
+sort, cmat): one thread traces one ray, so none of them applies, and the
+JAX single-pop and dual-pop kernels of one arity map to the same instance.
 
 A tensor on the CPU runs the kernel's plain version (ops/trace_plain.py, and
 ops/shade.trace_rays for the frame). A CUDA tensor launches the kernel, or
 raises: there is no fallback. Each wrapper checks device, dtype, shape and
-contiguity, counts its launches in `LAUNCHES`, and raises if the launch
-reported an error.
+contiguity, counts its launches in `LAUNCHES` by kernel and arity (keys
+such as "closest_full<8>"), and raises if the launch reported an error.
 
 The kernels hold L = 8 triangles per leaf row and trace shadow rays from
 the light: `leaf_size` other than 8 and `reverse_shadows=False` raise
-NotImplementedError, on every device.
+NotImplementedError, on every device. The fused frame exists at arity 4
+and 8 only (as in JAX); binary tables raise ValueError there.
 
 `counters=True` (CUDA only) launches the kernel's counting instance and also
 returns an int64 tensor of the `COUNTS` sums over the rays.
@@ -36,19 +40,23 @@ import torch
 
 from .._build import error_string, load_library
 from ..models.device_scene import device_scene_from_lights
-from .pack import LANES, stack_need
+from .pack import ARITY_OF_WIDTH, LANES, META_WIDTH, stack_need
 from .shade import trace_rays
 from .trace_plain import Hit, HitFull, closest_full_plain, closest_plain, occluded_plain
 from .vecmath import Vec3
 
-STACK_SIZE = 64          # per-thread stack entries, RT_STACK in csrc/trace.cuh
+# Per-thread stack entries by arity, RtArity<A>::STACK in csrc/trace.cuh.
+STACK_SIZE = {2: 48, 4: 64, 8: 96}
 LEAF_SIZE = 8            # triangles per leaf row, RT_LEAF in csrc/trace.cuh
 # What counters=True returns, in order (RT_C_* in csrc/trace.cuh): node
 # visits, box tests of valid children, leaf visits, triangle tests of live
 # slots, traversals.
 COUNTS = ("inner_visits", "box_tests", "leaf_visits", "tri_tests", "traversals")
 
-LAUNCHES = {"closest": 0, "closest_full": 0, "occluded": 0, "frame": 0}
+# The arities each kernel is instantiated for.
+ARITIES = {"closest": (2, 4, 8), "closest_full": (2, 4, 8),
+           "occluded": (2, 4, 8), "frame": (4, 8)}
+LAUNCHES = {f"{k}<{a}>": 0 for k, arities in ARITIES.items() for a in arities}
 
 
 def reset_launch_counts() -> None:
@@ -76,15 +84,19 @@ def _check(name: str, t: torch.Tensor, dtype, shape: Sequence, device) -> None:
 
 
 def _check_inputs(cbox, cmeta, tri, attr, lamb, planes, leaf_size):
-    """Validate tables and ray planes; returns (device, rows)."""
+    """Validate tables and ray planes; returns (device, rows, arity)."""
     device = cbox.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
     if leaf_size != LEAF_SIZE:
         raise NotImplementedError(
             f"leaf_size {leaf_size} is not ported: the kernels hold {LEAF_SIZE}")
-    _check("cbox", cbox, torch.float32, (None, 32), device)
-    _check("cmeta", cmeta, torch.int32, (cbox.shape[0], 8), device)
+    arity = ARITY_OF_WIDTH.get(cbox.shape[1]) if cbox.dim() == 2 else None
+    if arity is None:
+        raise ValueError(f"cbox: shape {tuple(cbox.shape)}, expected rows of "
+                         f"{' or '.join(map(str, ARITY_OF_WIDTH))} floats")
+    _check("cbox", cbox, torch.float32, (None, cbox.shape[1]), device)
+    _check("cmeta", cmeta, torch.int32, (cbox.shape[0], META_WIDTH[arity]), device)
     _check("tri", tri, torch.float32, (None, LANES), device)
     if attr is not None:
         _check("attr", attr, torch.float32, tuple(tri.shape), device)
@@ -93,16 +105,18 @@ def _check_inputs(cbox, cmeta, tri, attr, lamb, planes, leaf_size):
     rows = planes[0].shape[0] if planes[0].dim() == 2 else -1
     for i, p in enumerate(planes):
         _check(f"ray plane {i}", p, torch.float32, (rows, LANES), device)
-    return device, rows
+    return device, rows, arity
 
 
-def _launch_setup(cmeta, stack_depth, counters):
+def _launch_setup(cmeta, arity, stack_depth, counters):
     """Stack check before any launch; the library and a counts buffer."""
-    need = stack_need(cmeta.cpu().numpy()) if stack_depth is None else int(stack_depth)
-    if need > STACK_SIZE:
+    need = (stack_need(cmeta.cpu().numpy(), arity) if stack_depth is None
+            else int(stack_depth))
+    if need > STACK_SIZE[arity]:
         raise ValueError(
-            f"the BVH needs {need} stack entries per ray; the kernels hold "
-            f"{STACK_SIZE} (RT_STACK in csrc/trace.cuh)"
+            f"the BVH needs {need} stack entries per ray; the arity-{arity} "
+            f"kernels hold {STACK_SIZE[arity]} (RtArity<{arity}>::STACK in "
+            "csrc/trace.cuh)"
         )
     counts = (
         torch.zeros(len(COUNTS), dtype=torch.int64, device=cmeta.device)
@@ -128,21 +142,22 @@ def _no_counters_on_cpu(counters):
 def closest_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, leaf_size: int,
                   stack_depth: Optional[int] = None, counters: bool = False):
     """Closest hit over (rows, 128) ray planes -> Hit (t, idx, norm_dir)."""
-    device, rows = _check_inputs(cbox, cmeta, tri, None, None, (*o, *d), leaf_size)
+    device, rows, arity = _check_inputs(cbox, cmeta, tri, None, None, (*o, *d),
+                                        leaf_size)
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
         return closest_plain(tri, o, d, leaf_size)
-    lib, counts = _launch_setup(cmeta, stack_depth, counters)
+    lib, counts = _launch_setup(cmeta, arity, stack_depth, counters)
     t = torch.empty((rows, LANES), dtype=torch.float32, device=device)
     idx = torch.empty((rows, LANES), dtype=torch.int32, device=device)
     nd = torch.empty((rows, LANES), dtype=torch.int32, device=device)
     rc = lib.rt_closest(
         *(_ptr(p) for p in (*o, *d)), _ptr(cbox), _ptr(cmeta), _ptr(tri),
-        _ptr(None), rows * LANES, _ptr(t), _ptr(idx), _ptr(nd),
+        _ptr(None), arity, rows * LANES, _ptr(t), _ptr(idx), _ptr(nd),
         _ptr(None), _ptr(counts), _stream(device),
     )
-    LAUNCHES["closest"] += 1
-    _raise_on(rc, "closest_kernel")
+    LAUNCHES[f"closest<{arity}>"] += 1
+    _raise_on(rc, f"closest_kernel<{arity}, false>")
     hit = Hit(t=t, idx=idx, norm_dir=nd.bool())
     return (hit, counts) if counters else hit
 
@@ -151,22 +166,23 @@ def closest_tiles_full(cbox, cmeta, tri, attr, o: Vec3, d: Vec3, leaf_size: int,
                        stack_depth: Optional[int] = None, counters: bool = False):
     """Closest hit plus the winning triangle's raw normal and kd/ks/kr ->
     HitFull."""
-    device, rows = _check_inputs(cbox, cmeta, tri, attr, None, (*o, *d), leaf_size)
+    device, rows, arity = _check_inputs(cbox, cmeta, tri, attr, None, (*o, *d),
+                                        leaf_size)
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
         return closest_full_plain(tri, attr, o, d, leaf_size)
-    lib, counts = _launch_setup(cmeta, stack_depth, counters)
+    lib, counts = _launch_setup(cmeta, arity, stack_depth, counters)
     t = torch.empty((rows, LANES), dtype=torch.float32, device=device)
     idx = torch.empty((rows, LANES), dtype=torch.int32, device=device)
     nd = torch.empty((rows, LANES), dtype=torch.int32, device=device)
     av = torch.empty((12, rows, LANES), dtype=torch.float32, device=device)
     rc = lib.rt_closest(
         *(_ptr(p) for p in (*o, *d)), _ptr(cbox), _ptr(cmeta), _ptr(tri),
-        _ptr(attr), rows * LANES, _ptr(t), _ptr(idx), _ptr(nd),
+        _ptr(attr), arity, rows * LANES, _ptr(t), _ptr(idx), _ptr(nd),
         _ptr(av), _ptr(counts), _stream(device),
     )
-    LAUNCHES["closest_full"] += 1
-    _raise_on(rc, "closest_kernel<full>")
+    LAUNCHES[f"closest_full<{arity}>"] += 1
+    _raise_on(rc, f"closest_kernel<{arity}, true>")
     hit = HitFull(
         t=t, idx=idx, norm_dir=nd.bool(),
         n=Vec3(av[0], av[1], av[2]), kd=Vec3(av[3], av[4], av[5]),
@@ -178,21 +194,21 @@ def closest_tiles_full(cbox, cmeta, tri, attr, o: Vec3, d: Vec3, leaf_size: int,
 def occluded_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, max_dist2, leaf_size: int,
                    stack_depth: Optional[int] = None, counters: bool = False):
     """Any hit with t*t < max_dist2 over (rows, 128) ray planes -> bool."""
-    device, rows = _check_inputs(
+    device, rows, arity = _check_inputs(
         cbox, cmeta, tri, None, None, (*o, *d, max_dist2), leaf_size
     )
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
         return occluded_plain(tri, o, d, max_dist2, leaf_size)
-    lib, counts = _launch_setup(cmeta, stack_depth, counters)
+    lib, counts = _launch_setup(cmeta, arity, stack_depth, counters)
     blocked = torch.empty((rows, LANES), dtype=torch.int32, device=device)
     rc = lib.rt_occluded(
         *(_ptr(p) for p in (*o, *d)), _ptr(max_dist2), _ptr(cbox), _ptr(cmeta),
-        _ptr(tri), rows * LANES, _ptr(blocked), _ptr(counts),
+        _ptr(tri), arity, rows * LANES, _ptr(blocked), _ptr(counts),
         _stream(device),
     )
-    LAUNCHES["occluded"] += 1
-    _raise_on(rc, "occluded_kernel")
+    LAUNCHES[f"occluded<{arity}>"] += 1
+    _raise_on(rc, f"occluded_kernel<{arity}>")
     return (blocked.bool(), counts) if counters else blocked.bool()
 
 
@@ -204,20 +220,23 @@ def frame_tiles(cbox, cmeta, tri, attr, lamb, o: Vec3, d: Vec3, *, bounces: int,
     ops/pack.pack_lights."""
     if not reverse_shadows:
         raise NotImplementedError("reverse_shadows=False is not ported")
-    device, rows = _check_inputs(cbox, cmeta, tri, attr, lamb, (*o, *d), leaf_size)
+    device, rows, arity = _check_inputs(cbox, cmeta, tri, attr, lamb, (*o, *d),
+                                        leaf_size)
+    if arity not in ARITIES["frame"]:
+        raise ValueError(f"the fused frame needs a node arity of 4 or 8, got {arity}")
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
         return frame_plain(tri, attr, lamb, o, d, bounces=bounces,
                            leaf_size=leaf_size)
-    lib, counts = _launch_setup(cmeta, stack_depth, counters)
+    lib, counts = _launch_setup(cmeta, arity, stack_depth, counters)
     col = torch.empty((3, rows, LANES), dtype=torch.float32, device=device)
     rc = lib.rt_frame(
         *(_ptr(p) for p in (*o, *d)), _ptr(cbox), _ptr(cmeta), _ptr(tri),
-        _ptr(attr), _ptr(lamb), int(lamb.shape[0]) - 1, rows * LANES,
+        _ptr(attr), _ptr(lamb), int(lamb.shape[0]) - 1, arity, rows * LANES,
         int(bounces), _ptr(col), _ptr(counts), _stream(device),
     )
-    LAUNCHES["frame"] += 1
-    _raise_on(rc, "frame_kernel")
+    LAUNCHES[f"frame<{arity}>"] += 1
+    _raise_on(rc, f"frame_kernel<{arity}>")
     out = Vec3(col[0], col[1], col[2])
     return (out, counts) if counters else out
 

@@ -1,15 +1,20 @@
 """Port of the host half of parallel_ray_tracer_tpu/ops/pallas_trace.py: the
 numpy packers that turn a FlatBVH into the tables the kernels read.
 
-Copied from pallas_trace.py (pack_bvh's triangle rows :160-224, pack_bvh4
-:267-349, pack_attr :2397, pack_lights :2971, required_stack_depth :61)
-without the MXU leaf matrices (`cmat`) and the bf16 box formats, which the
-port does not take yet. Same inputs give bit-identical tables.
+Copied from pallas_trace.py (pack_bvh :160-224 without `_build_cmat`,
+pack_bvh4 :267-349, pack_bvh8 :352-417, pack_attr :2397, pack_lights :2971,
+required_stack_depth :61) without the MXU leaf matrices (`cmat`) and the
+bf16 box formats, which the port does not take yet. Same inputs give
+bit-identical tables.
 
-  - ``cbox`` (Nq+1, 32) f32: quad node rows, child k's [min.xyz, max.xyz] at
-    lanes [6k, 6k+6); absent children and the last (NULL) row are NaN boxes.
-  - ``cmeta`` (Nq+1, 8) i32: 4 child encodings (enc < 0: leaf group -enc-1,
-    enc >= 0: quad row) then 4 validity flags.
+  - ``cbox`` f32 node rows, child k's [min.xyz, max.xyz] at lanes [6k, 6k+6):
+    (Ni, 16) binary, (Nq+1, 32) BVH4, (No+1, 64) BVH8. In the BVH4 and BVH8
+    tables absent children and the last (NULL) row are NaN boxes. The
+    binary table has no NULL row, and lanes 12-15 are zero.
+  - ``cmeta`` i32: child encodings (enc < 0: leaf group -enc-1, enc >= 0:
+    node row), then validity flags: (Ni, 8) binary with 2 encodings and no
+    flags (cmeta[:, 2:] is zero: both children always exist), (Nq+1, 8)
+    BVH4 with 4 + 4, (No+1, 16) BVH8 with 8 + 8.
   - ``tri`` (G+1, 128) f32: leaf groups of L triangles, 12 floats each
     [v0, e1, e2, n]; pad slots and the last (NULL) row are zero.
   - ``attr`` (G+1, 128) f32: triangle j's [kd, ks, kr] at lanes [9j, 9j+9).
@@ -30,6 +35,10 @@ LANES = 128
 TRI_STRIDE = 12                      # floats per triangle in a group row
 ATTR_STRIDE = 9                      # kd(3), ks(3), kr(3) per triangle
 STACK_DEPTH = 96
+# Node arity by cbox row width (pallas_trace.py:3068), and cmeta row width
+# by arity.
+ARITY_OF_WIDTH = {16: 2, 32: 4, 64: 8}
+META_WIDTH = {2: 8, 4: 8, 8: 16}
 
 
 def required_stack_depth(tree_depth: int, arity: int, npop: int = 2) -> int:
@@ -45,29 +54,33 @@ def required_stack_depth(tree_depth: int, arity: int, npop: int = 2) -> int:
     return max(STACK_DEPTH, (arity - 1) * packed_depth + 2)
 
 
-def stack_need(cmeta: np.ndarray) -> int:
-    """Stack entries one ray needs to traverse this BVH4 table.
+def stack_need(cmeta: np.ndarray, arity: int) -> int:
+    """Stack entries one ray needs to traverse this arity-`arity` table.
 
-    A visit pops one entry and pushes at most 4, so the stack grows by at
-    most 3 for each quad row on the deepest root-to-leaf path:
-    3 * rows + 2, the per-ray form of `required_stack_depth`'s
-    (arity - 1) * packed_depth + 2."""
+    A visit pops one entry and pushes at most `arity`, so the stack grows by
+    at most arity - 1 for each node row on the deepest root-to-leaf path:
+    (arity - 1) * rows + 2, the per-ray form of `required_stack_depth`'s
+    (arity - 1) * packed_depth + 2. The binary table has no validity flags:
+    both children of a row exist."""
     cmeta = np.asarray(cmeta)
+    if cmeta.ndim != 2 or cmeta.shape[1] != META_WIDTH.get(arity):
+        raise ValueError(f"cmeta {cmeta.shape} is no arity-{arity} table")
     rows, frontier = 0, np.zeros(1, np.int64)
     while frontier.size:
         rows += 1
-        enc = cmeta[frontier, :4]
-        valid = cmeta[frontier, 4:8] > 0
+        enc = cmeta[frontier, :arity]
+        valid = (np.ones(enc.shape, bool) if arity == 2
+                 else cmeta[frontier, arity:2 * arity] > 0)
         frontier = enc[valid & (enc >= 0)].astype(np.int64)
-    return 3 * rows + 2
+    return (arity - 1) * rows + 2
 
 
 @dataclasses.dataclass
-class PackedBVH4:
-    """Host-side BVH4 tables ready for upload."""
+class PackedBVH:
+    """Host-side node and triangle tables ready for upload."""
 
-    cbox: np.ndarray    # (Nq+1, 32) f32
-    cmeta: np.ndarray   # (Nq+1, 8) i32
+    cbox: np.ndarray    # (Ni, 16) / (Nq+1, 32) / (No+1, 64) f32
+    cmeta: np.ndarray   # (Ni, 8) / (Nq+1, 8) / (No+1, 16) i32
     tri: np.ndarray     # (G+1, 128) f32
 
 
@@ -95,7 +108,47 @@ def pack_tri_rows(flat: FlatBVH, tri_verts: np.ndarray) -> np.ndarray:
     return tri
 
 
-def pack_bvh4(flat: FlatBVH, tri_verts: np.ndarray) -> PackedBVH4:
+def pack_bvh(flat: FlatBVH, tri_verts: np.ndarray) -> PackedBVH:
+    """Pack a binary FlatBVH as the binary node table (pallas_trace.pack_bvh):
+    one row per inner node with its two children's boxes, inner nodes
+    renumbered in flat order."""
+    L = flat.leaf_size
+    count, a = flat.count, flat.a
+    inner_old = np.nonzero(count == 0)[0]
+    if inner_old.size == 0:
+        # The root itself is a leaf: one inner row with BOTH children
+        # pointing at it. (An inverted box is no never-hit sentinel under
+        # the ordered slab test, so the second child carries the real box
+        # and the same encoding; testing the leaf twice is idempotent.)
+        cbox = np.zeros((1, 16), np.float32)
+        cbox[0, 0:3] = flat.node_min[0]
+        cbox[0, 3:6] = flat.node_max[0]
+        cbox[0, 6:9] = flat.node_min[0]
+        cbox[0, 9:12] = flat.node_max[0]
+        cmeta = np.zeros((1, 8), np.int32)
+        cmeta[0, 0] = -(a[0] // L) - 1
+        cmeta[0, 1] = cmeta[0, 0]
+    else:
+        remap = np.full(flat.n_nodes, -1, np.int64)
+        remap[inner_old] = np.arange(inner_old.size)
+        assert remap[0] == 0, "root must be the first inner node"
+        Ni = inner_old.size
+        cbox = np.zeros((Ni, 16), np.float32)
+        cmeta = np.zeros((Ni, 8), np.int32)
+        cl = a[inner_old]                 # left child of each inner (right = cl+1)
+        cbox[:, 0:3] = flat.node_min[cl]
+        cbox[:, 3:6] = flat.node_max[cl]
+        cbox[:, 6:9] = flat.node_min[cl + 1]
+        cbox[:, 9:12] = flat.node_max[cl + 1]
+        for k in (0, 1):
+            ch = cl + k
+            is_leaf = count[ch] > 0
+            cmeta[:, k] = np.where(is_leaf, -(a[ch] // L) - 1, remap[ch])
+            assert (is_leaf | (remap[ch] >= 0)).all()
+    return PackedBVH(cbox=cbox, cmeta=cmeta, tri=pack_tri_rows(flat, tri_verts))
+
+
+def pack_bvh4(flat: FlatBVH, tri_verts: np.ndarray) -> PackedBVH:
     """Pack a binary FlatBVH as a 4-wide node table (pallas_trace.pack_bvh4):
     each quad row holds its four grandchildren boxes (binary levels
     collapsed in pairs)."""
@@ -145,7 +198,58 @@ def pack_bvh4(flat: FlatBVH, tri_verts: np.ndarray) -> PackedBVH4:
                 qmeta[row, k] = leaf_enc(j)
             else:
                 qmeta[row, k] = qid[j]
-    return PackedBVH4(cbox=qbox, cmeta=qmeta, tri=tri)
+    return PackedBVH(cbox=qbox, cmeta=qmeta, tri=tri)
+
+
+def pack_bvh8(flat: FlatBVH, tri_verts: np.ndarray) -> PackedBVH:
+    """Pack a binary FlatBVH as an 8-wide node table (pallas_trace.pack_bvh8):
+    three binary levels collapse into one row of up to 8 descendants."""
+    L = flat.leaf_size
+    count, a = flat.count, flat.a
+    nmn, nmx = flat.node_min, flat.node_max
+    tri = pack_tri_rows(flat, tri_verts)
+
+    def leaf_enc(i):
+        return -(int(a[i]) // L) - 1
+
+    def expand(i, depth):
+        """Descendants of binary-inner i after collapsing `depth` levels."""
+        out = []
+        for ch in (int(a[i]), int(a[i]) + 1):
+            if count[ch] > 0 or depth == 1:
+                out.append(("leaf" if count[ch] > 0 else "inner", ch))
+            else:
+                out.extend(expand(ch, depth - 1))
+        return out
+
+    entries_of = {}
+    if count[0] > 0:
+        order = [None]
+        entries_of[None] = [("leaf", 0)]
+    else:
+        oid = {0: 0}
+        order = [0]
+        queue = [0]
+        while queue:
+            i = queue.pop()
+            entries = expand(i, 3)
+            for kind, j in entries:
+                if kind == "inner" and j not in oid:
+                    oid[j] = len(oid)
+                    order.append(j)
+                    queue.append(j)
+            entries_of[i] = entries
+
+    No = len(order)
+    obox = np.full((No + 1, 64), np.nan, np.float32)
+    ometa = np.zeros((No + 1, 16), np.int32)
+    for row, i in enumerate(order):
+        for k, (kind, j) in enumerate(entries_of[i]):
+            obox[row, 6 * k : 6 * k + 3] = nmn[j]
+            obox[row, 6 * k + 3 : 6 * k + 6] = nmx[j]
+            ometa[row, 8 + k] = 1
+            ometa[row, k] = leaf_enc(j) if kind == "leaf" else oid[j]
+    return PackedBVH(cbox=obox, cmeta=ometa, tri=tri)
 
 
 def pack_attr(flat: FlatBVH, mat_idx, mats_kd, mats_ks, mats_kr) -> np.ndarray:

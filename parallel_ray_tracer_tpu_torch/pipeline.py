@@ -1,9 +1,10 @@
 """Port of parallel_ray_tracer_tpu/pipeline.py: config -> scene -> BVH ->
 device tables -> render.
 
-`prepare` loads the scene, builds, flattens and packs the BVH4 with the
-port's own numpy modules, and uploads the tables once; `Pipeline.render`
-then renders frames from them on the device.
+`prepare` loads the scene, builds, flattens and packs the BVH at the
+configured node arity (bvh_width 2, 4 or 8) with the port's own numpy
+modules, and uploads the tables once; `Pipeline.render` then renders frames
+from them on the device.
 """
 
 from __future__ import annotations
@@ -24,9 +25,14 @@ from .ops import render as render_ops
 from .ops.bvh import build_bvh
 from .ops.bvh_flat import FlatBVH, flatten_bvh
 from .ops.cuda_trace import LEAF_SIZE
-from .ops.pack import pack_attr, pack_bvh4, pack_lights
+from .ops.pack import pack_attr, pack_bvh, pack_bvh4, pack_bvh8, pack_lights
 
 VARIANTS = ("auto", "fused", "pallas")
+PACKERS = {2: pack_bvh, 4: pack_bvh4, 8: pack_bvh8}   # by bvh_width
+PACKET = 1024            # rays per TPU packet (pallas_trace.PACKET)
+# Scenes the JAX package generates when their OBJ folder is missing
+# (models/procgen.py), which the port does not have yet.
+PROCGEN_SCENES = ("dragon", "sportscar", "two_cars")
 
 
 @dataclasses.dataclass
@@ -39,6 +45,20 @@ class Pipeline:
     flat: FlatBVH
     tables: SceneTables
     build_ms: float
+    bvh_stats: Optional[dict] = None    # the host tree's stats (ops/bvh.py)
+
+    def bvh_metrics_banner(self) -> Optional[str]:
+        """The reference's BVH_METRICS printout (cpu/src/bvh.c:381-387)."""
+        s = self.bvh_stats
+        if not s:
+            return None
+        return (
+            f"min number of triangle: {int(s['min_leaf'])}\n"
+            f"max number of triangle: {int(s['max_leaf'])}\n"
+            f"avg number of triangle: {s['avg_leaf']:.2f}\n"
+            f"number of leaf: {int(s['leaf_count'])}\n"
+            f"bvh size (bytes): {int(s['bytes'])}"
+        )
 
     @property
     def device(self) -> torch.device:
@@ -48,11 +68,24 @@ class Pipeline:
         return Camera(pos=self.cfg.cam_pos, rot=self.cfg.cam_rot, fov=self.cfg.cam_fov)
 
     def resolved_variant(self, variant: Optional[str] = None) -> str:
-        """"auto" (and None) resolve to the fused whole-frame kernel."""
-        variant = variant or self.cfg.variant
+        """Resolve "auto" (and None) as the JAX package does
+        (pipeline.py:80-104): the fused whole-frame kernel when the table
+        is at bvh_width >= 4, shadows use the any-hit traversal and a tile
+        is one 1024-ray packet; otherwise the pass-based path. JAX also
+        takes the pass-based path for a scene it streams from HBM; the port
+        holds every scene in device memory and streams none."""
+        cfg = self.cfg
+        variant = variant or cfg.variant
         if variant not in VARIANTS:
             raise NotImplementedError(f"variant {variant!r} is not ported")
-        return "fused" if variant == "auto" else variant
+        if variant != "auto":
+            return variant
+        fused_ok = (
+            cfg.bvh_width >= 4
+            and cfg.fast_light
+            and cfg.tile_rows * cfg.tile_cols == PACKET
+        )
+        return "fused" if fused_ok else "pallas"
 
     def render(self, cam: Optional[Camera] = None, width: Optional[int] = None,
                height: Optional[int] = None, variant: Optional[str] = None) -> torch.Tensor:
@@ -73,8 +106,9 @@ class Pipeline:
 
 
 def _check_ported(cfg: RenderConfig) -> None:
+    if cfg.bvh_width not in PACKERS:
+        raise ValueError(f"bvh_width must be 2, 4 or 8, got {cfg.bvh_width}")
     unported = {
-        "bvh_width != 4": cfg.bvh_width != 4,
         "bf16_bvh": cfg.bf16_bvh,
         'stream="on"': cfg.stream == "on",
         "use_bvh=False": not cfg.use_bvh,
@@ -99,28 +133,37 @@ def _load(cfg: RenderConfig) -> Scene:
         snap = os.path.join(root, cfg.scene + ".npz")
         if os.path.isfile(snap):
             return load_scene_npz(snap)
-    return load_scene(cfg.asset_dir())
+    try:
+        return load_scene(cfg.asset_dir())
+    except FileNotFoundError as e:
+        if cfg.scene in PROCGEN_SCENES:
+            raise NotImplementedError(
+                f"scene {cfg.scene!r} has no asset folder here, and its "
+                "procedural substitute (models/procgen.py) is not ported yet"
+            ) from e
+        raise
 
 
 def _pick_device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run the plain PyTorch "
-                "versions of the kernels"
-            )
-        device = "cuda"
-    return torch.device(device)
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run the plain PyTorch "
+            "versions of the kernels"
+        )
+    return device
 
 
 def prepare(cfg: RenderConfig, scene: Optional[Scene] = None, device=None) -> Pipeline:
-    """Load the scene, build + flatten + pack the BVH4, upload the tables.
+    """Load the scene, build + flatten + pack the BVH at cfg.bvh_width,
+    upload the tables.
 
     The device defaults to CUDA; with no card, pass device="cpu". The BVH
     is always built by the numpy builder (use_native is ignored: the image
     does not depend on the builder). mxu_leaf is ignored too: the port's
     leaf test is always the FP32 one, which is what the MXU leaf
-    approximates on the TPU."""
+    approximates on the TPU. dual_pop is ignored as well: one thread traces
+    one ray, so both schedules reach the same kernels."""
     _check_ported(cfg)
     device = _pick_device(device)
     if scene is None:
@@ -139,7 +182,7 @@ def prepare(cfg: RenderConfig, scene: Optional[Scene] = None, device=None) -> Pi
         sah_bins=cfg.sah_bins, seed=cfg.seed, true_sah=cfg.true_sah,
     )
     flat = flatten_bvh(bvh, tv, leaf_size=leaf_size)
-    packed = pack_bvh4(flat, tv)
+    packed = PACKERS[cfg.bvh_width](flat, tv)
     attr = pack_attr(flat, scene.mat_idx, scene.mats_kd, scene.mats_ks, scene.mats_kr)
     build_ms = (time.perf_counter() - t0) * 1e3
 
@@ -150,4 +193,4 @@ def prepare(cfg: RenderConfig, scene: Optional[Scene] = None, device=None) -> Pi
     )
     ds = device_scene_from_lights(tables.lamb)
     return Pipeline(cfg=cfg, scene=scene, ds=ds, flat=flat, tables=tables,
-                    build_ms=build_ms)
+                    build_ms=build_ms, bvh_stats=bvh.stats)

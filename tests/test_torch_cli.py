@@ -1,0 +1,107 @@
+"""The port's command line, `python -m parallel_ray_tracer_tpu_torch`, on the
+CPU (--device cpu): the JAX CLI's flags and defaults, the frame an
+in-process render() gives, the JAX CLI's metrics record and statistics, and
+a non-zero exit with NotImplementedError's message for each flag whose
+path is not ported."""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from parallel_ray_tracer_tpu import cli as j_cli
+from parallel_ray_tracer_tpu.config import RenderConfig as JConfig
+from parallel_ray_tracer_tpu.utils import stats as j_stats
+from parallel_ray_tracer_tpu_torch import cli, pipeline
+from parallel_ray_tracer_tpu_torch.utils import stats as t_stats
+from parallel_ray_tracer_tpu_torch.utils.bmp import bmp_bytes
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ARGS = ["--device", "cpu", "--scene", "car_boxed", "--width", "64",
+        "--height", "32", "--bounces", "1", "--iterations", "2",
+        "--warmup", "0", "--quiet"]
+# The keys of the JAX CLI's --metrics-json record (cli.py:336-343).
+J_RECORD_KEYS = {"config", "backend", "build_ms", "bvh_stats", "times_ms",
+                 "primary_rays_per_s", *j_stats.summarize([1.0])}
+
+
+def _flags(parser):
+    return {a.dest: (a.option_strings, a.default, a.choices and list(a.choices))
+            for a in parser._actions}
+
+
+def test_flags_and_defaults_as_jax():
+    ours = _flags(cli.build_parser())
+    assert ours.pop("device") == (["--device"], "cuda", None)
+    assert ours == _flags(j_cli.build_parser())
+
+
+def test_cli_writes_the_render_and_the_metrics(tmp_path):
+    bmp, rec_path = tmp_path / "frame.bmp", tmp_path / "metrics.json"
+    assert cli.main(ARGS + ["--output", str(bmp), "--metrics-json", str(rec_path)]) == 0
+    cfg = cli.config_from_args(cli.build_parser().parse_args(ARGS))
+    img = pipeline.prepare(cfg, device="cpu").render().numpy()
+    assert img.std() > 0.01  # non-vacuous: the scene is in frame
+    assert bmp.read_bytes() == bmp_bytes(img)
+    rec = json.loads(rec_path.read_text())
+    assert J_RECORD_KEYS <= rec.keys()
+    assert set(rec["config"]) == {f.name for f in dataclasses.fields(JConfig)}
+    assert rec["backend"] == "cpu" and rec["device_name"] is None
+    assert rec["iterations"] == 2 and len(rec["times_ms"]) == 2
+
+
+@pytest.mark.parametrize("times", [
+    [5.0], [3.0, 1.0, 2.0, 10.0],
+    list(np.random.RandomState(0).uniform(1.0, 9.0, 40)),
+], ids=["one", "four", "forty"])
+def test_stats_as_jax(times):
+    s = t_stats.summarize(times)
+    assert s == j_stats.summarize(times)
+    assert t_stats.format_summary(s) == j_stats.format_summary(s)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--no-bvh"], ["--bf16-bvh"], ["--stream", "on"], ["--devices", "2"],
+    ["--checkpoint", "ck"], ["--profile", "prof"], ["--interpret"],
+    ["--no-fast-light"], ["--presplit", "0.1"], ["--no-reverse-shadows"],
+    ["--leaf-size", "4"], ["--variant", "jax"], ["--variant", "bruteforce"],
+    ["--scene", "dragon"], ["--scene", "sportscar"], ["--scene", "two_cars"],
+], ids=" ".join)
+def test_unported_flag_exits_nonzero(flags, capsys, tmp_path):
+    argv = ["--device", "cpu", "--width", "32", "--height", "32",
+            "--asset-root", str(tmp_path), *flags]
+    if "--scene" not in flags:
+        argv += ["--synthetic", "16"]
+    assert cli.main(argv) != 0
+    assert "NotImplementedError" in capsys.readouterr().err
+
+
+def test_ignored_tpu_flags_render(capsys):
+    """Flags of TPU schedules and builders are accepted and change nothing."""
+    argv = ["--device", "cpu", "--synthetic", "64", "--width", "32",
+            "--height", "32", "--bounces", "1", "--warmup", "0", "--no-native",
+            "--no-mxu-leaf", "--pop-width", "2", "--no-adaptive-pop",
+            "--no-dual-pop", "--bvh-width", "2"]
+    assert cli.main(argv) == 0
+    assert "variant: pallas (auto)" in capsys.readouterr().out
+
+
+def test_module_entry_point_exits_nonzero():
+    """`python -m` runs the CLI: an unported flag exits 2, and without
+    --device the run needs the card (no fallback to the CPU)."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    run = [sys.executable, "-m", "parallel_ray_tracer_tpu_torch", "--width", "32",
+           "--height", "32"]
+    proc = subprocess.run(run + ["--device", "cpu", "--interpret"],
+                          capture_output=True, text=True, cwd=REPO, env=env,
+                          timeout=120)
+    assert proc.returncode == 2 and "NotImplementedError" in proc.stderr
+    if not torch.cuda.is_available():
+        proc = subprocess.run(run, capture_output=True, text=True, cwd=REPO,
+                              env=env, timeout=120)
+        assert proc.returncode != 0 and "no CUDA device" in proc.stderr

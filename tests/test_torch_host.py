@@ -152,7 +152,7 @@ def test_pack_bvh4_and_attr_identical(built):
             t_pack.required_stack_depth(tflat.depth, 4, npop)
     # the per-ray stack bound from the table never exceeds the depth bound
     packed_depth = -(-tflat.depth // 2)
-    assert t_pack.stack_need(tp.cmeta) <= 3 * packed_depth + 2
+    assert t_pack.stack_need(tp.cmeta, 4) <= 3 * packed_depth + 2
 
 
 def test_pack_lights_identical(built):

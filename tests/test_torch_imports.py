@@ -55,6 +55,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import parallel_ray_tracer_tpu_torch.ops.cuda_trace\n"
         "import parallel_ray_tracer_tpu_torch.convert\n"
         "import parallel_ray_tracer_tpu_torch.utils.bmp\n"
+        "import parallel_ray_tracer_tpu_torch.cli\n"
+        "import parallel_ray_tracer_tpu_torch.utils.stats\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'parallel_ray_tracer_tpu')]\n"
         "print(bad)\n"
@@ -76,7 +78,7 @@ def test_prepare_without_device_raises_when_no_cuda():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(bvh_width=2), dict(bvh_width=8), dict(bf16_bvh=True),
+    dict(bf16_bvh=True),
     dict(stream="on"), dict(use_bvh=False), dict(fast_light=False),
     dict(presplit=0.1), dict(variant="jax"), dict(variant="bruteforce"),
     dict(num_devices=2), dict(leaf_size=4), dict(reverse_shadows=False),
@@ -84,6 +86,11 @@ def test_prepare_without_device_raises_when_no_cuda():
 def test_unported_knobs_raise(kw):
     with pytest.raises(NotImplementedError):
         pipeline.prepare(RenderConfig(width=32, height=32, **kw), device="cpu")
+
+
+def test_bvh_width_other_than_2_4_8_raises():
+    with pytest.raises(ValueError, match="bvh_width"):
+        pipeline.prepare(RenderConfig(width=32, height=32, bvh_width=3), device="cpu")
 
 
 def test_scene_with_spheres_raises():
@@ -133,11 +140,27 @@ def test_wrappers_check_inputs():
     with pytest.raises(ValueError, match="counters"):
         cuda_trace.occluded_tiles(T.cbox, T.cmeta, T.tri, o, d, o.x, leaf_size=8,
                                   counters=True)
+    # the fused frame exists at arity 4 and 8 only; rows of another width
+    # are no node table
+    cbox2 = np.zeros((1, 16), np.float32)
+    cbox2[0, :12] = [0, 0, 0, 1, 1, 1] * 2
+    cmeta2 = np.zeros((1, 8), np.int32)
+    cmeta2[0, :2] = -1
+    B = packed_from_numpy(cbox2, cmeta2, T.tri.numpy(), T.attr.numpy(),
+                          T.lamb.numpy(), device="cpu")
+    assert (B.arity, B.stack_depth) == (2, 3)
+    with pytest.raises(ValueError, match="arity"):
+        cuda_trace.frame_tiles(B.cbox, B.cmeta, B.tri, B.attr, B.lamb, o, d,
+                               bounces=1, leaf_size=8)
+    with pytest.raises(ValueError):
+        packed_from_numpy(np.zeros((1, 24), np.float32), cmeta2, T.tri.numpy(),
+                          T.attr.numpy(), T.lamb.numpy(), device="cpu")
 
 
 def test_stack_check_raises_before_launch():
     """A tree deeper than the kernels' per-thread stack is refused before any
-    launch (and before the library is built)."""
+    launch (and before the library is built), at each arity."""
     T = _tiny_tables()
-    with pytest.raises(ValueError, match="stack"):
-        cuda_trace._launch_setup(T.cmeta, cuda_trace.STACK_SIZE + 1, False)
+    for arity, size in cuda_trace.STACK_SIZE.items():
+        with pytest.raises(ValueError, match="stack"):
+            cuda_trace._launch_setup(T.cmeta, arity, size + 1, False)

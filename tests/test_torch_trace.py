@@ -106,12 +106,16 @@ def test_closest_full(case):
 
 
 def _reversed_shadow_rays(jp, o, d):
-    """Shadow segments from LIGHT to the primary hit points, traced from the
-    light as the renderer does (origin = light, direction = -l, window
-    (|lvec| - EPS)^2); rays that missed or face away are dead (o far, d 0)."""
+    """Shadow rays to LIGHT from the JAX kernel's primary hits."""
     cbox, cmeta, tri = jp.packed_dev[:3]
     h = j_pt.closest_tiles(cbox, cmeta, tri, _jvec(o), _jvec(d), **_jkw(jp))
-    t = np.asarray(h.t)
+    return _shadow_rays_from(np.asarray(h.t), o, d)
+
+
+def _shadow_rays_from(t, o, d):
+    """Shadow segments from LIGHT to the hit points o + d*t, traced from the
+    light as the renderer does (origin = light, direction = -l, window
+    (|lvec| - EPS)^2); rays that missed are dead (o far, d 0)."""
     hit = t < 1e30
     ts = np.where(hit, t, 1.0).astype(np.float32)
     p = [o[k] + d[k] * ts for k in range(3)]
