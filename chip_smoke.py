@@ -15,11 +15,23 @@ one any-hit launch per bounce and light, the primary pass one closest-hit
 launch.
 
 Its `arity` phase does the same for the other node tables: bvh_width 2
-(whose "auto" render is the pass-based path), bvh_width 8, and bvh_width 4
-with dual_pop=False. The plain versions read no node table, so the
-width-4 plain results serve every width; each width's frame is also held
-against the reference BMP and the width-4 frame, and the command line
-(`python -m parallel_ray_tracer_tpu_torch`) renders the width-8 frame once.
+(whose "auto" render is the pass-based path), bvh_width 8, bvh_width 4
+with dual_pop=False, and the bf16 node boxes (bf16_bvh) at each width: the
+pair rows at width 4, the raw bf16 binary table at width 2, and at width 8
+the pair rows of pack_bvh8(bf16=True), carried across with
+compressed=True since the pipeline keeps width 8 in f32 as JAX does. The
+plain versions read no node table, so the width-4 plain results serve every
+table; each table's frame is also held against the reference BMP and the
+width-4 frame, and each bf16 table's work counts are set beside those of
+the f32 table of its width. The command line
+(`python -m parallel_ray_tracer_tpu_torch`) renders the width-8 frame and
+the --bf16-bvh frame once each.
+
+Its `dragon` phase runs the procedural dragon (models/procgen.py, 180k
+triangles) at bench.py's configuration, with f32 and bf16 tables: prepare,
+one primary closest-hit pass over the 1080p frame's rays and one fused
+render() per table, each held against its plain version on one 64-row band
+through the knot, and the frames held against each other.
 
 Each phase prints one JSON line; all of them, and the rendered frames, also
 go to DIR (default: chip_smoke_out/ beside this script). Any failed check
@@ -33,6 +45,7 @@ non-zero without either.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gzip
 import json
 import os
@@ -71,7 +84,21 @@ REFERENCE_BMP = os.path.join(HERE, "tests", "goldens", "reference",
 # The arity phase: the other node tables, and the single-pop schedule
 # (which reaches the width-4 kernels, on the width-4 tables).
 ARITY_CASES = {"w2": dict(bvh_width=2), "w8": dict(bvh_width=8),
-               "w4_single": dict(dual_pop=False)}
+               "w4_single": dict(dual_pop=False),
+               "w4_bf16": dict(bf16_bvh=True),
+               "w2_bf16": dict(bvh_width=2, bf16_bvh=True),
+               "w8_bf16": dict(bvh_width=8, bf16_bvh=True)}
+# Each bf16 case, and the f32 tables of its width.
+F32_TWIN = {"w4_bf16": "w4", "w2_bf16": "w2", "w8_bf16": "w8"}
+# Bytes one node visit loads in rt_visit (csrc/trace.cuh), by (arity, bf16):
+# the box row (16-byte loads: 3 per pair of f32 children, 3 per quad of
+# pair-row children, 2 per bf16 binary row) and the cmeta row.
+VISIT_BYTES = {(2, False): (48, 16), (4, False): (96, 32), (8, False): (192, 64),
+               (2, True): (32, 16), (4, True): (48, 32), (8, True): (96, 64)}
+# The dragon phase: bench.py's second metric (primary rays/s), one 64-row
+# band through the knot for the plain versions.
+DRAGON = dict(CFG, scene="dragon")
+DRAGON_BAND = 320
 # The kernels line: (instance, the tables it runs on, kernel, line of the
 # TPU kernel it replaces in parallel_ray_tracer_tpu/ops/pallas_trace.py).
 KERNEL_ROWS = (
@@ -89,13 +116,29 @@ KERNEL_ROWS = (
     ("closest_kernel<2, true>", "w2", "closest_full", 2437),
     ("closest_kernel<2, false>", "w2", "closest", 610),
     ("occluded_kernel<2>", "w2", "occluded", 676),
+    ("frame_kernel<4, PAIRS>", "w4_bf16", "frame", 2536),
+    ("closest_kernel<4, PAIRS, false>", "w4_bf16", "closest", 1774),
+    ("closest_kernel<4, PAIRS, true>", "w4_bf16", "closest_full", 1774),
+    ("occluded_kernel<4, PAIRS>", "w4_bf16", "occluded", 1835),
+    ("frame_kernel<8, PAIRS>", "w8_bf16", "frame", 2536),
+    ("closest_kernel<8, PAIRS, false>", "w8_bf16", "closest", 1774),
+    ("closest_kernel<8, PAIRS, true>", "w8_bf16", "closest_full", 1774),
+    ("occluded_kernel<8, PAIRS>", "w8_bf16", "occluded", 1835),
+    ("closest_kernel<2, BF16, false>", "w2_bf16", "closest", 610),
+    ("closest_kernel<2, BF16, true>", "w2_bf16", "closest_full", 2437),
+    ("occluded_kernel<2, BF16>", "w2_bf16", "occluded", 676),
 )
 
 RECORDS = []
 FAILURES = []
+T_START = time.perf_counter()
 
 
 def emit(rec: dict) -> None:
+    """Print and keep one phase record, with the script's time so far
+    (elapsed_s) and the seconds since the previous record (phase_s)."""
+    rec["elapsed_s"] = time.perf_counter() - T_START
+    rec["phase_s"] = rec["elapsed_s"] - (RECORDS[-1]["elapsed_s"] if RECORDS else 0.0)
     RECORDS.append(rec)
     print(json.dumps(rec), flush=True)
 
@@ -153,12 +196,14 @@ def main() -> int:
     try:
         from parallel_ray_tracer_tpu_torch import _build, pipeline
         from parallel_ray_tracer_tpu_torch.config import RenderConfig
+        from parallel_ray_tracer_tpu_torch.convert import packed_from_numpy
+        from parallel_ray_tracer_tpu_torch.ops.pack import pack_bvh8
         from parallel_ray_tracer_tpu_torch.ops import cuda_trace as ct
         from parallel_ray_tracer_tpu_torch.ops import render as R
         from parallel_ray_tracer_tpu_torch.ops import trace_plain as tp
         from parallel_ray_tracer_tpu_torch.ops.intersect import EPSILON, T_MAX
         from parallel_ray_tracer_tpu_torch.ops.vecmath import Vec3
-        from parallel_ray_tracer_tpu_torch.utils.bmp import bmp_bytes, read_bmp, write_bmp
+        from parallel_ray_tracer_tpu_torch.utils.bmp import bmp_bytes, read_bmp
     except ImportError as e:
         print(f"chip_smoke: the port package is not beside this script: {e}",
               file=sys.stderr)
@@ -235,6 +280,7 @@ def main() -> int:
         same = hk.idx == hp.idx
         agree = same.float().mean().item()
         check(name, agree >= 0.999, f"idx agreement {agree}")
+        check(name, torch.equal(t_k[same], t_p[same]), "t differs where idx agrees")
         check(name, torch.equal(hk.norm_dir[same], hp.norm_dir[same]),
               "norm_dir differs where idx agrees")
         max_err = err.max().item() if err.numel() else 0.0
@@ -365,11 +411,17 @@ def main() -> int:
 
     ref_bmp = read_reference(read_bmp)
 
+    def save_frame(name, data: bytes):
+        """A frame's BMP bytes as DIR/name.bmp.gz (a 1080p BMP is 6 MB; the
+        frames together must stay small)."""
+        with gzip.open(os.path.join(out_dir, f"{name}.bmp.gz"), "wb") as f:
+            f.write(data)
+
     def hold_reference(name, img):
         """The frame against the reference binary's BMP, within the bounds
         of tests/test_reference_parity.py::_assert_parity."""
         ours = (img.clamp(0, 1) * 255.0).to(torch.uint8).cpu().numpy()
-        write_bmp(os.path.join(out_dir, f"{name}.bmp"), ours)
+        save_frame(name, bmp_bytes(ours))
         check(name, ours.shape == ref_bmp.shape, f"shape {ours.shape}")
         dd = np.abs(ours.astype(np.int32) - ref_bmp.astype(np.int32)).max(axis=-1)
         parity = {"frac_any": float((dd > 0).mean()),
@@ -406,7 +458,8 @@ def main() -> int:
     def kernel_runs(A):
         """Each kernel of tables A at the main path's shapes: the timed call,
         the counting call, input bytes, output bytes."""
-        akw = dict(leaf_size=A.leaf_size, stack_depth=A.stack_depth)
+        akw = dict(leaf_size=A.leaf_size, stack_depth=A.stack_depth,
+                   compressed=A.compressed)
         scene_b = nbytes(A.cbox, A.cmeta, A.tri)
         runs = {
             "closest": (lambda: ct.closest_tiles(A.cbox, A.cmeta, A.tri, o, d, **akw),
@@ -434,11 +487,15 @@ def main() -> int:
         return runs
 
     def time_kernels(A):
+        """Times, work counts and bounds of every kernel of tables A, and the
+        node-table bytes a ray loads (node visits x VISIT_BYTES)."""
+        visit_b = sum(VISIT_BYTES[A.arity, A.compressed or A.cbox.dtype == torch.bfloat16])
         timing = {}
         for name, (fn, counted, in_b, out_b) in kernel_runs(A).items():
             t = time_ms(fn)
             b = bound(counted().cpu().tolist(), ct.COUNTS, in_b, out_b)
-            timing[name] = dict(t, rays=n_rays, rays_per_s=n_rays / (t["median"] * 1e-3), **b)
+            timing[name] = dict(t, rays=n_rays, rays_per_s=n_rays / (t["median"] * 1e-3),
+                                node_bytes_per_ray=b["inner_visits"] * visit_b / n_rays, **b)
         return timing
 
     timing = {"w4": time_kernels(T)}
@@ -479,26 +536,50 @@ def main() -> int:
     max_err = {"w4": {k: max(cmp[k]["max_abs_err"], full[k]["max_abs_err"])
                       for k in full}}
 
-    # ---- 8. the other node arities, and single pop ------------------------
+    # ---- 8. the other node tables: arities, single pop, bf16 boxes --------
     # The plain versions brute-force every triangle slot and read no node
-    # table, so the width-4 plain results above hold for every width once
+    # table, so the width-4 plain results above hold for every table once
     # tri and attr are the same.
-    w8_img = None
+    frames = {}
+
+    def pair_rows_w8(p):
+        """The width-8 pipeline with its node table repacked as bf16 pair
+        rows (pack_bvh8(bf16=True)) and carried across with compressed=True:
+        the pipeline, like JAX's prepare, packs width 8 in f32."""
+        check("w8_bf16", p.tables.cbox.dtype == torch.float32 and not p.tables.compressed,
+              "the pipeline's bf16 width-8 tables are not f32, as JAX packs them")
+        packed = pack_bvh8(p.flat, p.scene.triangle_vertices(), bf16=True)
+        t = p.tables
+        tables = packed_from_numpy(
+            packed.cbox, packed.cmeta, packed.tri, t.attr.cpu().numpy(),
+            t.lamb.cpu().numpy(), device=p.device, leaf_size=t.leaf_size,
+            compressed=True)
+        return dataclasses.replace(p, tables=tables)
+
     for key, extra in ARITY_CASES.items():
         t0 = time.perf_counter()
         acfg = RenderConfig(**CFG, **extra)
         apipe = pipeline.prepare(acfg)
+        if key == "w8_bf16":
+            apipe = pair_rows_w8(apipe)
         torch.cuda.synchronize()
         A = apipe.tables
         a = A.arity
-        akw = dict(leaf_size=A.leaf_size, stack_depth=A.stack_depth)
+        bf16 = A.compressed or A.cbox.dtype == torch.bfloat16
+        sfx = ",bf16" if bf16 else ""
+        akw = dict(leaf_size=A.leaf_size, stack_depth=A.stack_depth,
+                   compressed=A.compressed)
         check(key, a == acfg.bvh_width, f"arity {a}")
+        check(key, bf16 == acfg.bf16_bvh, f"bf16 tables {bf16}")
         check(key, torch.equal(A.tri, T.tri) and torch.equal(A.attr, T.attr),
               "tri / attr differ from the width-4 tables")
+        box_b, meta_b = VISIT_BYTES[a, bf16]
         rec = {"phase": "arity", "case": key, **extra,
                "prepare_s": time.perf_counter() - t0, "cbox": list(A.cbox.shape),
-               "cmeta": list(A.cmeta.shape), "stack_need": A.stack_depth,
-               "stack_size": ct.STACK_SIZE[a]}
+               "cbox_dtype": str(A.cbox.dtype), "compressed": A.compressed,
+               "cbox_bytes": nbytes(A.cbox), "cmeta": list(A.cmeta.shape),
+               "visit_bytes": {"box": box_b, "meta": meta_b},
+               "stack_need": A.stack_depth, "stack_size": ct.STACK_SIZE[a]}
 
         # each instance against the plain results: the bands, the frame
         errs = {k: 0.0 for k in ("closest", "closest_full", "occluded", "frame")}
@@ -550,13 +631,13 @@ def main() -> int:
                 plain["frame"]))
         max_err[key] = errs
 
-        # each path with its counts from 0: exactly its arity's kernels
+        # each path with its counts from 0: exactly its table's kernels
         auto = apipe.resolved_variant()
         check(key, auto == ("fused" if a >= 4 else "pallas"), f"auto -> {auto}")
-        pass_counts = {f"closest_full<{a}>": cfg.bounces,
-                       f"occluded<{a}>": cfg.bounces * nl}
+        pass_counts = {f"closest_full<{a}{sfx}>": cfg.bounces,
+                       f"occluded<{a}{sfx}>": cfg.bounces * nl}
         aimg, on_auto = on_path(f"{key}/render_auto", apipe.render,
-                                {f"frame<{a}>": 1} if auto == "fused" else pass_counts)
+                                {f"frame<{a}{sfx}>": 1} if auto == "fused" else pass_counts)
         if auto == "fused":
             aimg_pass, on_apass = on_path(
                 f"{key}/render_pass_based", lambda: apipe.render(variant="pallas"),
@@ -566,12 +647,12 @@ def main() -> int:
         _, on_aprim = on_path(
             f"{key}/primary_closest_pass",
             lambda: ct.closest_tiles(A.cbox, A.cmeta, A.tri, o, d, **akw),
-            {f"closest<{a}>": 1})
-        launches[key] = {"closest": on_aprim[f"closest<{a}>"],
-                         "closest_full": on_apass[f"closest_full<{a}>"],
-                         "occluded": on_apass[f"occluded<{a}>"]}
+            {f"closest<{a}{sfx}>": 1})
+        launches[key] = {"closest": on_aprim[f"closest<{a}{sfx}>"],
+                         "closest_full": on_apass[f"closest_full<{a}{sfx}>"],
+                         "occluded": on_apass[f"occluded<{a}{sfx}>"]}
         if auto == "fused":
-            launches[key]["frame"] = on_auto[f"frame<{a}>"]
+            launches[key]["frame"] = on_auto[f"frame<{a}{sfx}>"]
 
         # the frames: the reference BMP, and the width-4 fused frame
         rec["reference_image"] = hold_reference(f"car_boxed_1080p_{key}", aimg)
@@ -579,8 +660,7 @@ def main() -> int:
         if auto == "fused":
             rec["pass_based_vs_width4_fused"] = hold_frames(
                 f"{key}/pass_based_vs_width4_fused", aimg_pass, img)
-        if key == "w8":
-            w8_img = aimg
+        frames[key] = aimg
 
         # timing: every kernel of these tables, and render()
         timing[key] = time_kernels(A)
@@ -588,41 +668,146 @@ def main() -> int:
             e2e = time_ms(lambda: apipe.render(variant=variant))
             timing[key][f"render_{variant}_end_to_end"] = dict(
                 e2e, pixels=W * H, pixels_per_s=W * H / (e2e["median"] * 1e-3))
+        # bf16 boxes beside the f32 table of the same width: work and time
+        # ratios from the counting instances (recorded, not checked: looser
+        # boxes add work in aggregate, but a ray's visit order changes)
+        twin = F32_TWIN.get(key)
+        if twin:
+            tw = timing[twin]
+            rec["vs_f32_" + twin] = {k: ratios(t, tw[k]) for k, t in timing[key].items()
+                                     if k in ct.ARITIES}
         rec.update(max_abs_err=errs, launches=launches[key], timing=timing[key])
         emit(rec)
         del apipe, A, aimg, aimg_pass
 
-    # the command line renders the width-8 frame once
-    cli_bmp = os.path.join(out_dir, "cli_w8.bmp")
-    cli_json = os.path.join(out_dir, "cli_w8.json")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "parallel_ray_tracer_tpu_torch", "--scene", "car_boxed",
-         "--resolution", "1080p", "--heuristic", "6", "--bvh-width", "8",
-         "--warmup", "5", "--iterations", "30", "--output", cli_bmp,
-         "--metrics-json", cli_json],
-        capture_output=True, text=True, cwd=HERE, timeout=300,
-    )
-    cli_rec = {"phase": "cli", "rc": proc.returncode,
+    # ---- 9. the dragon: bench.py's primary rays/s scene --------------------
+    dragon = {}
+    dplain = {}
+    dimg = {}
+    for bf16 in (False, True):
+        tag = "dragon_bf16" if bf16 else "dragon"
+        t0 = time.perf_counter()
+        dcfg = RenderConfig(**DRAGON, bf16_bvh=bf16)
+        dpipe = pipeline.prepare(dcfg)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+        D = dpipe.tables
+        sfx = ",bf16" if bf16 else ""
+        check(tag, D.compressed == bf16 and D.arity == 4, "not the width-4 tables")
+        dkw = dict(leaf_size=D.leaf_size, stack_depth=D.stack_depth,
+                   compressed=D.compressed)
+        rec = {"phase": "dragon", "case": tag, "prepare_s": prep_s,
+               "bvh_build_ms": dpipe.build_ms,
+               "triangles": dpipe.scene.num_triangles, "cbox": list(D.cbox.shape),
+               "tri": list(D.tri.shape), "stack_need": D.stack_depth,
+               "stack_size": ct.STACK_SIZE[D.arity],
+               "table_bytes": {"cbox": nbytes(D.cbox), "cmeta": nbytes(D.cmeta),
+                               "tri": nbytes(D.tri), "attr": nbytes(D.attr)}}
+        do, dd = R._tiled_planes(dpipe.camera(), W, H, TR, TC, dpipe.device)
+        bo, bd = band(do, DRAGON_BAND), band(dd, DRAGON_BAND)
+        dn = do.x.numel()
+
+        # the primary pass over the frame's rays, and the fused render,
+        # each with its counts from 0
+        dhit, _ = on_path(f"{tag}/primary_closest_pass",
+                          lambda: ct.closest_tiles(D.cbox, D.cmeta, D.tri, do, dd, **dkw),
+                          {f"closest<4{sfx}>": 1})
+        dimg[tag], _ = on_path(f"{tag}/render_fused", dpipe.render,
+                               {f"frame<4{sfx}>": 1})
+
+        # the kernels against their plain versions on the band (the plain
+        # results read no node table, so one set serves both tables)
+        if "closest" not in dplain:
+            dplain["closest"], dplain["closest_ms"] = timed_once(
+                lambda: tp.closest_plain(D.tri, bo, bd, D.leaf_size))
+        rec["band"] = dict(cmp_hits(
+            f"{tag}/closest@{DRAGON_BAND}",
+            ct.closest_tiles(D.cbox, D.cmeta, D.tri, bo, bd, **dkw),
+            dplain["closest"], False), y0=DRAGON_BAND, plain_ms=dplain["closest_ms"])
+        if not bf16:
+            fp, fms = timed_once(lambda: ct.frame_plain(
+                D.tri, D.attr, D.lamb, bo, bd, bounces=dcfg.bounces,
+                leaf_size=D.leaf_size))
+            rec["frame_band"] = dict(cmp_frame(
+                f"{tag}/frame@{DRAGON_BAND}",
+                ct.frame_tiles(D.cbox, D.cmeta, D.tri, D.attr, D.lamb, bo, bd,
+                               bounces=dcfg.bounces, **dkw), fp),
+                y0=DRAGON_BAND, plain_ms=fms)
+            del fp
+            img_pass_d, _ = on_path(f"{tag}/render_pass_based",
+                                    lambda: dpipe.render(variant="pallas"),
+                                    {"closest_full<4>": dcfg.bounces,
+                                     "occluded<4>": dcfg.bounces * (D.lamb.shape[0] - 1)})
+            rec["fused_vs_pass"] = hold_frames(f"{tag}/fused_vs_pass", dimg[tag], img_pass_d)
+            del img_pass_d
+        check(tag, bool(torch.isfinite(dimg[tag]).all()), "non-finite pixels")
+        save_frame(f"{tag}_1080p", bmp_bytes(dimg[tag].cpu().numpy()))
+
+        # timing: the primary pass (bench.py's metric) and render()
+        t = time_ms(lambda: ct.closest_tiles(D.cbox, D.cmeta, D.tri, do, dd, **dkw))
+        counts = ct.closest_tiles(D.cbox, D.cmeta, D.tri, do, dd, counters=True,
+                                  **dkw)[1].cpu().tolist()
+        b = bound(counts, ct.COUNTS, nbytes(*do, *dd, D.cbox, D.cmeta, D.tri),
+                  3 * dn * 4)
+        box_b, meta_b = VISIT_BYTES[4, bf16]
+        rec["primary_pass"] = dict(
+            t, rays=dn, rays_per_s=dn / (t["median"] * 1e-3),
+            bound_rays_per_s=dn / (b["bound_ms"] * 1e-3),
+            hit_frac=(dhit.idx >= 0).float().mean().item(),
+            node_bytes_per_ray=b["inner_visits"] * (box_b + meta_b) / dn, **b)
+        e2e = time_ms(dpipe.render)
+        rec["render_fused_end_to_end"] = dict(
+            e2e, pixels=W * H, pixels_per_s=W * H / (e2e["median"] * 1e-3))
+        dragon[tag] = rec
+        emit(rec)
+        del dpipe, D, do, dd, bo, bd, dhit
+    dr = {"phase": "dragon_compare",
+          "bf16_vs_f32_fused": hold_frames("dragon/bf16_vs_f32_fused",
+                                           dimg["dragon_bf16"], dimg["dragon"])}
+    dr["bf16_vs_f32_primary"] = ratios(dragon["dragon_bf16"]["primary_pass"],
+                                       dragon["dragon"]["primary_pass"])
+    emit(dr)
+    del dimg, dplain
+
+    # ---- 10. the command line: the width-8 frame, the --bf16-bvh frame -----
+    def run_cli(name, flags, want):
+        cli_bmp = os.path.join(out_dir, f"{name}.bmp")
+        cli_json = os.path.join(out_dir, f"{name}.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "parallel_ray_tracer_tpu_torch", "--scene",
+             "car_boxed", "--resolution", "1080p", "--heuristic", "6", *flags,
+             "--warmup", "5", "--iterations", "30", "--output", cli_bmp,
+             "--metrics-json", cli_json],
+            capture_output=True, text=True, cwd=HERE, timeout=300,
+        )
+        rec = {"phase": "cli", "case": name, "flags": flags, "rc": proc.returncode,
                "seconds": time.perf_counter() - t0,
                "stdout_tail": proc.stdout[-1500:], "stderr_tail": proc.stderr[-1500:]}
-    check("cli", proc.returncode == 0, f"exit {proc.returncode}")
-    if proc.returncode == 0:
-        with open(cli_bmp, "rb") as f:
-            same = f.read() == bmp_bytes(w8_img.cpu().numpy())
-        check("cli", same, "its BMP is not the in-process width-8 frame")
-        with open(cli_json) as f:
-            metrics = json.load(f)
-        check("cli", metrics.get("iterations") == 30,
-              f"iterations {metrics.get('iterations')}")
-        cli_rec.update(bmp_equal=same, iterations=metrics.get("iterations"),
+        check(name, proc.returncode == 0, f"exit {proc.returncode}")
+        if proc.returncode == 0:
+            with open(cli_bmp, "rb") as f:
+                data = f.read()
+            os.remove(cli_bmp)
+            save_frame(name, data)
+            same = data == bmp_bytes(want.cpu().numpy())
+            check(name, same, "its BMP is not the in-process frame")
+            with open(cli_json) as f:
+                metrics = json.load(f)
+            check(name, metrics.get("iterations") == 30,
+                  f"iterations {metrics.get('iterations')}")
+            rec.update(bmp_equal=same, iterations=metrics.get("iterations"),
                        backend=metrics.get("backend"),
                        device_name=metrics.get("device_name"),
                        median_ms=metrics.get("median_ms"),
                        mean_ms=metrics.get("mean_ms"), ci99_ms=metrics.get("ci99_ms"))
-    emit(cli_rec)
+        emit(rec)
 
-    # ---- 9. the kernels line --------------------------------------------
+    run_cli("cli_w8", ["--bvh-width", "8"], frames["w8"])
+    run_cli("cli_bf16", ["--bf16-bvh"], frames["w4_bf16"])
+    del frames
+
+    # ---- 11. the kernels line --------------------------------------------
     kernels = []
     for name, key, kernel, line in KERNEL_ROWS:
         t = timing[key][kernel]
@@ -650,6 +835,12 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def ratios(a: dict, b: dict) -> dict:
+    """a / b for the work counts and the median time of two timing records."""
+    return {c: a[c] / b[c] if b[c] else None for c in
+            ("inner_visits", "box_tests", "leaf_visits", "tri_tests", "median")}
 
 
 def profile(fn, n: int = 5) -> dict:

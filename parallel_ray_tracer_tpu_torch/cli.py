@@ -12,11 +12,10 @@ iterations (gpu/include/options.cuh:25-26), per-frame times, then
 mean/median/stddev/99% CI/FPS (cpu/src/main.c:194-209), an optional BMP and
 a JSON metrics record.
 
-A flag whose path the port does not have yet (--no-bvh, --bf16-bvh,
---stream on, --devices N > 1, --checkpoint, --profile, --interpret,
---no-fast-light, --presplit, --no-reverse-shadows, --leaf-size 4,
---variant jax|bruteforce, and the procedural scenes) ends the run with the
-NotImplementedError message and exit code 2. --no-native, --mxu-leaf,
+A flag whose path the port does not have yet (--no-bvh, --stream on,
+--devices N > 1, --checkpoint, --profile, --interpret, --no-fast-light,
+--presplit, --no-reverse-shadows, --leaf-size 4, --variant jax|bruteforce)
+ends the run with the NotImplementedError message and exit code 2. --no-native, --mxu-leaf,
 --pop-width and --adaptive-pop are accepted and change nothing here (see
 config.py).
 """
@@ -80,7 +79,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-bvh-metrics", action="store_true",
                    help="BVH_METRICS=0: suppress the leaf statistics banner")
     p.add_argument("--bf16-bvh", action="store_true",
-                   help="bf16-compressed BVH boxes (not ported)")
+                   help="bf16-compressed BVH boxes (conservative rounding)")
     p.add_argument("--bvh-width", type=int, default=4, choices=(2, 4, 8),
                    help="traversal node arity (4 = grandchildren-packed rows)")
     p.add_argument("--pop-width", type=int, default=8, choices=(2, 4, 8),

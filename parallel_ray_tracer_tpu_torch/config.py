@@ -81,7 +81,9 @@ class RenderConfig:
     # pallas. The JAX package's "jax" and "bruteforce" variants are not
     # ported.
     variant: str = "auto"
-    bf16_bvh: bool = False           # bf16 boxes: not ported
+    # bf16 node boxes, rounded conservatively: pair rows at bvh_width 4, the
+    # raw bf16 binary table at 2, f32 at 8 (as the JAX prepare packs them).
+    bf16_bvh: bool = False
 
     # Ambient light (cpu/src/main.c:36).
     ambient: Tuple[float, float, float] = (0.5, 0.5, 0.5)
@@ -103,7 +105,8 @@ class RenderConfig:
     # the builder), pop_width and adaptive_pop (packet schedules; one
     # thread traces one ray here) and mxu_leaf (its leaf test is always
     # the FP32 one). num_devices != 1 (no sharding yet), presplit > 0 and
-    # stream="on" raise NotImplementedError.
+    # stream="on" (the streamed kernels) raise NotImplementedError; "auto"
+    # and "off" keep every scene resident, the dragon included.
     num_devices: int = 1
     use_native: bool = True
     # Node arity of the packed BVH: 2 (the binary tree), 4 or 8. Each has

@@ -14,11 +14,15 @@ import torch
 
 from .ops.pack import ARITY_OF_WIDTH, META_WIDTH, stack_need
 
+# 16-bit node tables hold bf16 bits: JAX's ml_dtypes bfloat16 array, or the
+# bits as uint16 / int16 (ops/pack.cbox_to_bf16).
+_BF16_DTYPES = ("bfloat16", "uint16", "int16")
+
 
 class SceneTables(NamedTuple):
     """Device-resident tables the traversal kernels read (ops/pack.py)."""
 
-    cbox: torch.Tensor      # (N, 16 | 32 | 64) f32
+    cbox: torch.Tensor      # (N, 16 | 32 | 64) f32, or (N, 16) bf16
     cmeta: torch.Tensor     # (N, 8 | 8 | 16) i32
     tri: torch.Tensor       # (G+1, 128) f32
     attr: torch.Tensor      # (G+1, 128) f32
@@ -26,21 +30,48 @@ class SceneTables(NamedTuple):
     leaf_size: int
     stack_depth: int        # entries one ray's traversal stack needs
     arity: int              # node arity: 2, 4 or 8, by the cbox row width
+    compressed: bool = False  # cbox rows are bf16 (min|max) pairs (arity 4, 8)
 
 
-def packed_from_numpy(cbox, cmeta, tri, attr, lamb, *, device, leaf_size: int = 8) -> SceneTables:
+def _upload_cbox(cbox, device, compressed: bool):
+    """cbox as a tensor: f32, or a 16-bit table kept as bf16 by a bit view.
+    Returns (tensor, arity)."""
+    cbox = np.asarray(cbox)
+    width = cbox.shape[1] if cbox.ndim == 2 else None
+    arity = ARITY_OF_WIDTH.get(width)
+    if cbox.dtype.itemsize == 2:
+        if cbox.dtype.name not in _BF16_DTYPES:
+            raise ValueError(f"cbox of dtype {cbox.dtype} is no bf16 table")
+        if arity != 2:
+            raise ValueError(f"a 16-bit cbox is the binary table (N, 16), got {cbox.shape}")
+        bits = np.ascontiguousarray(cbox).view(np.int16)
+        t = torch.tensor(bits, device=device).view(torch.bfloat16)
+    else:
+        t = torch.tensor(np.ascontiguousarray(cbox, np.float32), device=device)
+    if compressed and arity not in (4, 8):
+        raise ValueError("bf16 pair rows (compressed=True) need a node arity of 4 or 8")
+    return t, arity
+
+
+def packed_from_numpy(cbox, cmeta, tri, attr, lamb, *, device, leaf_size: int = 8,
+                      compressed: bool = False) -> SceneTables:
     """Upload packed numpy tables to `device` as contiguous tensors. The
-    node arity follows the cbox row width: 16 -> 2, 32 -> 4, 64 -> 8."""
-    cbox = np.ascontiguousarray(cbox, np.float32)
+    node arity follows the cbox row width: 16 -> 2, 32 -> 4, 64 -> 8.
+
+    compressed=True marks the rows of a width-4 or width-8 table as bf16
+    (min|max) pairs (ops/pack.pack_box_bf16_pairs). A 16-bit cbox is a
+    binary bf16 table and stays 16-bit (torch.bfloat16); it is never
+    widened to f32. The bad combinations raise ValueError, as JAX asserts
+    them (pallas_trace.py:3069, 3173, 3283)."""
     cmeta = np.ascontiguousarray(cmeta, np.int32)
     tri = np.ascontiguousarray(tri, np.float32)
     attr = np.ascontiguousarray(attr, np.float32)
     lamb = np.ascontiguousarray(lamb, np.float32)
-    arity = ARITY_OF_WIDTH.get(cbox.shape[1]) if cbox.ndim == 2 else None
-    if arity is None or cmeta.shape != (cbox.shape[0], META_WIDTH[arity]):
+    cbox_t, arity = _upload_cbox(cbox, device, compressed)
+    if arity is None or cmeta.shape != (cbox_t.shape[0], META_WIDTH[arity]):
         raise ValueError(
             "expected node tables (N, 16) / (N, 8), (N, 32) / (N, 8) or "
-            f"(N, 64) / (N, 16), got {cbox.shape} / {cmeta.shape}"
+            f"(N, 64) / (N, 16), got {tuple(cbox_t.shape)} / {cmeta.shape}"
         )
     if tri.ndim != 2 or tri.shape[1] != 128 or attr.shape != tri.shape:
         raise ValueError(f"expected (G+1, 128) rows, got {tri.shape} / {attr.shape}")
@@ -51,7 +82,8 @@ def packed_from_numpy(cbox, cmeta, tri, attr, lamb, *, device, leaf_size: int = 
         return torch.tensor(a, device=device)  # copies: the input may be read-only
 
     return SceneTables(
-        cbox=up(cbox), cmeta=up(cmeta), tri=up(tri), attr=up(attr),
+        cbox=cbox_t, cmeta=up(cmeta), tri=up(tri), attr=up(attr),
         lamb=up(lamb), leaf_size=int(leaf_size),
         stack_depth=stack_need(cmeta, arity), arity=arity,
+        compressed=bool(compressed),
     )

@@ -1,18 +1,24 @@
 // BVH traversal kernels for Hopper (sm_90a): closest hit, closest hit with
 // attributes, any hit, and the fused whole-frame bounce loop, each for node
-// arity A = 2, 4 and 8 (the frame for A = 4 and 8 only, as in JAX).
+// arity A = 2, 4 and 8 (the frame for A = 4 and 8 only, as in JAX), and for
+// the node-box format F of the table (RtBox below).
 //
 // They replace the Pallas TPU kernels of parallel_ray_tracer_tpu/ops/
 // pallas_trace.py and compute the same functions:
-//   closest_kernel<A, false>  <- _closest_dual_kernel(n_attr=0) :1774 (A 4, 8),
-//                                _closest4_kernel :825 (A 4, 8),
-//                                _closest_kernel :610 (A 2)
-//   closest_kernel<A, true>   <- _closest_dual_kernel(n_attr=12) :1774 (A 4, 8),
-//                                _closest_attr_kernel :2437 (A 2, 4, 8)
-//   occluded_kernel<A>        <- _occluded_dual_kernel :1835 (A 4, 8),
-//                                _occluded4_kernel :886 (A 4, 8),
-//                                _occluded_kernel :676 (A 2)
-//   frame_kernel<A>           <- _frame_fused_kernel :2536 (A 4, 8)
+//   closest_kernel<A, F, false>  <- _closest_dual_kernel(n_attr=0) :1774 (A 4, 8),
+//                                   _closest4_kernel :825 (A 4, 8),
+//                                   _closest_kernel :610 (A 2)
+//   closest_kernel<A, F, true>   <- _closest_dual_kernel(n_attr=12) :1774 (A 4, 8),
+//                                   _closest_attr_kernel :2437 (A 2, 4, 8)
+//   occluded_kernel<A, F>        <- _occluded_dual_kernel :1835 (A 4, 8),
+//                                   _occluded4_kernel :886 (A 4, 8),
+//                                   _occluded_kernel :676 (A 2)
+//   frame_kernel<A, F>           <- _frame_fused_kernel :2536 (A 4, 8)
+// with F = RT_F32 for f32 tables, RT_PAIRS for those kernels' compressed=True
+// instances at A 4 and 8 (_load_node_row :740-758, _child_extract :761-764,
+// rows of pack_box_bf16_pairs :438), and RT_BF16 for _closest_kernel,
+// _closest_attr_kernel and _occluded_kernel on a bf16 binary table
+// (cbox_to_bf16 :487, read with .astype(f32)).
 // The TPU kernels trace a 1024-ray packet with one scalar stack, popping one
 // node (single pop) or two (dual pop) per step; the schedule changes the
 // visit order, not the result. Here one thread traces one ray with a
@@ -22,15 +28,27 @@
 // What bounds them on this card: the traversal is a data-dependent loop of
 // dependent loads (node row -> child boxes -> pushed entry -> next row), so
 // latency of L1/L2 reads and warp divergence bound it, far below both the
-// FP32 rate and the memory rate. The scene tables (about 9 MB for car_boxed)
-// sit in the 50 MB L2. What the design does about it: node rows are read as
-// float4 loads through the read-only path, three per pair of children (the
-// 8-wide row is not held in registers whole), leaf triangles as 3 float4
+// FP32 rate and the memory rate. The scene tables (about 9 MB for car_boxed,
+// 31 MB of tri + attr for the dragon) sit in the 50 MB L2. What the design
+// does about it: node rows are read as 16-byte loads through the read-only
+// path (an f32 row three per pair of children, so the 8-wide row is not held
+// in registers whole; a bf16 row half of that), leaf triangles as 3 float4
 // loads each; children are sorted near-first and each stack entry keeps its
 // box entry distance, so a closest-hit pop whose box lies beyond the current
 // hit is dropped without a load; an any-hit ray stops at its first blocker;
 // dead rays do not traverse. Rays are in tile-major order, so a warp holds
 // 32 neighbouring pixels and its threads walk similar paths.
+//
+// bf16 boxes (RT_PAIRS, RT_BF16) are rounded conservatively when packed: min
+// planes down, max planes up, so each box encloses its f32 box. Widening a
+// bf16 value to f32 is exact (a 16-bit shift or mask), and the slab test is
+// then the same arithmetic on a wider box. Culling stays exact: a child is
+// dropped only if its wider box is missed, which the f32 box then is too.
+// The drop of a pop whose entry distance is at or beyond t stays exact as
+// well: rounding is monotone, so a wider box's entry distance is <= that of
+// the f32 box, which is <= the t of any triangle inside it. The looser boxes
+// can only add visits; the hits are the f32 tables' hits, up to the order in
+// which equal-t triangles are met.
 //
 // Leaves hold L = 8 triangles (one 128-float row), the only leaf size the
 // port prepares; shadow rays are always traced from the light (the
@@ -45,9 +63,10 @@
 // Numerics: built with -fmad=false and without fast math, so each product
 // and division rounds as in the JAX kernels and the plain PyTorch versions,
 // and a triangle test gives the same bits in all three. Absent BVH4 / BVH8
-// children are NaN boxes; they are skipped by the validity flags in cmeta,
-// never by NaN arithmetic (fminf/fmaxf drop a NaN operand, jnp.minimum
-// keeps it). The binary table has no flags: both children always exist.
+// children are NaN boxes (in every format); they are skipped by the validity
+// flags in cmeta, never by NaN arithmetic (fminf/fmaxf drop a NaN operand,
+// jnp.minimum keeps it). The binary table has no flags: both children
+// always exist.
 
 #pragma once
 
@@ -65,6 +84,13 @@ static constexpr float RT_EPS = 1e-3f;
 static constexpr float RT_TMAX = 3.4028235e38f;
 static constexpr float RT_INV_DIR_MAX = 1e30f;
 
+// Node-box format of the cbox table (ops/pack.py):
+//   RT_F32:   f32 rows, child k's [min.xyz, max.xyz] at floats [6k, 6k+6);
+//   RT_PAIRS: f32-wide rows (A 4, 8) whose 32-bit lane 3k + c holds child
+//             k's coordinate c as (bf16 min << 16) | bf16 max;
+//   RT_BF16:  (N, 16) bf16 rows (A 2) laid out as RT_F32's binary rows.
+enum RtBox { RT_F32 = 0, RT_PAIRS = 1, RT_BF16 = 2 };
+
 // Node table layout per arity (ops/pack.py): floats per cbox row, ints per
 // cmeta row, and the per-ray stack entries. A visit grows the stack by at
 // most A - 1, so the default bvh_max_depth = 32 needs 34 / 50 / 79 entries
@@ -76,7 +102,7 @@ template <> struct RtArity<4> { enum { BOX = 32, META = 8, STACK = 64 }; };
 template <> struct RtArity<8> { enum { BOX = 64, META = 16, STACK = 96 }; };
 
 struct RtScene {
-  const float4* cbox;   // (N+1) rows of BOX floats: child k = floats [6k, 6k+6)
+  const uint4* cbox;    // node rows in format F (RtBox), 16 bytes per load
   const int4* cmeta;    // (N+1) rows of META ints: encodings, validity flags
   const float4* tri;    // (G+1) rows of 32 float4
   const float* attr;    // (G+1) rows of 128 floats, or null
@@ -187,14 +213,67 @@ RT_FN void rt_sort(float (&ms)[A], int (&es)[A]) {
   }
 }
 
+// A bf16 value widened to f32, exactly: from the high half of a 32-bit lane,
+// and from its low half.
+RT_FN float rt_bf_hi(unsigned b) { return __uint_as_float(b & 0xFFFF0000u); }
+RT_FN float rt_bf_lo(unsigned b) { return __uint_as_float(b << 16); }
+
+// The boxes of children 2m and 2m+1 (f32: float4s 3m..3m+2 of the row;
+// bf16: the first 12 values of the row, m = 0 only).
+template <RtBox F>
+RT_FN void rt_box_pair(const uint4* row, int m, float3 (&lo)[2], float3 (&hi)[2]) {
+  if constexpr (F == RT_BF16) {
+    uint4 a = __ldg(row);      // values 0..7: lo0.xyz, hi0.xyz, lo1.xy
+    uint4 b = __ldg(row + 1);  // values 8..15: lo1.z, hi1.xyz, zeros
+    lo[0] = make_float3(rt_bf_lo(a.x), rt_bf_hi(a.x), rt_bf_lo(a.y));
+    hi[0] = make_float3(rt_bf_hi(a.y), rt_bf_lo(a.z), rt_bf_hi(a.z));
+    lo[1] = make_float3(rt_bf_lo(a.w), rt_bf_hi(a.w), rt_bf_lo(b.x));
+    hi[1] = make_float3(rt_bf_hi(b.x), rt_bf_lo(b.y), rt_bf_hi(b.y));
+  } else {
+    const float4* f = reinterpret_cast<const float4*>(row) + 3 * m;
+    float4 p = __ldg(f);
+    float4 q = __ldg(f + 1);
+    float4 u = __ldg(f + 2);
+    lo[0] = make_float3(p.x, p.y, p.z);
+    hi[0] = make_float3(p.w, q.x, q.y);
+    lo[1] = make_float3(q.z, q.w, u.x);
+    hi[1] = make_float3(u.y, u.z, u.w);
+  }
+}
+
+// The boxes of children 4m..4m+3 of a RT_PAIRS row: lanes 12m..12m+11,
+// the 32-bit words of uint4s 3m..3m+2.
+RT_FN void rt_box_quad(const uint4* row, int m, float3 (&lo)[4], float3 (&hi)[4]) {
+  uint4 p = __ldg(row + 3 * m);
+  uint4 q = __ldg(row + 3 * m + 1);
+  uint4 u = __ldg(row + 3 * m + 2);
+  const unsigned w[12] = {p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w,
+                          u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    lo[j] = make_float3(rt_bf_hi(w[3 * j]), rt_bf_hi(w[3 * j + 1]),
+                        rt_bf_hi(w[3 * j + 2]));
+    hi[j] = make_float3(rt_bf_lo(w[3 * j]), rt_bf_lo(w[3 * j + 1]),
+                        rt_bf_lo(w[3 * j + 2]));
+  }
+}
+
+// uint4s per cbox row: the f32 width (RT_PAIRS keeps it), or 32 bytes.
+template <int A, RtBox F>
+struct RtRow {
+  enum { U4 = F == RT_BF16 ? 2 : RtArity<A>::BOX / 4 };
+};
+
 // Visit node row e: test its valid children against t_cut, sort them
 // near-first and push far-to-near, so the nearest child pops first. Each
-// entry keeps its entry distance. Children 2m and 2m+1 share float4s
-// 3m..3m+2 of the row, so the row is read pair by pair.
-template <int A, class C>
+// entry keeps its entry distance. The row is read in groups of children
+// that share 16-byte loads: pairs (RT_F32, RT_BF16) or quads (RT_PAIRS).
+template <int A, RtBox F, class C>
 RT_FN void rt_visit(const RtScene& s, int e, const RtRay& r, float t_cut,
                     int* stk, float* dst, int& sp, C& cnt) {
-  const float4* row = s.cbox + (size_t)e * (RtArity<A>::BOX / 4);
+  static_assert(F == RT_F32 || (F == RT_PAIRS) == (A >= 4),
+                "bf16 pairs at arity 4 and 8, raw bf16 at arity 2");
+  const uint4* row = s.cbox + (size_t)e * RtRow<A, F>::U4;
   const int4* meta = s.cmeta + (size_t)e * (RtArity<A>::META / 4);
   int es[A];
   bool ok[A];
@@ -216,18 +295,21 @@ RT_FN void rt_visit(const RtScene& s, int e, const RtRay& r, float t_cut,
   }
   float ms[A];
   cnt.add(RT_C_INNER);
+  constexpr int G = F == RT_PAIRS ? 4 : 2;  // children per group of loads
 #pragma unroll
-  for (int m = 0; m < A / 2; ++m) {
-    float4 p = __ldg(row + 3 * m);
-    float4 q = __ldg(row + 3 * m + 1);
-    float4 u = __ldg(row + 3 * m + 2);
-    cnt.add(RT_C_BOX, (ok[2 * m] ? 1u : 0u) + (ok[2 * m + 1] ? 1u : 0u));
-    ms[2 * m] = ok[2 * m] ? rt_slab(make_float3(p.x, p.y, p.z),
-                                    make_float3(p.w, q.x, q.y), r, t_cut)
-                          : RT_TMAX;
-    ms[2 * m + 1] = ok[2 * m + 1] ? rt_slab(make_float3(q.z, q.w, u.x),
-                                            make_float3(u.y, u.z, u.w), r, t_cut)
-                                  : RT_TMAX;
+  for (int m = 0; m < A / G; ++m) {
+    float3 lo[G], hi[G];
+    if constexpr (F == RT_PAIRS) {
+      rt_box_quad(row, m, lo, hi);
+    } else {
+      rt_box_pair<F>(row, m, lo, hi);
+    }
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const int k = G * m + j;
+      cnt.add(RT_C_BOX, ok[k] ? 1u : 0u);
+      ms[k] = ok[k] ? rt_slab(lo[j], hi[j], r, t_cut) : RT_TMAX;
+    }
   }
   rt_sort<A>(ms, es);
 #pragma unroll
@@ -242,7 +324,7 @@ RT_FN void rt_visit(const RtScene& s, int e, const RtRay& r, float t_cut,
 
 // Closest hit of one ray: returns the slot g*RT_LEAF + j (or -1) and sets
 // t and neg (det < 0 of the winner). Strict < keeps the first of equal hits.
-template <int A, class C>
+template <int A, RtBox F, class C>
 RT_FN int rt_closest(const RtScene& s, const RtRay& r, float& t, bool& neg,
                      C& cnt) {
   int stk[RtArity<A>::STACK];
@@ -274,7 +356,7 @@ RT_FN int rt_closest(const RtScene& s, const RtRay& r, float& t, bool& neg,
         }
       }
     } else {
-      rt_visit<A>(s, e, r, t, stk, dst, sp, cnt);
+      rt_visit<A, F>(s, e, r, t, stk, dst, sp, cnt);
     }
   }
   return idx;
@@ -282,7 +364,7 @@ RT_FN int rt_closest(const RtScene& s, const RtRay& r, float& t, bool& neg,
 
 // Any hit of one ray with t*t < max_dist2 (pallas_trace._run_occluded_dual);
 // boxes are cut at sqrt(max_dist2), the ray stops at its first blocker.
-template <int A, class C>
+template <int A, RtBox F, class C>
 RT_FN bool rt_occluded(const RtScene& s, const RtRay& r, float max_dist2,
                        C& cnt) {
   int stk[RtArity<A>::STACK];
@@ -307,7 +389,7 @@ RT_FN bool rt_occluded(const RtScene& s, const RtRay& r, float max_dist2,
         if (tj < RT_TMAX && tj * tj < max_dist2) return true;
       }
     } else {
-      rt_visit<A>(s, e, r, t_limit, stk, dst, sp, cnt);
+      rt_visit<A, F>(s, e, r, t_limit, stk, dst, sp, cnt);
     }
   }
   return false;
@@ -329,7 +411,7 @@ RT_FN void rt_slot_attrs(const RtScene& s, int idx, float* av) {
 // The whole Whitted bounce loop of one ray (pallas_trace._frame_fused_kernel,
 // without spheres). lamb: nl light rows (pos.xyz, kl.rgb, 0, 0) + ambient.
 // Shadow rays run from the light to the hit point, window (dist - EPS)^2.
-template <int A, class C>
+template <int A, RtBox F, class C>
 RT_FN float3 rt_frame_ray(const RtScene& s, const float* lamb, int nl,
                           float3 o, float3 d, int bounces, C& cnt) {
   const float EPS2 = (float)(1e-3 * 1e-3);
@@ -340,7 +422,7 @@ RT_FN float3 rt_frame_ray(const RtScene& s, const float* lamb, int nl,
     float t = RT_TMAX;
     bool neg = false;
     int idx = -1;
-    if (!rt_dead(d)) idx = rt_closest<A>(s, rt_ray(o, d), t, neg, cnt);
+    if (!rt_dead(d)) idx = rt_closest<A, F>(s, rt_ray(o, d), t, neg, cnt);
     if (!(t < RT_TMAX)) {  // miss: multiplier * ambient, the ray ends
       fx = fx + mx * ax;
       fy = fy + my * ay;
@@ -370,7 +452,7 @@ RT_FN float3 rt_frame_ray(const RtScene& s, const float* lamb, int nl,
       bool blocked = false;
       if (!backface) {
         float q = fmaxf(mag2 * imag - RT_EPS, 0.f);
-        blocked = rt_occluded<A>(
+        blocked = rt_occluded<A, F>(
             s, rt_ray(make_float3(lr[0], lr[1], lr[2]), make_float3(-lx, -ly, -lz)),
             q * q, cnt);
       }
@@ -420,7 +502,7 @@ RT_FN void rt_load(const RtRays& p, int i, float3& o, float3& d) {
 
 // One thread per ray; the grid covers n rays exactly once. Threads past n
 // stay for the warp-wide count reduction.
-template <int A, bool FULL, bool COUNT>
+template <int A, RtBox F, bool FULL, bool COUNT>
 __global__ void __launch_bounds__(RT_BLOCK)
 closest_kernel(RtRays rays, RtScene s, int n, float* t_out, int* idx_out,
                int* nd_out, float* attr_out, unsigned long long* counts) {
@@ -432,7 +514,7 @@ closest_kernel(RtRays rays, RtScene s, int n, float* t_out, int* idx_out,
     float t = RT_TMAX;
     bool neg = false;
     int idx = -1;
-    if (!rt_dead(d)) idx = rt_closest<A>(s, rt_ray(o, d), t, neg, cnt);
+    if (!rt_dead(d)) idx = rt_closest<A, F>(s, rt_ray(o, d), t, neg, cnt);
     t_out[i] = t;
     idx_out[i] = idx;
     nd_out[i] = neg ? 1 : 0;
@@ -451,7 +533,7 @@ closest_kernel(RtRays rays, RtScene s, int n, float* t_out, int* idx_out,
   rt_count(counts, cnt);
 }
 
-template <int A, bool COUNT>
+template <int A, RtBox F, bool COUNT>
 __global__ void __launch_bounds__(RT_BLOCK)
 occluded_kernel(RtRays rays, const float* max_dist2, RtScene s, int n,
                 int* blocked_out, unsigned long long* counts) {
@@ -461,14 +543,14 @@ occluded_kernel(RtRays rays, const float* max_dist2, RtScene s, int n,
     float3 o, d;
     rt_load(rays, i, o, d);
     bool blocked = false;
-    if (!rt_dead(d)) blocked = rt_occluded<A>(s, rt_ray(o, d), max_dist2[i], cnt);
+    if (!rt_dead(d)) blocked = rt_occluded<A, F>(s, rt_ray(o, d), max_dist2[i], cnt);
     blocked_out[i] = blocked ? 1 : 0;
   }
   rt_count(counts, cnt);
 }
 
 // The light table is copied to shared memory once per block.
-template <int A, bool COUNT>
+template <int A, RtBox F, bool COUNT>
 __global__ void __launch_bounds__(RT_BLOCK)
 frame_kernel(RtRays rays, RtScene s, const float* lamb, int nl, int n,
              int bounces, float* col_out, unsigned long long* counts) {
@@ -481,7 +563,7 @@ frame_kernel(RtRays rays, RtScene s, const float* lamb, int nl, int n,
   if (i < n) {
     float3 o, d;
     rt_load(rays, i, o, d);
-    float3 c = rt_frame_ray<A>(s, lamb_s, nl, o, d, bounces, cnt);
+    float3 c = rt_frame_ray<A, F>(s, lamb_s, nl, o, d, bounces, cnt);
     col_out[i] = c.x;
     col_out[(size_t)n + i] = c.y;
     col_out[2 * (size_t)n + i] = c.z;
@@ -489,12 +571,13 @@ frame_kernel(RtRays rays, RtScene s, const float* lamb, int nl, int n,
   rt_count(counts, cnt);
 }
 
-// Host launchers, one set per arity: defined in trace_launch.cuh and
-// instantiated in trace_a2.cu, trace_a4.cu and trace_a8.cu, which nvcc
+// Host launchers, one set per arity and box format: defined in
+// trace_launch.cuh and instantiated in trace_a{2,4,8}.cu (RT_F32),
+// trace_a{4,8}p.cu (RT_PAIRS) and trace_a2h.cu (RT_BF16), which nvcc
 // compiles in parallel. Each launches one kernel on stream st (the counting
 // instance when counts is non-null), does not synchronise, and returns
 // cudaGetLastError() after the launch.
-template <int A>
+template <int A, RtBox F>
 struct RtLaunch {
   static int closest(const RtRays& rays, const RtScene& s, int n, float* t,
                      int* idx, int* nd, float* attr_out,
@@ -504,7 +587,7 @@ struct RtLaunch {
                       unsigned long long* counts, cudaStream_t st);
 };
 
-template <int A>
+template <int A, RtBox F>
 struct RtFrameLaunch {
   static int frame(const RtRays& rays, const RtScene& s, const float* lamb,
                    int num_lights, int n, int bounces, float* col,

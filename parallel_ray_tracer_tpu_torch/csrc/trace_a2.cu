@@ -1,6 +1,5 @@
-// Arity-2 instances of the traversal kernels (csrc/trace.cuh). There is no
-// fused frame at arity 2: the JAX package has none either.
+// Arity-2 instances of the traversal kernels (csrc/trace.cuh), f32 boxes.
 
 #include "trace_launch.cuh"
 
-template struct RtLaunch<2>;
+template struct RtLaunch<2, RT_F32>;

@@ -1,6 +1,6 @@
-// Arity-4 instances of the traversal kernels (csrc/trace.cuh).
+// Arity-4 instances of the traversal kernels (csrc/trace.cuh), f32 boxes.
 
 #include "trace_launch.cuh"
 
-template struct RtLaunch<4>;
-template struct RtFrameLaunch<4>;
+template struct RtLaunch<4, RT_F32>;
+template struct RtFrameLaunch<4, RT_F32>;

@@ -1,6 +1,6 @@
-// Arity-8 instances of the traversal kernels (csrc/trace.cuh).
+// Arity-8 instances of the traversal kernels (csrc/trace.cuh), f32 boxes.
 
 #include "trace_launch.cuh"
 
-template struct RtLaunch<8>;
-template struct RtFrameLaunch<8>;
+template struct RtLaunch<8, RT_F32>;
+template struct RtFrameLaunch<8, RT_F32>;

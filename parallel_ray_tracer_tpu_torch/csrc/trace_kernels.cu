@@ -3,9 +3,11 @@
 //
 // Each function launches one kernel on the given stream, does not
 // synchronise and allocates nothing: the Python wrapper allocates the
-// outputs. `arity` (2, 4 or 8; 4 or 8 for the frame) picks the instance for
-// the node table's layout. It returns cudaGetLastError() after the launch
-// (0 on success), or cudaErrorInvalidValue for an arity without instances.
+// outputs. `arity` (2, 4 or 8; 4 or 8 for the frame) and `box` (RtBox:
+// 0 f32, 1 bf16 pairs at arity 4 and 8, 2 raw bf16 at arity 2) pick the
+// instance for the node table's layout. It returns cudaGetLastError() after
+// the launch (0 on success), or cudaErrorInvalidValue for an arity and
+// format without instances.
 // Ray planes are n floats each; attr_out / col_out hold 12 / 3 planes of n.
 // With counts non-null the counting instance runs and adds RT_NCOUNTS
 // sums (trace.cuh) into counts; with counts null the timed instance runs.
@@ -20,9 +22,9 @@ RtRays make_rays(const float* ox, const float* oy, const float* oz,
   return r;
 }
 
-RtScene make_scene(const float* cbox, const int* cmeta, const float* tri,
+RtScene make_scene(const void* cbox, const int* cmeta, const float* tri,
                    const float* attr) {
-  RtScene s = {reinterpret_cast<const float4*>(cbox),
+  RtScene s = {reinterpret_cast<const uint4*>(cbox),
                reinterpret_cast<const int4*>(cmeta),
                reinterpret_cast<const float4*>(tri), attr};
   return s;
@@ -30,58 +32,74 @@ RtScene make_scene(const float* cbox, const int* cmeta, const float* tri,
 
 const int kNoInstance = (int)cudaErrorInvalidValue;
 
+// The instance key of (arity, box format).
+constexpr int key(int arity, int box) { return 16 * box + arity; }
+
 }  // namespace
 
 extern "C" {
 
 int rt_closest(const float* ox, const float* oy, const float* oz,
                const float* dx, const float* dy, const float* dz,
-               const float* cbox, const int* cmeta, const float* tri,
-               const float* attr, int arity, int n, float* t, int* idx,
-               int* nd, float* attr_out, unsigned long long* counts,
-               void* stream) {
+               const void* cbox, const int* cmeta, const float* tri,
+               const float* attr, int arity, int box, int n, float* t,
+               int* idx, int* nd, float* attr_out,
+               unsigned long long* counts, void* stream) {
   RtRays rays = make_rays(ox, oy, oz, dx, dy, dz);
   RtScene s = make_scene(cbox, cmeta, tri, attr);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (arity) {
-    case 2: return RtLaunch<2>::closest(rays, s, n, t, idx, nd, attr_out, counts, st);
-    case 4: return RtLaunch<4>::closest(rays, s, n, t, idx, nd, attr_out, counts, st);
-    case 8: return RtLaunch<8>::closest(rays, s, n, t, idx, nd, attr_out, counts, st);
+#define RT_CLOSEST(A, F) RtLaunch<A, F>::closest(rays, s, n, t, idx, nd, attr_out, counts, st)
+  switch (key(arity, box)) {
+    case key(2, RT_F32): return RT_CLOSEST(2, RT_F32);
+    case key(4, RT_F32): return RT_CLOSEST(4, RT_F32);
+    case key(8, RT_F32): return RT_CLOSEST(8, RT_F32);
+    case key(4, RT_PAIRS): return RT_CLOSEST(4, RT_PAIRS);
+    case key(8, RT_PAIRS): return RT_CLOSEST(8, RT_PAIRS);
+    case key(2, RT_BF16): return RT_CLOSEST(2, RT_BF16);
   }
+#undef RT_CLOSEST
   return kNoInstance;
 }
 
 int rt_occluded(const float* ox, const float* oy, const float* oz,
                 const float* dx, const float* dy, const float* dz,
-                const float* max_dist2, const float* cbox, const int* cmeta,
-                const float* tri, int arity, int n, int* blocked,
+                const float* max_dist2, const void* cbox, const int* cmeta,
+                const float* tri, int arity, int box, int n, int* blocked,
                 unsigned long long* counts, void* stream) {
   RtRays rays = make_rays(ox, oy, oz, dx, dy, dz);
   RtScene s = make_scene(cbox, cmeta, tri, nullptr);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (arity) {
-    case 2: return RtLaunch<2>::occluded(rays, max_dist2, s, n, blocked, counts, st);
-    case 4: return RtLaunch<4>::occluded(rays, max_dist2, s, n, blocked, counts, st);
-    case 8: return RtLaunch<8>::occluded(rays, max_dist2, s, n, blocked, counts, st);
+#define RT_OCCLUDED(A, F) RtLaunch<A, F>::occluded(rays, max_dist2, s, n, blocked, counts, st)
+  switch (key(arity, box)) {
+    case key(2, RT_F32): return RT_OCCLUDED(2, RT_F32);
+    case key(4, RT_F32): return RT_OCCLUDED(4, RT_F32);
+    case key(8, RT_F32): return RT_OCCLUDED(8, RT_F32);
+    case key(4, RT_PAIRS): return RT_OCCLUDED(4, RT_PAIRS);
+    case key(8, RT_PAIRS): return RT_OCCLUDED(8, RT_PAIRS);
+    case key(2, RT_BF16): return RT_OCCLUDED(2, RT_BF16);
   }
+#undef RT_OCCLUDED
   return kNoInstance;
 }
 
 int rt_frame(const float* ox, const float* oy, const float* oz,
              const float* dx, const float* dy, const float* dz,
-             const float* cbox, const int* cmeta, const float* tri,
+             const void* cbox, const int* cmeta, const float* tri,
              const float* attr, const float* lamb, int num_lights, int arity,
-             int n, int bounces, float* col, unsigned long long* counts,
-             void* stream) {
+             int box, int n, int bounces, float* col,
+             unsigned long long* counts, void* stream) {
   RtRays rays = make_rays(ox, oy, oz, dx, dy, dz);
   RtScene s = make_scene(cbox, cmeta, tri, attr);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (arity) {
-    case 4:
-      return RtFrameLaunch<4>::frame(rays, s, lamb, num_lights, n, bounces, col, counts, st);
-    case 8:
-      return RtFrameLaunch<8>::frame(rays, s, lamb, num_lights, n, bounces, col, counts, st);
+#define RT_FRAME(A, F) \
+  RtFrameLaunch<A, F>::frame(rays, s, lamb, num_lights, n, bounces, col, counts, st)
+  switch (key(arity, box)) {
+    case key(4, RT_F32): return RT_FRAME(4, RT_F32);
+    case key(8, RT_F32): return RT_FRAME(8, RT_F32);
+    case key(4, RT_PAIRS): return RT_FRAME(4, RT_PAIRS);
+    case key(8, RT_PAIRS): return RT_FRAME(8, RT_PAIRS);
   }
+#undef RT_FRAME
   return kNoInstance;
 }
 

@@ -1,26 +1,36 @@
 """Port of the device half of parallel_ray_tracer_tpu/ops/pallas_trace.py: the
 wrappers of the CUDA traversal kernels (csrc/trace.cuh), at node arity 2, 4
-and 8.
+and 8, on f32 or bf16 node boxes.
 
-| wrapper              | kernel                     | replaces (pallas_trace.py)                                                  |
-| -------------------- | -------------------------- | --------------------------------------------------------------------------- |
-| `closest_tiles`      | `closest_kernel<A, false>` | `_closest_dual_kernel(n_attr=0)` :1774, `_closest4_kernel` :825, `_closest_kernel` :610 |
-| `closest_tiles_full` | `closest_kernel<A, true>`  | `_closest_dual_kernel(n_attr=12)` :1774, `_closest_attr_kernel` :2437       |
-| `occluded_tiles`     | `occluded_kernel<A>`       | `_occluded_dual_kernel` :1835, `_occluded4_kernel` :886, `_occluded_kernel` :676 |
-| `frame_tiles`        | `frame_kernel<A>`, A 4, 8  | `_frame_fused_kernel` :2536                                                 |
+| wrapper              | kernel                        | replaces (pallas_trace.py)                                                  |
+| -------------------- | ----------------------------- | --------------------------------------------------------------------------- |
+| `closest_tiles`      | `closest_kernel<A, F, false>` | `_closest_dual_kernel(n_attr=0)` :1774, `_closest4_kernel` :825, `_closest_kernel` :610 |
+| `closest_tiles_full` | `closest_kernel<A, F, true>`  | `_closest_dual_kernel(n_attr=12)` :1774, `_closest_attr_kernel` :2437       |
+| `occluded_tiles`     | `occluded_kernel<A, F>`       | `_occluded_dual_kernel` :1835, `_occluded4_kernel` :886, `_occluded_kernel` :676 |
+| `frame_tiles`        | `frame_kernel<A, F>`, A 4, 8  | `_frame_fused_kernel` :2536                                                 |
 
 The arity A comes from the node table (cbox row width 16, 32 or 64, as
-pallas_trace.py:3068). Rays come as (rows, 128) f32 planes in the tile-major
+pallas_trace.py:3068), the box format F from its dtype and `compressed`:
+  - f32 cbox: RT_F32;
+  - f32 cbox with compressed=True, A 4 or 8: RT_PAIRS, the bf16 (min|max)
+    pair rows of pack_box_bf16_pairs (the kernels' compressed=True
+    instances); compressed=True at A 2 raises ValueError, as JAX asserts;
+  - torch.bfloat16 cbox (A 2 only): RT_BF16, the raw bf16 binary table of
+    cbox_to_bf16, which JAX's binary kernels read with .astype(f32).
+Rays come as (rows, 128) f32 planes in the tile-major
 order of ops/render.generate_rays_tiled. The signatures are the JAX ones
 without the TPU schedule knobs (dual, npop, adaptive, smem_meta, stream,
 sort, cmat): one thread traces one ray, so none of them applies, and the
 JAX single-pop and dual-pop kernels of one arity map to the same instance.
 
 A tensor on the CPU runs the kernel's plain version (ops/trace_plain.py, and
-ops/shade.trace_rays for the frame). A CUDA tensor launches the kernel, or
-raises: there is no fallback. Each wrapper checks device, dtype, shape and
-contiguity, counts its launches in `LAUNCHES` by kernel and arity (keys
-such as "closest_full<8>"), and raises if the launch reported an error.
+ops/shade.trace_rays for the frame); the plain versions read no node table,
+so they are the oracle for every box format. A CUDA tensor launches the
+kernel, or raises: there is no fallback. Each wrapper checks device, dtype,
+shape and contiguity, counts its launches in `LAUNCHES` by kernel, arity
+and format (keys such as "closest_full<8>", or "frame<8,bf16>" and
+"occluded<2,bf16>" for the bf16 instances), and raises if the launch
+reported an error.
 
 The kernels hold L = 8 triangles per leaf row and trace shadow rays from
 the light: `leaf_size` other than 8 and `reverse_shadows=False` raise
@@ -53,10 +63,14 @@ LEAF_SIZE = 8            # triangles per leaf row, RT_LEAF in csrc/trace.cuh
 # slots, traversals.
 COUNTS = ("inner_visits", "box_tests", "leaf_visits", "tri_tests", "traversals")
 
-# The arities each kernel is instantiated for.
+# The arities each kernel is instantiated for; every arity also has one
+# bf16 format (RT_PAIRS at 4 and 8, RT_BF16 at 2).
 ARITIES = {"closest": (2, 4, 8), "closest_full": (2, 4, 8),
            "occluded": (2, 4, 8), "frame": (4, 8)}
-LAUNCHES = {f"{k}<{a}>": 0 for k, arities in ARITIES.items() for a in arities}
+# The box formats, as RtBox in csrc/trace.cuh.
+BOX_F32, BOX_PAIRS, BOX_BF16 = 0, 1, 2
+LAUNCHES = {f"{k}<{a}{sfx}>": 0 for k, arities in ARITIES.items() for a in arities
+            for sfx in ("", ",bf16")}
 
 
 def reset_launch_counts() -> None:
@@ -83,19 +97,35 @@ def _check(name: str, t: torch.Tensor, dtype, shape: Sequence, device) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _check_inputs(cbox, cmeta, tri, attr, lamb, planes, leaf_size):
-    """Validate tables and ray planes; returns (device, rows, arity)."""
+def _box_format(cbox, compressed: bool):
+    """(arity, box format) of a node table, from its row width, its dtype and
+    `compressed`."""
+    arity = ARITY_OF_WIDTH.get(cbox.shape[1]) if cbox.dim() == 2 else None
+    if arity is None:
+        raise ValueError(f"cbox: shape {tuple(cbox.shape)}, expected rows of "
+                         f"{' or '.join(map(str, ARITY_OF_WIDTH))} values")
+    if compressed and arity < 4:
+        raise ValueError("bf16 pair rows (compressed=True) need a node arity of 4 or 8")
+    if cbox.dtype == torch.bfloat16:
+        if arity != 2:
+            raise ValueError("a bf16 cbox is the binary table (N, 16); at arity "
+                             "4 and 8 bf16 boxes are f32 pair rows (compressed=True)")
+        return arity, BOX_BF16
+    return arity, BOX_PAIRS if compressed else BOX_F32
+
+
+def _check_inputs(cbox, cmeta, tri, attr, lamb, planes, leaf_size, compressed):
+    """Validate tables and ray planes; returns (device, rows, arity, box
+    format)."""
     device = cbox.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
     if leaf_size != LEAF_SIZE:
         raise NotImplementedError(
             f"leaf_size {leaf_size} is not ported: the kernels hold {LEAF_SIZE}")
-    arity = ARITY_OF_WIDTH.get(cbox.shape[1]) if cbox.dim() == 2 else None
-    if arity is None:
-        raise ValueError(f"cbox: shape {tuple(cbox.shape)}, expected rows of "
-                         f"{' or '.join(map(str, ARITY_OF_WIDTH))} floats")
-    _check("cbox", cbox, torch.float32, (None, cbox.shape[1]), device)
+    arity, box = _box_format(cbox, compressed)
+    _check("cbox", cbox, torch.bfloat16 if box == BOX_BF16 else torch.float32,
+           (None, cbox.shape[1]), device)
     _check("cmeta", cmeta, torch.int32, (cbox.shape[0], META_WIDTH[arity]), device)
     _check("tri", tri, torch.float32, (None, LANES), device)
     if attr is not None:
@@ -105,7 +135,12 @@ def _check_inputs(cbox, cmeta, tri, attr, lamb, planes, leaf_size):
     rows = planes[0].shape[0] if planes[0].dim() == 2 else -1
     for i, p in enumerate(planes):
         _check(f"ray plane {i}", p, torch.float32, (rows, LANES), device)
-    return device, rows, arity
+    return device, rows, arity, box
+
+
+def _instance(kernel: str, arity: int, box: int) -> str:
+    """The LAUNCHES key of a launch, e.g. "closest<4,bf16>"."""
+    return f"{kernel}<{arity}{'' if box == BOX_F32 else ',bf16'}>"
 
 
 def _launch_setup(cmeta, arity, stack_depth, counters):
@@ -140,10 +175,11 @@ def _no_counters_on_cpu(counters):
 
 
 def closest_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, leaf_size: int,
-                  stack_depth: Optional[int] = None, counters: bool = False):
+                  stack_depth: Optional[int] = None, counters: bool = False,
+                  compressed: bool = False):
     """Closest hit over (rows, 128) ray planes -> Hit (t, idx, norm_dir)."""
-    device, rows, arity = _check_inputs(cbox, cmeta, tri, None, None, (*o, *d),
-                                        leaf_size)
+    device, rows, arity, box = _check_inputs(cbox, cmeta, tri, None, None,
+                                             (*o, *d), leaf_size, compressed)
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
         return closest_plain(tri, o, d, leaf_size)
@@ -153,21 +189,23 @@ def closest_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, leaf_size: int,
     nd = torch.empty((rows, LANES), dtype=torch.int32, device=device)
     rc = lib.rt_closest(
         *(_ptr(p) for p in (*o, *d)), _ptr(cbox), _ptr(cmeta), _ptr(tri),
-        _ptr(None), arity, rows * LANES, _ptr(t), _ptr(idx), _ptr(nd),
+        _ptr(None), arity, box, rows * LANES, _ptr(t), _ptr(idx), _ptr(nd),
         _ptr(None), _ptr(counts), _stream(device),
     )
-    LAUNCHES[f"closest<{arity}>"] += 1
-    _raise_on(rc, f"closest_kernel<{arity}, false>")
+    key = _instance("closest", arity, box)
+    LAUNCHES[key] += 1
+    _raise_on(rc, key)
     hit = Hit(t=t, idx=idx, norm_dir=nd.bool())
     return (hit, counts) if counters else hit
 
 
 def closest_tiles_full(cbox, cmeta, tri, attr, o: Vec3, d: Vec3, leaf_size: int,
-                       stack_depth: Optional[int] = None, counters: bool = False):
+                       stack_depth: Optional[int] = None, counters: bool = False,
+                       compressed: bool = False):
     """Closest hit plus the winning triangle's raw normal and kd/ks/kr ->
     HitFull."""
-    device, rows, arity = _check_inputs(cbox, cmeta, tri, attr, None, (*o, *d),
-                                        leaf_size)
+    device, rows, arity, box = _check_inputs(cbox, cmeta, tri, attr, None,
+                                             (*o, *d), leaf_size, compressed)
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
         return closest_full_plain(tri, attr, o, d, leaf_size)
@@ -178,11 +216,12 @@ def closest_tiles_full(cbox, cmeta, tri, attr, o: Vec3, d: Vec3, leaf_size: int,
     av = torch.empty((12, rows, LANES), dtype=torch.float32, device=device)
     rc = lib.rt_closest(
         *(_ptr(p) for p in (*o, *d)), _ptr(cbox), _ptr(cmeta), _ptr(tri),
-        _ptr(attr), arity, rows * LANES, _ptr(t), _ptr(idx), _ptr(nd),
+        _ptr(attr), arity, box, rows * LANES, _ptr(t), _ptr(idx), _ptr(nd),
         _ptr(av), _ptr(counts), _stream(device),
     )
-    LAUNCHES[f"closest_full<{arity}>"] += 1
-    _raise_on(rc, f"closest_kernel<{arity}, true>")
+    key = _instance("closest_full", arity, box)
+    LAUNCHES[key] += 1
+    _raise_on(rc, key)
     hit = HitFull(
         t=t, idx=idx, norm_dir=nd.bool(),
         n=Vec3(av[0], av[1], av[2]), kd=Vec3(av[3], av[4], av[5]),
@@ -192,10 +231,11 @@ def closest_tiles_full(cbox, cmeta, tri, attr, o: Vec3, d: Vec3, leaf_size: int,
 
 
 def occluded_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, max_dist2, leaf_size: int,
-                   stack_depth: Optional[int] = None, counters: bool = False):
+                   stack_depth: Optional[int] = None, counters: bool = False,
+                   compressed: bool = False):
     """Any hit with t*t < max_dist2 over (rows, 128) ray planes -> bool."""
-    device, rows, arity = _check_inputs(
-        cbox, cmeta, tri, None, None, (*o, *d, max_dist2), leaf_size
+    device, rows, arity, box = _check_inputs(
+        cbox, cmeta, tri, None, None, (*o, *d, max_dist2), leaf_size, compressed
     )
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
@@ -204,24 +244,26 @@ def occluded_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, max_dist2, leaf_size: int
     blocked = torch.empty((rows, LANES), dtype=torch.int32, device=device)
     rc = lib.rt_occluded(
         *(_ptr(p) for p in (*o, *d)), _ptr(max_dist2), _ptr(cbox), _ptr(cmeta),
-        _ptr(tri), arity, rows * LANES, _ptr(blocked), _ptr(counts),
+        _ptr(tri), arity, box, rows * LANES, _ptr(blocked), _ptr(counts),
         _stream(device),
     )
-    LAUNCHES[f"occluded<{arity}>"] += 1
-    _raise_on(rc, f"occluded_kernel<{arity}>")
+    key = _instance("occluded", arity, box)
+    LAUNCHES[key] += 1
+    _raise_on(rc, key)
     return (blocked.bool(), counts) if counters else blocked.bool()
 
 
 def frame_tiles(cbox, cmeta, tri, attr, lamb, o: Vec3, d: Vec3, *, bounces: int,
                 leaf_size: int, stack_depth: Optional[int] = None,
-                reverse_shadows: bool = True, counters: bool = False):
+                reverse_shadows: bool = True, counters: bool = False,
+                compressed: bool = False):
     """Fused whole-frame render over (rows, 128) ray planes -> unclamped
     colour planes (Vec3). `lamb` is the (num_lights + 1, 8) light table of
     ops/pack.pack_lights."""
     if not reverse_shadows:
         raise NotImplementedError("reverse_shadows=False is not ported")
-    device, rows, arity = _check_inputs(cbox, cmeta, tri, attr, lamb, (*o, *d),
-                                        leaf_size)
+    device, rows, arity, box = _check_inputs(cbox, cmeta, tri, attr, lamb,
+                                             (*o, *d), leaf_size, compressed)
     if arity not in ARITIES["frame"]:
         raise ValueError(f"the fused frame needs a node arity of 4 or 8, got {arity}")
     if device.type == "cpu":
@@ -232,11 +274,12 @@ def frame_tiles(cbox, cmeta, tri, attr, lamb, o: Vec3, d: Vec3, *, bounces: int,
     col = torch.empty((3, rows, LANES), dtype=torch.float32, device=device)
     rc = lib.rt_frame(
         *(_ptr(p) for p in (*o, *d)), _ptr(cbox), _ptr(cmeta), _ptr(tri),
-        _ptr(attr), _ptr(lamb), int(lamb.shape[0]) - 1, arity, rows * LANES,
-        int(bounces), _ptr(col), _ptr(counts), _stream(device),
+        _ptr(attr), _ptr(lamb), int(lamb.shape[0]) - 1, arity, box,
+        rows * LANES, int(bounces), _ptr(col), _ptr(counts), _stream(device),
     )
-    LAUNCHES[f"frame<{arity}>"] += 1
-    _raise_on(rc, f"frame_kernel<{arity}>")
+    key = _instance("frame", arity, box)
+    LAUNCHES[key] += 1
+    _raise_on(rc, key)
     out = Vec3(col[0], col[1], col[2])
     return (out, counts) if counters else out
 

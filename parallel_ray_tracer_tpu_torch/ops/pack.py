@@ -2,15 +2,24 @@
 numpy packers that turn a FlatBVH into the tables the kernels read.
 
 Copied from pallas_trace.py (pack_bvh :160-224 without `_build_cmat`,
-pack_bvh4 :267-349, pack_bvh8 :352-417, pack_attr :2397, pack_lights :2971,
-required_stack_depth :61) without the MXU leaf matrices (`cmat`) and the
-bf16 box formats, which the port does not take yet. Same inputs give
-bit-identical tables.
+pack_bvh4 :267-349, pack_bvh8 :352-417, pack_box_bf16_pairs :438-484,
+cbox_to_bf16 :487-505, pack_attr :2397, pack_lights :2971,
+required_stack_depth :61) without the MXU leaf matrices (`cmat`), which the
+port does not take yet. Same inputs give bit-identical tables.
 
   - ``cbox`` f32 node rows, child k's [min.xyz, max.xyz] at lanes [6k, 6k+6):
     (Ni, 16) binary, (Nq+1, 32) BVH4, (No+1, 64) BVH8. In the BVH4 and BVH8
     tables absent children and the last (NULL) row are NaN boxes. The
     binary table has no NULL row, and lanes 12-15 are zero.
+  - bf16 node rows (``bf16=True``), rounded conservatively (min planes
+    down, max planes up, so every box encloses its f32 box and culling
+    stays exact):
+      - BVH4 / BVH8: (min|max) pairs in f32 lanes (``compressed=True``):
+        child k's coordinate c is lane 3k + c, its high 16 bits the bf16
+        min and its low 16 bits the bf16 max; the row keeps its f32 width
+        and lanes past 3 * arity are zero.
+      - binary: the (Ni, 16) table as raw bf16 bits, returned as uint16
+        (JAX's ml_dtypes bfloat16 array has the same bits).
   - ``cmeta`` i32: child encodings (enc < 0: leaf group -enc-1, enc >= 0:
     node row), then validity flags: (Ni, 8) binary with 2 encodings and no
     flags (cmeta[:, 2:] is zero: both children always exist), (Nq+1, 8)
@@ -79,9 +88,10 @@ def stack_need(cmeta: np.ndarray, arity: int) -> int:
 class PackedBVH:
     """Host-side node and triangle tables ready for upload."""
 
-    cbox: np.ndarray    # (Ni, 16) / (Nq+1, 32) / (No+1, 64) f32
+    cbox: np.ndarray    # (Ni, 16) / (Nq+1, 32) / (No+1, 64) f32, or bf16 (above)
     cmeta: np.ndarray   # (Ni, 8) / (Nq+1, 8) / (No+1, 16) i32
     tri: np.ndarray     # (G+1, 128) f32
+    compressed: bool = False   # cbox holds bf16 (min|max) pairs (f32 view)
 
 
 def pack_tri_rows(flat: FlatBVH, tri_verts: np.ndarray) -> np.ndarray:
@@ -108,10 +118,11 @@ def pack_tri_rows(flat: FlatBVH, tri_verts: np.ndarray) -> np.ndarray:
     return tri
 
 
-def pack_bvh(flat: FlatBVH, tri_verts: np.ndarray) -> PackedBVH:
+def pack_bvh(flat: FlatBVH, tri_verts: np.ndarray, bf16: bool = False) -> PackedBVH:
     """Pack a binary FlatBVH as the binary node table (pallas_trace.pack_bvh):
     one row per inner node with its two children's boxes, inner nodes
-    renumbered in flat order."""
+    renumbered in flat order. bf16=True rounds the boxes to bf16 bits
+    (cbox_to_bf16); the table stays uncompressed, as in JAX."""
     L = flat.leaf_size
     count, a = flat.count, flat.a
     inner_old = np.nonzero(count == 0)[0]
@@ -145,13 +156,16 @@ def pack_bvh(flat: FlatBVH, tri_verts: np.ndarray) -> PackedBVH:
             is_leaf = count[ch] > 0
             cmeta[:, k] = np.where(is_leaf, -(a[ch] // L) - 1, remap[ch])
             assert (is_leaf | (remap[ch] >= 0)).all()
+    if bf16:
+        cbox = cbox_to_bf16(cbox)
     return PackedBVH(cbox=cbox, cmeta=cmeta, tri=pack_tri_rows(flat, tri_verts))
 
 
-def pack_bvh4(flat: FlatBVH, tri_verts: np.ndarray) -> PackedBVH:
+def pack_bvh4(flat: FlatBVH, tri_verts: np.ndarray, bf16: bool = False) -> PackedBVH:
     """Pack a binary FlatBVH as a 4-wide node table (pallas_trace.pack_bvh4):
     each quad row holds its four grandchildren boxes (binary levels
-    collapsed in pairs)."""
+    collapsed in pairs). bf16=True packs them as bf16 pairs
+    (pack_box_bf16_pairs, compressed=True)."""
     L = flat.leaf_size
     count, a = flat.count, flat.a
     nmn, nmx = flat.node_min, flat.node_max
@@ -198,12 +212,15 @@ def pack_bvh4(flat: FlatBVH, tri_verts: np.ndarray) -> PackedBVH:
                 qmeta[row, k] = leaf_enc(j)
             else:
                 qmeta[row, k] = qid[j]
-    return PackedBVH(cbox=qbox, cmeta=qmeta, tri=tri)
+    if bf16:
+        qbox = pack_box_bf16_pairs(qbox, 4)
+    return PackedBVH(cbox=qbox, cmeta=qmeta, tri=tri, compressed=bf16)
 
 
-def pack_bvh8(flat: FlatBVH, tri_verts: np.ndarray) -> PackedBVH:
+def pack_bvh8(flat: FlatBVH, tri_verts: np.ndarray, bf16: bool = False) -> PackedBVH:
     """Pack a binary FlatBVH as an 8-wide node table (pallas_trace.pack_bvh8):
-    three binary levels collapse into one row of up to 8 descendants."""
+    three binary levels collapse into one row of up to 8 descendants.
+    bf16=True packs them as bf16 pairs (compressed=True)."""
     L = flat.leaf_size
     count, a = flat.count, flat.a
     nmn, nmx = flat.node_min, flat.node_max
@@ -249,7 +266,71 @@ def pack_bvh8(flat: FlatBVH, tri_verts: np.ndarray) -> PackedBVH:
             obox[row, 6 * k + 3 : 6 * k + 6] = nmx[j]
             ometa[row, 8 + k] = 1
             ometa[row, k] = leaf_enc(j) if kind == "leaf" else oid[j]
-    return PackedBVH(cbox=obox, cmeta=ometa, tri=tri)
+    if bf16:
+        obox = pack_box_bf16_pairs(obox, 8)
+    return PackedBVH(cbox=obox, cmeta=ometa, tri=tri, compressed=bf16)
+
+
+def _round_bits(box: np.ndarray):
+    """(bits rounded toward zero, the same plus one bf16 ulp in magnitude,
+    the rounded-toward-zero value) of f32 boxes: the candidates of
+    conservative bf16 rounding."""
+    box = np.ascontiguousarray(box, np.float32)
+    trunc = box.view(np.uint32) & np.uint32(0xFFFF0000)
+    return trunc, trunc + np.uint32(0x00010000), trunc.view(np.float32)
+
+
+def pack_box_bf16_pairs(box: np.ndarray, arity: int) -> np.ndarray:
+    """bf16-compress wide box rows into f32-viewed (min, max) pairs
+    (pallas_trace.pack_box_bf16_pairs, the hbvh_t analog of the reference
+    CUDA renderer): child k's coordinate c becomes the f32 lane 3k + c whose
+    high 16 bits are the bf16 min rounded down and low 16 bits the bf16 max
+    rounded up. The row width is kept; lanes past 3 * arity stay zero. NaN
+    children (absent slots, the NULL row) stay NaN."""
+    box = np.ascontiguousarray(box, np.float32)
+    trunc, bump, f = _round_bits(box)
+    out = np.zeros_like(box, np.uint32)
+    for k in range(arity):
+        for c in range(3):
+            lo, hi = 6 * k + c, 6 * k + 3 + c
+            mn, mx = box[:, lo], box[:, hi]
+            mn_b = np.where(f[:, lo] > mn, bump[:, lo], trunc[:, lo])
+            mx_b = np.where(f[:, hi] < mx, bump[:, hi], trunc[:, hi])
+            assert ((mn_b & np.uint32(0xFFFF)) == 0).all()
+            assert ((mx_b & np.uint32(0xFFFF)) == 0).all()
+            # the widened bounds enclose the f32 box; NaN children are exempt
+            # (a canonical f32 NaN truncates to a bf16 NaN)
+            dead = np.isnan(mn) | np.isnan(mx)
+            assert (dead | (mn_b.view(np.float32) <= mn)).all()
+            assert (dead | (mx_b.view(np.float32) >= mx)).all()
+            assert np.isnan(mn_b.view(np.float32)[dead]).all()
+            out[:, 3 * k + c] = mn_b | (mx_b >> np.uint32(16))
+    return out.view(np.float32)
+
+
+def unpack_box_bf16_pairs(cbox: np.ndarray, arity: int):
+    """(min, max) f32 arrays of shape (N, arity, 3) from a bf16-pair table,
+    decoded as the kernels decode it: min = bits & 0xFFFF0000, max =
+    bits << 16 (pallas_trace._load_node_row)."""
+    bits = np.ascontiguousarray(cbox, np.float32).view(np.uint32)[:, :3 * arity]
+    mn = (bits & np.uint32(0xFFFF0000)).view(np.float32)
+    mx = (bits << np.uint32(16)).view(np.float32)
+    return mn.reshape(-1, arity, 3), mx.reshape(-1, arity, 3)
+
+
+def cbox_to_bf16(cbox: np.ndarray) -> np.ndarray:
+    """Conservative bf16 rounding of the binary table's box rows
+    (pallas_trace.cbox_to_bf16): min planes down, max planes up. Returns
+    the bf16 bits as uint16, the high half of the rounded f32, which is
+    what JAX's conversion to ml_dtypes.bfloat16 gives for those values."""
+    cbox = np.ascontiguousarray(cbox, np.float32)
+    trunc, bump, f = _round_bits(cbox)
+    out = trunc.copy()
+    for c in (0, 1, 2, 6, 7, 8):          # min planes: round down
+        out[:, c] = np.where(f[:, c] > cbox[:, c], bump[:, c], trunc[:, c])
+    for c in (3, 4, 5, 9, 10, 11):        # max planes: round up
+        out[:, c] = np.where(f[:, c] < cbox[:, c], bump[:, c], trunc[:, c])
+    return (out >> np.uint32(16)).astype(np.uint16)
 
 
 def pack_attr(flat: FlatBVH, mat_idx, mats_kd, mats_ks, mats_kr) -> np.ndarray:

@@ -100,12 +100,13 @@ def render_bvh_fused(ds, tables, cam: Camera, width: int, height: int,
                      bounces: int = 4, tile_rows: int = 32,
                      tile_cols: int = 32) -> torch.Tensor:
     """Whole-frame render with one launch of the fused frame kernel
-    (cuda_trace.frame_tiles) -> (H, W, 3) f32 in [0, 1]."""
+    (cuda_trace.frame_tiles) -> (H, W, 3) f32 in [0, 1]. The tables' box
+    format (f32, bf16 pairs) picks the kernel instance."""
     o, d = _tiled_planes(cam, width, height, tile_rows, tile_cols, ds.device)
     col = cuda_trace.frame_tiles(
         tables.cbox, tables.cmeta, tables.tri, tables.attr, tables.lamb, o, d,
         bounces=bounces, leaf_size=tables.leaf_size,
-        stack_depth=tables.stack_depth,
+        stack_depth=tables.stack_depth, compressed=tables.compressed,
     )
     return _to_image(col, width, height, tile_rows, tile_cols)
 
@@ -117,7 +118,8 @@ def render_bvh_pallas(ds, tables, cam: Camera, width: int, height: int,
     launch per light (cuda_trace.closest_tiles_full / occluded_tiles), with
     the shading in torch (ops/shade.trace_rays)."""
     o, d = _tiled_planes(cam, width, height, tile_rows, tile_cols, ds.device)
-    kw = dict(leaf_size=tables.leaf_size, stack_depth=tables.stack_depth)
+    kw = dict(leaf_size=tables.leaf_size, stack_depth=tables.stack_depth,
+              compressed=tables.compressed)
 
     def closest(o, d):
         return cuda_trace.closest_tiles_full(

@@ -2,9 +2,9 @@
 device tables -> render.
 
 `prepare` loads the scene, builds, flattens and packs the BVH at the
-configured node arity (bvh_width 2, 4 or 8) with the port's own numpy
-modules, and uploads the tables once; `Pipeline.render` then renders frames
-from them on the device.
+configured node arity (bvh_width 2, 4 or 8) and box format (f32, or bf16
+with bf16_bvh) with the port's own numpy modules, and uploads the tables
+once; `Pipeline.render` then renders frames from them on the device.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from .config import DEFAULT_ASSET_ROOTS, RenderConfig
 from .convert import SceneTables, packed_from_numpy
 from .models.camera import Camera
 from .models.device_scene import DeviceScene, device_scene_from_lights
+from .models.procgen import substitute_scene
 from .models.scene import Scene, load_scene, load_scene_npz, synthetic_scene
 from .ops import render as render_ops
 from .ops.bvh import build_bvh
@@ -30,9 +31,6 @@ from .ops.pack import pack_attr, pack_bvh, pack_bvh4, pack_bvh8, pack_lights
 VARIANTS = ("auto", "fused", "pallas")
 PACKERS = {2: pack_bvh, 4: pack_bvh4, 8: pack_bvh8}   # by bvh_width
 PACKET = 1024            # rays per TPU packet (pallas_trace.PACKET)
-# Scenes the JAX package generates when their OBJ folder is missing
-# (models/procgen.py), which the port does not have yet.
-PROCGEN_SCENES = ("dragon", "sportscar", "two_cars")
 
 
 @dataclasses.dataclass
@@ -109,7 +107,6 @@ def _check_ported(cfg: RenderConfig) -> None:
     if cfg.bvh_width not in PACKERS:
         raise ValueError(f"bvh_width must be 2, 4 or 8, got {cfg.bvh_width}")
     unported = {
-        "bf16_bvh": cfg.bf16_bvh,
         'stream="on"': cfg.stream == "on",
         "use_bvh=False": not cfg.use_bvh,
         "fast_light=False": not cfg.fast_light,
@@ -125,7 +122,9 @@ def _check_ported(cfg: RenderConfig) -> None:
 
 
 def _load(cfg: RenderConfig) -> Scene:
-    """Synthetic scene, else the repo's npz snapshot, else the OBJ folder."""
+    """Synthetic scene, else the repo's npz snapshot, else the OBJ folder,
+    else the procedural substitute (dragon, two_cars, sportscar; the last two
+    need a car_only OBJ folder), as the JAX prepare (pipeline.py:252-257)."""
     if cfg.synthetic_triangles > 0:
         return synthetic_scene(cfg.synthetic_triangles, seed=cfg.seed)
     roots = (cfg.asset_root,) if cfg.asset_root else DEFAULT_ASSET_ROOTS
@@ -135,13 +134,11 @@ def _load(cfg: RenderConfig) -> Scene:
             return load_scene_npz(snap)
     try:
         return load_scene(cfg.asset_dir())
-    except FileNotFoundError as e:
-        if cfg.scene in PROCGEN_SCENES:
-            raise NotImplementedError(
-                f"scene {cfg.scene!r} has no asset folder here, and its "
-                "procedural substitute (models/procgen.py) is not ported yet"
-            ) from e
-        raise
+    except FileNotFoundError:
+        scene = substitute_scene(cfg.scene, roots, seed=cfg.seed)
+        if scene is None:
+            raise
+        return scene
 
 
 def _pick_device(device) -> torch.device:
@@ -157,6 +154,12 @@ def _pick_device(device) -> torch.device:
 def prepare(cfg: RenderConfig, scene: Optional[Scene] = None, device=None) -> Pipeline:
     """Load the scene, build + flatten + pack the BVH at cfg.bvh_width,
     upload the tables.
+
+    bf16_bvh packs what the JAX prepare packs (use_native=False,
+    pipeline.py:297-343): bf16 pair rows at width 4 (compressed), the raw
+    bf16 binary table at width 2 (JAX's branch for every backend but the
+    TPU; the card reads 16-bit rows directly), and f32 rows at width 8,
+    where JAX's prepare passes bf16=False to pack_bvh8.
 
     The device defaults to CUDA; with no card, pass device="cpu". The BVH
     is always built by the numpy builder (use_native is ignored: the image
@@ -182,14 +185,14 @@ def prepare(cfg: RenderConfig, scene: Optional[Scene] = None, device=None) -> Pi
         sah_bins=cfg.sah_bins, seed=cfg.seed, true_sah=cfg.true_sah,
     )
     flat = flatten_bvh(bvh, tv, leaf_size=leaf_size)
-    packed = PACKERS[cfg.bvh_width](flat, tv)
+    packed = PACKERS[cfg.bvh_width](flat, tv, bf16=cfg.bf16_bvh and cfg.bvh_width != 8)
     attr = pack_attr(flat, scene.mat_idx, scene.mats_kd, scene.mats_ks, scene.mats_kr)
     build_ms = (time.perf_counter() - t0) * 1e3
 
     lamb = pack_lights(scene.lights_pos, scene.lights_kl, cfg.ambient)
     tables = packed_from_numpy(
         packed.cbox, packed.cmeta, packed.tri, attr, lamb, device=device,
-        leaf_size=leaf_size,
+        leaf_size=leaf_size, compressed=packed.compressed,
     )
     ds = device_scene_from_lights(tables.lamb)
     return Pipeline(cfg=cfg, scene=scene, ds=ds, flat=flat, tables=tables,

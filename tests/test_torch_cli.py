@@ -1,8 +1,9 @@
 """The port's command line, `python -m parallel_ray_tracer_tpu_torch`, on the
 CPU (--device cpu): the JAX CLI's flags and defaults, the frame an
-in-process render() gives, the JAX CLI's metrics record and statistics, and
-a non-zero exit with NotImplementedError's message for each flag whose
-path is not ported."""
+in-process render() gives, the JAX CLI's metrics record and statistics,
+--bf16-bvh, the car scenes' substitutes without a car_only folder, and a
+non-zero exit with NotImplementedError's message for each flag whose path
+is not ported."""
 
 import dataclasses
 import json
@@ -16,6 +17,7 @@ import torch
 
 from parallel_ray_tracer_tpu import cli as j_cli
 from parallel_ray_tracer_tpu.config import RenderConfig as JConfig
+from parallel_ray_tracer_tpu.models import procgen as j_procgen
 from parallel_ray_tracer_tpu.utils import stats as j_stats
 from parallel_ray_tracer_tpu_torch import cli, pipeline
 from parallel_ray_tracer_tpu_torch.utils import stats as t_stats
@@ -66,11 +68,10 @@ def test_stats_as_jax(times):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--no-bvh"], ["--bf16-bvh"], ["--stream", "on"], ["--devices", "2"],
+    ["--no-bvh"], ["--stream", "on"], ["--devices", "2"],
     ["--checkpoint", "ck"], ["--profile", "prof"], ["--interpret"],
     ["--no-fast-light"], ["--presplit", "0.1"], ["--no-reverse-shadows"],
     ["--leaf-size", "4"], ["--variant", "jax"], ["--variant", "bruteforce"],
-    ["--scene", "dragon"], ["--scene", "sportscar"], ["--scene", "two_cars"],
 ], ids=" ".join)
 def test_unported_flag_exits_nonzero(flags, capsys, tmp_path):
     argv = ["--device", "cpu", "--width", "32", "--height", "32",
@@ -79,6 +80,37 @@ def test_unported_flag_exits_nonzero(flags, capsys, tmp_path):
         argv += ["--synthetic", "16"]
     assert cli.main(argv) != 0
     assert "NotImplementedError" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("bvh_width", ["2", "4", "8"])
+def test_bf16_flag_renders_the_same_frame(bvh_width, tmp_path, capsys):
+    """--bf16-bvh packs bf16 boxes (f32 at width 8, as JAX's prepare); the
+    hits, and so the frame, are those of the f32 tables."""
+    argv = ["--device", "cpu", "--synthetic", "64", "--width", "32",
+            "--height", "32", "--bounces", "1", "--warmup", "0",
+            "--bvh-width", bvh_width]
+    bmps = [tmp_path / "f32.bmp", tmp_path / "bf16.bmp"]
+    assert cli.main(argv + ["--output", str(bmps[0])]) == 0
+    assert cli.main(argv + ["--bf16-bvh", "--output", str(bmps[1])]) == 0
+    assert "bf16: True" in capsys.readouterr().out
+    assert bmps[0].read_bytes() == bmps[1].read_bytes()
+
+
+@pytest.mark.parametrize("scene", ["two_cars", "sportscar"])
+def test_car_substitute_without_car_only_exits_nonzero(scene, tmp_path):
+    """The two car substitutes need a car_only OBJ folder, in both packages:
+    without one the run ends with JAX's FileNotFoundError."""
+    with pytest.raises(FileNotFoundError) as jax_err:
+        j_procgen.substitute_scene(scene, (str(tmp_path),))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-m", "parallel_ray_tracer_tpu_torch", "--device", "cpu",
+         "--scene", scene, "--asset-root", str(tmp_path), "--width", "32",
+         "--height", "32"],
+        capture_output=True, text=True, cwd=REPO, env=env, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert f"FileNotFoundError: {jax_err.value}" in proc.stderr
 
 
 def test_ignored_tpu_flags_render(capsys):

@@ -57,6 +57,7 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import parallel_ray_tracer_tpu_torch.utils.bmp\n"
         "import parallel_ray_tracer_tpu_torch.cli\n"
         "import parallel_ray_tracer_tpu_torch.utils.stats\n"
+        "import parallel_ray_tracer_tpu_torch.models.procgen\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'parallel_ray_tracer_tpu')]\n"
         "print(bad)\n"
@@ -78,7 +79,7 @@ def test_prepare_without_device_raises_when_no_cuda():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(bf16_bvh=True),
+    dict(bf16_bvh=True, stream="on"),    # bf16 tables streamed: the next slice
     dict(stream="on"), dict(use_bvh=False), dict(fast_light=False),
     dict(presplit=0.1), dict(variant="jax"), dict(variant="bruteforce"),
     dict(num_devices=2), dict(leaf_size=4), dict(reverse_shadows=False),
