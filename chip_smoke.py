@@ -33,6 +33,20 @@ one primary closest-hit pass over the 1080p frame's rays and one fused
 render() per table, each held against its plain version on one 64-row band
 through the knot, and the frames held against each other.
 
+Its `stream` phase runs the instances with streamed leaf rows (stream=True,
+csrc/trace.cuh). On car_boxed's width-4, width-8 and bf16 pair tables,
+padded as prepare pads streamed tables, every streamed instance is held
+bit for bit against its resident twin and against the plain results, timed
+beside the twin, and reached through a streamed pipeline's pass-based
+render() and primary pass. On synthetic_600k (600,000 random triangles,
+the smallest scene of scripts/bench_stream.py that JAX streams; its leaf
+rows do not fit the L2) "auto" must stream; the 1080p primary pass runs
+streamed and resident with equal hits, the streamed one is held against
+its plain version on one 32-row band, and the "auto" and explicit fused
+render() are timed. The dragon's tables, padded, render with stream="on"
+by the pass-based path, with f32 and bf16 tables, and must give the
+resident pass-based frame bit for bit.
+
 Each phase prints one JSON line; all of them, and the rendered frames, also
 go to DIR (default: chip_smoke_out/ beside this script). Any failed check
 exits non-zero before the last line; the last line is
@@ -99,6 +113,12 @@ VISIT_BYTES = {(2, False): (48, 16), (4, False): (96, 32), (8, False): (192, 64)
 # band through the knot for the plain versions.
 DRAGON = dict(CFG, scene="dragon")
 DRAGON_BAND = 320
+# The stream phase: the tables whose streamed instances it runs, and the
+# scene past the L2, with its band for the plain version.
+STREAM_CASES = ("w4", "w8", "w4_bf16", "w8_bf16")
+SYNTHETIC_600K = dict(synthetic_triangles=600000, width=1920, height=1080,
+                      bvh_heuristic=6, tile_rows=32, tile_cols=32)
+SYNTHETIC_BAND, SYNTHETIC_BAND_ROWS = 512, 32
 # The kernels line: (instance, the tables it runs on, kernel, line of the
 # TPU kernel it replaces in parallel_ray_tracer_tpu/ops/pallas_trace.py).
 KERNEL_ROWS = (
@@ -127,6 +147,18 @@ KERNEL_ROWS = (
     ("closest_kernel<2, BF16, false>", "w2_bf16", "closest", 610),
     ("closest_kernel<2, BF16, true>", "w2_bf16", "closest_full", 2437),
     ("occluded_kernel<2, BF16>", "w2_bf16", "occluded", 676),
+    ("closest_kernel<4, false, STREAM>", "w4", "closest_stream", 2070),
+    ("closest_kernel<4, true, STREAM>", "w4", "closest_full_stream", 2070),
+    ("occluded_kernel<4, STREAM>", "w4", "occluded_stream", 2253),
+    ("closest_kernel<8, false, STREAM>", "w8", "closest_stream", 2070),
+    ("closest_kernel<8, true, STREAM>", "w8", "closest_full_stream", 2070),
+    ("occluded_kernel<8, STREAM>", "w8", "occluded_stream", 2253),
+    ("closest_kernel<4, PAIRS, false, STREAM>", "w4_bf16", "closest_stream", 2070),
+    ("closest_kernel<4, PAIRS, true, STREAM>", "w4_bf16", "closest_full_stream", 2070),
+    ("occluded_kernel<4, PAIRS, STREAM>", "w4_bf16", "occluded_stream", 2253),
+    ("closest_kernel<8, PAIRS, false, STREAM>", "w8_bf16", "closest_stream", 2070),
+    ("closest_kernel<8, PAIRS, true, STREAM>", "w8_bf16", "closest_full_stream", 2070),
+    ("occluded_kernel<8, PAIRS, STREAM>", "w8_bf16", "occluded_stream", 2253),
 )
 
 RECORDS = []
@@ -197,7 +229,7 @@ def main() -> int:
         from parallel_ray_tracer_tpu_torch import _build, pipeline
         from parallel_ray_tracer_tpu_torch.config import RenderConfig
         from parallel_ray_tracer_tpu_torch.convert import packed_from_numpy
-        from parallel_ray_tracer_tpu_torch.ops.pack import pack_bvh8
+        from parallel_ray_tracer_tpu_torch.ops.pack import pack_bvh8, pad_stream_rows
         from parallel_ray_tracer_tpu_torch.ops import cuda_trace as ct
         from parallel_ray_tracer_tpu_torch.ops import render as R
         from parallel_ray_tracer_tpu_torch.ops import trace_plain as tp
@@ -247,9 +279,9 @@ def main() -> int:
     tiles_x = -(-W // TC)
     rows_per_tile_row = tiles_x * TR * TC // 128
 
-    def band(planes, y0):
+    def band(planes, y0, rows=BAND_ROWS):
         r0 = (y0 // TR) * rows_per_tile_row
-        r1 = r0 + (BAND_ROWS // TR) * rows_per_tile_row
+        r1 = r0 + (rows // TR) * rows_per_tile_row
         return Vec3(*(p[r0:r1] for p in planes))
 
     def shadow_rays(o, d, hit):
@@ -541,6 +573,18 @@ def main() -> int:
     # table, so the width-4 plain results above hold for every table once
     # tri and attr are the same.
     frames = {}
+    stream_src = {"w4": pipe}   # the pipelines whose tables the stream phase pads
+
+    def streamed(p):
+        """p streaming, its tri and attr padded to whole blocks as prepare
+        pads streamed tables (ops/pack.pad_stream_rows)."""
+        t = p.tables
+
+        def pad(a):
+            return torch.as_tensor(pad_stream_rows(a.cpu().numpy()), device=a.device)
+
+        return dataclasses.replace(p, tables=t._replace(tri=pad(t.tri), attr=pad(t.attr)),
+                                   stream=True)
 
     def pair_rows_w8(p):
         """The width-8 pipeline with its node table repacked as bf16 pair
@@ -678,6 +722,8 @@ def main() -> int:
                                      if k in ct.ARITIES}
         rec.update(max_abs_err=errs, launches=launches[key], timing=timing[key])
         emit(rec)
+        if key in STREAM_CASES:
+            stream_src[key] = apipe
         del apipe, A, aimg, aimg_pass
 
     # ---- 9. the dragon: bench.py's primary rays/s scene --------------------
@@ -743,6 +789,22 @@ def main() -> int:
         check(tag, bool(torch.isfinite(dimg[tag]).all()), "non-finite pixels")
         save_frame(f"{tag}_1080p", bmp_bytes(dimg[tag].cpu().numpy()))
 
+        # stream="on" on these tables: "auto" renders pass-based on the
+        # streamed instances only, and gives the resident pass-based frame
+        spipe = streamed(dpipe)
+        check(f"{tag}/stream", spipe.resolved_variant() == "pallas",
+              "a streamed pipeline's auto is not the pass-based path")
+        simg, _ = on_path(f"{tag}/stream_render_auto", spipe.render,
+                          {f"closest_full_stream<4{sfx}>": dcfg.bounces,
+                           f"occluded_stream<4{sfx}>": dcfg.bounces * (D.lamb.shape[0] - 1)})
+        rimg = dataclasses.replace(spipe, stream=False).render(variant="pallas")
+        same = torch.equal(simg, rimg)
+        check(f"{tag}/stream", same, "the streamed frame is not the resident pass-based frame")
+        emit({"phase": "stream", "case": f"{tag}_stream_on", "equal_resident_pass_based": same,
+              "max_abs_diff": (simg - rimg).abs().max().item(),
+              "tri_rows": [D.tri.shape[0], spipe.tables.tri.shape[0]]})
+        del spipe, simg, rimg
+
         # timing: the primary pass (bench.py's metric) and render()
         t = time_ms(lambda: ct.closest_tiles(D.cbox, D.cmeta, D.tri, do, dd, **dkw))
         counts = ct.closest_tiles(D.cbox, D.cmeta, D.tri, do, dd, counters=True,
@@ -769,7 +831,180 @@ def main() -> int:
     emit(dr)
     del dimg, dplain
 
-    # ---- 10. the command line: the width-8 frame, the --bf16-bvh frame -----
+    # ---- 10. streamed leaf rows --------------------------------------------
+    def planes(h, full=False):
+        """A hit's output planes, for a comparison bit for bit."""
+        return [h.t, h.idx, h.norm_dir] + ([*h.n, *h.kd, *h.ks, *h.kr] if full else [])
+
+    def same_bits(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    # car_boxed: each streamed instance on the padded tables of its width and
+    # box format, against its resident twin (bit for bit) and the plain
+    # results, timed beside the twin, and reached through the paths of a
+    # streamed pipeline with the counts from 0
+    out_planes = {"closest": 3, "closest_full": 15, "occluded": 1}
+    for key in STREAM_CASES:
+        src = stream_src.pop(key)
+        sp = streamed(src)
+        A = sp.tables
+        a, sfx = A.arity, ",bf16" if A.compressed else ""
+        akw = dict(leaf_size=A.leaf_size, stack_depth=A.stack_depth, compressed=A.compressed)
+
+        def call(k, s, *rays, **extra):
+            if k == "occluded":
+                return ct.occluded_tiles(A.cbox, A.cmeta, A.tri, *rays, stream=s, **akw, **extra)
+            if k == "closest_full":
+                return ct.closest_tiles_full(A.cbox, A.cmeta, A.tri, A.attr, *rays,
+                                             stream=s, **akw, **extra)
+            return ct.closest_tiles(A.cbox, A.cmeta, A.tri, *rays, stream=s, **akw, **extra)
+
+        def outputs(k, h):
+            return [h] if k == "occluded" else planes(h, k == "closest_full")
+
+        def against_plain(name, k, h, ref):
+            if k == "occluded":
+                return cmp_blocked(name, h, ref)["max_abs_err"]
+            return cmp_hits(name, h, ref, k == "closest_full")["max_abs_err"]
+
+        errs = {k: 0.0 for k in out_planes}
+        for y0, ref in band_ref.items():
+            cases = [(k, kind, rays, ref[k, kind]) for kind, rays in ref["rays"].items()
+                     for k in ("closest", "closest_full")]
+            cases.append(("occluded", "shadow", ref["shadow_rays"], ref["occluded"]))
+            for k, kind, rays, want in cases:
+                name = f"{key}/{k}_stream/{kind}@{y0}"
+                h = call(k, True, *rays)
+                check(name, same_bits(outputs(k, h), outputs(k, call(k, False, *rays))),
+                      "differs from the resident twin")
+                errs[k] = max(errs[k], against_plain(name, k, h, want))
+        res = {}
+        for k, rays in (("closest", (o, d)), ("closest_full", (o, d)),
+                        ("occluded", (so, sd, m2))):
+            name = f"{key}/{k}_stream/frame"
+            h = call(k, True, *rays)
+            check(name, same_bits(outputs(k, h), outputs(k, call(k, False, *rays))),
+                  "differs from the resident twin")
+            errs[k] = max(errs[k], against_plain(name, k, h, plain[k]))
+            del h
+            t_res = time_ms(lambda: call(k, False, *rays))
+            t_str = time_ms(lambda: call(k, True, *rays))
+            in_b = (ray_b + nbytes(A.cbox, A.cmeta, A.tri)
+                    + (nbytes(A.attr) if k == "closest_full" else 0)
+                    + (out_plane if k == "occluded" else 0))
+            b = bound(call(k, True, *rays, counters=True)[1].cpu().tolist(),
+                      ct.STREAM_COUNTS, in_b, out_planes[k] * out_plane)
+            res[k + "_stream"] = dict(
+                t_str, rays=n_rays, rays_per_s=n_rays / (t_str["median"] * 1e-3),
+                resident=t_res, vs_resident=t_str["median"] / t_res["median"],
+                fills_per_leaf=b["block_fills"] / max(b["leaf_visits"], 1),
+                syncs_per_leaf=b["sync_fetches"] / max(b["leaf_visits"], 1), **b)
+        check(key, sp.resolved_variant() == "pallas",
+              "a streamed pipeline's auto is not the pass-based path")
+        simg, on_s = on_path(f"{key}/stream_render_auto", sp.render,
+                             {f"closest_full_stream<{a}{sfx}>": cfg.bounces,
+                              f"occluded_stream<{a}{sfx}>": cfg.bounces * nl})
+        rimg = dataclasses.replace(sp, stream=False).render(variant="pallas")
+        frame_equal = torch.equal(simg, rimg)
+        check(f"{key}/stream_render_auto", frame_equal,
+              "the streamed frame is not the resident pass-based frame")
+        _, on_p = on_path(f"{key}/stream_primary_closest_pass",
+                          lambda: call("closest", True, o, d), {f"closest_stream<{a}{sfx}>": 1})
+        launches[key].update(closest_stream=on_p[f"closest_stream<{a}{sfx}>"],
+                             closest_full_stream=on_s[f"closest_full_stream<{a}{sfx}>"],
+                             occluded_stream=on_s[f"occluded_stream<{a}{sfx}>"])
+        e2e = time_ms(sp.render)
+        res["render_stream_end_to_end"] = dict(e2e, pixels=W * H,
+                                               pixels_per_s=W * H / (e2e["median"] * 1e-3))
+        timing[key].update(res)
+        max_err[key].update({k + "_stream": v for k, v in errs.items()})
+        emit({"phase": "stream", "case": key, "card": card,
+              "tri_rows": [src.tables.tri.shape[0], A.tri.shape[0]], "max_abs_err": errs,
+              "launches": {k: n for k, n in launches[key].items() if "stream" in k},
+              "frame_equal_resident_pass_based": frame_equal, "timing": res})
+        del src, sp, A, simg, rimg
+
+    # synthetic_600k: the smallest scene of scripts/bench_stream.py that JAX
+    # streams; "auto" must stream here too, and render pass-based
+    t0 = time.perf_counter()
+    scfg = RenderConfig(**SYNTHETIC_600K)
+    spipe = pipeline.prepare(scfg)
+    torch.cuda.synchronize()
+    S = spipe.tables
+    g_rows = spipe.flat.n_slots // S.leaf_size + 1     # tri rows before padding
+    row_model = 512 * (S.cbox.shape[0] + S.cmeta.shape[0] + 2 * g_rows)
+    name = "synthetic_600k"
+    check(name, spipe.stream, "auto did not stream, as JAX would")
+    check(name, spipe.resolved_variant() == "pallas", "auto is not the pass-based path")
+    check(name, S.tri.shape[0] % 4 == 0 and S.attr.shape == S.tri.shape,
+          "tri and attr are not padded to whole blocks")
+    rec = {"phase": "stream", "case": name, "card": card,
+           "prepare_s": time.perf_counter() - t0, "bvh_build_ms": spipe.build_ms,
+           "triangles": spipe.scene.num_triangles, "cbox": list(S.cbox.shape),
+           "cmeta": list(S.cmeta.shape), "tri": list(S.tri.shape), "tri_rows_unpadded": g_rows,
+           "table_bytes": {"cbox": nbytes(S.cbox), "cmeta": nbytes(S.cmeta),
+                           "tri": nbytes(S.tri), "attr": nbytes(S.attr)},
+           "row_model_bytes": row_model, "row_model_mib": row_model / 2 ** 20,
+           "stream": spipe.stream, "auto_variant": spipe.resolved_variant(),
+           "stack_need": S.stack_depth, "stack_size": ct.STACK_SIZE[S.arity]}
+    o6, d6 = R._tiled_planes(spipe.camera(), W, H, TR, TC, spipe.device)
+    skw = dict(leaf_size=S.leaf_size, stack_depth=S.stack_depth)
+
+    def primary(s, counters=False):
+        return ct.closest_tiles(S.cbox, S.cmeta, S.tri, o6, d6, stream=s,
+                                counters=counters, **skw)
+
+    h_res, h_str = primary(False), primary(True)
+    check(name, same_bits(planes(h_res), planes(h_str)),
+          "streamed and resident primary hits differ")
+    rec["hit_frac"] = (h_res.idx >= 0).float().mean().item()
+    del h_res, h_str
+    # in turns: resident, streamed, streamed, resident
+    turns = [time_ms(lambda: primary(s)) for s in (False, True, True, False)]
+    n6, in_b = o6.x.numel(), nbytes(*o6, *d6, S.cbox, S.cmeta, S.tri)
+    for s, label, names, ts in ((False, "resident", ct.COUNTS, (turns[0], turns[3])),
+                                (True, "streamed", ct.STREAM_COUNTS, (turns[1], turns[2]))):
+        b = bound(primary(s, True)[1].cpu().tolist(), names, in_b, 3 * n6 * 4)
+        med = statistics.median([ts[0]["median"], ts[1]["median"]])
+        rec[f"primary_{label}"] = dict(
+            runs=list(ts), median=med, rays=n6, rays_per_s=n6 / (med * 1e-3),
+            leaf_visits_per_ray=b["leaf_visits"] / n6,
+            inner_visits_per_ray=b["inner_visits"] / n6, **b)
+    st = rec["primary_streamed"]
+    st["fills_per_leaf"] = st["block_fills"] / max(st["leaf_visits"], 1)
+    st["syncs_per_leaf"] = st["sync_fetches"] / max(st["leaf_visits"], 1)
+    st["vs_resident"] = st["median"] / rec["primary_resident"]["median"]
+    # the streamed pass against its plain version on one band
+    bo6 = band(o6, SYNTHETIC_BAND, SYNTHETIC_BAND_ROWS)
+    bd6 = band(d6, SYNTHETIC_BAND, SYNTHETIC_BAND_ROWS)
+    hp6, pms = timed_once(lambda: tp.closest_plain(S.tri, bo6, bd6, S.leaf_size))
+    rec["band"] = dict(cmp_hits(f"{name}/closest_stream@{SYNTHETIC_BAND}",
+                                ct.closest_tiles(S.cbox, S.cmeta, S.tri, bo6, bd6,
+                                                 stream=True, **skw), hp6, False),
+                       y0=SYNTHETIC_BAND, rows=SYNTHETIC_BAND_ROWS, plain_ms=pms)
+    del hp6
+    # the paths, each with its counts from 0
+    simg, _ = on_path(f"{name}/render_auto", spipe.render,
+                      {"closest_full_stream<4>": scfg.bounces})
+    on_path(f"{name}/primary_closest_stream", lambda: primary(True), {"closest_stream<4>": 1})
+    on_path(f"{name}/primary_closest_resident", lambda: primary(False), {"closest<4>": 1})
+    fimg, _ = on_path(f"{name}/render_fused", lambda: spipe.render(variant="fused"),
+                      {"frame<4>": 1})
+    diff = (simg - fimg).abs()
+    within = (diff.amax(-1) < 1e-3).float().mean().item()
+    check(name, within >= 0.9999, f"fused and auto frames: {within} of pixels within 1e-3")
+    check(name, bool(torch.isfinite(simg).all()), "non-finite pixels")
+    rec["fused_vs_auto"] = {"within_1e-3": within, "max": diff.max().item()}
+    save_frame(f"{name}_1080p", bmp_bytes(simg.cpu().numpy()))
+    for variant in ("auto", "fused"):
+        e2e = time_ms(lambda: spipe.render(variant=variant), 3, 10)
+        rec[f"render_{variant}_end_to_end"] = dict(
+            e2e, pixels=W * H, pixels_per_s=W * H / (e2e["median"] * 1e-3))
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    emit(rec)
+    del spipe, S, o6, d6, bo6, bd6, simg, fimg, diff
+
+    # ---- 11. the command line: the width-8 frame, the --bf16-bvh frame -----
     def run_cli(name, flags, want):
         cli_bmp = os.path.join(out_dir, f"{name}.bmp")
         cli_json = os.path.join(out_dir, f"{name}.json")
@@ -807,7 +1042,7 @@ def main() -> int:
     run_cli("cli_bf16", ["--bf16-bvh"], frames["w4_bf16"])
     del frames
 
-    # ---- 11. the kernels line --------------------------------------------
+    # ---- 12. the kernels line --------------------------------------------
     kernels = []
     for name, key, kernel, line in KERNEL_ROWS:
         t = timing[key][kernel]
@@ -817,7 +1052,7 @@ def main() -> int:
             "replaces": f"parallel_ray_tracer_tpu/ops/pallas_trace.py:{line}",
             "tables": key, "launches": launches[key][kernel],
             "max_abs_err": max_err[key][kernel],
-            "ms": t["median"], "plain_ms": full[kernel]["plain_ms"],
+            "ms": t["median"], "plain_ms": full[kernel.replace("_stream", "")]["plain_ms"],
             "plain_of": "width-4 tables, the same rays (the plain version "
                         "reads no node table)",
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -12,12 +12,13 @@ iterations (gpu/include/options.cuh:25-26), per-frame times, then
 mean/median/stddev/99% CI/FPS (cpu/src/main.c:194-209), an optional BMP and
 a JSON metrics record.
 
-A flag whose path the port does not have yet (--no-bvh, --stream on,
---devices N > 1, --checkpoint, --profile, --interpret, --no-fast-light,
---presplit, --no-reverse-shadows, --leaf-size 4, --variant jax|bruteforce)
-ends the run with the NotImplementedError message and exit code 2. --no-native, --mxu-leaf,
---pop-width and --adaptive-pop are accepted and change nothing here (see
-config.py).
+A flag whose path the port does not have yet (--no-bvh, --devices N > 1,
+--checkpoint, --profile, --interpret, --no-fast-light, --presplit,
+--no-reverse-shadows, --leaf-size 4, --variant jax|bruteforce) ends the run
+with the NotImplementedError message and exit code 2. --no-native,
+--mxu-leaf, --pop-width and --adaptive-pop are accepted and change nothing
+here (see config.py). --stream picks streamed leaf rows as the JAX CLI does;
+the banner and the metrics record give the pipeline's resolved choice.
 """
 
 from __future__ import annotations
@@ -92,8 +93,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="single-pop traversal schedule; the same kernels "
                         "as dual-pop here (one thread traces one ray)")
     p.add_argument("--stream", default="auto", choices=("auto", "on", "off"),
-                   help="stream leaf rows from device memory (on: not "
-                        "ported; auto and off keep the scene resident)")
+                   help="streamed leaf rows, prefetched into L2 ahead of use "
+                        "(auto: where the JAX package streams, past its "
+                        "126 MiB row model, about 450k triangles)")
     p.add_argument("--presplit", type=float, default=0.0, metavar="RATIO",
                    help="pre-split oversized triangles (not ported)")
     p.add_argument("--true-sah", action=argparse.BooleanOptionalAction,
@@ -224,7 +226,8 @@ def _run(args) -> int:
     say(f"# Host settings #\nbackend: {device}"
         + (f" ({device_name})" if device_name else "")
         + f", devices: 1, variant: {variant}"
-        + (" (auto)" if cfg.variant == "auto" else ""))
+        + (" (auto)" if cfg.variant == "auto" else "")
+        + f", stream: {pipe.stream}" + (" (auto)" if cfg.stream == "auto" else ""))
     say(f"\n# Bvh settings #\nuse_bvh: {cfg.use_bvh}, heuristic: "
         f"{cfg.bvh_heuristic}, sah_bins: {cfg.sah_bins}, leaf: "
         f"{pipe.tables.leaf_size}, max_depth: {cfg.bvh_max_depth}, seed: "
@@ -276,6 +279,7 @@ def _run(args) -> int:
             "device_name": device_name,
             "build_ms": pipe.build_ms,
             "bvh_stats": pipe.bvh_stats,
+            "stream": pipe.stream,
             "times_ms": times,
             **stats,
         }

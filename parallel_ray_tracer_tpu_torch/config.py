@@ -104,9 +104,8 @@ class RenderConfig:
     # use_native (it always builds with numpy; the image does not depend on
     # the builder), pop_width and adaptive_pop (packet schedules; one
     # thread traces one ray here) and mxu_leaf (its leaf test is always
-    # the FP32 one). num_devices != 1 (no sharding yet), presplit > 0 and
-    # stream="on" (the streamed kernels) raise NotImplementedError; "auto"
-    # and "off" keep every scene resident, the dragon included.
+    # the FP32 one). num_devices != 1 (no sharding yet) and presplit > 0
+    # raise NotImplementedError.
     num_devices: int = 1
     use_native: bool = True
     # Node arity of the packed BVH: 2 (the binary tree), 4 or 8. Each has
@@ -137,6 +136,10 @@ class RenderConfig:
     leaf_size: Optional[int] = None
 
     presplit: float = 0.0
+    # Leaf rows streamed by the kernels' streamed instances: "on", "off",
+    # or "auto", which streams where the JAX package streams (past its row
+    # model's 126 MiB, about 450k triangles; ops/pack.stream_decision).
+    # A streamed pipeline renders "auto" by the pass-based path.
     stream: str = "auto"
 
     def resolution(self) -> Tuple[int, int]:

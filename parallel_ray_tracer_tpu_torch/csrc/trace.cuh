@@ -1,7 +1,8 @@
 // BVH traversal kernels for Hopper (sm_90a): closest hit, closest hit with
 // attributes, any hit, and the fused whole-frame bounce loop, each for node
 // arity A = 2, 4 and 8 (the frame for A = 4 and 8 only, as in JAX), and for
-// the node-box format F of the table (RtBox below).
+// the node-box format F of the table (RtBox below); closest and any hit also
+// with streamed leaf rows (STREAM, A 4 and 8, F32 and PAIRS, as in JAX).
 //
 // They replace the Pallas TPU kernels of parallel_ray_tracer_tpu/ops/
 // pallas_trace.py and compute the same functions:
@@ -14,6 +15,10 @@
 //                                   _occluded4_kernel :886 (A 4, 8),
 //                                   _occluded_kernel :676 (A 2)
 //   frame_kernel<A, F>           <- _frame_fused_kernel :2536 (A 4, 8)
+//   closest_kernel<A, F, FULL, STREAM = true>
+//                                <- _closest_stream_kernel(n_attr=0, 12) :2070
+//   occluded_kernel<A, F, STREAM = true>
+//                                <- _occluded_stream_kernel :2253
 // with F = RT_F32 for f32 tables, RT_PAIRS for those kernels' compressed=True
 // instances at A 4 and 8 (_load_node_row :740-758, _child_extract :761-764,
 // rows of pack_box_bf16_pairs :438), and RT_BF16 for _closest_kernel,
@@ -50,6 +55,33 @@
 // can only add visits; the hits are the f32 tables' hits, up to the order in
 // which equal-t triangles are met.
 //
+// Streamed leaf rows (STREAM): the instances for scenes whose leaf rows
+// (tri, and attr for FULL) do not fit the 50 MB L2. The node tables still
+// do, and are re-read by every ray; each leaf row is a dependent load that
+// misses L2 and waits out device-memory latency behind a chain of node
+// loads, so latency, not bytes, bounds them. The TPU kernels keep a ring
+// of VMEM slots and DMA blocks of STREAM_BLK leaf groups into it ahead of
+// use; here one thread traces one ray, and a ring of data per thread in
+// shared memory would cost kilobytes a thread and most of the occupancy.
+// So the rows stay in device memory and the thread asks the L2 for them
+// ahead of use: at each leaf visit (before its test) and after each node
+// visit it takes the blocks of the top RT_STREAM_KPRE leaf entries still
+// on its stack (a closest-hit ray skips entries it will drop) and sends
+// one `cp.async.bulk.prefetch.L2` per block: 2 KB in one instruction
+// where `prefetch.global.L2` would need 16, and nothing waits for it. The
+// ring is only the ids of the RT_STREAM_RING blocks last filled, in
+// registers (the TPU's ring_b), so a block already asked for is not asked
+// for again; a leaf visit whose block is in no slot is a sync fetch (its
+// row is loaded with no prefetch ahead of it; the block is filled then, so
+// its sibling groups find it). FULL also prefetches the attribute span of
+// each new closest hit, since attr is read once per ray, for the winner.
+// Leaf rows are read with __ldg, as in the resident instances: a row is
+// re-read by the neighbouring rays of its warp and of nearby warps within
+// microseconds, which an evict-first hint would throw away, and the node
+// tables, touched by every ray, stay in L2 without one. Visit order, the
+// drop of pops beyond t and the leaf test are those of the resident
+// instances, so the hits are theirs to the bit.
+//
 // Leaves hold L = 8 triangles (one 128-float row), the only leaf size the
 // port prepares; shadow rays are always traced from the light (the
 // reference's reverse_shadows=True).
@@ -57,8 +89,9 @@
 // Work counters: each kernel has a counting instance (COUNT = true) that
 // also sums, per launch, the node visits, the box tests of valid children,
 // the leaf visits, the triangle tests of live slots (n != 0; padding slots
-// can never hit) and the traversals. The timed instance (COUNT = false)
-// compiles the counting out.
+// can never hit) and the traversals; a STREAM instance also the block
+// fills (prefetches sent, the TPU ring's final clock) and the sync
+// fetches. The timed instance (COUNT = false) compiles the counting out.
 //
 // Numerics: built with -fmad=false and without fast math, so each product
 // and division rounds as in the JAX kernels and the plain PyTorch versions,
@@ -77,6 +110,12 @@
 #define RT_ATTR_STRIDE 9       // [kd, ks, kr] per triangle
 #define RT_LEAF 8              // triangles per leaf row
 #define RT_BLOCK 128           // threads per block
+// The TPU streamed kernels' constants (pallas_trace.py:1909-1916), with the
+// same meaning here: ring slots, pending leaves prefetched per step, leaf
+// groups per block.
+#define RT_STREAM_RING 2       // STREAM_RING
+#define RT_STREAM_KPRE 2       // STREAM_KPRE
+#define RT_STREAM_BLK 4        // STREAM_BLK
 
 #define RT_FN __device__ __forceinline__
 
@@ -112,12 +151,18 @@ struct RtRay {
   float3 o, d, inv, oi;  // inv: clipped 1/d; oi = o * inv (hoisted slab term)
 };
 
-// Per-thread work counts; with ON = false every method is empty.
-enum { RT_C_INNER, RT_C_BOX, RT_C_LEAF, RT_C_TRI, RT_C_RAYS, RT_NCOUNTS };
+// Per-thread work counts; with ON = false every method is empty. The last
+// two are kept by the STREAM instances only.
+enum { RT_C_INNER, RT_C_BOX, RT_C_LEAF, RT_C_TRI, RT_C_RAYS, RT_C_FILLS,
+       RT_C_SYNCS, RT_NCOUNTS };
+
+__host__ __device__ constexpr int rt_ncounts(bool stream) {
+  return stream ? RT_NCOUNTS : RT_C_FILLS;
+}
 
 template <bool ON>
 struct RtCounts {
-  unsigned v[RT_NCOUNTS] = {0u, 0u, 0u, 0u, 0u};
+  unsigned v[RT_NCOUNTS] = {0u, 0u, 0u, 0u, 0u, 0u, 0u};
   RT_FN void add(int k, unsigned n = 1u) {
     if (ON) v[k] += n;
   }
@@ -322,9 +367,111 @@ RT_FN void rt_visit(const RtScene& s, int e, const RtRay& r, float t_cut,
   }
 }
 
+// ---- streamed leaf rows: the block ring (STREAM instances) ----
+// The TPU ring (pallas_trace.py:1903-2067) with the data left in device
+// memory: a fill prefetches the block into L2, and the ring keeps only the
+// ids of the blocks filled last (ring_b) and the count of fills (clock);
+// slot clock % RT_STREAM_RING is the next to be refilled.
+struct RtRing {
+  int b[RT_STREAM_RING];  // block id of each slot, -1 empty
+  unsigned clock;
+};
+
+RT_FN void rt_ring_init(RtRing& q) {
+#pragma unroll
+  for (int i = 0; i < RT_STREAM_RING; ++i) q.b[i] = -1;
+  q.clock = 0u;
+}
+
+// The slot holding block blk, or -1.
+RT_FN int rt_ring_find(const RtRing& q, int blk) {
+  int slot = -1;
+#pragma unroll
+  for (int i = 0; i < RT_STREAM_RING; ++i) slot = q.b[i] == blk ? i : slot;
+  return slot;
+}
+
+// One bulk prefetch into L2: p 16-byte aligned, bytes a multiple of 16.
+RT_FN void rt_prefetch_l2(const void* p, unsigned bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;"
+               :: "l"(p), "r"(bytes) : "memory");
+}
+
+// Fill slot v with block blk: its RT_STREAM_BLK tri rows (2 KB) to L2.
+template <class C>
+RT_FN void rt_ring_fill(const RtScene& s, RtRing& q, int v, int blk, C& cnt) {
+  rt_prefetch_l2(s.tri + (size_t)blk * RT_STREAM_BLK * (RT_LANES / 4),
+                 RT_STREAM_BLK * RT_LANES * sizeof(float));
+#pragma unroll
+  for (int i = 0; i < RT_STREAM_RING; ++i) q.b[i] = i == v ? blk : q.b[i];
+  ++q.clock;
+  cnt.add(RT_C_FILLS);
+}
+
+// _ring_use (:1957): leaf group g is about to be tested; returns the slot
+// of its block. A block in no slot is a sync fetch: the row is loaded with
+// no prefetch ahead of it, and the block is filled now for its siblings.
+template <class C>
+RT_FN int rt_ring_use(const RtScene& s, RtRing& q, int g, C& cnt) {
+  const int blk = g / RT_STREAM_BLK;
+  int slot = rt_ring_find(q, blk);
+  if (slot < 0) {
+    cnt.add(RT_C_SYNCS);
+    slot = (int)(q.clock % RT_STREAM_RING);
+    rt_ring_fill(s, q, slot, blk, cnt);
+  }
+  return slot;
+}
+
+// _ring_prefetch (:2003): fill the blocks of the top RT_STREAM_KPRE leaf
+// entries on the stack whose entry distance is below t (the others will be
+// dropped at their pop). A block already in a slot is skipped; the victim
+// slot is not refilled when it is `keep` (the block in use) or holds one
+// of those top blocks.
+template <class C>
+RT_FN void rt_ring_ahead(const RtScene& s, RtRing& q, const int* stk,
+                         const float* dst, int sp, float t, int keep, C& cnt) {
+  int tops[RT_STREAM_KPRE];
+  int k = sp - 1;
+#pragma unroll
+  for (int i = 0; i < RT_STREAM_KPRE; ++i) {
+    while (k >= 0 && (stk[k] >= 0 || dst[k] >= t)) --k;
+    tops[i] = k >= 0 ? (-stk[k] - 1) / RT_STREAM_BLK : -1;
+    --k;
+  }
+#pragma unroll
+  for (int i = 0; i < RT_STREAM_KPRE; ++i) {
+    const int bi = tops[i];
+    bool skip = bi < 0 || rt_ring_find(q, bi) >= 0;
+    const int v = (int)(q.clock % RT_STREAM_RING);
+    int bv = -1;  // the victim's block
+#pragma unroll
+    for (int j = 0; j < RT_STREAM_RING; ++j) bv = j == v ? q.b[j] : bv;
+    bool held = v == keep;
+#pragma unroll
+    for (int j = 0; j < RT_STREAM_KPRE; ++j) {
+      if (j < i) skip = skip || tops[j] == bi;
+      held = held || (tops[j] >= 0 && tops[j] == bv);
+    }
+    if (!skip && !held) rt_ring_fill(s, q, v, bi, cnt);
+  }
+}
+
+// The 9 attribute floats of slot idx (rt_slot_attrs' attr loads), as one
+// bulk prefetch of the 16-byte aligned span that holds them.
+RT_FN void rt_prefetch_slot_attrs(const RtScene& s, int idx) {
+  const int g = idx / RT_LEAF, j = idx - g * RT_LEAF;
+  const unsigned lo = (unsigned)(RT_ATTR_STRIDE * j * sizeof(float)) & ~15u;
+  const unsigned hi =
+      ((unsigned)(RT_ATTR_STRIDE * (j + 1) * sizeof(float)) + 15u) & ~15u;
+  rt_prefetch_l2(reinterpret_cast<const char*>(s.attr + (size_t)g * RT_LANES) + lo,
+                 hi - lo);
+}
+
 // Closest hit of one ray: returns the slot g*RT_LEAF + j (or -1) and sets
 // t and neg (det < 0 of the winner). Strict < keeps the first of equal hits.
-template <int A, RtBox F, class C>
+// STREAM adds the block ring's prefetches; the traversal is unchanged.
+template <int A, RtBox F, bool STREAM, class C>
 RT_FN int rt_closest(const RtScene& s, const RtRay& r, float& t, bool& neg,
                      C& cnt) {
   int stk[RtArity<A>::STACK];
@@ -334,6 +481,8 @@ RT_FN int rt_closest(const RtScene& s, const RtRay& r, float& t, bool& neg,
   dst[0] = -RT_TMAX;
   t = RT_TMAX;
   neg = false;
+  RtRing q;
+  if constexpr (STREAM) rt_ring_init(q);
   cnt.add(RT_C_RAYS);
   while (sp > 0) {
     --sp;
@@ -342,6 +491,11 @@ RT_FN int rt_closest(const RtScene& s, const RtRay& r, float& t, bool& neg,
     if (e < 0) {
       int g = -e - 1;
       cnt.add(RT_C_LEAF);
+      [[maybe_unused]] const int best = idx;
+      if constexpr (STREAM) {
+        const int slot = rt_ring_use(s, q, g, cnt);
+        rt_ring_ahead(s, q, stk, dst, sp, t, slot, cnt);
+      }
       const float4* row = s.tri + (size_t)g * (RT_LANES / 4);
 #pragma unroll
       for (int j = 0; j < RT_LEAF; ++j) {
@@ -355,8 +509,12 @@ RT_FN int rt_closest(const RtScene& s, const RtRay& r, float& t, bool& neg,
           neg = nj;
         }
       }
+      if constexpr (STREAM) {
+        if (s.attr != nullptr && idx != best) rt_prefetch_slot_attrs(s, idx);
+      }
     } else {
       rt_visit<A, F>(s, e, r, t, stk, dst, sp, cnt);
+      if constexpr (STREAM) rt_ring_ahead(s, q, stk, dst, sp, t, -1, cnt);
     }
   }
   return idx;
@@ -364,7 +522,8 @@ RT_FN int rt_closest(const RtScene& s, const RtRay& r, float& t, bool& neg,
 
 // Any hit of one ray with t*t < max_dist2 (pallas_trace._run_occluded_dual);
 // boxes are cut at sqrt(max_dist2), the ray stops at its first blocker.
-template <int A, RtBox F, class C>
+// Every pushed entry lies within the cut, so the ring takes any leaf entry.
+template <int A, RtBox F, bool STREAM, class C>
 RT_FN bool rt_occluded(const RtScene& s, const RtRay& r, float max_dist2,
                        C& cnt) {
   int stk[RtArity<A>::STACK];
@@ -372,6 +531,8 @@ RT_FN bool rt_occluded(const RtScene& s, const RtRay& r, float max_dist2,
   int sp = 1;
   stk[0] = 0;
   const float t_limit = sqrtf(max_dist2);
+  RtRing q;
+  if constexpr (STREAM) rt_ring_init(q);
   cnt.add(RT_C_RAYS);
   while (sp > 0) {
     --sp;
@@ -379,6 +540,10 @@ RT_FN bool rt_occluded(const RtScene& s, const RtRay& r, float max_dist2,
     if (e < 0) {
       int g = -e - 1;
       cnt.add(RT_C_LEAF);
+      if constexpr (STREAM) {
+        const int slot = rt_ring_use(s, q, g, cnt);
+        rt_ring_ahead(s, q, stk, dst, sp, RT_TMAX, slot, cnt);
+      }
       const float4* row = s.tri + (size_t)g * (RT_LANES / 4);
 #pragma unroll
       for (int j = 0; j < RT_LEAF; ++j) {
@@ -390,6 +555,7 @@ RT_FN bool rt_occluded(const RtScene& s, const RtRay& r, float max_dist2,
       }
     } else {
       rt_visit<A, F>(s, e, r, t_limit, stk, dst, sp, cnt);
+      if constexpr (STREAM) rt_ring_ahead(s, q, stk, dst, sp, RT_TMAX, -1, cnt);
     }
   }
   return false;
@@ -422,7 +588,7 @@ RT_FN float3 rt_frame_ray(const RtScene& s, const float* lamb, int nl,
     float t = RT_TMAX;
     bool neg = false;
     int idx = -1;
-    if (!rt_dead(d)) idx = rt_closest<A, F>(s, rt_ray(o, d), t, neg, cnt);
+    if (!rt_dead(d)) idx = rt_closest<A, F, false>(s, rt_ray(o, d), t, neg, cnt);
     if (!(t < RT_TMAX)) {  // miss: multiplier * ambient, the ray ends
       fx = fx + mx * ax;
       fy = fy + my * ay;
@@ -452,7 +618,7 @@ RT_FN float3 rt_frame_ray(const RtScene& s, const float* lamb, int nl,
       bool blocked = false;
       if (!backface) {
         float q = fmaxf(mag2 * imag - RT_EPS, 0.f);
-        blocked = rt_occluded<A, F>(
+        blocked = rt_occluded<A, F, false>(
             s, rt_ray(make_float3(lr[0], lr[1], lr[2]), make_float3(-lx, -ly, -lz)),
             q * q, cnt);
       }
@@ -480,12 +646,12 @@ RT_FN float3 rt_frame_ray(const RtScene& s, const float* lamb, int nl,
   return make_float3(fx, fy, fz);
 }
 
-// Per-warp sums of the work counts, one atomic per count and warp.
-template <bool ON>
+// Per-warp sums of the first N work counts, one atomic per count and warp.
+template <int N, bool ON>
 RT_FN void rt_count(unsigned long long* counts, const RtCounts<ON>& c) {
   if (!ON) return;
 #pragma unroll
-  for (int k = 0; k < RT_NCOUNTS; ++k) {
+  for (int k = 0; k < N; ++k) {
     unsigned sum = __reduce_add_sync(0xffffffffu, c.v[k]);
     if ((threadIdx.x & 31) == 0) atomicAdd(counts + k, (unsigned long long)sum);
   }
@@ -501,11 +667,14 @@ RT_FN void rt_load(const RtRays& p, int i, float3& o, float3& d) {
 }
 
 // One thread per ray; the grid covers n rays exactly once. Threads past n
-// stay for the warp-wide count reduction.
-template <int A, RtBox F, bool FULL, bool COUNT>
+// stay for the warp-wide count reduction. STREAM: the streamed leaf rows
+// (arity 4 and 8, f32 or pair rows; tri and attr padded to whole blocks).
+template <int A, RtBox F, bool FULL, bool COUNT, bool STREAM>
 __global__ void __launch_bounds__(RT_BLOCK)
 closest_kernel(RtRays rays, RtScene s, int n, float* t_out, int* idx_out,
                int* nd_out, float* attr_out, unsigned long long* counts) {
+  static_assert(!STREAM || (A >= 4 && F != RT_BF16),
+                "leaf rows stream at arity 4 and 8 only, as in JAX");
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   RtCounts<COUNT> cnt;
   if (i < n) {
@@ -514,7 +683,7 @@ closest_kernel(RtRays rays, RtScene s, int n, float* t_out, int* idx_out,
     float t = RT_TMAX;
     bool neg = false;
     int idx = -1;
-    if (!rt_dead(d)) idx = rt_closest<A, F>(s, rt_ray(o, d), t, neg, cnt);
+    if (!rt_dead(d)) idx = rt_closest<A, F, STREAM>(s, rt_ray(o, d), t, neg, cnt);
     t_out[i] = t;
     idx_out[i] = idx;
     nd_out[i] = neg ? 1 : 0;
@@ -530,23 +699,26 @@ closest_kernel(RtRays rays, RtScene s, int n, float* t_out, int* idx_out,
       for (int k = 0; k < 12; ++k) attr_out[(size_t)k * n + i] = av[k];
     }
   }
-  rt_count(counts, cnt);
+  rt_count<rt_ncounts(STREAM)>(counts, cnt);
 }
 
-template <int A, RtBox F, bool COUNT>
+template <int A, RtBox F, bool COUNT, bool STREAM>
 __global__ void __launch_bounds__(RT_BLOCK)
 occluded_kernel(RtRays rays, const float* max_dist2, RtScene s, int n,
                 int* blocked_out, unsigned long long* counts) {
+  static_assert(!STREAM || (A >= 4 && F != RT_BF16),
+                "leaf rows stream at arity 4 and 8 only, as in JAX");
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   RtCounts<COUNT> cnt;
   if (i < n) {
     float3 o, d;
     rt_load(rays, i, o, d);
     bool blocked = false;
-    if (!rt_dead(d)) blocked = rt_occluded<A, F>(s, rt_ray(o, d), max_dist2[i], cnt);
+    if (!rt_dead(d))
+      blocked = rt_occluded<A, F, STREAM>(s, rt_ray(o, d), max_dist2[i], cnt);
     blocked_out[i] = blocked ? 1 : 0;
   }
-  rt_count(counts, cnt);
+  rt_count<rt_ncounts(STREAM)>(counts, cnt);
 }
 
 // The light table is copied to shared memory once per block.
@@ -568,16 +740,17 @@ frame_kernel(RtRays rays, RtScene s, const float* lamb, int nl, int n,
     col_out[(size_t)n + i] = c.y;
     col_out[2 * (size_t)n + i] = c.z;
   }
-  rt_count(counts, cnt);
+  rt_count<rt_ncounts(false)>(counts, cnt);
 }
 
 // Host launchers, one set per arity and box format: defined in
 // trace_launch.cuh and instantiated in trace_a{2,4,8}.cu (RT_F32),
-// trace_a{4,8}p.cu (RT_PAIRS) and trace_a2h.cu (RT_BF16), which nvcc
+// trace_a{4,8}p.cu (RT_PAIRS) and trace_a2h.cu (RT_BF16), and the streamed
+// ones (STREAM = true) in trace_a{4,8}s.cu and trace_a{4,8}ps.cu, which nvcc
 // compiles in parallel. Each launches one kernel on stream st (the counting
 // instance when counts is non-null), does not synchronise, and returns
 // cudaGetLastError() after the launch.
-template <int A, RtBox F>
+template <int A, RtBox F, bool STREAM>
 struct RtLaunch {
   static int closest(const RtRays& rays, const RtScene& s, int n, float* t,
                      int* idx, int* nd, float* attr_out,

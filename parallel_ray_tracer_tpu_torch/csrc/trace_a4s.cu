@@ -1,0 +1,6 @@
+// Arity-4 instances of the traversal kernels (csrc/trace.cuh) with streamed
+// leaf rows, f32 boxes.
+
+#include "trace_launch.cuh"
+
+template struct RtLaunch<4, RT_F32, true>;

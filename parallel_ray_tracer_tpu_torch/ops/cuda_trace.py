@@ -8,6 +8,8 @@ and 8, on f32 or bf16 node boxes.
 | `closest_tiles_full` | `closest_kernel<A, F, true>`  | `_closest_dual_kernel(n_attr=12)` :1774, `_closest_attr_kernel` :2437       |
 | `occluded_tiles`     | `occluded_kernel<A, F>`       | `_occluded_dual_kernel` :1835, `_occluded4_kernel` :886, `_occluded_kernel` :676 |
 | `frame_tiles`        | `frame_kernel<A, F>`, A 4, 8  | `_frame_fused_kernel` :2536                                                 |
+| `closest_tiles`, `closest_tiles_full`, `stream=True` | `closest_kernel<A, F, FULL, COUNT, true>`, A 4, 8 | `_closest_stream_kernel(n_attr=0, 12)` :2070 |
+| `occluded_tiles`, `stream=True` | `occluded_kernel<A, F, COUNT, true>`, A 4, 8 | `_occluded_stream_kernel` :2253 |
 
 The arity A comes from the node table (cbox row width 16, 32 or 64, as
 pallas_trace.py:3068), the box format F from its dtype and `compressed`:
@@ -19,9 +21,16 @@ pallas_trace.py:3068), the box format F from its dtype and `compressed`:
     cbox_to_bf16, which JAX's binary kernels read with .astype(f32).
 Rays come as (rows, 128) f32 planes in the tile-major
 order of ops/render.generate_rays_tiled. The signatures are the JAX ones
-without the TPU schedule knobs (dual, npop, adaptive, smem_meta, stream,
-sort, cmat): one thread traces one ray, so none of them applies, and the
-JAX single-pop and dual-pop kernels of one arity map to the same instance.
+without the TPU schedule knobs (dual, npop, adaptive, smem_meta, sort,
+cmat): one thread traces one ray, so none of them applies, and the JAX
+single-pop and dual-pop kernels of one arity map to the same instance.
+
+`stream=True` takes the instances with streamed leaf rows, which prefetch
+leaf blocks into L2 ahead of use (csrc/trace.cuh); their hits are those of
+the resident instances. As in JAX they exist at arity 4 and 8 only: a
+binary table raises ValueError, and so does a `tri` or `attr` that is not
+padded to whole blocks of STREAM_BLK rows (ops/pack.pad_stream_rows), on
+every device.
 
 A tensor on the CPU runs the kernel's plain version (ops/trace_plain.py, and
 ops/shade.trace_rays for the frame); the plain versions read no node table,
@@ -29,8 +38,8 @@ so they are the oracle for every box format. A CUDA tensor launches the
 kernel, or raises: there is no fallback. Each wrapper checks device, dtype,
 shape and contiguity, counts its launches in `LAUNCHES` by kernel, arity
 and format (keys such as "closest_full<8>", or "frame<8,bf16>" and
-"occluded<2,bf16>" for the bf16 instances), and raises if the launch
-reported an error.
+"occluded<2,bf16>" for the bf16 instances, "closest_full_stream<4>" for
+a streamed one), and raises if the launch reported an error.
 
 The kernels hold L = 8 triangles per leaf row and trace shadow rays from
 the light: `leaf_size` other than 8 and `reverse_shadows=False` raise
@@ -38,7 +47,8 @@ NotImplementedError, on every device. The fused frame exists at arity 4
 and 8 only (as in JAX); binary tables raise ValueError there.
 
 `counters=True` (CUDA only) launches the kernel's counting instance and also
-returns an int64 tensor of the `COUNTS` sums over the rays.
+returns an int64 tensor of the `COUNTS` sums over the rays (`STREAM_COUNTS`
+for a streamed launch).
 """
 
 from __future__ import annotations
@@ -50,7 +60,7 @@ import torch
 
 from .._build import error_string, load_library
 from ..models.device_scene import device_scene_from_lights
-from .pack import ARITY_OF_WIDTH, LANES, META_WIDTH, stack_need
+from .pack import ARITY_OF_WIDTH, LANES, META_WIDTH, STREAM_BLK, stack_need
 from .shade import trace_rays
 from .trace_plain import Hit, HitFull, closest_full_plain, closest_plain, occluded_plain
 from .vecmath import Vec3
@@ -62,6 +72,10 @@ LEAF_SIZE = 8            # triangles per leaf row, RT_LEAF in csrc/trace.cuh
 # visits, box tests of valid children, leaf visits, triangle tests of live
 # slots, traversals.
 COUNTS = ("inner_visits", "box_tests", "leaf_visits", "tri_tests", "traversals")
+# A streamed launch also counts the block fills (prefetches sent: the TPU
+# ring's final clock) and the sync fetches (leaf visits whose block was in
+# no ring slot).
+STREAM_COUNTS = COUNTS + ("block_fills", "sync_fetches")
 
 # The arities each kernel is instantiated for; every arity also has one
 # bf16 format (RT_PAIRS at 4 and 8, RT_BF16 at 2).
@@ -69,7 +83,11 @@ ARITIES = {"closest": (2, 4, 8), "closest_full": (2, 4, 8),
            "occluded": (2, 4, 8), "frame": (4, 8)}
 # The box formats, as RtBox in csrc/trace.cuh.
 BOX_F32, BOX_PAIRS, BOX_BF16 = 0, 1, 2
-LAUNCHES = {f"{k}<{a}{sfx}>": 0 for k, arities in ARITIES.items() for a in arities
+# The streamed instances (f32 and bf16 pair rows at each arity).
+STREAM_ARITIES = {"closest": (4, 8), "closest_full": (4, 8), "occluded": (4, 8)}
+LAUNCHES = {f"{k}{mode}<{a}{sfx}>": 0
+            for mode, kernels in (("", ARITIES), ("_stream", STREAM_ARITIES))
+            for k, arities in kernels.items() for a in arities
             for sfx in ("", ",bf16")}
 
 
@@ -138,12 +156,28 @@ def _check_inputs(cbox, cmeta, tri, attr, lamb, planes, leaf_size, compressed):
     return device, rows, arity, box
 
 
-def _instance(kernel: str, arity: int, box: int) -> str:
-    """The LAUNCHES key of a launch, e.g. "closest<4,bf16>"."""
-    return f"{kernel}<{arity}{'' if box == BOX_F32 else ',bf16'}>"
+def _check_stream(stream, arity, tri, attr):
+    """The streamed instances' conditions (pallas_trace.py:3070, 3174, 3284
+    assert the arity; _pad_stream_rows pads the rows)."""
+    if not stream:
+        return
+    if arity < 4:
+        raise ValueError(f"streaming needs a node arity of 4 or 8, got {arity}")
+    for name, t in (("tri", tri), ("attr", attr)):
+        if t is not None and t.shape[0] % STREAM_BLK:
+            raise ValueError(
+                f"{name}: {t.shape[0]} rows; streamed tables hold whole blocks of "
+                f"{STREAM_BLK} rows (ops/pack.pad_stream_rows)")
 
 
-def _launch_setup(cmeta, arity, stack_depth, counters):
+def _instance(kernel: str, arity: int, box: int, stream: bool = False) -> str:
+    """The LAUNCHES key of a launch, e.g. "closest<4,bf16>" or
+    "occluded_stream<8>"."""
+    mode = "_stream" if stream else ""
+    return f"{kernel}{mode}<{arity}{'' if box == BOX_F32 else ',bf16'}>"
+
+
+def _launch_setup(cmeta, arity, stack_depth, counters, stream=False):
     """Stack check before any launch; the library and a counts buffer."""
     need = (stack_need(cmeta.cpu().numpy(), arity) if stack_depth is None
             else int(stack_depth))
@@ -154,7 +188,8 @@ def _launch_setup(cmeta, arity, stack_depth, counters):
             "csrc/trace.cuh)"
         )
     counts = (
-        torch.zeros(len(COUNTS), dtype=torch.int64, device=cmeta.device)
+        torch.zeros(len(STREAM_COUNTS if stream else COUNTS), dtype=torch.int64,
+                    device=cmeta.device)
         if counters else None
     )
     return load_library(), counts
@@ -176,23 +211,24 @@ def _no_counters_on_cpu(counters):
 
 def closest_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, leaf_size: int,
                   stack_depth: Optional[int] = None, counters: bool = False,
-                  compressed: bool = False):
+                  compressed: bool = False, stream: bool = False):
     """Closest hit over (rows, 128) ray planes -> Hit (t, idx, norm_dir)."""
     device, rows, arity, box = _check_inputs(cbox, cmeta, tri, None, None,
                                              (*o, *d), leaf_size, compressed)
+    _check_stream(stream, arity, tri, None)
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
         return closest_plain(tri, o, d, leaf_size)
-    lib, counts = _launch_setup(cmeta, arity, stack_depth, counters)
+    lib, counts = _launch_setup(cmeta, arity, stack_depth, counters, stream)
     t = torch.empty((rows, LANES), dtype=torch.float32, device=device)
     idx = torch.empty((rows, LANES), dtype=torch.int32, device=device)
     nd = torch.empty((rows, LANES), dtype=torch.int32, device=device)
     rc = lib.rt_closest(
         *(_ptr(p) for p in (*o, *d)), _ptr(cbox), _ptr(cmeta), _ptr(tri),
-        _ptr(None), arity, box, rows * LANES, _ptr(t), _ptr(idx), _ptr(nd),
-        _ptr(None), _ptr(counts), _stream(device),
+        _ptr(None), arity, box, int(stream), rows * LANES, _ptr(t), _ptr(idx),
+        _ptr(nd), _ptr(None), _ptr(counts), _stream(device),
     )
-    key = _instance("closest", arity, box)
+    key = _instance("closest", arity, box, stream)
     LAUNCHES[key] += 1
     _raise_on(rc, key)
     hit = Hit(t=t, idx=idx, norm_dir=nd.bool())
@@ -201,25 +237,26 @@ def closest_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, leaf_size: int,
 
 def closest_tiles_full(cbox, cmeta, tri, attr, o: Vec3, d: Vec3, leaf_size: int,
                        stack_depth: Optional[int] = None, counters: bool = False,
-                       compressed: bool = False):
+                       compressed: bool = False, stream: bool = False):
     """Closest hit plus the winning triangle's raw normal and kd/ks/kr ->
     HitFull."""
     device, rows, arity, box = _check_inputs(cbox, cmeta, tri, attr, None,
                                              (*o, *d), leaf_size, compressed)
+    _check_stream(stream, arity, tri, attr)
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
         return closest_full_plain(tri, attr, o, d, leaf_size)
-    lib, counts = _launch_setup(cmeta, arity, stack_depth, counters)
+    lib, counts = _launch_setup(cmeta, arity, stack_depth, counters, stream)
     t = torch.empty((rows, LANES), dtype=torch.float32, device=device)
     idx = torch.empty((rows, LANES), dtype=torch.int32, device=device)
     nd = torch.empty((rows, LANES), dtype=torch.int32, device=device)
     av = torch.empty((12, rows, LANES), dtype=torch.float32, device=device)
     rc = lib.rt_closest(
         *(_ptr(p) for p in (*o, *d)), _ptr(cbox), _ptr(cmeta), _ptr(tri),
-        _ptr(attr), arity, box, rows * LANES, _ptr(t), _ptr(idx), _ptr(nd),
-        _ptr(av), _ptr(counts), _stream(device),
+        _ptr(attr), arity, box, int(stream), rows * LANES, _ptr(t), _ptr(idx),
+        _ptr(nd), _ptr(av), _ptr(counts), _stream(device),
     )
-    key = _instance("closest_full", arity, box)
+    key = _instance("closest_full", arity, box, stream)
     LAUNCHES[key] += 1
     _raise_on(rc, key)
     hit = HitFull(
@@ -232,22 +269,23 @@ def closest_tiles_full(cbox, cmeta, tri, attr, o: Vec3, d: Vec3, leaf_size: int,
 
 def occluded_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, max_dist2, leaf_size: int,
                    stack_depth: Optional[int] = None, counters: bool = False,
-                   compressed: bool = False):
+                   compressed: bool = False, stream: bool = False):
     """Any hit with t*t < max_dist2 over (rows, 128) ray planes -> bool."""
     device, rows, arity, box = _check_inputs(
         cbox, cmeta, tri, None, None, (*o, *d, max_dist2), leaf_size, compressed
     )
+    _check_stream(stream, arity, tri, None)
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
         return occluded_plain(tri, o, d, max_dist2, leaf_size)
-    lib, counts = _launch_setup(cmeta, arity, stack_depth, counters)
+    lib, counts = _launch_setup(cmeta, arity, stack_depth, counters, stream)
     blocked = torch.empty((rows, LANES), dtype=torch.int32, device=device)
     rc = lib.rt_occluded(
         *(_ptr(p) for p in (*o, *d)), _ptr(max_dist2), _ptr(cbox), _ptr(cmeta),
-        _ptr(tri), arity, box, rows * LANES, _ptr(blocked), _ptr(counts),
-        _stream(device),
+        _ptr(tri), arity, box, int(stream), rows * LANES, _ptr(blocked),
+        _ptr(counts), _stream(device),
     )
-    key = _instance("occluded", arity, box)
+    key = _instance("occluded", arity, box, stream)
     LAUNCHES[key] += 1
     _raise_on(rc, key)
     return (blocked.bool(), counts) if counters else blocked.bool()

@@ -4,8 +4,10 @@ numpy packers that turn a FlatBVH into the tables the kernels read.
 Copied from pallas_trace.py (pack_bvh :160-224 without `_build_cmat`,
 pack_bvh4 :267-349, pack_bvh8 :352-417, pack_box_bf16_pairs :438-484,
 cbox_to_bf16 :487-505, pack_attr :2397, pack_lights :2971,
-required_stack_depth :61) without the MXU leaf matrices (`cmat`), which the
-port does not take yet. Same inputs give bit-identical tables.
+required_stack_depth :61, _pad_stream_rows :3023) without the MXU leaf
+matrices (`cmat`), which the port does not take yet. Same inputs give
+bit-identical tables. `stream_decision` is the JAX prepare's choice of
+leaf-row streaming (pipeline.py:350-368).
 
   - ``cbox`` f32 node rows, child k's [min.xyz, max.xyz] at lanes [6k, 6k+6):
     (Ni, 16) binary, (Nq+1, 32) BVH4, (No+1, 64) BVH8. In the BVH4 and BVH8
@@ -48,6 +50,35 @@ STACK_DEPTH = 96
 # by arity.
 ARITY_OF_WIDTH = {16: 2, 32: 4, 64: 8}
 META_WIDTH = {2: 8, 4: 8, 8: 16}
+
+# Leaf-row streaming, copied from pallas_trace.py:1909-1916 (the streamed
+# kernels' ring: slots, pending leaves prefetched per step, leaf groups per
+# block). The CUDA kernels use the same three values (RT_STREAM_* in
+# csrc/trace.cuh).
+STREAM_RING = 2
+STREAM_KPRE = 2
+STREAM_BLK = 4
+# JAX's auto-stream threshold on its row model (pallas_trace.py:96, measured
+# on the TPU's VMEM): the port streams where JAX streams, so both packages
+# take the same path. It is not a limit of the CUDA card.
+RESIDENT_ROWS_CEILING_BYTES = 126 * 1024 * 1024
+
+
+def pad_stream_rows(a: np.ndarray) -> np.ndarray:
+    """Pad a (G, 128) row table with zero rows to a multiple of STREAM_BLK
+    rows (pallas_trace._pad_stream_rows :3023), so a block prefetch never
+    reaches past the table. Padding rows are never addressed by a leaf."""
+    extra = (-a.shape[0]) % STREAM_BLK
+    return np.pad(a, ((0, extra), (0, 0))) if extra else a
+
+
+def stream_decision(n_cbox: int, n_cmeta: int, n_tri: int, mode: str) -> bool:
+    """Whether leaf rows stream, by the JAX prepare's rule
+    (pipeline.py:350-368): "on" always, "off" never, "auto" when the row
+    model 512 * (cbox rows + cmeta rows + 2 * tri rows), counted before
+    padding, passes RESIDENT_ROWS_CEILING_BYTES."""
+    resident = 512 * (int(n_cbox) + int(n_cmeta) + 2 * int(n_tri))
+    return mode == "on" or (mode == "auto" and resident > RESIDENT_ROWS_CEILING_BYTES)
 
 
 def required_stack_depth(tree_depth: int, arity: int, npop: int = 2) -> int:

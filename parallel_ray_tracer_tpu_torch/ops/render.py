@@ -113,13 +113,14 @@ def render_bvh_fused(ds, tables, cam: Camera, width: int, height: int,
 
 def render_bvh_pallas(ds, tables, cam: Camera, width: int, height: int,
                       bounces: int = 4, tile_rows: int = 32,
-                      tile_cols: int = 32) -> torch.Tensor:
+                      tile_cols: int = 32, stream: bool = False) -> torch.Tensor:
     """Pass-based render: per bounce one closest-hit launch and one any-hit
     launch per light (cuda_trace.closest_tiles_full / occluded_tiles), with
-    the shading in torch (ops/shade.trace_rays)."""
+    the shading in torch (ops/shade.trace_rays). `stream` takes both
+    kernels' streamed instances, as JAX's _render_bvh_pallas threads it."""
     o, d = _tiled_planes(cam, width, height, tile_rows, tile_cols, ds.device)
     kw = dict(leaf_size=tables.leaf_size, stack_depth=tables.stack_depth,
-              compressed=tables.compressed)
+              compressed=tables.compressed, stream=stream)
 
     def closest(o, d):
         return cuda_trace.closest_tiles_full(

@@ -3,8 +3,9 @@ device tables -> render.
 
 `prepare` loads the scene, builds, flattens and packs the BVH at the
 configured node arity (bvh_width 2, 4 or 8) and box format (f32, or bf16
-with bf16_bvh) with the port's own numpy modules, and uploads the tables
-once; `Pipeline.render` then renders frames from them on the device.
+with bf16_bvh) with the port's own numpy modules, decides as JAX does
+whether leaf rows stream, and uploads the tables once; `Pipeline.render`
+then renders frames from them on the device.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ from .ops import render as render_ops
 from .ops.bvh import build_bvh
 from .ops.bvh_flat import FlatBVH, flatten_bvh
 from .ops.cuda_trace import LEAF_SIZE
-from .ops.pack import pack_attr, pack_bvh, pack_bvh4, pack_bvh8, pack_lights
+from .ops.pack import (pack_attr, pack_bvh, pack_bvh4, pack_bvh8, pack_lights,
+                       pad_stream_rows, stream_decision)
 
 VARIANTS = ("auto", "fused", "pallas")
 PACKERS = {2: pack_bvh, 4: pack_bvh4, 8: pack_bvh8}   # by bvh_width
@@ -44,6 +46,7 @@ class Pipeline:
     tables: SceneTables
     build_ms: float
     bvh_stats: Optional[dict] = None    # the host tree's stats (ops/bvh.py)
+    stream: bool = False                # streamed leaf rows (pass-based path)
 
     def bvh_metrics_banner(self) -> Optional[str]:
         """The reference's BVH_METRICS printout (cpu/src/bvh.c:381-387)."""
@@ -68,10 +71,11 @@ class Pipeline:
     def resolved_variant(self, variant: Optional[str] = None) -> str:
         """Resolve "auto" (and None) as the JAX package does
         (pipeline.py:80-104): the fused whole-frame kernel when the table
-        is at bvh_width >= 4, shadows use the any-hit traversal and a tile
-        is one 1024-ray packet; otherwise the pass-based path. JAX also
-        takes the pass-based path for a scene it streams from HBM; the port
-        holds every scene in device memory and streams none."""
+        is at bvh_width >= 4, the leaf rows do not stream, shadows use the
+        any-hit traversal and a tile is one 1024-ray packet; otherwise the
+        pass-based path. An explicit "fused" on a streamed pipeline runs
+        the resident frame kernel, as JAX's render does (it has no streamed
+        frame kernel)."""
         cfg = self.cfg
         variant = variant or cfg.variant
         if variant not in VARIANTS:
@@ -80,6 +84,7 @@ class Pipeline:
             return variant
         fused_ok = (
             cfg.bvh_width >= 4
+            and not self.stream
             and cfg.fast_light
             and cfg.tile_rows * cfg.tile_cols == PACKET
         )
@@ -90,24 +95,23 @@ class Pipeline:
         """Render one frame -> (H, W, 3) f32 in [0, 1] on the pipeline's
         device. "fused" launches the frame kernel once; "pallas" is the
         pass-based path (one closest-hit and one any-hit launch per light,
-        per bounce)."""
+        per bounce), on the streamed instances when the leaf rows stream."""
         cfg = self.cfg
-        fn = {
-            "fused": render_ops.render_bvh_fused,
-            "pallas": render_ops.render_bvh_pallas,
-        }[self.resolved_variant(variant)]
-        return fn(
-            self.ds, self.tables, cam or self.camera(), width or cfg.width,
-            height or cfg.height, bounces=cfg.bounces, tile_rows=cfg.tile_rows,
-            tile_cols=cfg.tile_cols,
-        )
+        kw = dict(bounces=cfg.bounces, tile_rows=cfg.tile_rows,
+                  tile_cols=cfg.tile_cols)
+        if self.resolved_variant(variant) == "fused":
+            fn = render_ops.render_bvh_fused
+        else:
+            fn = render_ops.render_bvh_pallas
+            kw["stream"] = self.stream
+        return fn(self.ds, self.tables, cam or self.camera(), width or cfg.width,
+                  height or cfg.height, **kw)
 
 
 def _check_ported(cfg: RenderConfig) -> None:
     if cfg.bvh_width not in PACKERS:
         raise ValueError(f"bvh_width must be 2, 4 or 8, got {cfg.bvh_width}")
     unported = {
-        'stream="on"': cfg.stream == "on",
         "use_bvh=False": not cfg.use_bvh,
         "fast_light=False": not cfg.fast_light,
         "presplit > 0": cfg.presplit > 0,
@@ -166,7 +170,14 @@ def prepare(cfg: RenderConfig, scene: Optional[Scene] = None, device=None) -> Pi
     does not depend on the builder). mxu_leaf is ignored too: the port's
     leaf test is always the FP32 one, which is what the MXU leaf
     approximates on the TPU. dual_pop is ignored as well: one thread traces
-    one ray, so both schedules reach the same kernels."""
+    one ray, so both schedules reach the same kernels.
+
+    Leaf rows stream by the JAX prepare's rule (ops/pack.stream_decision,
+    pipeline.py:350-368): stream="on" always, "off" never, "auto" when
+    JAX's row model passes its 126 MiB ceiling (about 450k triangles).
+    Streamed tables have tri and attr padded to whole blocks
+    (pad_stream_rows); streaming at bvh_width 2 raises ValueError, as JAX
+    asserts it."""
     _check_ported(cfg)
     device = _pick_device(device)
     if scene is None:
@@ -189,11 +200,19 @@ def prepare(cfg: RenderConfig, scene: Optional[Scene] = None, device=None) -> Pi
     attr = pack_attr(flat, scene.mat_idx, scene.mats_kd, scene.mats_ks, scene.mats_kr)
     build_ms = (time.perf_counter() - t0) * 1e3
 
+    tri = packed.tri
+    stream = stream_decision(packed.cbox.shape[0], packed.cmeta.shape[0],
+                             tri.shape[0], cfg.stream)
+    if stream:
+        if cfg.bvh_width < 4:
+            raise ValueError("streaming needs bvh_width >= 4 (stream="
+                             f"{cfg.stream!r} at bvh_width {cfg.bvh_width})")
+        tri, attr = pad_stream_rows(tri), pad_stream_rows(attr)
     lamb = pack_lights(scene.lights_pos, scene.lights_kl, cfg.ambient)
     tables = packed_from_numpy(
-        packed.cbox, packed.cmeta, packed.tri, attr, lamb, device=device,
+        packed.cbox, packed.cmeta, tri, attr, lamb, device=device,
         leaf_size=leaf_size, compressed=packed.compressed,
     )
     ds = device_scene_from_lights(tables.lamb)
     return Pipeline(cfg=cfg, scene=scene, ds=ds, flat=flat, tables=tables,
-                    build_ms=build_ms, bvh_stats=bvh.stats)
+                    build_ms=build_ms, bvh_stats=bvh.stats, stream=stream)

@@ -68,7 +68,7 @@ def test_stats_as_jax(times):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--no-bvh"], ["--stream", "on"], ["--devices", "2"],
+    ["--no-bvh"], ["--devices", "2"],
     ["--checkpoint", "ck"], ["--profile", "prof"], ["--interpret"],
     ["--no-fast-light"], ["--presplit", "0.1"], ["--no-reverse-shadows"],
     ["--leaf-size", "4"], ["--variant", "jax"], ["--variant", "bruteforce"],

@@ -79,8 +79,7 @@ def test_prepare_without_device_raises_when_no_cuda():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(bf16_bvh=True, stream="on"),    # bf16 tables streamed: the next slice
-    dict(stream="on"), dict(use_bvh=False), dict(fast_light=False),
+    dict(use_bvh=False), dict(fast_light=False),
     dict(presplit=0.1), dict(variant="jax"), dict(variant="bruteforce"),
     dict(num_devices=2), dict(leaf_size=4), dict(reverse_shadows=False),
 ])
