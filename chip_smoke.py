@@ -47,6 +47,29 @@ render() are timed. The dragon's tables, padded, render with stream="on"
 by the pass-based path, with f32 and bf16 tables, and must give the
 resident pass-based frame bit for bit.
 
+Its `spheres` phase runs car_boxed_spheres: car_boxed with 8 spheres placed
+from its bounding box with a seed (models/procgen.with_spheres; 4 mirrors,
+4 diffuse). The sphere frame kernel (frame_kernel's SPH instances) at
+widths 4 and 8, on f32 and bf16 pair rows, is held against
+frame_plain(..., sph) on one 64-row band; the fused render() (one
+`frame_sph<4>`) against the pass-based one (the spheres through
+ops/spheres.wrap_tracer); an empty sphere table must give the sphere-free
+frame bit for bit; every sphere must be seen and one must shadow a
+triangle; the sphere frame is timed beside the sphere-free `frame<4>`.
+
+Its `brute` phase runs the brute-force renderer (ops/trace_brute.py, torch
+ops, no kernel): tests/test_spheres.py's sphere scene at 1080p with
+use_bvh=False against the pass-based BVH render within atol 3e-5 and the
+fused render, car_boxed on one 16-row band against the fused frame, and
+`--no-bvh` through the command line on the scene as an asset folder.
+
+Its `deep` phase runs models/procgen.chain_scene, whose 48-level tree needs
+more stack than the standard tier holds at every arity: each DEEP instance
+(arity 2, 4, 8; f32 and bf16 boxes; resident and streamed; the frame with
+and without spheres) against its plain version at the frame's shapes, its
+path with the counts from 0, and its time; then the DEEP tier forced on
+car_boxed, timed in turns with the standard tier.
+
 Each phase prints one JSON line; all of them, and the rendered frames, also
 go to DIR (default: chip_smoke_out/ beside this script). Any failed check
 exits non-zero before the last line; the last line is
@@ -88,6 +111,13 @@ PEAK_BYTES = 3.35e12
 # + 8 (sign, abs, compares, select) + 1 (t < best) = 47.
 OPS_BOX_TEST = 25
 OPS_TRI_TEST = 47
+# A ray-sphere test (rt_sphere_t, csrc/trace.cuh) is 3 (o - c) + 5 (half_b)
+# + 7 (c_sp) + 3 (disc) + 2 (max, sqrt) + 2 (a_safe compare, select) + 3
+# (t0: negate, subtract, divide) + 2 (t1) + 2 (t0 > EPS, select) + 3 (the
+# hit compares) + 1 (select) + 1 (ts < t, or ts * ts < window: 2) = 34; the
+# frame tests every sphere after every traversal, so the tests are
+# S x the counted traversals.
+OPS_SPHERE_TEST = 34
 WARMUP, TIMED = 10, 50
 BANDS = (384, 704)          # 64-row bands: sky + geometry, car body
 BAND_ROWS = 64
@@ -119,6 +149,29 @@ STREAM_CASES = ("w4", "w8", "w4_bf16", "w8_bf16")
 SYNTHETIC_600K = dict(synthetic_triangles=600000, width=1920, height=1080,
                       bvh_heuristic=6, tile_rows=32, tile_cols=32)
 SYNTHETIC_BAND, SYNTHETIC_BAND_ROWS = 512, 32
+# The spheres phase: car_boxed with 8 spheres (models/procgen.with_spheres),
+# its band for the plain sphere frame. The brute phase: the sphere scene of
+# tests/test_spheres.py (a floor, a red and a mirror sphere, one light), and
+# a 16-row band of car_boxed. The deep phase: models/procgen.chain_scene,
+# whose 48-level tree passes the standard stack tier at every arity.
+SPHERE_BAND = 384
+SPHERE_SCENE = dict(
+    verts=[[-8, -8, 0], [8, -8, 0], [8, 8, 0], [-8, 8, 0]], faces=[[0, 1, 2], [0, 2, 3]],
+    mat_idx=[0, 0], mats_kd=[[0.7, 0.7, 0.7], [0.7, 0.2, 0.2], [0.1, 0.1, 0.1]],
+    mats_ks=[[0.0, 0.0, 0.0], [0.4, 0.4, 0.4], [0.2, 0.2, 0.2]],
+    mats_kr=[[0.0, 0.0, 0.0], [0.0, 0.0, 0.0], [0.8, 0.8, 0.8]],
+    lights_pos=[[0.0, -5.0, 7.0]], lights_kl=[[40.0, 40.0, 40.0]],
+    spheres_center=[[-1.2, 0.5, 1.0], [1.4, 1.0, 1.2]], spheres_radius=[1.0, 1.2],
+    spheres_mat=[1, 2])
+BRUTE_BAND, BRUTE_BAND_ROWS = 512, 16
+DEEP_CFG = dict(width=1920, height=1080, bounces=1, bvh_heuristic=1, bvh_max_depth=64,
+                tile_rows=32, tile_cols=32)
+DEEP_CASES = {"w2": dict(bvh_width=2), "w4": {}, "w8": dict(bvh_width=8),
+              "w2_bf16": dict(bvh_width=2, bf16_bvh=True), "w4_bf16": dict(bf16_bvh=True),
+              "w8_bf16": dict(bvh_width=8, bf16_bvh=True)}
+# Two spheres in front of the camera for the DEEP tier's sphere frames.
+DEEP_SPHERES = [[-1.5, 2.0, 0.3, 0.7, 0.7, 0.2, 0.2, 0.3, 0.3, 0.3, 0.0, 0.0, 0.0],
+                [1.6, 3.0, 0.8, 0.9, 0.05, 0.05, 0.05, 0.3, 0.3, 0.3, 0.8, 0.8, 0.8]]
 # The kernels line: (instance, the tables it runs on, kernel, line of the
 # TPU kernel it replaces in parallel_ray_tracer_tpu/ops/pallas_trace.py).
 KERNEL_ROWS = (
@@ -203,13 +256,18 @@ def nbytes(*ts) -> int:
     return int(sum(t.numel() * t.element_size() for t in ts))
 
 
-def bound(counts, names, in_bytes, out_bytes):
+def bound(counts, names, in_bytes, out_bytes, spheres=0):
     """Least time for the work the function needs on these inputs: the
-    counted box tests and triangle tests over the FP32 rate, or each input
-    read once and each output written once over the memory rate, the
-    larger. counts are the kernel's work counters, named by names."""
+    counted box tests and triangle tests, and with `spheres` rows the
+    sphere tests of the frame (spheres x traversals), over the FP32 rate,
+    or each input read once and each output written once over the memory
+    rate, the larger. counts are the kernel's work counters, named by
+    names."""
     c = dict(zip(names, (int(v) for v in counts)))
-    ops = c["box_tests"] * OPS_BOX_TEST + c["tri_tests"] * OPS_TRI_TEST
+    if spheres:
+        c["sphere_tests"] = spheres * c["traversals"]
+    ops = (c["box_tests"] * OPS_BOX_TEST + c["tri_tests"] * OPS_TRI_TEST
+           + c.get("sphere_tests", 0) * OPS_SPHERE_TEST)
     t_ops = ops / PEAK_FP32_OPS * 1e3
     t_bytes = (in_bytes + out_bytes) / PEAK_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
@@ -229,10 +287,15 @@ def main() -> int:
         from parallel_ray_tracer_tpu_torch import _build, pipeline
         from parallel_ray_tracer_tpu_torch.config import RenderConfig
         from parallel_ray_tracer_tpu_torch.convert import packed_from_numpy
+        from parallel_ray_tracer_tpu_torch.models.camera import ray_basis
+        from parallel_ray_tracer_tpu_torch.models.procgen import chain_scene, with_spheres
+        from parallel_ray_tracer_tpu_torch.models.scene import Scene, load_scene_npz
         from parallel_ray_tracer_tpu_torch.ops.pack import pack_bvh8, pad_stream_rows
         from parallel_ray_tracer_tpu_torch.ops import cuda_trace as ct
         from parallel_ray_tracer_tpu_torch.ops import render as R
+        from parallel_ray_tracer_tpu_torch.ops import trace_brute
         from parallel_ray_tracer_tpu_torch.ops import trace_plain as tp
+        from parallel_ray_tracer_tpu_torch.ops.spheres import wrap_tracer
         from parallel_ray_tracer_tpu_torch.ops.intersect import EPSILON, T_MAX
         from parallel_ray_tracer_tpu_torch.ops.vecmath import Vec3
         from parallel_ray_tracer_tpu_torch.utils.bmp import bmp_bytes, read_bmp
@@ -284,9 +347,10 @@ def main() -> int:
         r1 = r0 + (rows // TR) * rows_per_tile_row
         return Vec3(*(p[r0:r1] for p in planes))
 
-    def shadow_rays(o, d, hit):
-        """Reversed shadow rays to light 0, as the renderer traces them."""
-        lp = T.lamb[0, :3]
+    def shadow_rays(o, d, hit, lamb=None):
+        """Reversed shadow rays to light 0 (of lamb, by default the main
+        path's), as the renderer traces them."""
+        lp = (T.lamb if lamb is None else lamb)[0, :3]
         ok = hit.idx >= 0
         ts = torch.where(ok, hit.t, 1.0)
         p = o + d * ts
@@ -325,13 +389,17 @@ def main() -> int:
         return {"max_abs_err": max_err, "idx_agree": agree,
                 "hit_frac": both.float().mean().item()}
 
-    def cmp_frame(name, fk, fp):
+    def cmp_frame(name, fk, fp, min_within=0.9999):
         """Colours, unclamped: at least 99.99% of pixels within 1e-3 (the
-        sound runs had all of them within 2e-4), median < 1e-5."""
+        sound runs had all of them within 2e-4), median < 1e-5. Frames with
+        spheres are held to the frame bounds of tests/test_fused.py (more
+        than 99%): a ray reflected by a curved mirror may flip a
+        silhouette where the kernel's and the plain version's shading
+        round apart."""
         diff = (fk.stack(-1) - fp.stack(-1)).abs()
         within = (diff.amax(-1) < 1e-3).float().mean().item()
         med = diff.median().item()
-        check(name, within >= 0.9999, f"{within} of pixels within 1e-3")
+        check(name, within >= min_within, f"{within} of pixels within 1e-3")
         check(name, med < 1e-5, f"median {med}")
         return {"max_abs_err": diff.max().item(), "within_1e-3": within,
                 "median": med}
@@ -464,13 +532,13 @@ def main() -> int:
         check(name, bool(torch.isfinite(img).all()), "non-finite pixels")
         return parity
 
-    def hold_frames(name, a, b):
-        """Two renders of one frame: >= 99.99% of pixels within 1e-3,
-        median < 1e-5."""
+    def hold_frames(name, a, b, min_within=0.9999):
+        """Two renders of one frame: >= 99.99% of pixels within 1e-3 (with
+        spheres: more than 99%, see cmp_frame), median < 1e-5."""
         diff = (a - b).abs()
         within = (diff.amax(-1) < 1e-3).float().mean().item()
         med = diff.median().item()
-        check(name, within >= 0.9999, f"{within} of pixels within 1e-3")
+        check(name, within >= min_within, f"{within} of pixels within 1e-3")
         check(name, med < 1e-5, f"median {med}")
         check(name, a.std().item() > 0.01, "flat image")
         return {"within_1e-3": within, "median": med, "max": diff.max().item()}
@@ -487,9 +555,10 @@ def main() -> int:
     ray_b = nbytes(*o, *d)
     out_plane = n_rays * 4
 
-    def kernel_runs(A):
-        """Each kernel of tables A at the main path's shapes: the timed call,
-        the counting call, input bytes, output bytes."""
+    def kernel_runs(A, o=o, d=d, so=so, sd=sd, m2=m2, bounces=cfg.bounces):
+        """Each kernel of tables A at the main path's shapes (or on the rays
+        given): the timed call, the counting call, input bytes, output
+        bytes."""
         akw = dict(leaf_size=A.leaf_size, stack_depth=A.stack_depth,
                    compressed=A.compressed)
         scene_b = nbytes(A.cbox, A.cmeta, A.tri)
@@ -512,20 +581,29 @@ def main() -> int:
         if A.arity in ct.ARITIES["frame"]:
             runs["frame"] = (
                 lambda: ct.frame_tiles(A.cbox, A.cmeta, A.tri, A.attr, A.lamb, o, d,
-                                       bounces=cfg.bounces, **akw),
+                                       bounces=bounces, **akw),
                 lambda: ct.frame_tiles(A.cbox, A.cmeta, A.tri, A.attr, A.lamb, o, d,
-                                       bounces=cfg.bounces, counters=True, **akw)[1],
+                                       bounces=bounces, counters=True, **akw)[1],
                 ray_b + scene_b + nbytes(A.attr, A.lamb), 3 * out_plane)
+            if A.sph is not None:
+                runs["frame_sph"] = (
+                    lambda: ct.frame_tiles(A.cbox, A.cmeta, A.tri, A.attr, A.lamb, o, d,
+                                           bounces=bounces, sph=A.sph, **akw),
+                    lambda: ct.frame_tiles(A.cbox, A.cmeta, A.tri, A.attr, A.lamb, o, d,
+                                           bounces=bounces, sph=A.sph, counters=True,
+                                           **akw)[1],
+                    ray_b + scene_b + nbytes(A.attr, A.lamb, A.sph), 3 * out_plane)
         return runs
 
-    def time_kernels(A):
+    def time_kernels(A, warmup=WARMUP, timed=TIMED, **rays):
         """Times, work counts and bounds of every kernel of tables A, and the
         node-table bytes a ray loads (node visits x VISIT_BYTES)."""
         visit_b = sum(VISIT_BYTES[A.arity, A.compressed or A.cbox.dtype == torch.bfloat16])
         timing = {}
-        for name, (fn, counted, in_b, out_b) in kernel_runs(A).items():
-            t = time_ms(fn)
-            b = bound(counted().cpu().tolist(), ct.COUNTS, in_b, out_b)
+        for name, (fn, counted, in_b, out_b) in kernel_runs(A, **rays).items():
+            t = time_ms(fn, warmup, timed)
+            b = bound(counted().cpu().tolist(), ct.COUNTS, in_b, out_b,
+                      spheres=A.sph.shape[0] if name == "frame_sph" else 0)
             timing[name] = dict(t, rays=n_rays, rays_per_s=n_rays / (t["median"] * 1e-3),
                                 node_bytes_per_ray=b["inner_visits"] * visit_b / n_rays, **b)
         return timing
@@ -844,8 +922,10 @@ def main() -> int:
     # results, timed beside the twin, and reached through the paths of a
     # streamed pipeline with the counts from 0
     out_planes = {"closest": 3, "closest_full": 15, "occluded": 1}
+    sph_src = {}   # the resident tables of these cases, for the spheres phase
     for key in STREAM_CASES:
         src = stream_src.pop(key)
+        sph_src[key] = src.tables
         sp = streamed(src)
         A = sp.tables
         a, sfx = A.arity, ",bf16" if A.compressed else ""
@@ -1004,7 +1084,373 @@ def main() -> int:
     emit(rec)
     del spipe, S, o6, d6, bo6, bd6, simg, fimg, diff
 
-    # ---- 11. the command line: the width-8 frame, the --bf16-bvh frame -----
+    def row(name, tables, launches, err, t, plain_ms, plain_of, line):
+        """One entry of the kernels line."""
+        return {"name": name, "route": "cuda",
+                "source": "parallel_ray_tracer_tpu_torch/csrc/trace.cuh",
+                "replaces": f"parallel_ray_tracer_tpu/ops/pallas_trace.py:{line}",
+                "tables": tables, "launches": launches, "max_abs_err": err,
+                "ms": t["median"], "plain_ms": plain_ms, "plain_of": plain_of,
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": None, "rays": n_rays}
+
+    def time_one(A, kernel, **rays):
+        """Time, work counts and bound of one kernel of tables A."""
+        fn, counted, in_b, out_b = kernel_runs(A, **rays)[kernel]
+        t = time_ms(fn)
+        return dict(t, rays=n_rays, **bound(
+            counted().cpu().tolist(), ct.COUNTS, in_b, out_b,
+            spheres=A.sph.shape[0] if kernel == "frame_sph" else 0))
+
+    def box_name(A):
+        return ", PAIRS" if A.compressed else (", BF16" if A.cbox.dtype == torch.bfloat16 else "")
+
+    extra_rows = []
+
+    # ---- 11. spheres: car_boxed_spheres (row 14) -----------------------------
+    # car_boxed plus 8 spheres placed from its bounding box with a seed
+    # (models/procgen.with_spheres): the triangle tables are car_boxed's, so
+    # each table of the earlier phases takes the sphere table as it is.
+    t0 = time.perf_counter()
+    ssc = with_spheres(load_scene_npz(os.path.join(HERE, "assets", "car_boxed.npz")))
+    spipe = pipeline.prepare(cfg, scene=ssc)
+    torch.cuda.synchronize()
+    name = "car_boxed_spheres"
+    sph = spipe.tables.sph
+    ns = sph.shape[0]
+    mats = ssc.spheres_mat
+    kr = ssc.mats_kr[mats].max(axis=1)
+    rec = {"phase": "spheres", "case": name, "card": card,
+           "prepare_s": time.perf_counter() - t0,
+           "spheres": {"center": ssc.spheres_center.tolist(),
+                       "radius": ssc.spheres_radius.tolist(),
+                       "kd": ssc.mats_kd[mats].tolist(), "ks": ssc.mats_ks[mats].tolist(),
+                       "kr": ssc.mats_kr[mats].tolist()}}
+    check(name, ns == 8 and (kr >= 0.5).sum() >= 2 and (kr == 0).sum() >= 2,
+          "not 8 spheres with at least 2 mirrors and 2 diffuse ones")
+    check(name, all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))  # bits: NaN boxes
+                    for a, b in zip(spipe.tables[:4], T[:4])),
+          "its tables are not car_boxed's")
+    check(name, spipe.resolved_variant() == "fused", "auto is not the fused frame")
+    sph_cases = {k: A._replace(sph=sph) for k, A in
+                 {"w4": T, **{k: sph_src[k] for k in ("w8", "w4_bf16", "w8_bf16")}}.items()}
+    del sph_src
+
+    # the sphere frame kernel at each table against its plain version, on
+    # one band (the plain version reads no node table)
+    bo, bd = band(o, SPHERE_BAND), band(d, SPHERE_BAND)
+    fp, sph_plain_ms = timed_once(lambda: ct.frame_plain(
+        T.tri, T.attr, T.lamb, bo, bd, bounces=cfg.bounces, leaf_size=L, sph=sph))
+    rec["band_plain_ms"] = sph_plain_ms
+    rec["band_changed_by_spheres"] = (
+        fp.stack(-1) - band_ref[SPHERE_BAND]["frame"].stack(-1)).abs().max().item()
+    sph_err, rec["band"] = {}, {}
+    for key, A in sph_cases.items():
+        akw = dict(leaf_size=L, stack_depth=A.stack_depth, compressed=A.compressed)
+        res = cmp_frame(f"{name}/{key}/frame_sph@{SPHERE_BAND}", ct.frame_tiles(
+            A.cbox, A.cmeta, A.tri, A.attr, A.lamb, bo, bd, bounces=cfg.bounces,
+            sph=sph, **akw), fp, 0.99)
+        sph_err[key] = res["max_abs_err"]
+        rec["band"][key] = res
+    del fp
+
+    # the paths, each with its counts from 0
+    simg, on_f = on_path(f"{name}/render_fused", spipe.render, {"frame_sph<4>": 1})
+    simg_pass, _ = on_path(f"{name}/render_pass_based", lambda: spipe.render(variant="pallas"),
+                           {"closest_full<4>": cfg.bounces, "occluded<4>": cfg.bounces * nl})
+    sph_launches = {"w4": on_f["frame_sph<4>"]}
+    for key in ("w8", "w4_bf16", "w8_bf16"):
+        A = sph_cases[key]
+        k = f"frame_sph<{A.arity}{',bf16' if A.compressed else ''}>"
+        _, on_a = on_path(f"{name}/{key}/render_fused",
+                          dataclasses.replace(spipe, tables=A).render, {k: 1})
+        sph_launches[key] = on_a[k]
+    rec["fused_vs_pass"] = hold_frames(f"{name}/fused_vs_pass", simg, simg_pass, 0.99)
+    rec["changed_by_spheres"] = (simg - img).abs().max().item()
+    check(name, rec["changed_by_spheres"] > 0.05, "the spheres do not change the image")
+    f_free = ct.frame_tiles(T.cbox, T.cmeta, T.tri, T.attr, T.lamb, o, d,
+                            bounces=cfg.bounces, **kw)
+    f_empty = ct.frame_tiles(T.cbox, T.cmeta, T.tri, T.attr, T.lamb, o, d,
+                             bounces=cfg.bounces, sph=sph[:0], **kw)
+    rec["empty_table_bit_equal"] = (all(torch.equal(a, b) for a, b in zip(f_empty, f_free))
+                                    and torch.equal(R._to_image(f_empty, W, H, TR, TC), img))
+    check(name, rec["empty_table_bit_equal"],
+          "an empty sphere table does not give the sphere-free frame bit for bit")
+    del f_free, f_empty
+    save_frame(f"{name}_1080p", bmp_bytes(simg.cpu().numpy()))
+
+    # every sphere is seen by a primary ray, and one shadows a triangle
+    nt = spipe.ds.num_triangles
+
+    def t_occluded(o_, d_, m2_):
+        return ct.occluded_tiles(T.cbox, T.cmeta, T.tri, o_, d_, m2_, **kw)
+
+    w_closest, w_occluded = wrap_tracer(
+        spipe.ds, lambda o_, d_: ct.closest_tiles_full(T.cbox, T.cmeta, T.tri, T.attr,
+                                                       o_, d_, **kw), t_occluded)
+    hw = w_closest(o, d)
+    rec["visible_spheres"] = sorted(set((hw.idx[hw.idx >= nt] - nt).tolist()))
+    check(name, rec["visible_spheres"] == list(range(ns)),
+          f"spheres seen by primary rays: {rec['visible_spheres']}")
+    wso, wsd, wm2 = shadow_rays(o, d, hw)
+    by_sphere = (w_occluded(wso, wsd, wm2) & ~t_occluded(wso, wsd, wm2)
+                 & (hw.idx >= 0) & (hw.idx < nt))
+    rec["pixels_shadowed_by_spheres_on_triangles"] = int(by_sphere.sum())
+    check(name, rec["pixels_shadowed_by_spheres_on_triangles"] > 0,
+          "no sphere casts a shadow on a triangle")
+    del hw, wso, wsd, wm2, by_sphere
+
+    # timing: the sphere frame at each table, the sphere-free frame<4>
+    # beside it in this call, and both render()s
+    sph_t = {key: time_one(A, "frame_sph") for key, A in sph_cases.items()}
+    rec["timing"] = {"frame_sph": sph_t, "frame_free_w4": time_one(T, "frame")}
+    for variant in ("fused", "pallas"):
+        e2e = time_ms(lambda: spipe.render(variant=variant))
+        rec["timing"][f"render_{variant}_end_to_end"] = dict(
+            e2e, pixels=W * H, pixels_per_s=W * H / (e2e["median"] * 1e-3))
+    rec["profile"] = {"fused": profile(spipe.render),
+                      "pallas": profile(lambda: spipe.render(variant="pallas"))}
+    rec.update(max_abs_err=sph_err, launches=sph_launches)
+    emit(rec)
+    for key, A in sph_cases.items():
+        extra_rows.append(row(
+            f"frame_kernel<{A.arity}{box_name(A)}, SPH>", f"{key}+spheres",
+            sph_launches[key], sph_err[key], sph_t[key], sph_plain_ms,
+            f"one {BAND_ROWS}-row band (y {SPHERE_BAND}), the same rays", 2536))
+    del spipe, sph_cases, simg, simg_pass
+
+    # ---- 12. brute force: the oracle ------------------------------------------
+    # tests/test_spheres.py's scene at 1080p, 2 bounces: by brute force
+    # (use_bvh=False) against the pass-based BVH render within atol 3e-5
+    # (as tests/test_spheres.py holds it) and the fused render within the
+    # frame bounds; car_boxed by brute force on a band against the fused
+    # frame; --no-bvh through the command line.
+    t0 = time.perf_counter()
+    small = Scene(**{k: np.asarray(v, np.int32 if k in ("faces", "mat_idx", "spheres_mat")
+                                   else np.float32) for k, v in SPHERE_SCENE.items()})
+    bcfg = RenderConfig(**dict(CFG, bounces=2))
+    bpipe = pipeline.prepare(bcfg, scene=small)
+    npipe = pipeline.prepare(dataclasses.replace(bcfg, use_bvh=False), scene=small)
+    rec = {"phase": "brute", "case": "sphere_scene_1080p", "card": card,
+           "prepare_s": time.perf_counter() - t0}
+    check("brute", npipe.tables is None and npipe.resolved_variant() == "bruteforce",
+          "use_bvh=False built tables or does not resolve to bruteforce")
+    bimg, _ = on_path("brute/render_no_bvh", npipe.render, {})
+    pimg = bpipe.render(variant="pallas")
+    diff = (pimg - bimg).abs()
+    rec["vs_pass_based_max"] = diff.max().item()
+    check("brute/vs_pass_based", bool((diff <= 3e-5 + 1e-7 * bimg.abs()).all()),
+          f"max {rec['vs_pass_based_max']} beyond atol 3e-5")
+    rec["vs_fused"] = hold_frames("brute/vs_fused", bpipe.render(), bimg, 0.99)
+    red = (bimg[..., 0] > bimg[..., 1] + 0.1) & (bimg[..., 0] > bimg[..., 2] + 0.1)
+    rec["red_pixels"] = int(red.sum())
+    check("brute", rec["red_pixels"] > 1000, "the red sphere is not in the frame")
+    rec["render_bruteforce"] = dict(time_ms(npipe.render, 2, 10), pixels=W * H)
+    rec["render_pass_based"] = dict(time_ms(lambda: bpipe.render(variant="pallas"), 2, 10))
+    del pimg, diff, bpipe
+
+    # car_boxed by brute force on one band, against the fused frame
+    cf, of = trace_brute.make_tracer(pipe.ds)
+    bb, bb_ms = timed_once(lambda: R.render_band(
+        pipe.ds, cf, of, ray_basis(pipe.camera(), W, H), W, H, BRUTE_BAND,
+        BRUTE_BAND_ROWS, cfg.bounces))
+    rec["car_boxed_band"] = dict(
+        hold_frames("brute/car_boxed_band", bb,
+                    img[BRUTE_BAND:BRUTE_BAND + BRUTE_BAND_ROWS], 0.99),
+        y0=BRUTE_BAND, rows=BRUTE_BAND_ROWS, ms=bb_ms)
+    del bb
+
+    # --no-bvh through the command line, on the scene as an asset folder
+    with tempfile.TemporaryDirectory() as tmp:
+        write_sphere_folder(os.path.join(tmp, "spheres"))
+        cli_bmp = os.path.join(out_dir, "cli_no_bvh.bmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "parallel_ray_tracer_tpu_torch", "--scene", "spheres",
+             "--asset-root", tmp, "--no-bvh", "--resolution", "1080p", "--bounces", "2",
+             "--warmup", "1", "--iterations", "3", "--output", cli_bmp],
+            capture_output=True, text=True, cwd=HERE, timeout=300)
+    rec["cli_no_bvh"] = {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
+                         "stdout_tail": proc.stdout[-1200:], "stderr_tail": proc.stderr[-1200:]}
+    check("brute/cli_no_bvh", proc.returncode == 0, f"exit {proc.returncode}")
+    if proc.returncode == 0:
+        with open(cli_bmp, "rb") as f:
+            data = f.read()
+        os.remove(cli_bmp)
+        save_frame("cli_no_bvh", data)
+        rec["cli_no_bvh"]["bmp_equal"] = data == bmp_bytes(bimg.cpu().numpy())
+        check("brute/cli_no_bvh", rec["cli_no_bvh"]["bmp_equal"],
+              "its BMP is not the in-process brute-force frame")
+    save_frame("sphere_scene_brute_1080p", bmp_bytes(bimg.cpu().numpy()))
+    emit(rec)
+    del bimg, npipe
+
+    # ---- 13. the DEEP stack tier: a tree deeper than the standard stacks ---
+    # models/procgen.chain_scene: 48 binary levels, so its stack need passes
+    # the standard tier at every arity and every launch on it takes the DEEP
+    # instances. 1080p, 1 bounce, the main path's rays. Each DEEP instance
+    # (every box format, resident and streamed, with and without spheres)
+    # against its plain version at the frame's shapes (56 triangles: the
+    # plain versions are cheap here), through its path with the counts
+    # from 0, and timed. Then the DEEP tier forced on car_boxed's width-4
+    # tables, in turns with the standard tier.
+    chain = chain_scene()
+    dsph = torch.tensor(np.pad(np.asarray(DEEP_SPHERES, np.float32), ((0, 0), (0, 3))),
+                        device=pipe.device)
+    dref = None
+    for key, extra in DEEP_CASES.items():
+        t0 = time.perf_counter()
+        dp = pipeline.prepare(RenderConfig(**DEEP_CFG, **extra), scene=chain)
+        if key == "w8_bf16":
+            dp = pair_rows_w8(dp)
+        D = dp.tables
+        a = D.arity
+        bf = D.compressed or D.cbox.dtype == torch.bfloat16
+        sfx = ",bf16" if bf else ""
+        need = D.stack_depth
+        rec = {"phase": "deep", "case": key, "card": card, "prepare_s": time.perf_counter() - t0,
+               "tree_depth": dp.flat.depth, "stack_need": need,
+               "standard_stack": ct.STACK_SIZE[a],
+               "standard_tier_refuses": need > ct.STACK_SIZE[a]}
+        check(f"deep/{key}", need > ct.STACK_SIZE[a] and ct.use_deep_tier(need, a)
+              and bf == bool(extra.get("bf16_bvh")),
+              f"stack need {need} does not pass the standard tier's {ct.STACK_SIZE[a]}")
+        dkw = dict(leaf_size=L, stack_depth=need, compressed=D.compressed)
+        if dref is None:   # the plain results (they read no node table)
+            hp, ms_cf = timed_once(lambda: tp.closest_full_plain(D.tri, D.attr, o, d, L))
+            dso, dsd, dm2 = shadow_rays(o, d, hp, D.lamb)
+            dref = {"closest_full": (hp, ms_cf),
+                    "closest": timed_once(lambda: tp.closest_plain(D.tri, o, d, L)),
+                    "occluded": timed_once(lambda: tp.occluded_plain(D.tri, dso, dsd, dm2, L)),
+                    "frame": timed_once(lambda: ct.frame_plain(
+                        D.tri, D.attr, D.lamb, o, d, bounces=1, leaf_size=L)),
+                    "frame_sph": timed_once(lambda: ct.frame_plain(
+                        D.tri, D.attr, D.lamb, o, d, bounces=1, leaf_size=L, sph=dsph))}
+            rec["hit_frac"] = (hp.idx >= 0).float().mean().item()
+        Ds = D._replace(sph=dsph)
+        errs = {
+            "closest": cmp_hits(f"deep/{key}/closest", ct.closest_tiles(
+                D.cbox, D.cmeta, D.tri, o, d, **dkw), dref["closest"][0], False),
+            "closest_full": cmp_hits(f"deep/{key}/closest_full", ct.closest_tiles_full(
+                D.cbox, D.cmeta, D.tri, D.attr, o, d, **dkw), dref["closest_full"][0], True),
+            "occluded": cmp_blocked(f"deep/{key}/occluded", ct.occluded_tiles(
+                D.cbox, D.cmeta, D.tri, dso, dsd, dm2, **dkw), dref["occluded"][0])}
+        if a >= 4:
+            errs["frame"] = cmp_frame(f"deep/{key}/frame", ct.frame_tiles(
+                D.cbox, D.cmeta, D.tri, D.attr, D.lamb, o, d, bounces=1, **dkw),
+                dref["frame"][0])
+            errs["frame_sph"] = cmp_frame(f"deep/{key}/frame_sph", ct.frame_tiles(
+                D.cbox, D.cmeta, D.tri, D.attr, D.lamb, o, d, bounces=1, sph=dsph, **dkw),
+                dref["frame_sph"][0], 0.99)
+
+        # the paths, each with its counts from 0
+        dl = {}
+        pass_counts = {f"closest_full<{a}{sfx},deep>": 1, f"occluded<{a}{sfx},deep>": 1}
+        if a >= 4:
+            _, on_a = on_path(f"deep/{key}/render_auto", dp.render, {f"frame<{a}{sfx},deep>": 1})
+            dl["frame"] = on_a[f"frame<{a}{sfx},deep>"]
+            _, on_s = on_path(f"deep/{key}/render_fused_spheres",
+                              dataclasses.replace(dp, tables=Ds).render,
+                              {f"frame_sph<{a}{sfx},deep>": 1})
+            dl["frame_sph"] = on_s[f"frame_sph<{a}{sfx},deep>"]
+            _, on_p = on_path(f"deep/{key}/render_pass_based",
+                              lambda: dp.render(variant="pallas"), pass_counts)
+        else:
+            _, on_p = on_path(f"deep/{key}/render_auto", dp.render, pass_counts)
+        dl["closest_full"] = on_p[f"closest_full<{a}{sfx},deep>"]
+        dl["occluded"] = on_p[f"occluded<{a}{sfx},deep>"]
+        _, on_c = on_path(f"deep/{key}/primary_closest_pass",
+                          lambda: ct.closest_tiles(D.cbox, D.cmeta, D.tri, o, d, **dkw),
+                          {f"closest<{a}{sfx},deep>": 1})
+        dl["closest"] = on_c[f"closest<{a}{sfx},deep>"]
+
+        # timing, and the kernels line
+        drays = dict(so=dso, sd=dsd, m2=dm2, bounces=1)
+        dt = {k: time_one(Ds if k == "frame_sph" else D, k, **drays) for k in errs}
+        bn = box_name(D)
+        names = {"closest": f"closest_kernel<{a}{bn}, false, DEEP>",
+                 "closest_full": f"closest_kernel<{a}{bn}, true, DEEP>",
+                 "occluded": f"occluded_kernel<{a}{bn}, DEEP>",
+                 "frame": f"frame_kernel<{a}{bn}, DEEP>",
+                 "frame_sph": f"frame_kernel<{a}{bn}, SPH, DEEP>"}
+        lines = {"closest": 610 if a == 2 else 1774, "closest_full": 2437 if a == 2 else 1774,
+                 "occluded": 676 if a == 2 else 1835, "frame": 2536, "frame_sph": 2536}
+        for k in errs:
+            extra_rows.append(row(names[k], f"deep_{key}", dl[k], errs[k]["max_abs_err"],
+                                  dt[k], dref[k][1], "the chain scene, the same rays",
+                                  lines[k]))
+
+        # streamed leaf rows (arity 4 and 8): bit for bit against the
+        # resident DEEP twin, through a streamed pipeline's paths
+        if a >= 4:
+            sdp = streamed(dp)
+            S_ = sdp.tables
+            skw = dict(dkw, stream=True)
+            outs = {"closest": (lambda s_: planes(ct.closest_tiles(
+                                    S_.cbox, S_.cmeta, S_.tri, o, d, stream=s_, **dkw))),
+                    "closest_full": (lambda s_: planes(ct.closest_tiles_full(
+                                    S_.cbox, S_.cmeta, S_.tri, S_.attr, o, d, stream=s_, **dkw),
+                                    True)),
+                    "occluded": (lambda s_: [ct.occluded_tiles(
+                                    S_.cbox, S_.cmeta, S_.tri, dso, dsd, dm2, stream=s_, **dkw)])}
+            for k, fn in outs.items():
+                check(f"deep/{key}/{k}_stream", same_bits(fn(True), fn(False)),
+                      "differs from the resident DEEP twin")
+            _, on_ss = on_path(f"deep/{key}/stream_render_auto", sdp.render,
+                               {f"closest_full_stream<{a}{sfx},deep>": 1,
+                                f"occluded_stream<{a}{sfx},deep>": 1})
+            _, on_sc = on_path(f"deep/{key}/stream_primary_closest_pass",
+                               lambda: ct.closest_tiles(S_.cbox, S_.cmeta, S_.tri, o, d, **skw),
+                               {f"closest_stream<{a}{sfx},deep>": 1})
+            st_launch = {"closest": on_sc[f"closest_stream<{a}{sfx},deep>"],
+                         "closest_full": on_ss[f"closest_full_stream<{a}{sfx},deep>"],
+                         "occluded": on_ss[f"occluded_stream<{a}{sfx},deep>"]}
+            st_calls = {"closest": lambda c=False: ct.closest_tiles(
+                            S_.cbox, S_.cmeta, S_.tri, o, d, counters=c, **skw),
+                        "closest_full": lambda c=False: ct.closest_tiles_full(
+                            S_.cbox, S_.cmeta, S_.tri, S_.attr, o, d, counters=c, **skw),
+                        "occluded": lambda c=False: ct.occluded_tiles(
+                            S_.cbox, S_.cmeta, S_.tri, dso, dsd, dm2, counters=c, **skw)}
+            st_out = {"closest": 3, "closest_full": 15, "occluded": 1}
+            for k, fn in st_calls.items():
+                tt = time_ms(fn)
+                in_b = (ray_b + nbytes(S_.cbox, S_.cmeta, S_.tri)
+                        + (nbytes(S_.attr) if k == "closest_full" else 0)
+                        + (out_plane if k == "occluded" else 0))
+                tt.update(bound(fn(True)[1].cpu().tolist(), ct.STREAM_COUNTS, in_b,
+                                st_out[k] * out_plane))
+                dt[k + "_stream"] = tt
+                extra_rows.append(row(
+                    names[k].replace("DEEP>", "STREAM, DEEP>"), f"deep_{key}_stream",
+                    st_launch[k], errs[k]["max_abs_err"], tt, dref[k][1],
+                    "the chain scene, the same rays", 2253 if k == "occluded" else 2070))
+            del sdp, S_
+        rec.update(max_abs_err={k: v["max_abs_err"] for k, v in errs.items()},
+                   launches=dl, timing=dt)
+        emit(rec)
+        del dp, D, Ds
+
+    # the DEEP tier forced on car_boxed's width-4 tables (a stack depth past
+    # the standard tier's), in turns with the standard tier: same hits, and
+    # the cost of the global stack
+    fkw = dict(leaf_size=L, stack_depth=ct.STACK_SIZE[4] + 1)
+    rec = {"phase": "deep", "case": "car_boxed_w4_forced", "card": card,
+           "stack_depth": fkw["stack_depth"], "stack_need": T.stack_depth}
+    for k, call in (("closest", lambda **k_: ct.closest_tiles(T.cbox, T.cmeta, T.tri, o, d, **k_)),
+                    ("frame", lambda **k_: ct.frame_tiles(T.cbox, T.cmeta, T.tri, T.attr,
+                                                          T.lamb, o, d, bounces=cfg.bounces,
+                                                          **k_))):
+        eq = same_bits(list(call(**fkw)), list(call(**kw)))
+        check(f"deep/forced/{k}", eq, "the DEEP tier's output differs from the standard tier's")
+        turns = [time_ms(lambda: call(**(fkw if deep else kw)))
+                 for deep in (False, True, True, False)]
+        std = statistics.median([turns[0]["median"], turns[3]["median"]])
+        dpt = statistics.median([turns[1]["median"], turns[2]["median"]])
+        rec[k] = {"bit_equal": eq, "turns": turns, "standard_ms": std, "deep_ms": dpt,
+                  "deep_vs_standard": dpt / std}
+    emit(rec)
+
+    # ---- 14. the command line: the width-8 frame, the --bf16-bvh frame -----
     def run_cli(name, flags, want):
         cli_bmp = os.path.join(out_dir, f"{name}.bmp")
         cli_json = os.path.join(out_dir, f"{name}.json")
@@ -1042,7 +1488,7 @@ def main() -> int:
     run_cli("cli_bf16", ["--bf16-bvh"], frames["w4_bf16"])
     del frames
 
-    # ---- 12. the kernels line --------------------------------------------
+    # ---- 15. the kernels line --------------------------------------------
     kernels = []
     for name, key, kernel, line in KERNEL_ROWS:
         t = timing[key][kernel]
@@ -1058,6 +1504,7 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "rays": n_rays,
         })
+    kernels += extra_rows
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"records": RECORDS, "kernels": kernels, "failures": FAILURES}, f,
                   indent=1)
@@ -1111,6 +1558,33 @@ def profile(fn, n: int = 5) -> dict:
             "idle_share": 1.0 - busy / wall_us,
             "kernel_launches_per_call": len(kernels) / n,
             "top_kernels_ms_per_call": {k: v / n / 1e3 for k, v in top}}
+
+
+def write_sphere_folder(folder: str) -> None:
+    """SPHERE_SCENE as an asset folder: triangles.obj and .mtl, lights.obj
+    and spheres.obj. The loader's material 0 is its implicit black slot, so
+    the MTL's materials are 1-3; the loader reads Kd/Ks/Kr in the 5 lines
+    after each newmtl (as the reference does), so each block has 6 lines."""
+    os.makedirs(folder)
+    files = {
+        "triangles.obj": "mtllib triangles.mtl\n" + "".join(
+            f"v {x} {y} {z}\n" for x, y, z in SPHERE_SCENE["verts"])
+        + "usemtl floor\nf 1 2 3\nf 1 3 4\n",
+        "triangles.mtl": "".join(
+            f"newmtl {n}\nKd {' '.join(map(str, kd))}\nKs {' '.join(map(str, ks))}\n"
+            f"Kr {' '.join(map(str, kr))}\nNs 10\nd 1\n"
+            for n, kd, ks, kr in zip(("floor", "red", "mirror"), SPHERE_SCENE["mats_kd"],
+                                     SPHERE_SCENE["mats_ks"], SPHERE_SCENE["mats_kr"])),
+        "lights.obj": "".join(f"{' '.join(map(str, p))} {' '.join(map(str, k))}\n"
+                              for p, k in zip(SPHERE_SCENE["lights_pos"],
+                                              SPHERE_SCENE["lights_kl"])),
+        "spheres.obj": "".join(f"{' '.join(map(str, c))} {r} {m + 1}\n" for c, r, m in zip(
+            SPHERE_SCENE["spheres_center"], SPHERE_SCENE["spheres_radius"],
+            SPHERE_SCENE["spheres_mat"])),
+    }
+    for name, text in files.items():
+        with open(os.path.join(folder, name), "w") as f:
+            f.write(text)
 
 
 def read_reference(read_bmp) -> np.ndarray:

@@ -76,10 +76,10 @@ class RenderConfig:
     tile_cols: int = 128
 
     # "fused": the fused frame kernel; "pallas": the pass-based path over
-    # the closest / any-hit kernels; "auto": fused where the JAX package
-    # would take it (bvh_width >= 4, fast_light, 1024-ray tiles), else
-    # pallas. The JAX package's "jax" and "bruteforce" variants are not
-    # ported.
+    # the closest / any-hit kernels; "bruteforce": every ray against every
+    # triangle (use_bvh=False always takes it); "auto": fused where the JAX
+    # package would take it (bvh_width >= 4, fast_light, 1024-ray tiles),
+    # else pallas. The JAX package's "jax" variant is not ported.
     variant: str = "auto"
     # bf16 node boxes, rounded conservatively: pair rows at bvh_width 4, the
     # raw bf16 binary table at 2, f32 at 8 (as the JAX prepare packs them).

@@ -3,16 +3,20 @@
 `packed_from_numpy` takes the packed arrays as numpy (for the JAX package's
 prepared state, `np.asarray(pipe.packed_dev[i])`, or the port's own packers)
 and uploads them, so that both packages can trace the very same tables.
+`device_scene_from_numpy` does the same for the scene planes of a
+DeviceScene (the JAX package's `pipe.ds`).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from .ops.pack import ARITY_OF_WIDTH, META_WIDTH, stack_need
+from .models.device_scene import DeviceScene, light_planes
+from .ops.pack import ARITY_OF_WIDTH, META_WIDTH, pack_lights, stack_need
+from .ops.vecmath import Vec3
 
 # 16-bit node tables hold bf16 bits: JAX's ml_dtypes bfloat16 array, or the
 # bits as uint16 / int16 (ops/pack.cbox_to_bf16).
@@ -31,6 +35,7 @@ class SceneTables(NamedTuple):
     stack_depth: int        # entries one ray's traversal stack needs
     arity: int              # node arity: 2, 4 or 8, by the cbox row width
     compressed: bool = False  # cbox rows are bf16 (min|max) pairs (arity 4, 8)
+    sph: Optional[torch.Tensor] = None  # (S, 16) f32 sphere table, or None
 
 
 def _upload_cbox(cbox, device, compressed: bool):
@@ -54,7 +59,7 @@ def _upload_cbox(cbox, device, compressed: bool):
 
 
 def packed_from_numpy(cbox, cmeta, tri, attr, lamb, *, device, leaf_size: int = 8,
-                      compressed: bool = False) -> SceneTables:
+                      compressed: bool = False, sph=None) -> SceneTables:
     """Upload packed numpy tables to `device` as contiguous tensors. The
     node arity follows the cbox row width: 16 -> 2, 32 -> 4, 64 -> 8.
 
@@ -62,7 +67,8 @@ def packed_from_numpy(cbox, cmeta, tri, attr, lamb, *, device, leaf_size: int = 
     (min|max) pairs (ops/pack.pack_box_bf16_pairs). A 16-bit cbox is a
     binary bf16 table and stays 16-bit (torch.bfloat16); it is never
     widened to f32. The bad combinations raise ValueError, as JAX asserts
-    them (pallas_trace.py:3069, 3173, 3283)."""
+    them (pallas_trace.py:3069, 3173, 3283). `sph` is the (S, 16) sphere
+    table of ops/pack.pack_spheres (None: no spheres)."""
     cmeta = np.ascontiguousarray(cmeta, np.int32)
     tri = np.ascontiguousarray(tri, np.float32)
     attr = np.ascontiguousarray(attr, np.float32)
@@ -77,6 +83,10 @@ def packed_from_numpy(cbox, cmeta, tri, attr, lamb, *, device, leaf_size: int = 
         raise ValueError(f"expected (G+1, 128) rows, got {tri.shape} / {attr.shape}")
     if lamb.ndim != 2 or lamb.shape[1] != 8:
         raise ValueError(f"expected an (nl+1, 8) light table, got {lamb.shape}")
+    if sph is not None:
+        sph = np.ascontiguousarray(sph, np.float32)
+        if sph.ndim != 2 or sph.shape[1] != 16:
+            raise ValueError(f"expected an (S, 16) sphere table, got {sph.shape}")
 
     def up(a):
         return torch.tensor(a, device=device)  # copies: the input may be read-only
@@ -86,4 +96,32 @@ def packed_from_numpy(cbox, cmeta, tri, attr, lamb, *, device, leaf_size: int = 
         lamb=up(lamb), leaf_size=int(leaf_size),
         stack_depth=stack_need(cmeta, arity), arity=arity,
         compressed=bool(compressed),
+        sph=None if sph is None or not len(sph) else up(sph),
+    )
+
+
+def device_scene_from_numpy(ds, *, device) -> DeviceScene:
+    """Upload the planes of a DeviceScene given as numpy-convertible arrays
+    (the JAX package's DeviceScene, whose Vec3 fields are (x, y, z) triples)
+    to `device`, value for value. The light table `lamb` is packed from its
+    lights and ambient (ops/pack.pack_lights)."""
+    def f32(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    def vec(v):
+        return Vec3(*(f32(c) for c in v))
+
+    def i32(a):
+        return torch.tensor(np.asarray(a, np.int32), device=device)
+
+    def rows(v):
+        return np.stack([np.asarray(c, np.float32) for c in v], axis=-1)
+
+    lamb = pack_lights(rows(ds.lights_pos), rows(ds.lights_kl),
+                       [np.asarray(c, np.float32) for c in ds.ambient])
+    return DeviceScene(
+        v0=vec(ds.v0), v1=vec(ds.v1), v2=vec(ds.v2), n0=vec(ds.n0),
+        mat_idx=i32(ds.mat_idx), kd=vec(ds.kd), ks=vec(ds.ks), kr=vec(ds.kr),
+        sph_c=vec(ds.sph_c), sph_r=f32(ds.sph_r), sph_mat=i32(ds.sph_mat),
+        **light_planes(f32(lamb)),
     )

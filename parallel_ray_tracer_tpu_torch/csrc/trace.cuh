@@ -15,6 +15,10 @@
 //                                   _occluded4_kernel :886 (A 4, 8),
 //                                   _occluded_kernel :676 (A 2)
 //   frame_kernel<A, F>           <- _frame_fused_kernel :2536 (A 4, 8)
+//   frame_kernel<A, F, SPH = true>
+//                                <- _frame_fused_kernel with num_spheres > 0:
+//                                   sphere_t :2604, sphere_closest_merge :2626,
+//                                   sphere_occluded_merge :2655
 //   closest_kernel<A, F, FULL, STREAM = true>
 //                                <- _closest_stream_kernel(n_attr=0, 12) :2070
 //   occluded_kernel<A, F, STREAM = true>
@@ -86,6 +90,28 @@
 // port prepares; shadow rays are always traced from the light (the
 // reference's reverse_shadows=True).
 //
+// Spheres (frame_kernel's SPH instances): as in JAX, spheres have no
+// acceleration structure. After each closest traversal the ray is tested
+// against every row of the (S, 16) sphere table (pack_spheres: centre, r,
+// kd, ks, kr), and the nearest sphere replaces the triangle hit on a strict
+// <; after each shadow traversal every sphere is tested against the shadow
+// window. The table is copied to shared memory once per block; all threads
+// read the same row at once (a broadcast). The solve is JAX's
+// (ops/intersect.ray_sphere): guarded sqrt and denominator, true divisions.
+// A scene carries few spheres, so S tests per traversal add little to the
+// traversal's work; dead rays test none.
+//
+// Stack tiers: a visit grows a ray's stack by at most A - 1 entries, so the
+// stack a tree needs follows its depth (ops/pack.stack_need). The standard
+// tier (DEEP = false) keeps the stack in a private array of
+// RtArity<A>::STACK entries, enough for the default bvh_max_depth = 32.
+// A deeper tree takes the DEEP tier: its stack lives in a global buffer
+// that the wrapper sizes to the tree (need entries per ray), entry k of
+// ray i at k * n + i, so the 32 threads of a warp touch 32 neighbouring
+// words. It has no depth limit, as JAX's stack, which is sized to the tree
+// (pallas_trace.required_stack_depth). The wrapper picks the tier; the
+// traversal is the same code, so the hits are the same.
+//
 // Work counters: each kernel has a counting instance (COUNT = true) that
 // also sums, per launch, the node visits, the box tests of valid children,
 // the leaf visits, the triangle tests of live slots (n != 0; padding slots
@@ -131,10 +157,10 @@ static constexpr float RT_INV_DIR_MAX = 1e30f;
 enum RtBox { RT_F32 = 0, RT_PAIRS = 1, RT_BF16 = 2 };
 
 // Node table layout per arity (ops/pack.py): floats per cbox row, ints per
-// cmeta row, and the per-ray stack entries. A visit grows the stack by at
-// most A - 1, so the default bvh_max_depth = 32 needs 34 / 50 / 79 entries
-// (pallas_trace.required_stack_depth); the wrapper checks the tree's own
-// need against STACK before any launch.
+// cmeta row, and the standard tier's per-ray stack entries. A visit grows
+// the stack by at most A - 1, so the default bvh_max_depth = 32 needs
+// 34 / 50 / 79 entries (pallas_trace.required_stack_depth); the wrapper
+// takes the DEEP tier for a tree that needs more than STACK.
 template <int A> struct RtArity;
 template <> struct RtArity<2> { enum { BOX = 16, META = 8, STACK = 48 }; };
 template <> struct RtArity<4> { enum { BOX = 32, META = 8, STACK = 64 }; };
@@ -149,6 +175,28 @@ struct RtScene {
 
 struct RtRay {
   float3 o, d, inv, oi;  // inv: clipped 1/d; oi = o * inv (hoisted slab term)
+};
+
+// The DEEP tier's stack: a global buffer of need * n entries, entry k of
+// ray i at k * n + i. The kernel passes it on offset to its ray (ent, dst
+// point at entry 0 of ray i); the standard tier ignores it.
+struct RtDeep {
+  int* ent;       // encodings
+  float* dst;     // box entry distances
+  unsigned n;     // rays: the stride between entries k and k + 1
+};
+
+RT_FN RtDeep rt_deep_at(const RtDeep& g, int i) {
+  RtDeep r = {g.ent + i, g.dst + i, g.n};
+  return r;
+}
+
+// Entry k of one ray's DEEP stack, indexed as the standard tier's arrays.
+template <class T>
+struct RtSlots {
+  T* p;
+  unsigned n;
+  RT_FN T& operator[](int k) const { return p[(size_t)k * n]; }
 };
 
 // Per-thread work counts; with ON = false every method is empty. The last
@@ -313,9 +361,9 @@ struct RtRow {
 // near-first and push far-to-near, so the nearest child pops first. Each
 // entry keeps its entry distance. The row is read in groups of children
 // that share 16-byte loads: pairs (RT_F32, RT_BF16) or quads (RT_PAIRS).
-template <int A, RtBox F, class C>
+template <int A, RtBox F, class C, class SI, class SF>
 RT_FN void rt_visit(const RtScene& s, int e, const RtRay& r, float t_cut,
-                    int* stk, float* dst, int& sp, C& cnt) {
+                    SI& stk, SF& dst, int& sp, C& cnt) {
   static_assert(F == RT_F32 || (F == RT_PAIRS) == (A >= 4),
                 "bf16 pairs at arity 4 and 8, raw bf16 at arity 2");
   const uint4* row = s.cbox + (size_t)e * RtRow<A, F>::U4;
@@ -428,9 +476,9 @@ RT_FN int rt_ring_use(const RtScene& s, RtRing& q, int g, C& cnt) {
 // dropped at their pop). A block already in a slot is skipped; the victim
 // slot is not refilled when it is `keep` (the block in use) or holds one
 // of those top blocks.
-template <class C>
-RT_FN void rt_ring_ahead(const RtScene& s, RtRing& q, const int* stk,
-                         const float* dst, int sp, float t, int keep, C& cnt) {
+template <class C, class SI, class SF>
+RT_FN void rt_ring_ahead(const RtScene& s, RtRing& q, const SI& stk,
+                         const SF& dst, int sp, float t, int keep, C& cnt) {
   int tops[RT_STREAM_KPRE];
   int k = sp - 1;
 #pragma unroll
@@ -471,11 +519,10 @@ RT_FN void rt_prefetch_slot_attrs(const RtScene& s, int idx) {
 // Closest hit of one ray: returns the slot g*RT_LEAF + j (or -1) and sets
 // t and neg (det < 0 of the winner). Strict < keeps the first of equal hits.
 // STREAM adds the block ring's prefetches; the traversal is unchanged.
-template <int A, RtBox F, bool STREAM, class C>
-RT_FN int rt_closest(const RtScene& s, const RtRay& r, float& t, bool& neg,
-                     C& cnt) {
-  int stk[RtArity<A>::STACK];
-  float dst[RtArity<A>::STACK];
+// stk / dst: the ray's stack (a private array, or RtSlots of the DEEP tier).
+template <int A, RtBox F, bool STREAM, class C, class SI, class SF>
+RT_FN int rt_closest_on(const RtScene& s, const RtRay& r, float& t, bool& neg,
+                        C& cnt, SI& stk, SF& dst) {
   int sp = 1, idx = -1;
   stk[0] = 0;
   dst[0] = -RT_TMAX;
@@ -523,11 +570,9 @@ RT_FN int rt_closest(const RtScene& s, const RtRay& r, float& t, bool& neg,
 // Any hit of one ray with t*t < max_dist2 (pallas_trace._run_occluded_dual);
 // boxes are cut at sqrt(max_dist2), the ray stops at its first blocker.
 // Every pushed entry lies within the cut, so the ring takes any leaf entry.
-template <int A, RtBox F, bool STREAM, class C>
-RT_FN bool rt_occluded(const RtScene& s, const RtRay& r, float max_dist2,
-                       C& cnt) {
-  int stk[RtArity<A>::STACK];
-  float dst[RtArity<A>::STACK];
+template <int A, RtBox F, bool STREAM, class C, class SI, class SF>
+RT_FN bool rt_occluded_on(const RtScene& s, const RtRay& r, float max_dist2,
+                          C& cnt, SI& stk, SF& dst) {
   int sp = 1;
   stk[0] = 0;
   const float t_limit = sqrtf(max_dist2);
@@ -561,6 +606,36 @@ RT_FN bool rt_occluded(const RtScene& s, const RtRay& r, float max_dist2,
   return false;
 }
 
+// The two traversals on the ray's stack tier: the standard tier's private
+// arrays, or the DEEP tier's global slots (g already offset to the ray).
+template <int A, RtBox F, bool STREAM, bool DEEP, class C>
+RT_FN int rt_closest(const RtScene& s, const RtRay& r, float& t, bool& neg,
+                     C& cnt, const RtDeep& g) {
+  if constexpr (DEEP) {
+    RtSlots<int> stk = {g.ent, g.n};
+    RtSlots<float> dst = {g.dst, g.n};
+    return rt_closest_on<A, F, STREAM>(s, r, t, neg, cnt, stk, dst);
+  } else {
+    int stk[RtArity<A>::STACK];
+    float dst[RtArity<A>::STACK];
+    return rt_closest_on<A, F, STREAM>(s, r, t, neg, cnt, stk, dst);
+  }
+}
+
+template <int A, RtBox F, bool STREAM, bool DEEP, class C>
+RT_FN bool rt_occluded(const RtScene& s, const RtRay& r, float max_dist2,
+                       C& cnt, const RtDeep& g) {
+  if constexpr (DEEP) {
+    RtSlots<int> stk = {g.ent, g.n};
+    RtSlots<float> dst = {g.dst, g.n};
+    return rt_occluded_on<A, F, STREAM>(s, r, max_dist2, cnt, stk, dst);
+  } else {
+    int stk[RtArity<A>::STACK];
+    float dst[RtArity<A>::STACK];
+    return rt_occluded_on<A, F, STREAM>(s, r, max_dist2, cnt, stk, dst);
+  }
+}
+
 RT_FN float rt_rsq(float v) { return 1.0f / sqrtf(fmaxf(v, 1e-30f)); }
 
 // Raw normal and kd/ks/kr of slot idx (HitFull layout: n, kd, ks, kr).
@@ -574,12 +649,78 @@ RT_FN void rt_slot_attrs(const RtScene& s, int idx, float* av) {
   for (int k = 0; k < 9; ++k) av[3 + k] = __ldg(arow + RT_ATTR_STRIDE * j + k);
 }
 
-// The whole Whitted bounce loop of one ray (pallas_trace._frame_fused_kernel,
-// without spheres). lamb: nl light rows (pos.xyz, kl.rgb, 0, 0) + ambient.
-// Shadow rays run from the light to the hit point, window (dist - EPS)^2.
-template <int A, RtBox F, class C>
+// One ray against one sphere row (c.xyz, r, ...): the nearest t > EPS in
+// units of |d|, or RT_TMAX (pallas_trace sphere_t :2604, the formula of
+// ops/intersect.ray_sphere). a = d.d; c_sp = |o - c|^2 - r^2 (< 0: the
+// origin is inside). A dead ray (d = 0) has a = 0 and misses.
+RT_FN float rt_sphere_t(float3 o, float3 d, float a, const float* row,
+                        float& c_sp) {
+  const float ocx = o.x - row[0], ocy = o.y - row[1], ocz = o.z - row[2];
+  const float half_b = ocx * d.x + ocy * d.y + ocz * d.z;
+  c_sp = ocx * ocx + ocy * ocy + ocz * ocz - row[3] * row[3];
+  const float disc = half_b * half_b - a * c_sp;
+  const float sq = sqrtf(fmaxf(disc, 1e-30f));
+  const float a_safe = a > 1e-20f ? a : 1.f;
+  const float t0 = (-half_b - sq) / a_safe;
+  const float t1 = (-half_b + sq) / a_safe;
+  const float ts = t0 > RT_EPS ? t0 : t1;
+  const bool hit = (disc >= 0.f) && (ts > RT_EPS) && (a > 1e-20f);
+  return hit ? ts : RT_TMAX;
+}
+
+// sphere_closest_merge (:2626): each of the ns rows of sph in turn replaces
+// the hit on a strict <, so the triangle keeps a tie and the first of equal
+// spheres wins. Returns the winning row (or -1) and sets t and neg (the
+// origin is inside it).
+RT_FN int rt_sphere_closest(const float* sph, int ns, float3 o, float3 d,
+                            float& t, bool& neg) {
+  const float a = d.x * d.x + d.y * d.y + d.z * d.z;
+  int win = -1;
+  for (int k = 0; k < ns; ++k) {
+    float c_sp;
+    const float ts = rt_sphere_t(o, d, a, sph + 16 * k, c_sp);
+    if (ts < t) {
+      t = ts;
+      win = k;
+      neg = c_sp < 0.f;
+    }
+  }
+  return win;
+}
+
+// sphere_occluded_merge (:2655): some sphere hit lies in the shadow window.
+// Every row is tested, as in JAX.
+RT_FN bool rt_sphere_blocked(const float* sph, int ns, float3 o, float3 d,
+                             float max_dist2) {
+  const float a = d.x * d.x + d.y * d.y + d.z * d.z;
+  bool blocked = false;
+  for (int k = 0; k < ns; ++k) {
+    float c_sp;
+    const float ts = rt_sphere_t(o, d, a, sph + 16 * k, c_sp);
+    blocked = blocked || ((ts < RT_TMAX) && (ts * ts < max_dist2));
+  }
+  return blocked;
+}
+
+// A sphere winner's HitFull attributes: the raw normal p - c at
+// p = o + d * t, and kd / ks / kr from the row's columns 4-12.
+RT_FN void rt_sphere_attrs(const float* row, float3 o, float3 d, float t,
+                           float* av) {
+  av[0] = o.x + d.x * t - row[0];
+  av[1] = o.y + d.y * t - row[1];
+  av[2] = o.z + d.z * t - row[2];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) av[3 + k] = row[4 + k];
+}
+
+// The whole Whitted bounce loop of one ray (pallas_trace._frame_fused_kernel).
+// lamb: nl light rows (pos.xyz, kl.rgb, 0, 0) + ambient. SPH: the ns sphere
+// rows of sph are merged after each traversal. Shadow rays run from the
+// light to the hit point, window (dist - EPS)^2.
+template <int A, RtBox F, bool SPH, bool DEEP, class C>
 RT_FN float3 rt_frame_ray(const RtScene& s, const float* lamb, int nl,
-                          float3 o, float3 d, int bounces, C& cnt) {
+                          const float* sph, int ns, float3 o, float3 d,
+                          int bounces, const RtDeep& g, C& cnt) {
   const float EPS2 = (float)(1e-3 * 1e-3);
   const float ax = lamb[8 * nl], ay = lamb[8 * nl + 1], az = lamb[8 * nl + 2];
   float mx = 1.f, my = 1.f, mz = 1.f;
@@ -587,8 +728,11 @@ RT_FN float3 rt_frame_ray(const RtScene& s, const float* lamb, int nl,
   for (int b = 0; b < bounces; ++b) {
     float t = RT_TMAX;
     bool neg = false;
-    int idx = -1;
-    if (!rt_dead(d)) idx = rt_closest<A, F, false>(s, rt_ray(o, d), t, neg, cnt);
+    int idx = -1, win = -1;
+    if (!rt_dead(d)) {
+      idx = rt_closest<A, F, false, DEEP>(s, rt_ray(o, d), t, neg, cnt, g);
+      if constexpr (SPH) win = rt_sphere_closest(sph, ns, o, d, t, neg);
+    }
     if (!(t < RT_TMAX)) {  // miss: multiplier * ambient, the ray ends
       fx = fx + mx * ax;
       fy = fy + my * ay;
@@ -596,7 +740,11 @@ RT_FN float3 rt_frame_ray(const RtScene& s, const float* lamb, int nl,
       break;
     }
     float av[12];
-    rt_slot_attrs(s, idx, av);
+    if (SPH && win >= 0) {
+      rt_sphere_attrs(sph + 16 * win, o, d, t, av);
+    } else {
+      rt_slot_attrs(s, idx, av);
+    }
     float ninv = rt_rsq(av[0] * av[0] + av[1] * av[1] + av[2] * av[2]);
     float sgn = (neg ? -1.f : 1.f) * ninv;
     float nx = av[0] * sgn, ny = av[1] * sgn, nz = av[2] * sgn;
@@ -618,9 +766,10 @@ RT_FN float3 rt_frame_ray(const RtScene& s, const float* lamb, int nl,
       bool blocked = false;
       if (!backface) {
         float q = fmaxf(mag2 * imag - RT_EPS, 0.f);
-        blocked = rt_occluded<A, F, false>(
-            s, rt_ray(make_float3(lr[0], lr[1], lr[2]), make_float3(-lx, -ly, -lz)),
-            q * q, cnt);
+        const float3 so = make_float3(lr[0], lr[1], lr[2]);
+        const float3 sd = make_float3(-lx, -ly, -lz);
+        blocked = rt_occluded<A, F, false, DEEP>(s, rt_ray(so, sd), q * q, cnt, g);
+        if constexpr (SPH) blocked = rt_sphere_blocked(sph, ns, so, sd, q * q) || blocked;
       }
       float vis = (backface ? 0.f : 1.f) * (1.f - (blocked ? 1.f : 0.f));
       float w = vis / fmaxf(mag2, 1e-30f);
@@ -669,10 +818,12 @@ RT_FN void rt_load(const RtRays& p, int i, float3& o, float3& d) {
 // One thread per ray; the grid covers n rays exactly once. Threads past n
 // stay for the warp-wide count reduction. STREAM: the streamed leaf rows
 // (arity 4 and 8, f32 or pair rows; tri and attr padded to whole blocks).
-template <int A, RtBox F, bool FULL, bool COUNT, bool STREAM>
+// DEEP: the stack tier with the global stack g (need * n entries).
+template <int A, RtBox F, bool FULL, bool COUNT, bool STREAM, bool DEEP>
 __global__ void __launch_bounds__(RT_BLOCK)
-closest_kernel(RtRays rays, RtScene s, int n, float* t_out, int* idx_out,
-               int* nd_out, float* attr_out, unsigned long long* counts) {
+closest_kernel(RtRays rays, RtScene s, int n, RtDeep g, float* t_out,
+               int* idx_out, int* nd_out, float* attr_out,
+               unsigned long long* counts) {
   static_assert(!STREAM || (A >= 4 && F != RT_BF16),
                 "leaf rows stream at arity 4 and 8 only, as in JAX");
   int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -683,7 +834,9 @@ closest_kernel(RtRays rays, RtScene s, int n, float* t_out, int* idx_out,
     float t = RT_TMAX;
     bool neg = false;
     int idx = -1;
-    if (!rt_dead(d)) idx = rt_closest<A, F, STREAM>(s, rt_ray(o, d), t, neg, cnt);
+    if (!rt_dead(d))
+      idx = rt_closest<A, F, STREAM, DEEP>(s, rt_ray(o, d), t, neg, cnt,
+                                           rt_deep_at(g, i));
     t_out[i] = t;
     idx_out[i] = idx;
     nd_out[i] = neg ? 1 : 0;
@@ -702,10 +855,10 @@ closest_kernel(RtRays rays, RtScene s, int n, float* t_out, int* idx_out,
   rt_count<rt_ncounts(STREAM)>(counts, cnt);
 }
 
-template <int A, RtBox F, bool COUNT, bool STREAM>
+template <int A, RtBox F, bool COUNT, bool STREAM, bool DEEP>
 __global__ void __launch_bounds__(RT_BLOCK)
 occluded_kernel(RtRays rays, const float* max_dist2, RtScene s, int n,
-                int* blocked_out, unsigned long long* counts) {
+                RtDeep g, int* blocked_out, unsigned long long* counts) {
   static_assert(!STREAM || (A >= 4 && F != RT_BF16),
                 "leaf rows stream at arity 4 and 8 only, as in JAX");
   int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -715,27 +868,35 @@ occluded_kernel(RtRays rays, const float* max_dist2, RtScene s, int n,
     rt_load(rays, i, o, d);
     bool blocked = false;
     if (!rt_dead(d))
-      blocked = rt_occluded<A, F, STREAM>(s, rt_ray(o, d), max_dist2[i], cnt);
+      blocked = rt_occluded<A, F, STREAM, DEEP>(s, rt_ray(o, d), max_dist2[i],
+                                                cnt, rt_deep_at(g, i));
     blocked_out[i] = blocked ? 1 : 0;
   }
   rt_count<rt_ncounts(STREAM)>(counts, cnt);
 }
 
-// The light table is copied to shared memory once per block.
-template <int A, RtBox F, bool COUNT>
+// The light table, and with SPH the ns sphere rows after it, are copied to
+// shared memory once per block.
+template <int A, RtBox F, bool COUNT, bool SPH, bool DEEP>
 __global__ void __launch_bounds__(RT_BLOCK)
-frame_kernel(RtRays rays, RtScene s, const float* lamb, int nl, int n,
-             int bounces, float* col_out, unsigned long long* counts) {
+frame_kernel(RtRays rays, RtScene s, const float* lamb, int nl,
+             const float* sph, int ns, int n, int bounces, RtDeep g,
+             float* col_out, unsigned long long* counts) {
   static_assert(A >= 4, "the fused frame exists for arity 4 and 8 only");
   extern __shared__ float lamb_s[];
+  float* sph_s = lamb_s + 8 * (nl + 1);
   for (int q = threadIdx.x; q < 8 * (nl + 1); q += blockDim.x) lamb_s[q] = lamb[q];
+  if constexpr (SPH) {
+    for (int q = threadIdx.x; q < 16 * ns; q += blockDim.x) sph_s[q] = sph[q];
+  }
   __syncthreads();
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   RtCounts<COUNT> cnt;
   if (i < n) {
     float3 o, d;
     rt_load(rays, i, o, d);
-    float3 c = rt_frame_ray<A, F>(s, lamb_s, nl, o, d, bounces, cnt);
+    float3 c = rt_frame_ray<A, F, SPH, DEEP>(s, lamb_s, nl, sph_s, ns, o, d,
+                                             bounces, rt_deep_at(g, i), cnt);
     col_out[i] = c.x;
     col_out[(size_t)n + i] = c.y;
     col_out[2 * (size_t)n + i] = c.z;
@@ -743,26 +904,30 @@ frame_kernel(RtRays rays, RtScene s, const float* lamb, int nl, int n,
   rt_count<rt_ncounts(false)>(counts, cnt);
 }
 
-// Host launchers, one set per arity and box format: defined in
+// Host launchers, one set per arity, box format and stack tier: defined in
 // trace_launch.cuh and instantiated in trace_a{2,4,8}.cu (RT_F32),
-// trace_a{4,8}p.cu (RT_PAIRS) and trace_a2h.cu (RT_BF16), and the streamed
-// ones (STREAM = true) in trace_a{4,8}s.cu and trace_a{4,8}ps.cu, which nvcc
-// compiles in parallel. Each launches one kernel on stream st (the counting
-// instance when counts is non-null), does not synchronise, and returns
-// cudaGetLastError() after the launch.
-template <int A, RtBox F, bool STREAM>
+// trace_a{4,8}p.cu (RT_PAIRS) and trace_a2h.cu (RT_BF16), the streamed
+// ones (STREAM = true) in trace_a{4,8}s.cu and trace_a{4,8}ps.cu, and the
+// DEEP tier of each in the unit of the same name with a `d` suffix
+// (trace_a4d.cu, ...), which nvcc compiles in parallel. Each launches one
+// kernel on stream st (the counting instance when counts is non-null), does
+// not synchronise, and returns cudaGetLastError() after the launch. The
+// frame launcher takes the SPH instance when ns > 0.
+template <int A, RtBox F, bool STREAM, bool DEEP>
 struct RtLaunch {
-  static int closest(const RtRays& rays, const RtScene& s, int n, float* t,
-                     int* idx, int* nd, float* attr_out,
-                     unsigned long long* counts, cudaStream_t st);
+  static int closest(const RtRays& rays, const RtScene& s, int n,
+                     const RtDeep& g, float* t, int* idx, int* nd,
+                     float* attr_out, unsigned long long* counts,
+                     cudaStream_t st);
   static int occluded(const RtRays& rays, const float* max_dist2,
-                      const RtScene& s, int n, int* blocked,
+                      const RtScene& s, int n, const RtDeep& g, int* blocked,
                       unsigned long long* counts, cudaStream_t st);
 };
 
-template <int A, RtBox F>
+template <int A, RtBox F, bool DEEP>
 struct RtFrameLaunch {
   static int frame(const RtRays& rays, const RtScene& s, const float* lamb,
-                   int num_lights, int n, int bounces, float* col,
+                   int num_lights, const float* sph, int ns, int n,
+                   int bounces, const RtDeep& g, float* col,
                    unsigned long long* counts, cudaStream_t st);
 };

@@ -2,5 +2,5 @@
 
 #include "trace_launch.cuh"
 
-template struct RtLaunch<4, RT_F32, false>;
-template struct RtFrameLaunch<4, RT_F32>;
+template struct RtLaunch<4, RT_F32, false, false>;
+template struct RtFrameLaunch<4, RT_F32, false>;

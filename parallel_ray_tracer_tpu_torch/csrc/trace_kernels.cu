@@ -3,11 +3,15 @@
 //
 // Each function launches one kernel on the given stream, does not
 // synchronise and allocates nothing: the Python wrapper allocates the
-// outputs. `arity` (2, 4 or 8; 4 or 8 for the frame) and `box` (RtBox:
-// 0 f32, 1 bf16 pairs at arity 4 and 8, 2 raw bf16 at arity 2) pick the
-// instance for the node table's layout, and `stream` (closest and any hit;
-// arity 4 and 8, f32 or pairs) the instance with streamed leaf rows, whose
-// tri and attr hold whole blocks of RT_STREAM_BLK rows. It returns
+// outputs and the DEEP tier's stack. `arity` (2, 4 or 8; 4 or 8 for the
+// frame) and `box` (RtBox: 0 f32, 1 bf16 pairs at arity 4 and 8, 2 raw bf16
+// at arity 2) pick the instance for the node table's layout, and `stream`
+// (closest and any hit; arity 4 and 8, f32 or pairs) the instance with
+// streamed leaf rows, whose tri and attr hold whole blocks of
+// RT_STREAM_BLK rows. A non-null stk_ent picks the DEEP stack tier: stk_ent
+// and stk_dst then hold need * n entries each (entry k of ray i at
+// k * n + i), need >= the tree's ops/pack.stack_need. The frame takes the
+// sphere instance when ns > 0 (sph: ns rows of 16 floats). It returns
 // cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for an arity, format and mode without instances.
 // Ray planes are n floats each; attr_out / col_out hold 12 / 3 planes of n.
@@ -33,14 +37,42 @@ RtScene make_scene(const void* cbox, const int* cmeta, const float* tri,
   return s;
 }
 
+RtDeep make_deep(int* ent, float* dst, int n) {
+  RtDeep g = {ent, dst, (unsigned)n};
+  return g;
+}
+
 const int kNoInstance = (int)cudaErrorInvalidValue;
 
-// The instance key of (arity, box format, leaf-row mode).
-constexpr int key(int arity, int box, int stream = 0) {
-  return 64 * stream + 16 * box + arity;
+// The instance key of (arity, box format, leaf-row mode, stack tier).
+constexpr int key(int arity, int box, int stream = 0, int deep = 0) {
+  return 128 * deep + 64 * stream + 16 * box + arity;
 }
 
 }  // namespace
+
+// The cases of one launcher over the instances of both stack tiers.
+#define RT_CASES(X)                                                   \
+  case key(2, RT_F32): return X(2, RT_F32, false, false);             \
+  case key(4, RT_F32): return X(4, RT_F32, false, false);             \
+  case key(8, RT_F32): return X(8, RT_F32, false, false);             \
+  case key(4, RT_PAIRS): return X(4, RT_PAIRS, false, false);         \
+  case key(8, RT_PAIRS): return X(8, RT_PAIRS, false, false);         \
+  case key(2, RT_BF16): return X(2, RT_BF16, false, false);           \
+  case key(4, RT_F32, 1): return X(4, RT_F32, true, false);           \
+  case key(8, RT_F32, 1): return X(8, RT_F32, true, false);           \
+  case key(4, RT_PAIRS, 1): return X(4, RT_PAIRS, true, false);       \
+  case key(8, RT_PAIRS, 1): return X(8, RT_PAIRS, true, false);       \
+  case key(2, RT_F32, 0, 1): return X(2, RT_F32, false, true);        \
+  case key(4, RT_F32, 0, 1): return X(4, RT_F32, false, true);        \
+  case key(8, RT_F32, 0, 1): return X(8, RT_F32, false, true);        \
+  case key(4, RT_PAIRS, 0, 1): return X(4, RT_PAIRS, false, true);    \
+  case key(8, RT_PAIRS, 0, 1): return X(8, RT_PAIRS, false, true);    \
+  case key(2, RT_BF16, 0, 1): return X(2, RT_BF16, false, true);      \
+  case key(4, RT_F32, 1, 1): return X(4, RT_F32, true, true);         \
+  case key(8, RT_F32, 1, 1): return X(8, RT_F32, true, true);         \
+  case key(4, RT_PAIRS, 1, 1): return X(4, RT_PAIRS, true, true);     \
+  case key(8, RT_PAIRS, 1, 1): return X(8, RT_PAIRS, true, true);
 
 extern "C" {
 
@@ -48,25 +80,15 @@ int rt_closest(const float* ox, const float* oy, const float* oz,
                const float* dx, const float* dy, const float* dz,
                const void* cbox, const int* cmeta, const float* tri,
                const float* attr, int arity, int box, int stream, int n,
-               float* t, int* idx, int* nd, float* attr_out,
-               unsigned long long* counts, void* cuda_stream) {
+               int* stk_ent, float* stk_dst, float* t, int* idx, int* nd,
+               float* attr_out, unsigned long long* counts, void* cuda_stream) {
   RtRays rays = make_rays(ox, oy, oz, dx, dy, dz);
   RtScene s = make_scene(cbox, cmeta, tri, attr);
+  RtDeep g = make_deep(stk_ent, stk_dst, n);
   cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
-#define RT_CLOSEST(A, F, S) \
-  RtLaunch<A, F, S>::closest(rays, s, n, t, idx, nd, attr_out, counts, st)
-  switch (key(arity, box, stream != 0)) {
-    case key(2, RT_F32): return RT_CLOSEST(2, RT_F32, false);
-    case key(4, RT_F32): return RT_CLOSEST(4, RT_F32, false);
-    case key(8, RT_F32): return RT_CLOSEST(8, RT_F32, false);
-    case key(4, RT_PAIRS): return RT_CLOSEST(4, RT_PAIRS, false);
-    case key(8, RT_PAIRS): return RT_CLOSEST(8, RT_PAIRS, false);
-    case key(2, RT_BF16): return RT_CLOSEST(2, RT_BF16, false);
-    case key(4, RT_F32, 1): return RT_CLOSEST(4, RT_F32, true);
-    case key(8, RT_F32, 1): return RT_CLOSEST(8, RT_F32, true);
-    case key(4, RT_PAIRS, 1): return RT_CLOSEST(4, RT_PAIRS, true);
-    case key(8, RT_PAIRS, 1): return RT_CLOSEST(8, RT_PAIRS, true);
-  }
+#define RT_CLOSEST(A, F, S, D) \
+  RtLaunch<A, F, S, D>::closest(rays, s, n, g, t, idx, nd, attr_out, counts, st)
+  switch (key(arity, box, stream != 0, stk_ent != nullptr)) { RT_CASES(RT_CLOSEST) }
 #undef RT_CLOSEST
   return kNoInstance;
 }
@@ -75,24 +97,15 @@ int rt_occluded(const float* ox, const float* oy, const float* oz,
                 const float* dx, const float* dy, const float* dz,
                 const float* max_dist2, const void* cbox, const int* cmeta,
                 const float* tri, int arity, int box, int stream, int n,
-                int* blocked, unsigned long long* counts, void* cuda_stream) {
+                int* stk_ent, float* stk_dst, int* blocked,
+                unsigned long long* counts, void* cuda_stream) {
   RtRays rays = make_rays(ox, oy, oz, dx, dy, dz);
   RtScene s = make_scene(cbox, cmeta, tri, nullptr);
+  RtDeep g = make_deep(stk_ent, stk_dst, n);
   cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
-#define RT_OCCLUDED(A, F, S) \
-  RtLaunch<A, F, S>::occluded(rays, max_dist2, s, n, blocked, counts, st)
-  switch (key(arity, box, stream != 0)) {
-    case key(2, RT_F32): return RT_OCCLUDED(2, RT_F32, false);
-    case key(4, RT_F32): return RT_OCCLUDED(4, RT_F32, false);
-    case key(8, RT_F32): return RT_OCCLUDED(8, RT_F32, false);
-    case key(4, RT_PAIRS): return RT_OCCLUDED(4, RT_PAIRS, false);
-    case key(8, RT_PAIRS): return RT_OCCLUDED(8, RT_PAIRS, false);
-    case key(2, RT_BF16): return RT_OCCLUDED(2, RT_BF16, false);
-    case key(4, RT_F32, 1): return RT_OCCLUDED(4, RT_F32, true);
-    case key(8, RT_F32, 1): return RT_OCCLUDED(8, RT_F32, true);
-    case key(4, RT_PAIRS, 1): return RT_OCCLUDED(4, RT_PAIRS, true);
-    case key(8, RT_PAIRS, 1): return RT_OCCLUDED(8, RT_PAIRS, true);
-  }
+#define RT_OCCLUDED(A, F, S, D) \
+  RtLaunch<A, F, S, D>::occluded(rays, max_dist2, s, n, g, blocked, counts, st)
+  switch (key(arity, box, stream != 0, stk_ent != nullptr)) { RT_CASES(RT_OCCLUDED) }
 #undef RT_OCCLUDED
   return kNoInstance;
 }
@@ -100,19 +113,26 @@ int rt_occluded(const float* ox, const float* oy, const float* oz,
 int rt_frame(const float* ox, const float* oy, const float* oz,
              const float* dx, const float* dy, const float* dz,
              const void* cbox, const int* cmeta, const float* tri,
-             const float* attr, const float* lamb, int num_lights, int arity,
-             int box, int n, int bounces, float* col,
+             const float* attr, const float* lamb, int num_lights,
+             const float* sph, int ns, int arity, int box, int n, int bounces,
+             int* stk_ent, float* stk_dst, float* col,
              unsigned long long* counts, void* stream) {
   RtRays rays = make_rays(ox, oy, oz, dx, dy, dz);
   RtScene s = make_scene(cbox, cmeta, tri, attr);
+  RtDeep g = make_deep(stk_ent, stk_dst, n);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define RT_FRAME(A, F) \
-  RtFrameLaunch<A, F>::frame(rays, s, lamb, num_lights, n, bounces, col, counts, st)
-  switch (key(arity, box)) {
-    case key(4, RT_F32): return RT_FRAME(4, RT_F32);
-    case key(8, RT_F32): return RT_FRAME(8, RT_F32);
-    case key(4, RT_PAIRS): return RT_FRAME(4, RT_PAIRS);
-    case key(8, RT_PAIRS): return RT_FRAME(8, RT_PAIRS);
+#define RT_FRAME(A, F, D)                                                     \
+  RtFrameLaunch<A, F, D>::frame(rays, s, lamb, num_lights, sph, ns, n, bounces, \
+                                g, col, counts, st)
+  switch (key(arity, box, 0, stk_ent != nullptr)) {
+    case key(4, RT_F32): return RT_FRAME(4, RT_F32, false);
+    case key(8, RT_F32): return RT_FRAME(8, RT_F32, false);
+    case key(4, RT_PAIRS): return RT_FRAME(4, RT_PAIRS, false);
+    case key(8, RT_PAIRS): return RT_FRAME(8, RT_PAIRS, false);
+    case key(4, RT_F32, 0, 1): return RT_FRAME(4, RT_F32, true);
+    case key(8, RT_F32, 0, 1): return RT_FRAME(8, RT_F32, true);
+    case key(4, RT_PAIRS, 0, 1): return RT_FRAME(4, RT_PAIRS, true);
+    case key(8, RT_PAIRS, 0, 1): return RT_FRAME(8, RT_PAIRS, true);
   }
 #undef RT_FRAME
   return kNoInstance;

@@ -11,10 +11,18 @@ built deterministically from a seed on the port's models/scene.py.
 
 Same seed, same arrays as the JAX package's module. These are stand-ins for
 benchmarking and tests, not replicas of the original artwork.
+
+Two scenes of the port's own, for the checks of its kernels:
+  - chain_scene: small triangles at geometrically growing distances, whose
+    BVH (largest-axis midpoint splits, bvh_max_depth 64) is deep enough
+    that its traversal stack passes the standard tier at every arity;
+  - with_spheres: a scene plus spheres placed from its bounding box with
+    a seed, on materials of their own (mirror, diffuse, green).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Tuple
 
@@ -201,6 +209,62 @@ def sportscar_scene(car_asset_dir: str, seed: int = 1) -> Scene:
         verts=verts, faces=faces, mat_idx=mat_idx,
         mats_kd=kd, mats_ks=ks, mats_kr=kr,
         lights_pos=lights_pos, lights_kl=lights_kl,
+    )
+
+
+def chain_scene(n: int = 56, ratio: float = 2.5) -> Scene:
+    """n triangles in the planes y = ratio**k, k = 0..n-1, each centred on
+    the y axis with half-size 0.3 * ratio**(k/3), and one light.
+
+    With ratio > 2 a midpoint split on the largest axis (heuristic 1)
+    splits off only the farthest triangle, so the tree is a chain about
+    n - 8 levels deep (48 at n = 56; pass bvh_max_depth = 64). The half
+    size grows slower than the distance so that e1 x e2 and its square stay
+    finite in f32."""
+    k = np.arange(n, dtype=np.float64)
+    y = ratio ** k
+    s = 0.3 * ratio ** (k / 3.0)
+    verts = np.stack([
+        np.stack([-s, y, -s], 1), np.stack([s, y, -s], 1), np.stack([0 * s, y, s], 1),
+    ], 1).reshape(-1, 3).astype(np.float32)
+    return Scene(
+        verts=verts,
+        faces=np.arange(3 * n, dtype=np.int32).reshape(n, 3),
+        mat_idx=(np.arange(n) % 2).astype(np.int32),
+        mats_kd=np.asarray([[0.8, 0.3, 0.2], [0.2, 0.4, 0.8]], np.float32),
+        mats_ks=np.asarray([[0.3, 0.3, 0.3], [0.1, 0.1, 0.1]], np.float32),
+        mats_kr=np.zeros((2, 3), np.float32),
+        lights_pos=np.asarray([[3.0, -6.0, 5.0]], np.float32),
+        lights_kl=np.asarray([[30.0, 30.0, 30.0]], np.float32),
+    )
+
+
+def with_spheres(scene: Scene, n: int = 8, seed: int = 7) -> Scene:
+    """`scene` plus n spheres drawn with `seed` inside a sub-box of its
+    bounding box (fractions 0.15-0.85 of x, 0.40-0.85 of y, 0.42-0.60 of z:
+    in front of the default camera for the car scenes), radii 0.6-1.2.
+    Three materials are appended: a mirror (kr 0.8), a red diffuse and a
+    green diffuse one; spheres 0-2 and 7 are mirrors, 3-4 red, 5-6 green.
+    The triangles keep their materials."""
+    tv = scene.triangle_vertices().reshape(-1, 3)
+    lo, hi = tv.min(0), tv.max(0)
+    rng = np.random.RandomState(seed)
+    u = rng.uniform((0.15, 0.40, 0.42), (0.85, 0.85, 0.60), (n, 3))
+    radii = rng.uniform(0.6, 1.2, n).astype(np.float32)
+    m = scene.mats_kd.shape[0]
+
+    def add(table, rows):
+        return np.concatenate([table, np.asarray(rows, np.float32)]).astype(np.float32)
+
+    mats = np.asarray([m, m, m, m + 1, m + 1, m + 2, m + 2, m] * (n // 8 + 1),
+                      np.int32)[:n]
+    return dataclasses.replace(
+        scene,
+        mats_kd=add(scene.mats_kd, [[0.05, 0.05, 0.05], [0.7, 0.2, 0.2], [0.2, 0.7, 0.3]]),
+        mats_ks=add(scene.mats_ks, [[0.3, 0.3, 0.3], [0.3, 0.3, 0.3], [0.0, 0.0, 0.0]]),
+        mats_kr=add(scene.mats_kr, [[0.8, 0.8, 0.8], [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]]),
+        spheres_center=(lo + u * (hi - lo)).astype(np.float32),
+        spheres_radius=radii, spheres_mat=mats,
     )
 
 

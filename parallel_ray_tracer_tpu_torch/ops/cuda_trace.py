@@ -8,6 +8,7 @@ and 8, on f32 or bf16 node boxes.
 | `closest_tiles_full` | `closest_kernel<A, F, true>`  | `_closest_dual_kernel(n_attr=12)` :1774, `_closest_attr_kernel` :2437       |
 | `occluded_tiles`     | `occluded_kernel<A, F>`       | `_occluded_dual_kernel` :1835, `_occluded4_kernel` :886, `_occluded_kernel` :676 |
 | `frame_tiles`        | `frame_kernel<A, F>`, A 4, 8  | `_frame_fused_kernel` :2536                                                 |
+| `frame_tiles`, `sph` of S > 0 rows | `frame_kernel<A, F, COUNT, SPH = true>`, A 4, 8 | `_frame_fused_kernel(num_spheres > 0)` :2536 (`sphere_t` :2604, `sphere_closest_merge` :2626, `sphere_occluded_merge` :2655) |
 | `closest_tiles`, `closest_tiles_full`, `stream=True` | `closest_kernel<A, F, FULL, COUNT, true>`, A 4, 8 | `_closest_stream_kernel(n_attr=0, 12)` :2070 |
 | `occluded_tiles`, `stream=True` | `occluded_kernel<A, F, COUNT, true>`, A 4, 8 | `_occluded_stream_kernel` :2253 |
 
@@ -44,7 +45,17 @@ a streamed one), and raises if the launch reported an error.
 The kernels hold L = 8 triangles per leaf row and trace shadow rays from
 the light: `leaf_size` other than 8 and `reverse_shadows=False` raise
 NotImplementedError, on every device. The fused frame exists at arity 4
-and 8 only (as in JAX); binary tables raise ValueError there.
+and 8 only (as in JAX); binary tables raise ValueError there. `sph`, the
+(S, 16) table of ops/pack.pack_spheres, takes the frame's sphere instance
+(key "frame_sph<4>"); None or S = 0 takes the sphere-free one.
+
+Stack tiers: a tree whose traversal needs more stack entries per ray
+(`stack_depth`, ops/pack.stack_need) than the standard tier holds
+(STACK_SIZE) takes every kernel's DEEP instance, whose stack lives in a
+buffer of stack_depth entries per ray that the wrapper allocates
+(csrc/trace.cuh); its keys end in ",deep" ("closest<8,deep>"). No depth is
+refused, as JAX sizes its stack to the tree. The plain versions use no
+stack.
 
 `counters=True` (CUDA only) launches the kernel's counting instance and also
 returns an int64 tensor of the `COUNTS` sums over the rays (`STREAM_COUNTS`
@@ -54,19 +65,23 @@ for a streamed launch).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from .._build import error_string, load_library
 from ..models.device_scene import device_scene_from_lights
+from .intersect import T_MAX
 from .pack import ARITY_OF_WIDTH, LANES, META_WIDTH, STREAM_BLK, stack_need
 from .shade import trace_rays
+from .spheres import nearest_sphere
 from .trace_plain import Hit, HitFull, closest_full_plain, closest_plain, occluded_plain
 from .vecmath import Vec3
 
-# Per-thread stack entries by arity, RtArity<A>::STACK in csrc/trace.cuh.
+# The standard tier's per-thread stack entries by arity, RtArity<A>::STACK
+# in csrc/trace.cuh; a tree that needs more takes the DEEP tier.
 STACK_SIZE = {2: 48, 4: 64, 8: 96}
+SPHERE_COLS = 16         # floats per row of the sphere table (pack_spheres)
 LEAF_SIZE = 8            # triangles per leaf row, RT_LEAF in csrc/trace.cuh
 # What counters=True returns, in order (RT_C_* in csrc/trace.cuh): node
 # visits, box tests of valid children, leaf visits, triangle tests of live
@@ -78,17 +93,18 @@ COUNTS = ("inner_visits", "box_tests", "leaf_visits", "tri_tests", "traversals")
 STREAM_COUNTS = COUNTS + ("block_fills", "sync_fetches")
 
 # The arities each kernel is instantiated for; every arity also has one
-# bf16 format (RT_PAIRS at 4 and 8, RT_BF16 at 2).
+# bf16 format (RT_PAIRS at 4 and 8, RT_BF16 at 2), and each instance a
+# DEEP twin. "frame_sph" is the frame kernel's sphere instance.
 ARITIES = {"closest": (2, 4, 8), "closest_full": (2, 4, 8),
-           "occluded": (2, 4, 8), "frame": (4, 8)}
+           "occluded": (2, 4, 8), "frame": (4, 8), "frame_sph": (4, 8)}
 # The box formats, as RtBox in csrc/trace.cuh.
 BOX_F32, BOX_PAIRS, BOX_BF16 = 0, 1, 2
 # The streamed instances (f32 and bf16 pair rows at each arity).
 STREAM_ARITIES = {"closest": (4, 8), "closest_full": (4, 8), "occluded": (4, 8)}
-LAUNCHES = {f"{k}{mode}<{a}{sfx}>": 0
+LAUNCHES = {f"{k}{mode}<{a}{sfx}{tier}>": 0
             for mode, kernels in (("", ARITIES), ("_stream", STREAM_ARITIES))
             for k, arities in kernels.items() for a in arities
-            for sfx in ("", ",bf16")}
+            for sfx in ("", ",bf16") for tier in ("", ",deep")}
 
 
 def reset_launch_counts() -> None:
@@ -170,29 +186,46 @@ def _check_stream(stream, arity, tri, attr):
                 f"{STREAM_BLK} rows (ops/pack.pad_stream_rows)")
 
 
-def _instance(kernel: str, arity: int, box: int, stream: bool = False) -> str:
-    """The LAUNCHES key of a launch, e.g. "closest<4,bf16>" or
-    "occluded_stream<8>"."""
+def _instance(kernel: str, arity: int, box: int, stream: bool = False,
+              deep: bool = False) -> str:
+    """The LAUNCHES key of a launch, e.g. "closest<4,bf16>",
+    "occluded_stream<8>" or "frame_sph<4,deep>"."""
     mode = "_stream" if stream else ""
-    return f"{kernel}{mode}<{arity}{'' if box == BOX_F32 else ',bf16'}>"
+    return (f"{kernel}{mode}<{arity}{'' if box == BOX_F32 else ',bf16'}"
+            f"{',deep' if deep else ''}>")
 
 
-def _launch_setup(cmeta, arity, stack_depth, counters, stream=False):
-    """Stack check before any launch; the library and a counts buffer."""
+def use_deep_tier(need: int, arity: int) -> bool:
+    """Whether a tree whose traversal needs `need` stack entries per ray
+    takes the DEEP instances: it does when the standard tier's private
+    stack (STACK_SIZE) is too small."""
+    return need > STACK_SIZE[arity]
+
+
+class _Launch(NamedTuple):
+    lib: ctypes.CDLL
+    counts: Optional[torch.Tensor]   # the counting instance's sums, or None
+    deep: bool                       # the DEEP stack tier
+    stk_ent: Optional[torch.Tensor]  # its (need, n) stack, or None
+    stk_dst: Optional[torch.Tensor]
+
+
+def _launch_setup(cmeta, arity, stack_depth, counters, stream=False,
+                  n_rays=0) -> _Launch:
+    """The library, a counts buffer, and the stack tier for the tree: the
+    DEEP tier's stack of `need` entries for each of n_rays rays."""
     need = (stack_need(cmeta.cpu().numpy(), arity) if stack_depth is None
             else int(stack_depth))
-    if need > STACK_SIZE[arity]:
-        raise ValueError(
-            f"the BVH needs {need} stack entries per ray; the arity-{arity} "
-            f"kernels hold {STACK_SIZE[arity]} (RtArity<{arity}>::STACK in "
-            "csrc/trace.cuh)"
-        )
     counts = (
         torch.zeros(len(STREAM_COUNTS if stream else COUNTS), dtype=torch.int64,
                     device=cmeta.device)
         if counters else None
     )
-    return load_library(), counts
+    if not use_deep_tier(need, arity):
+        return _Launch(load_library(), counts, False, None, None)
+    return _Launch(load_library(), counts, True,
+                   torch.empty((need, n_rays), dtype=torch.int32, device=cmeta.device),
+                   torch.empty((need, n_rays), dtype=torch.float32, device=cmeta.device))
 
 
 def _raise_on(rc: int, kernel: str) -> None:
@@ -219,20 +252,21 @@ def closest_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, leaf_size: int,
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
         return closest_plain(tri, o, d, leaf_size)
-    lib, counts = _launch_setup(cmeta, arity, stack_depth, counters, stream)
+    ls = _launch_setup(cmeta, arity, stack_depth, counters, stream, rows * LANES)
     t = torch.empty((rows, LANES), dtype=torch.float32, device=device)
     idx = torch.empty((rows, LANES), dtype=torch.int32, device=device)
     nd = torch.empty((rows, LANES), dtype=torch.int32, device=device)
-    rc = lib.rt_closest(
+    rc = ls.lib.rt_closest(
         *(_ptr(p) for p in (*o, *d)), _ptr(cbox), _ptr(cmeta), _ptr(tri),
-        _ptr(None), arity, box, int(stream), rows * LANES, _ptr(t), _ptr(idx),
-        _ptr(nd), _ptr(None), _ptr(counts), _stream(device),
+        _ptr(None), arity, box, int(stream), rows * LANES, _ptr(ls.stk_ent),
+        _ptr(ls.stk_dst), _ptr(t), _ptr(idx), _ptr(nd), _ptr(None),
+        _ptr(ls.counts), _stream(device),
     )
-    key = _instance("closest", arity, box, stream)
+    key = _instance("closest", arity, box, stream, ls.deep)
     LAUNCHES[key] += 1
     _raise_on(rc, key)
     hit = Hit(t=t, idx=idx, norm_dir=nd.bool())
-    return (hit, counts) if counters else hit
+    return (hit, ls.counts) if counters else hit
 
 
 def closest_tiles_full(cbox, cmeta, tri, attr, o: Vec3, d: Vec3, leaf_size: int,
@@ -246,17 +280,18 @@ def closest_tiles_full(cbox, cmeta, tri, attr, o: Vec3, d: Vec3, leaf_size: int,
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
         return closest_full_plain(tri, attr, o, d, leaf_size)
-    lib, counts = _launch_setup(cmeta, arity, stack_depth, counters, stream)
+    ls = _launch_setup(cmeta, arity, stack_depth, counters, stream, rows * LANES)
     t = torch.empty((rows, LANES), dtype=torch.float32, device=device)
     idx = torch.empty((rows, LANES), dtype=torch.int32, device=device)
     nd = torch.empty((rows, LANES), dtype=torch.int32, device=device)
     av = torch.empty((12, rows, LANES), dtype=torch.float32, device=device)
-    rc = lib.rt_closest(
+    rc = ls.lib.rt_closest(
         *(_ptr(p) for p in (*o, *d)), _ptr(cbox), _ptr(cmeta), _ptr(tri),
-        _ptr(attr), arity, box, int(stream), rows * LANES, _ptr(t), _ptr(idx),
-        _ptr(nd), _ptr(av), _ptr(counts), _stream(device),
+        _ptr(attr), arity, box, int(stream), rows * LANES, _ptr(ls.stk_ent),
+        _ptr(ls.stk_dst), _ptr(t), _ptr(idx), _ptr(nd), _ptr(av),
+        _ptr(ls.counts), _stream(device),
     )
-    key = _instance("closest_full", arity, box, stream)
+    key = _instance("closest_full", arity, box, stream, ls.deep)
     LAUNCHES[key] += 1
     _raise_on(rc, key)
     hit = HitFull(
@@ -264,7 +299,7 @@ def closest_tiles_full(cbox, cmeta, tri, attr, o: Vec3, d: Vec3, leaf_size: int,
         n=Vec3(av[0], av[1], av[2]), kd=Vec3(av[3], av[4], av[5]),
         ks=Vec3(av[6], av[7], av[8]), kr=Vec3(av[9], av[10], av[11]),
     )
-    return (hit, counts) if counters else hit
+    return (hit, ls.counts) if counters else hit
 
 
 def occluded_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, max_dist2, leaf_size: int,
@@ -278,58 +313,98 @@ def occluded_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, max_dist2, leaf_size: int
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
         return occluded_plain(tri, o, d, max_dist2, leaf_size)
-    lib, counts = _launch_setup(cmeta, arity, stack_depth, counters, stream)
+    ls = _launch_setup(cmeta, arity, stack_depth, counters, stream, rows * LANES)
     blocked = torch.empty((rows, LANES), dtype=torch.int32, device=device)
-    rc = lib.rt_occluded(
+    rc = ls.lib.rt_occluded(
         *(_ptr(p) for p in (*o, *d)), _ptr(max_dist2), _ptr(cbox), _ptr(cmeta),
-        _ptr(tri), arity, box, int(stream), rows * LANES, _ptr(blocked),
-        _ptr(counts), _stream(device),
+        _ptr(tri), arity, box, int(stream), rows * LANES, _ptr(ls.stk_ent),
+        _ptr(ls.stk_dst), _ptr(blocked), _ptr(ls.counts), _stream(device),
     )
-    key = _instance("occluded", arity, box, stream)
+    key = _instance("occluded", arity, box, stream, ls.deep)
     LAUNCHES[key] += 1
     _raise_on(rc, key)
-    return (blocked.bool(), counts) if counters else blocked.bool()
+    return (blocked.bool(), ls.counts) if counters else blocked.bool()
 
 
 def frame_tiles(cbox, cmeta, tri, attr, lamb, o: Vec3, d: Vec3, *, bounces: int,
                 leaf_size: int, stack_depth: Optional[int] = None,
                 reverse_shadows: bool = True, counters: bool = False,
-                compressed: bool = False):
+                compressed: bool = False, sph: Optional[torch.Tensor] = None):
     """Fused whole-frame render over (rows, 128) ray planes -> unclamped
     colour planes (Vec3). `lamb` is the (num_lights + 1, 8) light table of
-    ops/pack.pack_lights."""
+    ops/pack.pack_lights; `sph`, when it has rows, the (S, 16) sphere table
+    of ops/pack.pack_spheres, merged after each traversal."""
     if not reverse_shadows:
         raise NotImplementedError("reverse_shadows=False is not ported")
     device, rows, arity, box = _check_inputs(cbox, cmeta, tri, attr, lamb,
                                              (*o, *d), leaf_size, compressed)
     if arity not in ARITIES["frame"]:
         raise ValueError(f"the fused frame needs a node arity of 4 or 8, got {arity}")
+    if sph is not None:
+        _check("sph", sph, torch.float32, (None, SPHERE_COLS), device)
+    ns = 0 if sph is None else int(sph.shape[0])
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
         return frame_plain(tri, attr, lamb, o, d, bounces=bounces,
-                           leaf_size=leaf_size)
-    lib, counts = _launch_setup(cmeta, arity, stack_depth, counters)
+                           leaf_size=leaf_size, sph=sph)
+    ls = _launch_setup(cmeta, arity, stack_depth, counters, n_rays=rows * LANES)
     col = torch.empty((3, rows, LANES), dtype=torch.float32, device=device)
-    rc = lib.rt_frame(
+    rc = ls.lib.rt_frame(
         *(_ptr(p) for p in (*o, *d)), _ptr(cbox), _ptr(cmeta), _ptr(tri),
-        _ptr(attr), _ptr(lamb), int(lamb.shape[0]) - 1, arity, box,
-        rows * LANES, int(bounces), _ptr(col), _ptr(counts), _stream(device),
+        _ptr(attr), _ptr(lamb), int(lamb.shape[0]) - 1, _ptr(sph if ns else None),
+        ns, arity, box, rows * LANES, int(bounces), _ptr(ls.stk_ent),
+        _ptr(ls.stk_dst), _ptr(col), _ptr(ls.counts), _stream(device),
     )
-    key = _instance("frame", arity, box)
+    key = _instance("frame_sph" if ns else "frame", arity, box, deep=ls.deep)
     LAUNCHES[key] += 1
     _raise_on(rc, key)
     out = Vec3(col[0], col[1], col[2])
-    return (out, counts) if counters else out
+    return (out, ls.counts) if counters else out
+
+
+def _merge_spheres(sph: torch.Tensor, n_slots: int, o: Vec3, d: Vec3,
+                   hit: HitFull) -> HitFull:
+    """The frame kernel's sphere merge into a HitFull (rt_sphere_closest,
+    rt_sphere_attrs): the nearest sphere replaces the hit on a strict <,
+    with the raw normal p - c at p = o + d * t, the row's kd / ks / kr, and
+    its inside flag; its idx is n_slots + the sphere's row."""
+    c = Vec3(sph[:, 0], sph[:, 1], sph[:, 2])
+    ts, si, inside = nearest_sphere(c, sph[:, 3], o, d)
+    better = ts < hit.t
+    row = sph[si.long()]                                   # (..., 16)
+    p = o + d * ts
+
+    def pick(k, cur):
+        return Vec3(*(torch.where(better, row[..., k + j], cur[j]) for j in range(3)))
+
+    n = Vec3(*(torch.where(better, pc - row[..., j], cur)
+               for j, (pc, cur) in enumerate(zip(p, hit.n))))
+    return HitFull(
+        t=torch.where(better, ts, hit.t),
+        idx=torch.where(better, n_slots + si, hit.idx),
+        norm_dir=torch.where(better, inside, hit.norm_dir),
+        n=n, kd=pick(4, hit.kd), ks=pick(7, hit.ks), kr=pick(10, hit.kr),
+    )
 
 
 def frame_plain(tri, attr, lamb, o: Vec3, d: Vec3, *, bounces: int,
-                leaf_size: int) -> Vec3:
+                leaf_size: int, sph: Optional[torch.Tensor] = None) -> Vec3:
     """Plain version of frame_kernel: the pass-based bounce loop
-    (ops/shade.trace_rays) over the plain traversals, on any device."""
+    (ops/shade.trace_rays) over the plain traversals, on any device, with
+    the sphere rows of `sph` merged after each traversal as the kernel
+    merges them."""
     ds = device_scene_from_lights(lamb)
-    return trace_rays(
-        ds,
-        lambda o, d: closest_full_plain(tri, attr, o, d, leaf_size),
-        lambda o, d, m2: occluded_plain(tri, o, d, m2, leaf_size),
-        o, d, bounces,
-    )
+    n_slots = tri.shape[0] * leaf_size
+
+    def closest(o, d):
+        hit = closest_full_plain(tri, attr, o, d, leaf_size)
+        return hit if sph is None or not len(sph) else _merge_spheres(sph, n_slots, o, d, hit)
+
+    def occluded(o, d, m2):
+        blocked = occluded_plain(tri, o, d, m2, leaf_size)
+        if sph is None or not len(sph):
+            return blocked
+        ts, _, _ = nearest_sphere(Vec3(sph[:, 0], sph[:, 1], sph[:, 2]), sph[:, 3], o, d)
+        return blocked | ((ts < T_MAX) & (ts * ts < m2))
+
+    return trace_rays(ds, closest, occluded, o, d, bounces)

@@ -1,15 +1,19 @@
-"""Port of parallel_ray_tracer_tpu/ops/intersect.py: the constants and the
-triangle test that the traversal kernels and their plain versions share.
+"""Port of parallel_ray_tracer_tpu/ops/intersect.py: the constants, the
+triangle tests and the ray-sphere test.
 
 `mt_rows` is Möller–Trumbore on the packed triangle row layout
 [v0, e1, e2, n] (n = e1 x e2), written in the same operation order as the
 JAX kernels' `_mt_scalar_tri` (ops/pallas_trace.py:563-594) and the CUDA
 kernels' `rt_mt` (csrc/trace.cuh), so that all three round alike.
+`moller_trumbore` is the same test on vertex planes (intersect.py:36-66),
+which the brute-force tracer uses, and `ray_sphere` the sphere test
+(intersect.py:140-162), in the operation order of the CUDA frame kernel's
+`rt_sphere_t`.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -62,3 +66,56 @@ def mt_rows(o: Vec3, d: Vec3, rows: torch.Tensor) -> Tuple[torch.Tensor, torch.T
         & ((u + v) <= 1.0)
     )
     return torch.where(hit, t, torch.full_like(t, T_MAX)), det < 0.0
+
+
+class TriHit(NamedTuple):
+    t: torch.Tensor          # distance in units of |dir|; T_MAX on miss
+    norm_dir: torch.Tensor   # bool: det < 0 (selects the -n normal)
+    u: torch.Tensor          # barycentric u (valid only when t < T_MAX)
+    v: torch.Tensor          # barycentric v
+
+
+def moller_trumbore(o: Vec3, d: Vec3, v0: Vec3, v1: Vec3, v2: Vec3) -> TriHit:
+    """Möller–Trumbore on vertex planes (cpu/src/raytracer.c:35-59): rays
+    and triangles broadcast against each other. The denominator is guarded
+    as in JAX; the miss test gates the result, so the guard changes nothing
+    that is returned as a hit."""
+    e1 = v1 - v0
+    e2 = v2 - v0
+    n = e1.cross(e2)
+    det = -(d.dot(n))
+    ok = det.abs() >= EPSILON
+    invdet = 1.0 / torch.where(ok, det, torch.ones_like(det))
+    ao = o - v0
+    dao = ao.cross(d)
+    u = e2.dot(dao) * invdet
+    v = -(e1.dot(dao)) * invdet
+    t = ao.dot(n) * invdet
+    hit = ok & (t > EPSILON) & (u >= 0.0) & (v >= 0.0) & ((u + v) <= 1.0)
+    return TriHit(t=torch.where(hit, t, torch.full_like(t, T_MAX)),
+                  norm_dir=det < 0.0, u=u, v=v)
+
+
+class SphereHit(NamedTuple):
+    t: torch.Tensor
+    inside: torch.Tensor     # bool: origin inside the sphere (normal flips)
+
+
+def ray_sphere(o: Vec3, d: Vec3, center: Vec3, radius) -> SphereHit:
+    """Solve |o + t*d - c|^2 = r^2: the nearest t > EPSILON in units of |d|,
+    T_MAX on miss. The sqrt and the denominator are guarded as in JAX
+    (max(disc, 1e-30), a_safe = 1 where a <= 1e-20), so a dead ray (d = 0)
+    misses."""
+    oc = o - center
+    a = d.dot(d)
+    half_b = oc.dot(d)
+    c = oc.dot(oc) - radius * radius
+    disc = half_b * half_b - a * c
+    sq = torch.sqrt(disc.clamp(min=1e-30))
+    a_safe = torch.where(a > 1e-20, a, torch.ones_like(a))
+    t0 = (-half_b - sq) / a_safe
+    t1 = (-half_b + sq) / a_safe
+    t = torch.where(t0 > EPSILON, t0, t1)
+    hit = (disc >= 0.0) & (t > EPSILON) & (a > 1e-20)
+    return SphereHit(t=torch.where(hit, t, torch.full_like(t, T_MAX)),
+                     inside=c < 0.0)

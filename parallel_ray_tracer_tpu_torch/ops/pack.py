@@ -3,8 +3,8 @@ numpy packers that turn a FlatBVH into the tables the kernels read.
 
 Copied from pallas_trace.py (pack_bvh :160-224 without `_build_cmat`,
 pack_bvh4 :267-349, pack_bvh8 :352-417, pack_box_bf16_pairs :438-484,
-cbox_to_bf16 :487-505, pack_attr :2397, pack_lights :2971,
-required_stack_depth :61, _pad_stream_rows :3023) without the MXU leaf
+cbox_to_bf16 :487-505, pack_attr :2397, pack_spheres :2950, pack_lights
+:2971, required_stack_depth :61, _pad_stream_rows :3023) without the MXU leaf
 matrices (`cmat`), which the port does not take yet. Same inputs give
 bit-identical tables. `stream_decision` is the JAX prepare's choice of
 leaf-row streaming (pipeline.py:350-368).
@@ -31,6 +31,8 @@ leaf-row streaming (pipeline.py:350-368).
   - ``attr`` (G+1, 128) f32: triangle j's [kd, ks, kr] at lanes [9j, 9j+9).
   - ``lamb`` (nl+1, 8) f32: rows (light_pos.xyz, light_kl.rgb, 0, 0), then
     the ambient colour.
+  - ``sph`` (S, 16) f32: rows (centre.xyz, r, kd.rgb, ks.rgb, kr.rgb, 0, 0,
+    0), the material looked up at pack time.
 """
 
 from __future__ import annotations
@@ -391,4 +393,22 @@ def pack_lights(lights_pos, lights_kl, ambient) -> np.ndarray:
     out[:nl, 0:3] = pos
     out[:nl, 3:6] = kl
     out[nl, 0:3] = np.asarray(ambient, np.float32)
+    return out
+
+
+def pack_spheres(centers, radii, mats, mats_kd, mats_ks, mats_kr):
+    """(S, 16) f32 sphere table for the frame kernel, or None when S == 0.
+
+    Per row: (cx, cy, cz, r, kd.rgb, ks.rgb, kr.rgb, 0, 0, 0), the material
+    coefficients resolved at pack time (sph_mat -> material tables), so the
+    kernel needs no gathers."""
+    r = np.asarray(radii, np.float32).reshape(-1)
+    if r.shape[0] == 0:
+        return None
+    m = np.asarray(mats, np.int64).reshape(-1)
+    out = np.zeros((r.shape[0], 16), np.float32)
+    out[:, 0:3] = np.asarray(centers, np.float32).reshape(-1, 3)
+    out[:, 3] = r
+    for k, table in enumerate((mats_kd, mats_ks, mats_kr)):
+        out[:, 4 + 3 * k:7 + 3 * k] = np.asarray(table, np.float32).reshape(-1, 3)[m]
     return out

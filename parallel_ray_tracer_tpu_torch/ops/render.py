@@ -1,24 +1,26 @@
-"""Port of parallel_ray_tracer_tpu/ops/render.py: ray generation in the
-tile-major layout, and the two BVH renderers of this slice.
+"""Port of parallel_ray_tracer_tpu/ops/render.py: ray generation, the
+brute-force renderer (the oracle), and the two BVH renderers.
 
 Pixel (x, y) gets the unnormalised direction dir00 + x*inc_x + y*inc_y from
-the camera basis. The BVH renderers trace rays in tile-major order, as
-(rows, 128) planes: tiles of (tile_rows, tile_cols) pixels, row-major over
-the tile grid and row-major inside a tile (ops/render.py:131-172 of the JAX
+the camera basis. The brute-force renderer traces scanline bands in row
+order; the BVH renderers trace rays in tile-major order, as (rows, 128)
+planes: tiles of (tile_rows, tile_cols) pixels, row-major over the tile
+grid and row-major inside a tile (ops/render.py:131-172 of the JAX
 package). Colours are clamped to [0, 1] at the end.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.camera import Camera, ray_basis
-from . import cuda_trace
+from . import cuda_trace, trace_brute
 from .pack import LANES
 from .shade import trace_rays
+from .spheres import wrap_tracer
 from .vecmath import Vec3
 
 
@@ -27,20 +29,62 @@ def _f32(a, device) -> torch.Tensor:
 
 
 def generate_rays(origin, dir00, inc_x, inc_y, width: int, height: int,
+                  y_offset: int = 0, rows: Optional[int] = None,
                   device="cuda") -> Tuple[Vec3, Vec3]:
-    """Per-pixel (origin, direction) planes of shape (height, width), on
-    `device` (CUDA unless the caller asks for the CPU)."""
-    x = torch.arange(width, dtype=torch.float32, device=device).expand(height, width)
-    y = torch.arange(height, dtype=torch.float32, device=device)[:, None].expand(height, width)
+    """Per-pixel (origin, direction) planes of shape (rows, width), on
+    `device` (CUDA unless the caller asks for the CPU). y_offset / rows
+    select a horizontal band; row r gets the direction of frame row
+    r + y_offset, with the frame's arithmetic."""
+    rows = height if rows is None else rows
+    x = torch.arange(width, dtype=torch.float32, device=device).expand(rows, width)
+    y = (torch.arange(rows, dtype=torch.float32, device=device)
+         + np.float32(y_offset))[:, None].expand(rows, width)
     d00, ix, iy = _f32(dir00, device), _f32(inc_x, device), _f32(inc_y, device)
 
     def plane(c):
         return d00[c] + x * ix[c] + y * iy[c]
 
     d = Vec3(plane(0), plane(1), plane(2))
-    o = Vec3(*(torch.full((height, width), float(c), device=device)
+    o = Vec3(*(torch.full((rows, width), float(c), device=device)
                for c in np.asarray(origin, np.float32)))
     return o, d
+
+
+def render_band(ds, closest_fn, occluded_fn, cam_arrays, width: int,
+                height: int, y_offset: int, rows: int, bounces: int) -> torch.Tensor:
+    """Render a band of `rows` scanlines from y_offset -> (rows, width, 3)
+    f32 in [0, 1]."""
+    origin, dir00, inc_x, inc_y = cam_arrays
+    o, d = generate_rays(origin, dir00, inc_x, inc_y, width, height, y_offset,
+                         rows, device=ds.device)
+    col = trace_rays(ds, closest_fn, occluded_fn, o.reshape(rows * width),
+                     d.reshape(rows * width), bounces)
+    return col.clamp(0.0, 1.0).stack(-1).reshape(rows, width, 3)
+
+
+def _render_bruteforce(ds, cam_arrays, width: int, height: int, bounces: int,
+                       chunk: int = 512, row_chunk: int = 0,
+                       y_offset: int = 0) -> torch.Tensor:
+    closest_fn, occluded_fn = trace_brute.make_tracer(ds, chunk=chunk)
+    if not row_chunk or row_chunk >= height:
+        return render_band(ds, closest_fn, occluded_fn, cam_arrays, width,
+                           height, y_offset, height, bounces)
+    if height % row_chunk:
+        raise ValueError(f"row_chunk {row_chunk} does not divide height {height}")
+    return torch.cat([
+        render_band(ds, closest_fn, occluded_fn, cam_arrays, width, height,
+                    y0 + y_offset, row_chunk, bounces)
+        for y0 in range(0, height, row_chunk)
+    ])
+
+
+def render_bruteforce(ds, cam: Camera, width: int, height: int, bounces: int = 4,
+                      chunk: int = 512, row_chunk: int = 0) -> torch.Tensor:
+    """The USE_BVH=0 oracle render (cpu/src/raytracer.c:112-130 semantics)
+    on the scene's device -> (H, W, 3) f32 in [0, 1]. row_chunk renders the
+    frame in bands of that many scanlines (it must divide the height)."""
+    return _render_bruteforce(ds, ray_basis(cam, width, height), width, height,
+                              bounces, chunk, row_chunk)
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -101,12 +145,14 @@ def render_bvh_fused(ds, tables, cam: Camera, width: int, height: int,
                      tile_cols: int = 32) -> torch.Tensor:
     """Whole-frame render with one launch of the fused frame kernel
     (cuda_trace.frame_tiles) -> (H, W, 3) f32 in [0, 1]. The tables' box
-    format (f32, bf16 pairs) picks the kernel instance."""
+    format (f32, bf16 pairs) picks the kernel instance, and their sphere
+    table (ops/pack.pack_spheres) its sphere instance."""
     o, d = _tiled_planes(cam, width, height, tile_rows, tile_cols, ds.device)
     col = cuda_trace.frame_tiles(
         tables.cbox, tables.cmeta, tables.tri, tables.attr, tables.lamb, o, d,
         bounces=bounces, leaf_size=tables.leaf_size,
         stack_depth=tables.stack_depth, compressed=tables.compressed,
+        sph=tables.sph,
     )
     return _to_image(col, width, height, tile_rows, tile_cols)
 
@@ -117,7 +163,10 @@ def render_bvh_pallas(ds, tables, cam: Camera, width: int, height: int,
     """Pass-based render: per bounce one closest-hit launch and one any-hit
     launch per light (cuda_trace.closest_tiles_full / occluded_tiles), with
     the shading in torch (ops/shade.trace_rays). `stream` takes both
-    kernels' streamed instances, as JAX's _render_bvh_pallas threads it."""
+    kernels' streamed instances, as JAX's _render_bvh_pallas threads it.
+    The scene's spheres are tested after each pass (ops/spheres.wrap_tracer,
+    as pallas_trace.make_tracer wraps its tracers); with spheres the hits
+    are plain and shading gathers their attributes from `ds`."""
     o, d = _tiled_planes(cam, width, height, tile_rows, tile_cols, ds.device)
     kw = dict(leaf_size=tables.leaf_size, stack_depth=tables.stack_depth,
               compressed=tables.compressed, stream=stream)
@@ -132,5 +181,6 @@ def render_bvh_pallas(ds, tables, cam: Camera, width: int, height: int,
             tables.cbox, tables.cmeta, tables.tri, o, d, max_dist2, **kw,
         )
 
+    closest, occluded = wrap_tracer(ds, closest, occluded)
     col = trace_rays(ds, closest, occluded, o, d, bounces)
     return _to_image(col, width, height, tile_rows, tile_cols)

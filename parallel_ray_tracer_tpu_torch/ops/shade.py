@@ -4,7 +4,8 @@ bounce loop as torch ops.
 This is the pass-based renderer: each bounce calls a closest-hit tracer and,
 per light, an any-hit tracer, with the glue in between as tensor ops. Run
 over the plain traversals of ops/trace_plain.py it is also the plain version
-of the fused frame kernel (csrc/trace.cuh `frame_kernel`).
+of the fused frame kernel (csrc/trace.cuh `frame_kernel`). The brute-force
+renderer runs it over ops/trace_brute.py.
 
 Semantics, as in the reference GPU renderer (gpu/src/raytracer.cu:61-116):
   - Blinn-Phong without exponent, kd*max(0,n.l) + ks*max(0,n.h), with the
@@ -16,21 +17,24 @@ Semantics, as in the reference GPU renderer (gpu/src/raytracer.cu:61-116):
     maps exactly);
   - reflection r = normalize(d + n*2|d.n|), multiplier *= kr, and the
     |multiplier|^2 < EPSILON^2 exit taken before the kr update.
-Only attribute-bearing hits (HitFull) are taken: the port's tracers always
-return the winning triangle's normal and material.
+A tracer returns either attribute-bearing hits (HitFull: the winning
+triangle's raw normal and material, resolved in the kernel) or plain hits,
+whose attributes shading gathers from the scene planes; spheres override
+both (surface_attrs).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Tuple, Union
 
 import torch
 
 from .intersect import EPSILON
-from .trace_plain import HitFull
+from .spheres import override_attrs
+from .trace_plain import Hit, HitFull
 from .vecmath import Vec3
 
-ClosestFn = Callable[[Vec3, Vec3], HitFull]
+ClosestFn = Callable[[Vec3, Vec3], Union[Hit, HitFull]]
 OccludedFn = Callable[[Vec3, Vec3, torch.Tensor], torch.Tensor]
 
 _FAR_ORIGIN = 1e30
@@ -46,14 +50,29 @@ def mask_dead_rays(o: Vec3, d: Vec3, alive: torch.Tensor) -> Tuple[Vec3, Vec3]:
     return o.where(alive, far), d.where(alive, zero)
 
 
-def surface_attrs(hit: HitFull):
-    """(unit unflipped normal, kd, ks, kr) of the winning triangles."""
-    inv = 1.0 / torch.sqrt(hit.n.mag2().clamp(min=1e-30))
-    n = Vec3(hit.n.x * inv, hit.n.y * inv, hit.n.z * inv)
-    return n, hit.kd, hit.ks, hit.kr
+def _gather_vec(v: Vec3, idx: torch.Tensor) -> Vec3:
+    return Vec3(v.x[idx], v.y[idx], v.z[idx])
 
 
-def shade_hit(ds, occluded_fn: OccludedFn, o: Vec3, d: Vec3, hit: HitFull,
+def surface_attrs(ds, hit, p: Vec3):
+    """(unit unflipped normal, kd, ks, kr) at the hit points p.
+
+    A HitFull carries the winning triangle's raw normal and material: only
+    the normalisation is left. A plain Hit gathers n0 and the material of
+    slot clip(idx, 0, T-1) from the scene planes. Either way the lanes
+    that hit a sphere take its attributes (ops/spheres.override_attrs)."""
+    if isinstance(hit, HitFull):
+        inv = 1.0 / torch.sqrt(hit.n.mag2().clamp(min=1e-30))
+        n = Vec3(hit.n.x * inv, hit.n.y * inv, hit.n.z * inv)
+        return override_attrs(ds, hit, p, n, hit.kd, hit.ks, hit.kr)
+    safe = hit.idx.clamp(0, ds.num_triangles - 1).long()
+    mi = ds.mat_idx[safe].long()
+    return override_attrs(ds, hit, p, _gather_vec(ds.n0, safe),
+                          _gather_vec(ds.kd, mi), _gather_vec(ds.ks, mi),
+                          _gather_vec(ds.kr, mi))
+
+
+def shade_hit(ds, occluded_fn: OccludedFn, o: Vec3, d: Vec3, hit,
               active=None) -> Vec3:
     """Direct lighting at the hit points (no reflection term): the
     reference's per-bounce kd*amb + sum over lights, with reversed shadow
@@ -64,7 +83,7 @@ def shade_hit(ds, occluded_fn: OccludedFn, o: Vec3, d: Vec3, hit: HitFull,
         active = is_hit
 
     p = o + d * t_safe
-    n, kd, ks, _ = surface_attrs(hit)
+    n, kd, ks, _ = surface_attrs(ds, hit, p)
     n = (-n).where(hit.norm_dir, n)
 
     col = kd * ds.ambient
@@ -121,7 +140,7 @@ def trace_rays(ds, closest_fn: ClosestFn, occluded_fn: OccludedFn, o: Vec3,
 
         t_safe = torch.where(is_hit, hit.t, 1.0)
         p = o + d * t_safe
-        n, _, _, kr = surface_attrs(hit)
+        n, _, _, kr = surface_attrs(ds, hit, p)
         mult = mult * kr
 
         # Reflection ray (raytracer.cu:109-114).

@@ -41,6 +41,13 @@ class Vec3(NamedTuple):
     def mag2(self) -> torch.Tensor:
         return self.dot(self)
 
+    def cross(self, o: "Vec3") -> "Vec3":
+        return Vec3(
+            self.y * o.z - self.z * o.y,
+            self.z * o.x - self.x * o.z,
+            self.x * o.y - self.y * o.x,
+        )
+
     def clamp(self, lo: float, hi: float) -> "Vec3":
         return Vec3(
             self.x.clamp(lo, hi), self.y.clamp(lo, hi), self.z.clamp(lo, hi)
@@ -67,3 +74,8 @@ class Vec3(NamedTuple):
 
     def stack(self, dim: int = -1) -> torch.Tensor:
         return torch.stack([self.x, self.y, self.z], dim=dim)
+
+
+def from_array(a: torch.Tensor) -> Vec3:
+    """A Vec3 of (...,) planes from a (..., 3) tensor."""
+    return Vec3(a[..., 0], a[..., 1], a[..., 2])

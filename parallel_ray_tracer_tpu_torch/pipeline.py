@@ -4,8 +4,10 @@ device tables -> render.
 `prepare` loads the scene, builds, flattens and packs the BVH at the
 configured node arity (bvh_width 2, 4 or 8) and box format (f32, or bf16
 with bf16_bvh) with the port's own numpy modules, decides as JAX does
-whether leaf rows stream, and uploads the tables once; `Pipeline.render`
-then renders frames from them on the device.
+whether leaf rows stream, and uploads the tables and the scene planes
+(DeviceScene, in the BVH's slot order) once; `Pipeline.render` then renders
+frames from them on the device. With use_bvh=False it builds no BVH, and
+every frame is the brute-force render.
 """
 
 from __future__ import annotations
@@ -20,17 +22,17 @@ import torch
 from .config import DEFAULT_ASSET_ROOTS, RenderConfig
 from .convert import SceneTables, packed_from_numpy
 from .models.camera import Camera
-from .models.device_scene import DeviceScene, device_scene_from_lights
+from .models.device_scene import DeviceScene, device_scene_from_host
 from .models.procgen import substitute_scene
 from .models.scene import Scene, load_scene, load_scene_npz, synthetic_scene
 from .ops import render as render_ops
 from .ops.bvh import build_bvh
 from .ops.bvh_flat import FlatBVH, flatten_bvh
 from .ops.cuda_trace import LEAF_SIZE
-from .ops.pack import (pack_attr, pack_bvh, pack_bvh4, pack_bvh8, pack_lights,
+from .ops.pack import (pack_attr, pack_bvh, pack_bvh4, pack_bvh8, pack_spheres,
                        pad_stream_rows, stream_decision)
 
-VARIANTS = ("auto", "fused", "pallas")
+VARIANTS = ("auto", "fused", "pallas", "bruteforce")
 PACKERS = {2: pack_bvh, 4: pack_bvh4, 8: pack_bvh8}   # by bvh_width
 PACKET = 1024            # rays per TPU packet (pallas_trace.PACKET)
 
@@ -42,8 +44,8 @@ class Pipeline:
     cfg: RenderConfig
     scene: Scene
     ds: DeviceScene
-    flat: FlatBVH
-    tables: SceneTables
+    flat: Optional[FlatBVH]             # None when use_bvh=False
+    tables: Optional[SceneTables]       # None when use_bvh=False
     build_ms: float
     bvh_stats: Optional[dict] = None    # the host tree's stats (ops/bvh.py)
     stream: bool = False                # streamed leaf rows (pass-based path)
@@ -63,7 +65,7 @@ class Pipeline:
 
     @property
     def device(self) -> torch.device:
-        return self.tables.cbox.device
+        return self.ds.device
 
     def camera(self) -> Camera:
         return Camera(pos=self.cfg.cam_pos, rot=self.cfg.cam_rot, fov=self.cfg.cam_fov)
@@ -75,11 +77,13 @@ class Pipeline:
         any-hit traversal and a tile is one 1024-ray packet; otherwise the
         pass-based path. An explicit "fused" on a streamed pipeline runs
         the resident frame kernel, as JAX's render does (it has no streamed
-        frame kernel)."""
+        frame kernel). use_bvh=False always means "bruteforce"."""
         cfg = self.cfg
         variant = variant or cfg.variant
         if variant not in VARIANTS:
             raise NotImplementedError(f"variant {variant!r} is not ported")
+        if not cfg.use_bvh:
+            return "bruteforce"
         if variant != "auto":
             return variant
         fused_ok = (
@@ -95,24 +99,29 @@ class Pipeline:
         """Render one frame -> (H, W, 3) f32 in [0, 1] on the pipeline's
         device. "fused" launches the frame kernel once; "pallas" is the
         pass-based path (one closest-hit and one any-hit launch per light,
-        per bounce), on the streamed instances when the leaf rows stream."""
+        per bounce), on the streamed instances when the leaf rows stream;
+        "bruteforce" tests every ray against every triangle in torch ops
+        (ops/trace_brute.py)."""
         cfg = self.cfg
+        cam, width, height = cam or self.camera(), width or cfg.width, height or cfg.height
+        variant = self.resolved_variant(variant)
+        if variant == "bruteforce":
+            return render_ops.render_bruteforce(self.ds, cam, width, height,
+                                                bounces=cfg.bounces)
         kw = dict(bounces=cfg.bounces, tile_rows=cfg.tile_rows,
                   tile_cols=cfg.tile_cols)
-        if self.resolved_variant(variant) == "fused":
+        if variant == "fused":
             fn = render_ops.render_bvh_fused
         else:
             fn = render_ops.render_bvh_pallas
             kw["stream"] = self.stream
-        return fn(self.ds, self.tables, cam or self.camera(), width or cfg.width,
-                  height or cfg.height, **kw)
+        return fn(self.ds, self.tables, cam, width, height, **kw)
 
 
 def _check_ported(cfg: RenderConfig) -> None:
     if cfg.bvh_width not in PACKERS:
         raise ValueError(f"bvh_width must be 2, 4 or 8, got {cfg.bvh_width}")
     unported = {
-        "use_bvh=False": not cfg.use_bvh,
         "fast_light=False": not cfg.fast_light,
         "presplit > 0": cfg.presplit > 0,
         "num_devices != 1": cfg.num_devices != 1,
@@ -177,13 +186,20 @@ def prepare(cfg: RenderConfig, scene: Optional[Scene] = None, device=None) -> Pi
     JAX's row model passes its 126 MiB ceiling (about 450k triangles).
     Streamed tables have tri and attr padded to whole blocks
     (pad_stream_rows); streaming at bvh_width 2 raises ValueError, as JAX
-    asserts it."""
+    asserts it.
+
+    The scene's spheres go into the DeviceScene (the pass-based and
+    brute-force paths test them in torch) and into the tables' sphere
+    table (pack_spheres; the fused frame kernel tests them). use_bvh=False
+    builds no BVH: the DeviceScene alone is uploaded."""
     _check_ported(cfg)
     device = _pick_device(device)
     if scene is None:
         scene = _load(cfg)
-    if scene.num_spheres:
-        raise NotImplementedError("scenes with spheres are not ported yet")
+    if not cfg.use_bvh:
+        ds = device_scene_from_host(scene, ambient=cfg.ambient, device=device)
+        return Pipeline(cfg=cfg, scene=scene, ds=ds, flat=None, tables=None,
+                        build_ms=0.0)
 
     # The largest power of two whose triangles fit one 128-lane row, and
     # the only leaf size the kernels are built for.
@@ -208,11 +224,15 @@ def prepare(cfg: RenderConfig, scene: Optional[Scene] = None, device=None) -> Pi
             raise ValueError("streaming needs bvh_width >= 4 (stream="
                              f"{cfg.stream!r} at bvh_width {cfg.bvh_width})")
         tri, attr = pad_stream_rows(tri), pad_stream_rows(attr)
-    lamb = pack_lights(scene.lights_pos, scene.lights_kl, cfg.ambient)
+    ds = device_scene_from_host(scene, ambient=cfg.ambient,
+                                slot_map=flat.slot_map, device=device)
+    sph = pack_spheres(scene.spheres_center, scene.spheres_radius,
+                       scene.spheres_mat, scene.mats_kd, scene.mats_ks,
+                       scene.mats_kr)
     tables = packed_from_numpy(
-        packed.cbox, packed.cmeta, tri, attr, lamb, device=device,
-        leaf_size=leaf_size, compressed=packed.compressed,
+        packed.cbox, packed.cmeta, tri, attr, ds.lamb.cpu().numpy(),
+        device=device, leaf_size=leaf_size, compressed=packed.compressed,
+        sph=sph,
     )
-    ds = device_scene_from_lights(tables.lamb)
     return Pipeline(cfg=cfg, scene=scene, ds=ds, flat=flat, tables=tables,
                     build_ms=build_ms, bvh_stats=bvh.stats, stream=stream)

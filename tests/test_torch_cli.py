@@ -68,10 +68,10 @@ def test_stats_as_jax(times):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--no-bvh"], ["--devices", "2"],
+    ["--devices", "2"],
     ["--checkpoint", "ck"], ["--profile", "prof"], ["--interpret"],
     ["--no-fast-light"], ["--presplit", "0.1"], ["--no-reverse-shadows"],
-    ["--leaf-size", "4"], ["--variant", "jax"], ["--variant", "bruteforce"],
+    ["--leaf-size", "4"], ["--variant", "jax"],
 ], ids=" ".join)
 def test_unported_flag_exits_nonzero(flags, capsys, tmp_path):
     argv = ["--device", "cpu", "--width", "32", "--height", "32",

@@ -15,7 +15,6 @@ from parallel_ray_tracer_tpu_torch.config import RenderConfig
 from parallel_ray_tracer_tpu_torch.convert import packed_from_numpy
 from parallel_ray_tracer_tpu_torch.ops import cuda_trace
 from parallel_ray_tracer_tpu_torch.ops.vecmath import Vec3
-from conftest import blocker_cloud_scene
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "parallel_ray_tracer_tpu_torch")
@@ -79,8 +78,8 @@ def test_prepare_without_device_raises_when_no_cuda():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(use_bvh=False), dict(fast_light=False),
-    dict(presplit=0.1), dict(variant="jax"), dict(variant="bruteforce"),
+    dict(fast_light=False),
+    dict(presplit=0.1), dict(variant="jax"),
     dict(num_devices=2), dict(leaf_size=4), dict(reverse_shadows=False),
 ])
 def test_unported_knobs_raise(kw):
@@ -91,12 +90,6 @@ def test_unported_knobs_raise(kw):
 def test_bvh_width_other_than_2_4_8_raises():
     with pytest.raises(ValueError, match="bvh_width"):
         pipeline.prepare(RenderConfig(width=32, height=32, bvh_width=3), device="cpu")
-
-
-def test_scene_with_spheres_raises():
-    sc = blocker_cloud_scene(with_spheres=True)
-    with pytest.raises(NotImplementedError):
-        pipeline.prepare(RenderConfig(width=32, height=32), scene=sc, device="cpu")
 
 
 def _tiny_tables():
@@ -158,9 +151,11 @@ def test_wrappers_check_inputs():
 
 
 def test_stack_check_raises_before_launch():
-    """A tree deeper than the kernels' per-thread stack is refused before any
-    launch (and before the library is built), at each arity."""
-    T = _tiny_tables()
+    """No tree is refused for its depth: one that needs more stack entries
+    per ray than the standard tier's private stack holds takes the DEEP
+    tier (a stack sized to the tree), at each arity; one that fits keeps
+    the standard tier."""
     for arity, size in cuda_trace.STACK_SIZE.items():
-        with pytest.raises(ValueError, match="stack"):
-            cuda_trace._launch_setup(T.cmeta, arity, size + 1, False)
+        assert not cuda_trace.use_deep_tier(size, arity)
+        assert cuda_trace.use_deep_tier(size + 1, arity)
+    assert not cuda_trace.use_deep_tier(_tiny_tables().stack_depth, 4)
