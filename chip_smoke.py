@@ -70,6 +70,21 @@ and without spheres) against its plain version at the frame's shapes, its
 path with the counts from 0, and its time; then the DEEP tier forced on
 car_boxed, timed in turns with the standard tier.
 
+The phases above run with mxu_leaf=False (the FP32 leaf test). Its `mxu`
+phase drives the main path with the defaults: prepare takes the MXU leaf
+on car_boxed at width 4, as JAX's prepare does, and render() launches
+frame_mxu<4> (csrc/trace.cuh, the tensor-core leaf of row 12). Every MXU
+instance (closest, closest_full, occluded and the frame at widths 4 and 8
+on f32 and bf16 pair rows, the sphere frame on car_boxed_spheres, the DEEP
+instances on the chain scene) is held against its plain MXU version and
+its FP32 twin, to the hit bounds of tests/test_kernel_variants.py's MXU
+tests and the frame bounds of tests/test_fused.py, and reached through its
+paths with the counts from 0; the fused and pass-based frames are held
+against the reference BMP; the four-group table (pack_cmi4) must give the
+(rows, 32) table's outputs bit for bit; the MXU kernels are timed in turns
+with their FP32 twins, with the lanes served per mma batch and ptxas's
+registers and spills.
+
 Each phase prints one JSON line; all of them, and the rendered frames, also
 go to DIR (default: chip_smoke_out/ beside this script). Any failed check
 exits non-zero before the last line; the last line is
@@ -118,11 +133,22 @@ OPS_TRI_TEST = 47
 # frame tests every sphere after every traversal, so the tests are
 # S x the counted traversals.
 OPS_SPHERE_TEST = 34
+# An MXU instance's triangle test is the tensor-core product (below) and
+# an epilogue on the FP32 pipe (csrc/trace.cuh). rt_mxu_closest_tile:
+# 1 (1/det) + 3 (t, u, v) + 1 (abs) + 1 (u + v) + 5 (compares) + 1 (select)
+# + 1 (det < 0) + 1 (t < best) = 14. rt_mxu_occluded_tile: 3 (det^2,
+# u_num det, v_num det) + 2 (t_num det, EPS det^2) + 1 (u + v) + 2 (t_num^2,
+# window det^2) + 6 (compares) = 14.
+OPS_MXU_EPILOGUE = 14
 WARMUP, TIMED = 10, 50
 BANDS = (384, 704)          # 64-row bands: sky + geometry, car body
 BAND_ROWS = 64
-CFG = dict(scene="car_boxed", width=1920, height=1080, bounces=4,
-           bvh_heuristic=6, tile_rows=32, tile_cols=32)
+# The main path with the defaults (MXU_CFG: prepare takes the MXU leaf, as
+# JAX's prepare does for car_boxed) and with mxu_leaf=False (CFG: the FP32
+# leaf), which the phases before `mxu` drive.
+MXU_CFG = dict(scene="car_boxed", width=1920, height=1080, bounces=4,
+               bvh_heuristic=6, tile_rows=32, tile_cols=32)
+CFG = dict(MXU_CFG, mxu_leaf=False)
 REFERENCE_BMP = os.path.join(HERE, "tests", "goldens", "reference",
                              "car_boxed_1080p.bmp.gz")
 # The arity phase: the other node tables, and the single-pop schedule
@@ -165,13 +191,31 @@ SPHERE_SCENE = dict(
     spheres_mat=[1, 2])
 BRUTE_BAND, BRUTE_BAND_ROWS = 512, 16
 DEEP_CFG = dict(width=1920, height=1080, bounces=1, bvh_heuristic=1, bvh_max_depth=64,
-                tile_rows=32, tile_cols=32)
+                tile_rows=32, tile_cols=32, mxu_leaf=False)
 DEEP_CASES = {"w2": dict(bvh_width=2), "w4": {}, "w8": dict(bvh_width=8),
               "w2_bf16": dict(bvh_width=2, bf16_bvh=True), "w4_bf16": dict(bf16_bvh=True),
               "w8_bf16": dict(bvh_width=8, bf16_bvh=True)}
 # Two spheres in front of the camera for the DEEP tier's sphere frames.
 DEEP_SPHERES = [[-1.5, 2.0, 0.3, 0.7, 0.7, 0.2, 0.2, 0.3, 0.3, 0.3, 0.0, 0.0, 0.0],
                 [1.6, 3.0, 0.8, 0.9, 0.05, 0.05, 0.05, 0.3, 0.3, 0.3, 0.8, 0.8, 0.8]]
+# The mxu phase: the tables whose MXU instances it holds and times (w8_bf16:
+# pack_bvh8(bf16=True) pair rows, as in the arity phase), the kernels timed
+# in turns with their FP32 twins, the tensor-core work one ray's leaf visit
+# needs (its feature row against the group's 32 C rows, K = 10: R's six
+# zero columns are padding; three bf16 products: 3 * 2 * 32 * 10
+# operations) and the work a warp issues per served group (24 m16n8k16
+# products of 2 * 16 * 8 * 16 operations, whatever the lanes served and
+# the padding), and the lines of the TPU kernels the MXU
+# instances replace (pallas_trace.py: _mxu_leaf_closest_n,
+# _mxu_leaf_occluded_n, the fused frame with mxu=True).
+MXU_CASES = {"w4": {}, "w8": dict(bvh_width=8), "w4_bf16": dict(bf16_bvh=True),
+             "w8_bf16": dict(bvh_width=8, bf16_bvh=True)}
+MXU_TURNS = ("frame", "closest", "closest_full", "occluded")
+MMA_OPS_PER_LANE = 3 * 2 * 32 * 10
+MMA_OPS_PER_BATCH = 24 * 2 * 16 * 8 * 16
+PEAK_BF16_OPS = 989e12
+MXU_LINES = {"closest": 1443, "closest_full": 1443, "occluded": 1457, "frame": 2536,
+             "frame_sph": 2536}
 # The kernels line: (instance, the tables it runs on, kernel, line of the
 # TPU kernel it replaces in parallel_ray_tracer_tpu/ops/pallas_trace.py).
 KERNEL_ROWS = (
@@ -259,16 +303,32 @@ def nbytes(*ts) -> int:
 def bound(counts, names, in_bytes, out_bytes, spheres=0):
     """Least time for the work the function needs on these inputs: the
     counted box tests and triangle tests, and with `spheres` rows the
-    sphere tests of the frame (spheres x traversals), over the FP32 rate,
+    sphere tests of the frame (spheres x traversals), over the FP32 rate;
     or each input read once and each output written once over the memory
-    rate, the larger. counts are the kernel's work counters, named by
-    names."""
+    rate, the larger. An MXU instance (counts with mma_batches) does a
+    triangle test as a product on the tensor cores and an epilogue on the
+    FP32 pipe: its FP32 work charges each counted triangle test
+    OPS_MXU_EPILOGUE, and its tensor-core work is the products its served
+    leaf visits need (lanes served x MMA_OPS_PER_LANE; the products a warp
+    issues for idle lanes and padding are not needed, and are recorded as
+    mma_ops_issued) over the bf16 rate. The two pipes run side by side, so
+    its operations take the larger of the two times. counts are the
+    kernel's work counters, named by names."""
     c = dict(zip(names, (int(v) for v in counts)))
     if spheres:
         c["sphere_tests"] = spheres * c["traversals"]
-    ops = (c["box_tests"] * OPS_BOX_TEST + c["tri_tests"] * OPS_TRI_TEST
+    mxu = "mma_batches" in c
+    ops = (c["box_tests"] * OPS_BOX_TEST
+           + c["tri_tests"] * (OPS_MXU_EPILOGUE if mxu else OPS_TRI_TEST)
            + c.get("sphere_tests", 0) * OPS_SPHERE_TEST)
     t_ops = ops / PEAK_FP32_OPS * 1e3
+    if mxu:
+        c["mma_ops"] = c["lanes_served"] * MMA_OPS_PER_LANE
+        c["mma_ops_issued"] = c["mma_batches"] * MMA_OPS_PER_BATCH
+        c["lanes_per_batch"] = c["lanes_served"] / max(c["mma_batches"], 1)
+        c["fp32_pipe_ms"] = t_ops
+        c["tensor_pipe_ms"] = c["mma_ops"] / PEAK_BF16_OPS * 1e3
+        t_ops = max(t_ops, c["tensor_pipe_ms"])
     t_bytes = (in_bytes + out_bytes) / PEAK_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -290,7 +350,8 @@ def main() -> int:
         from parallel_ray_tracer_tpu_torch.models.camera import ray_basis
         from parallel_ray_tracer_tpu_torch.models.procgen import chain_scene, with_spheres
         from parallel_ray_tracer_tpu_torch.models.scene import Scene, load_scene_npz
-        from parallel_ray_tracer_tpu_torch.ops.pack import pack_bvh8, pad_stream_rows
+        from parallel_ray_tracer_tpu_torch.ops.pack import (pack_bvh4, pack_bvh8, pack_cmi4,
+                                                            pad_stream_rows, split_cmat)
         from parallel_ray_tracer_tpu_torch.ops import cuda_trace as ct
         from parallel_ray_tracer_tpu_torch.ops import render as R
         from parallel_ray_tracer_tpu_torch.ops import trace_brute
@@ -404,9 +465,9 @@ def main() -> int:
         return {"max_abs_err": diff.max().item(), "within_1e-3": within,
                 "median": med}
 
-    def cmp_blocked(name, bk, bp):
+    def cmp_blocked(name, bk, bp, min_agree=0.999):
         agree = (bk == bp).float().mean().item()
-        check(name, agree >= 0.999, f"blocked agreement {agree}")
+        check(name, agree >= min_agree, f"blocked agreement {agree}")
         return {"max_abs_err": float((bk != bp).any()), "agree": agree,
                 "blocked_frac": bp.float().mean().item()}
 
@@ -555,13 +616,13 @@ def main() -> int:
     ray_b = nbytes(*o, *d)
     out_plane = n_rays * 4
 
-    def kernel_runs(A, o=o, d=d, so=so, sd=sd, m2=m2, bounces=cfg.bounces):
+    def kernel_runs(A, o=o, d=d, so=so, sd=sd, m2=m2, bounces=cfg.bounces, cmat=None):
         """Each kernel of tables A at the main path's shapes (or on the rays
         given): the timed call, the counting call, input bytes, output
-        bytes."""
+        bytes. With `cmat`, the MXU instances."""
         akw = dict(leaf_size=A.leaf_size, stack_depth=A.stack_depth,
-                   compressed=A.compressed)
-        scene_b = nbytes(A.cbox, A.cmeta, A.tri)
+                   compressed=A.compressed, cmat=cmat)
+        scene_b = nbytes(A.cbox, A.cmeta, A.tri, *(() if cmat is None else (cmat,)))
         runs = {
             "closest": (lambda: ct.closest_tiles(A.cbox, A.cmeta, A.tri, o, d, **akw),
                         lambda: ct.closest_tiles(A.cbox, A.cmeta, A.tri, o, d,
@@ -667,7 +728,8 @@ def main() -> int:
     def pair_rows_w8(p):
         """The width-8 pipeline with its node table repacked as bf16 pair
         rows (pack_bvh8(bf16=True)) and carried across with compressed=True:
-        the pipeline, like JAX's prepare, packs width 8 in f32."""
+        the pipeline, like JAX's prepare, packs width 8 in f32. An MXU
+        pipeline keeps its C-matrix table."""
         check("w8_bf16", p.tables.cbox.dtype == torch.float32 and not p.tables.compressed,
               "the pipeline's bf16 width-8 tables are not f32, as JAX packs them")
         packed = pack_bvh8(p.flat, p.scene.triangle_vertices(), bf16=True)
@@ -675,8 +737,8 @@ def main() -> int:
         tables = packed_from_numpy(
             packed.cbox, packed.cmeta, packed.tri, t.attr.cpu().numpy(),
             t.lamb.cpu().numpy(), device=p.device, leaf_size=t.leaf_size,
-            compressed=True)
-        return dataclasses.replace(p, tables=tables)
+            compressed=True, sph=None if t.sph is None else t.sph.cpu().numpy())
+        return dataclasses.replace(p, tables=tables._replace(cmat=t.cmat))
 
     for key, extra in ARITY_CASES.items():
         t0 = time.perf_counter()
@@ -1450,7 +1512,360 @@ def main() -> int:
                   "deep_vs_standard": dpt / std}
     emit(rec)
 
-    # ---- 14. the command line: the width-8 frame, the --bf16-bvh frame -----
+
+    # ---- 14. the MXU leaf (row 12): the main path with the defaults --------
+    # prepare with the default config takes the MXU leaf on car_boxed at
+    # width 4, as JAX's prepare does (its 88 MiB budget holds the table), so
+    # render() launches frame_mxu<4>. Every MXU instance is held against its
+    # plain MXU version (ops/trace_plain.*_mxu_plain: every ray against
+    # every slot's C rows, the bf16 halves' products as f32 matmuls) and
+    # against its FP32 twin. Against the FP32 twin, whose leaf test rounds
+    # otherwise, the bounds are those of tests/test_kernel_variants.py
+    # (TestMXULeaf): miss agreement > 0.999, idx agreement > 0.99 where
+    # both hit, mean relative t error < 2e-4 and max < 2e-2, blocked
+    # agreement >= 0.999; frames to tests/test_fused.py's (more than 99% of
+    # pixels within 1e-3, median < 1e-5). Against the plain MXU version,
+    # which computes the same bf16x3 products, they are set from the sound
+    # runs (miss and idx equal, relative t error under 5e-7, blocked equal,
+    # 99.998% of frame pixels within 1e-3): miss, idx and blocked agreement
+    # >= 0.9999, mean relative t error < 1e-6 and max < 1e-5, and frames
+    # without spheres to cmp_frame's 99.99% (with spheres to the 99% the
+    # FP32 sphere frames are held to). The tensor cores sum in their own
+    # order, so no MXU output is held to the bit, except the four-group
+    # table's against the (rows, 32) table's.
+    def cmp_hits_mxu(name, hk, hp, full, plain=True):
+        if plain:
+            ok_miss, ok_idx = (lambda v: v >= 0.9999), (lambda v: v >= 0.9999)
+            max_mean, max_rel = 1e-6, 1e-5
+        else:
+            ok_miss, ok_idx = (lambda v: v > 0.999), (lambda v: v > 0.99)
+            max_mean, max_rel = 2e-4, 2e-2
+        mk, mp = hk.t >= T_MAX, hp.t >= T_MAX
+        miss = (mk == mp).float().mean().item()
+        check(name, ok_miss(miss), f"miss agreement {miss}")
+        both = ~mk & ~mp
+        idx_agree = (hk.idx[both] == hp.idx[both]).float().mean().item()
+        check(name, ok_idx(idx_agree), f"idx agreement {idx_agree} where both hit")
+        same = both & (hk.idx == hp.idx)
+        err = (hk.t[same] - hp.t[same]).abs()
+        rel = err / hp.t[same].abs().clamp(min=1e-9)
+        rel_mean = rel.mean().item() if rel.numel() else 0.0
+        rel_max = rel.max().item() if rel.numel() else 0.0
+        check(name, rel_mean < max_mean and rel_max < max_rel,
+              f"relative t error mean {rel_mean}, max {rel_max}")
+        max_err = err.max().item() if err.numel() else 0.0
+        if full:
+            for vk, vp in zip((*hk.n, *hk.kd, *hk.ks, *hk.kr),
+                              (*hp.n, *hp.kd, *hp.ks, *hp.kr)):
+                check(name, torch.equal(vk[same], vp[same]),
+                      "attributes differ where idx agrees")
+        return {"max_abs_err": max_err, "miss_agree": miss, "idx_agree": idx_agree,
+                "rel_t_mean": rel_mean, "rel_t_max": rel_max,
+                "hit_frac": both.float().mean().item()}
+
+    t0 = time.perf_counter()
+    mcfg = RenderConfig(**MXU_CFG)
+    mpipe = pipeline.prepare(mcfg)
+    torch.cuda.synchronize()
+    M = mpipe.tables
+    check("mxu", mpipe.mxu and M.cmat is not None, "the default prepare did not take the MXU leaf")
+    check("mxu", all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                     for a, b in zip(M[:5], T[:5])), "its tables are not car_boxed's")
+    rec = {"phase": "mxu", "case": "car_boxed_w4", "card": card,
+           "prepare_s": time.perf_counter() - t0, "mxu": mpipe.mxu,
+           "cmat": list(M.cmat.shape), "cmat_bytes": nbytes(M.cmat),
+           "other_table_bytes": nbytes(M.cbox, M.cmeta, M.tri, M.attr)}
+    mcmp = {}
+
+    # the band: the plain MXU results (they read no node table)
+    y0 = BANDS[0]
+    bref = band_ref[y0]
+    bo, bd = bref["rays"]["primary"]
+    bso, bsd, bm2 = bref["shadow_rays"]
+    mplain = {}
+    mplain["closest"], mplain["closest_ms"] = timed_once(
+        lambda: tp.closest_mxu_plain(M.cmat, M.tri, bo, bd, L))
+    mplain["closest_full"], mplain["closest_full_ms"] = timed_once(
+        lambda: tp.closest_full_mxu_plain(M.cmat, M.tri, M.attr, bo, bd, L))
+    mplain["shadow"] = tp.closest_mxu_plain(M.cmat, M.tri, *bref["rays"]["shadow"], L)
+    mplain["occluded"], mplain["occluded_ms"] = timed_once(
+        lambda: tp.occluded_mxu_plain(M.cmat, M.tri, bso, bsd, bm2, L))
+    mplain["frame"], mplain["frame_ms"] = timed_once(lambda: ct.frame_plain(
+        M.tri, M.attr, M.lamb, bo, bd, bounces=cfg.bounces, leaf_size=L, cmat=M.cmat))
+    rec["band"] = {"y0": y0, "rays": BAND_ROWS * W,
+                   "plain_ms": {k: mplain[k + "_ms"] for k in MXU_TURNS}}
+
+    def mxu_tables(key):
+        if key == "w4":
+            return mpipe
+        p = pipeline.prepare(RenderConfig(**MXU_CFG, **MXU_CASES[key]))
+        if key == "w8_bf16":
+            p = pair_rows_w8(p)
+        check(f"mxu/{key}", p.mxu and p.tables.cmat is not None, "not the MXU leaf")
+        return p
+
+    mxu_t, mxu_launch, mxu_err = {}, {}, {}
+    for key in MXU_CASES:
+        p = mxu_tables(key)
+        A = p.tables
+        a, sfx = A.arity, ",bf16" if A.compressed else ""
+        akw = dict(leaf_size=L, stack_depth=A.stack_depth, compressed=A.compressed)
+        errs = {}
+
+        def both(k, res_p, res_f):
+            errs[k] = max(errs.get(k, 0.0), res_p["max_abs_err"])
+            mcmp.setdefault(key, {}).setdefault(k, []).append(
+                {"vs_plain": res_p, "vs_fp32": res_f})
+
+        for kind, (ro, rd) in bref["rays"].items():
+            want = mplain["closest"] if kind == "primary" else mplain["shadow"]
+            hk = ct.closest_tiles(A.cbox, A.cmeta, A.tri, ro, rd, cmat=A.cmat, **akw)
+            hf = ct.closest_tiles(A.cbox, A.cmeta, A.tri, ro, rd, **akw)
+            both("closest", cmp_hits_mxu(f"mxu/{key}/closest/{kind}", hk, want, False),
+                 cmp_hits_mxu(f"mxu/{key}/closest/{kind}/fp32", hk, hf, False, plain=False))
+        hk = ct.closest_tiles_full(A.cbox, A.cmeta, A.tri, A.attr, bo, bd, cmat=A.cmat, **akw)
+        hf = ct.closest_tiles_full(A.cbox, A.cmeta, A.tri, A.attr, bo, bd, **akw)
+        both("closest_full", cmp_hits_mxu(f"mxu/{key}/closest_full", hk, mplain["closest_full"], True),
+             cmp_hits_mxu(f"mxu/{key}/closest_full/fp32", hk, hf, True, plain=False))
+        bk = ct.occluded_tiles(A.cbox, A.cmeta, A.tri, bso, bsd, bm2, cmat=A.cmat, **akw)
+        bf = ct.occluded_tiles(A.cbox, A.cmeta, A.tri, bso, bsd, bm2, **akw)
+        both("occluded", cmp_blocked(f"mxu/{key}/occluded", bk, mplain["occluded"], 0.9999),
+             cmp_blocked(f"mxu/{key}/occluded/fp32", bk, bf))
+        fk = ct.frame_tiles(A.cbox, A.cmeta, A.tri, A.attr, A.lamb, bo, bd,
+                            bounces=cfg.bounces, cmat=A.cmat, **akw)
+        ff = ct.frame_tiles(A.cbox, A.cmeta, A.tri, A.attr, A.lamb, bo, bd,
+                            bounces=cfg.bounces, **akw)
+        both("frame", cmp_frame(f"mxu/{key}/frame@{y0}", fk, mplain["frame"]),
+             cmp_frame(f"mxu/{key}/frame@{y0}/fp32", fk, ff, 0.99))
+        del hk, hf, bk, bf, fk, ff
+
+        # the paths, each with its counts from 0
+        pass_counts = {f"closest_full_mxu<{a}{sfx}>": cfg.bounces,
+                       f"occluded_mxu<{a}{sfx}>": cfg.bounces * nl}
+        check(f"mxu/{key}", p.resolved_variant() == "fused", "auto is not the fused frame")
+        pimg, on_f = on_path(f"mxu/{key}/render_fused", p.render, {f"frame_mxu<{a}{sfx}>": 1})
+        pimg_pass, on_p = on_path(f"mxu/{key}/render_pass_based",
+                                  lambda: p.render(variant="pallas"), pass_counts)
+        _, on_c = on_path(f"mxu/{key}/primary_closest_pass",
+                          lambda: ct.closest_tiles(A.cbox, A.cmeta, A.tri, o, d, cmat=A.cmat,
+                                                   **akw),
+                          {f"closest_mxu<{a}{sfx}>": 1})
+        mxu_launch[key] = {"frame": on_f[f"frame_mxu<{a}{sfx}>"],
+                           "closest_full": on_p[f"closest_full_mxu<{a}{sfx}>"],
+                           "occluded": on_p[f"occluded_mxu<{a}{sfx}>"],
+                           "closest": on_c[f"closest_mxu<{a}{sfx}>"]}
+        res = {"reference_image": hold_reference(f"car_boxed_1080p_mxu_{key}", pimg),
+               "fused_vs_pass": hold_frames(f"mxu/{key}/fused_vs_pass", pimg, pimg_pass),
+               "vs_fp32_fused": hold_frames(f"mxu/{key}/vs_fp32_fused", pimg,
+                                            img if key == "w4" else frames.get(key, img), 0.99)}
+        if key == "w4":
+            mimg = pimg
+        del pimg_pass
+
+        # timing: each MXU instance at the main path's shapes; the listed
+        # kernels in turns with their FP32 twins (FP32, MXU, MXU, FP32)
+        runs, runs_m = kernel_runs(A), kernel_runs(A, cmat=A.cmat)
+        tm = {}
+        for k in MXU_TURNS:
+            fn_f = runs[k][0]
+            fn_m, counted, in_b, out_b = runs_m[k]
+            if key in ("w4", "w8") and (key == "w4" or k == "frame"):
+                turns = [time_ms(fn_m if i in (1, 2) else fn_f) for i in range(4)]
+                t_m = dict(turns[1], median=statistics.median(
+                    [turns[1]["median"], turns[2]["median"]]))
+                fp32_ms = statistics.median([turns[0]["median"], turns[3]["median"]])
+            else:
+                t_m, fp32_ms, turns = time_ms(fn_m), None, None
+            b = bound(counted().cpu().tolist(), ct.MXU_COUNTS, in_b, out_b)
+            tm[k] = dict(t_m, rays=n_rays, fp32_ms=fp32_ms, turns=turns,
+                         vs_fp32=t_m["median"] / fp32_ms if fp32_ms else None, **b)
+        # lanes served per mma batch at bounce 0 (a 1-bounce frame) and
+        # over the whole frame
+        c1 = dict(zip(ct.MXU_COUNTS, ct.frame_tiles(
+            A.cbox, A.cmeta, A.tri, A.attr, A.lamb, o, d, bounces=1, cmat=A.cmat,
+            counters=True, **akw)[1].cpu().tolist()))
+        res["lanes_per_batch"] = {"bounce0": c1["lanes_served"] / max(c1["mma_batches"], 1),
+                                  "frame": tm["frame"]["lanes_per_batch"]}
+        if key == "w4":   # render() of the defaults and of mxu_leaf=False, in turns
+            for variant in ("fused", "pallas"):
+                turns = [time_ms(lambda: (mpipe if i in (1, 2) else pipe).render(variant=variant))
+                         for i in range(4)]
+                res[f"render_{variant}_end_to_end"] = {
+                    "mxu_ms": statistics.median([turns[1]["median"], turns[2]["median"]]),
+                    "fp32_ms": statistics.median([turns[0]["median"], turns[3]["median"]]),
+                    "turns": turns}
+        mxu_t[key], mxu_err[key] = tm, errs
+        emit({"phase": "mxu", "case": key, "card": card, "launches": mxu_launch[key],
+              "max_abs_err": errs, "compare": mcmp[key], "timing": tm, **res})
+        if key != "w4":
+            del p, A
+
+    # the four-group table (pack_cmi4): the same outputs bit for bit
+    f32_cmat = pack_bvh4(mpipe.flat, mpipe.scene.triangle_vertices()).cmat
+    check("mxu/cmi4", np.array_equal(split_cmat(f32_cmat).view(np.int16),
+                                     M.cmat.view(torch.int16).cpu().numpy()),
+          "the uploaded table is not split_cmat of the packer's")
+    c4 = torch.as_tensor(pack_cmi4(f32_cmat, L).view(np.int16),
+                         device=mpipe.device).view(torch.bfloat16)
+    mkw = dict(leaf_size=L, stack_depth=M.stack_depth)
+    cmi4 = {}
+    for k, fn in (("closest_full", lambda c: planes(ct.closest_tiles_full(
+                      M.cbox, M.cmeta, M.tri, M.attr, o, d, cmat=c, **mkw), True)),
+                  ("occluded", lambda c: [ct.occluded_tiles(M.cbox, M.cmeta, M.tri, so, sd, m2,
+                                                            cmat=c, **mkw)]),
+                  ("frame", lambda c: list(ct.frame_tiles(M.cbox, M.cmeta, M.tri, M.attr, M.lamb,
+                                                          o, d, bounces=cfg.bounces, cmat=c,
+                                                          **mkw)))):
+        cmi4[k] = same_bits(fn(c4), fn(M.cmat))
+        check(f"mxu/cmi4/{k}", cmi4[k], "the four-group table's outputs differ")
+    emit({"phase": "mxu", "case": "cmi4", "cmat4": list(c4.shape), "bit_equal": cmi4})
+    del c4
+
+    # frame_sph_mxu<4>: car_boxed_spheres with the defaults
+    ssc = with_spheres(load_scene_npz(os.path.join(HERE, "assets", "car_boxed.npz")))
+    sp = pipeline.prepare(mcfg, scene=ssc)
+    S_ = sp.tables
+    check("mxu/spheres", sp.mxu and S_.sph is not None, "not the MXU sphere tables")
+    sfp, sph_ms = timed_once(lambda: ct.frame_plain(
+        S_.tri, S_.attr, S_.lamb, bo, bd, bounces=cfg.bounces, leaf_size=L, sph=S_.sph,
+        cmat=S_.cmat))
+    skw = dict(leaf_size=L, stack_depth=S_.stack_depth)
+    sres = {"band": cmp_frame("mxu/spheres/frame_sph", ct.frame_tiles(
+        S_.cbox, S_.cmeta, S_.tri, S_.attr, S_.lamb, bo, bd, bounces=cfg.bounces,
+        sph=S_.sph, cmat=S_.cmat, **skw), sfp, 0.99)}
+    del sfp
+    simg, on_s = on_path("mxu/spheres/render_fused", sp.render, {"frame_sph_mxu<4>": 1})
+    simg_pass, _ = on_path("mxu/spheres/render_pass_based", lambda: sp.render(variant="pallas"),
+                           {"closest_full_mxu<4>": cfg.bounces, "occluded_mxu<4>": cfg.bounces * nl})
+    sres["fused_vs_pass"] = hold_frames("mxu/spheres/fused_vs_pass", simg, simg_pass, 0.99)
+    del simg, simg_pass
+    fn_s = lambda c=False: ct.frame_tiles(S_.cbox, S_.cmeta, S_.tri, S_.attr, S_.lamb, o, d,
+                                          bounces=cfg.bounces, sph=S_.sph, cmat=S_.cmat,
+                                          counters=c, **skw)
+    ts = time_ms(fn_s)
+    ts.update(bound(fn_s(True)[1].cpu().tolist(), ct.MXU_COUNTS,
+                    ray_b + nbytes(S_.cbox, S_.cmeta, S_.tri, S_.attr, S_.lamb, S_.sph, S_.cmat),
+                    3 * out_plane, spheres=S_.sph.shape[0]))
+    emit({"phase": "mxu", "case": "car_boxed_spheres", "card": card, "plain_ms": sph_ms,
+          "launches": on_s["frame_sph_mxu<4>"], "timing": ts, **sres})
+    extra_rows.append(dict(row("frame_kernel<4, SPH, MXU>", "w4+spheres, mxu",
+                               on_s["frame_sph_mxu<4>"], sres["band"]["max_abs_err"], ts,
+                               sph_ms, f"one {BAND_ROWS}-row band (y {y0}), the same rays",
+                               MXU_LINES["frame_sph"])))
+    del sp, S_
+
+    # the DEEP MXU instances on the chain scene, against their plain versions
+    dref_m = None
+    for key in MXU_CASES:
+        dp = pipeline.prepare(RenderConfig(**dict(DEEP_CFG, mxu_leaf=True), **MXU_CASES[key]),
+                              scene=chain)
+        if key == "w8_bf16":
+            dp = pair_rows_w8(dp)
+        D = dp.tables
+        a, sfx = D.arity, ",bf16" if D.compressed else ""
+        check(f"mxu/deep/{key}", dp.mxu and ct.use_deep_tier(D.stack_depth, a),
+              "not the DEEP MXU instances")
+        dkw = dict(leaf_size=L, stack_depth=D.stack_depth, compressed=D.compressed)
+        if dref_m is None:
+            hp, ms_cf = timed_once(lambda: tp.closest_full_mxu_plain(D.cmat, D.tri, D.attr, o, d, L))
+            dso_m, dsd_m, dm2_m = shadow_rays(o, d, hp, D.lamb)
+            dref_m = {"closest_full": (hp, ms_cf),
+                      "closest": timed_once(lambda: tp.closest_mxu_plain(D.cmat, D.tri, o, d, L)),
+                      "occluded": timed_once(lambda: tp.occluded_mxu_plain(
+                          D.cmat, D.tri, dso_m, dsd_m, dm2_m, L)),
+                      "frame": timed_once(lambda: ct.frame_plain(
+                          D.tri, D.attr, D.lamb, o, d, bounces=1, leaf_size=L, cmat=D.cmat)),
+                      "frame_sph": timed_once(lambda: ct.frame_plain(
+                          D.tri, D.attr, D.lamb, o, d, bounces=1, leaf_size=L, sph=dsph,
+                          cmat=D.cmat))}
+        Ds = D._replace(sph=dsph)
+        calls = {
+            "closest": lambda c=False: ct.closest_tiles(D.cbox, D.cmeta, D.tri, o, d,
+                                                        cmat=D.cmat, counters=c, **dkw),
+            "closest_full": lambda c=False: ct.closest_tiles_full(
+                D.cbox, D.cmeta, D.tri, D.attr, o, d, cmat=D.cmat, counters=c, **dkw),
+            "occluded": lambda c=False: ct.occluded_tiles(D.cbox, D.cmeta, D.tri, dso_m, dsd_m,
+                                                          dm2_m, cmat=D.cmat, counters=c, **dkw),
+            "frame": lambda c=False: ct.frame_tiles(D.cbox, D.cmeta, D.tri, D.attr, D.lamb, o, d,
+                                                    bounces=1, cmat=D.cmat, counters=c, **dkw),
+            "frame_sph": lambda c=False: ct.frame_tiles(D.cbox, D.cmeta, D.tri, D.attr, D.lamb,
+                                                        o, d, bounces=1, sph=dsph, cmat=D.cmat,
+                                                        counters=c, **dkw)}
+        errs = {"closest": cmp_hits_mxu(f"mxu/deep/{key}/closest", calls["closest"](),
+                                        dref_m["closest"][0], False),
+                "closest_full": cmp_hits_mxu(f"mxu/deep/{key}/closest_full",
+                                             calls["closest_full"](), dref_m["closest_full"][0],
+                                             True),
+                "occluded": cmp_blocked(f"mxu/deep/{key}/occluded", calls["occluded"](),
+                                        dref_m["occluded"][0], 0.9999),
+                "frame": cmp_frame(f"mxu/deep/{key}/frame", calls["frame"](),
+                                   dref_m["frame"][0]),
+                "frame_sph": cmp_frame(f"mxu/deep/{key}/frame_sph", calls["frame_sph"](),
+                                       dref_m["frame_sph"][0], 0.99)}
+        dl = {}
+        _, on_a = on_path(f"mxu/deep/{key}/render_auto", dp.render,
+                          {f"frame_mxu<{a}{sfx},deep>": 1})
+        _, on_s2 = on_path(f"mxu/deep/{key}/render_fused_spheres",
+                           dataclasses.replace(dp, tables=Ds).render,
+                           {f"frame_sph_mxu<{a}{sfx},deep>": 1})
+        _, on_p = on_path(f"mxu/deep/{key}/render_pass_based", lambda: dp.render(variant="pallas"),
+                          {f"closest_full_mxu<{a}{sfx},deep>": 1, f"occluded_mxu<{a}{sfx},deep>": 1})
+        _, on_c = on_path(f"mxu/deep/{key}/primary_closest_pass", calls["closest"],
+                          {f"closest_mxu<{a}{sfx},deep>": 1})
+        dl = {"frame": on_a[f"frame_mxu<{a}{sfx},deep>"],
+              "frame_sph": on_s2[f"frame_sph_mxu<{a}{sfx},deep>"],
+              "closest_full": on_p[f"closest_full_mxu<{a}{sfx},deep>"],
+              "occluded": on_p[f"occluded_mxu<{a}{sfx},deep>"],
+              "closest": on_c[f"closest_mxu<{a}{sfx},deep>"]}
+        dt = {}
+        bn = box_name(D)
+        for k, fn in calls.items():
+            tt = time_ms(fn)
+            in_b = (ray_b + nbytes(D.cbox, D.cmeta, D.tri, D.cmat)
+                    + (nbytes(D.attr, D.lamb) if k.startswith("frame") or k == "closest_full" else 0)
+                    + (out_plane if k == "occluded" else 0))
+            out_n = {"closest": 3, "closest_full": 15, "occluded": 1, "frame": 3, "frame_sph": 3}[k]
+            tt.update(bound(fn(True)[1].cpu().tolist(), ct.MXU_COUNTS, in_b, out_n * out_plane,
+                            spheres=dsph.shape[0] if k == "frame_sph" else 0))
+            dt[k] = tt
+            name = {"closest": f"closest_kernel<{a}{bn}, false, DEEP, MXU>",
+                    "closest_full": f"closest_kernel<{a}{bn}, true, DEEP, MXU>",
+                    "occluded": f"occluded_kernel<{a}{bn}, DEEP, MXU>",
+                    "frame": f"frame_kernel<{a}{bn}, DEEP, MXU>",
+                    "frame_sph": f"frame_kernel<{a}{bn}, SPH, DEEP, MXU>"}[k]
+            extra_rows.append(row(name, f"deep_{key}, mxu", dl[k], errs[k]["max_abs_err"], tt,
+                                  dref_m[k][1], "the chain scene, the same rays", MXU_LINES[k]))
+        emit({"phase": "mxu", "case": f"deep_{key}", "card": card, "stack_need": D.stack_depth,
+              "launches": dl, "max_abs_err": {k: v["max_abs_err"] for k, v in errs.items()},
+              "compare": errs, "timing": dt})
+        del dp, D, Ds
+
+    # registers and spills of the MXU instances (ptxas, from the build log)
+    mxu_ptxas = []
+    if _build.BUILD_INFO.get("log"):
+        entry = None
+        for ln in open(_build.BUILD_INFO["log"]):
+            if "Compiling entry" in ln:
+                entry = ln.split("'")[1] if "'" in ln else ln.strip()
+            elif entry and "Lb1EEv" in entry and ("registers" in ln or "spill" in ln):
+                mxu_ptxas.append(f"{entry}: {ln.strip()}")
+    emit({"phase": "mxu", "case": "ptxas", "lines": mxu_ptxas})
+    for key in MXU_CASES:
+        for k in MXU_TURNS:
+            t = mxu_t[key][k]
+            bn = {"w4": "", "w8": "", "w4_bf16": ", PAIRS", "w8_bf16": ", PAIRS"}[key]
+            a = 8 if key.startswith("w8") else 4
+            name = {"closest": f"closest_kernel<{a}{bn}, false, MXU>",
+                    "closest_full": f"closest_kernel<{a}{bn}, true, MXU>",
+                    "occluded": f"occluded_kernel<{a}{bn}, MXU>",
+                    "frame": f"frame_kernel<{a}{bn}, MXU>"}[k]
+            extra_rows.append(row(name, f"{key}, mxu", mxu_launch[key][k], mxu_err[key][k], t,
+                                  mplain[k + "_ms"],
+                                  f"one {BAND_ROWS}-row band (y {y0}) of the same rays "
+                                  "(the plain MXU version reads no node table)", MXU_LINES[k]))
+    del mpipe, M
+
+    # ---- 15. the command line: the width-8 frame, the --bf16-bvh frame -----
     def run_cli(name, flags, want):
         cli_bmp = os.path.join(out_dir, f"{name}.bmp")
         cli_json = os.path.join(out_dir, f"{name}.json")
@@ -1484,11 +1899,11 @@ def main() -> int:
                        mean_ms=metrics.get("mean_ms"), ci99_ms=metrics.get("ci99_ms"))
         emit(rec)
 
-    run_cli("cli_w8", ["--bvh-width", "8"], frames["w8"])
-    run_cli("cli_bf16", ["--bf16-bvh"], frames["w4_bf16"])
+    run_cli("cli_w8", ["--bvh-width", "8", "--no-mxu-leaf"], frames["w8"])
+    run_cli("cli_bf16", ["--bf16-bvh", "--no-mxu-leaf"], frames["w4_bf16"])
     del frames
 
-    # ---- 15. the kernels line --------------------------------------------
+    # ---- 16. the kernels line --------------------------------------------
     kernels = []
     for name, key, kernel, line in KERNEL_ROWS:
         t = timing[key][kernel]

@@ -2,7 +2,7 @@
 
 nvcc compiles each unit of csrc/ for sm_90a, all of them at once (one
 process per unit: the C entry points and one unit per node arity, box
-format, leaf-row mode and stack tier), and links
+format, leaf mode (resident FP32, streamed, MXU) and stack tier), and links
 them into `_build/<hash>/libtrace.so`, where the hash covers the sources and
 the flags, so a changed source builds anew and an unchanged one is reused.
 The build happens at first use, inside the call that launches a kernel;
@@ -23,9 +23,11 @@ from typing import Optional
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
-# One unit per node arity, box format and leaf-row mode, and each again
-# with a `d` suffix for the DEEP stack tier (csrc/trace.cuh).
-_TIER_UNITS = ("a2", "a4", "a8", "a4p", "a8p", "a2h", "a4s", "a8s", "a4ps", "a8ps")
+# One unit per node arity, box format and leaf mode (`s` streamed leaf
+# rows, `m` the MXU leaf), and each again with a `d` suffix for the DEEP
+# stack tier (csrc/trace.cuh).
+_TIER_UNITS = ("a2", "a4", "a8", "a4p", "a8p", "a2h", "a4s", "a8s", "a4ps", "a8ps",
+               "a4m", "a8m", "a4pm", "a8pm")
 UNITS = ("trace_kernels.cu",) + tuple(
     f"trace_{u}{tier}.cu" for tier in ("", "d") for u in _TIER_UNITS)
 SOURCES = ("trace.cuh", "trace_launch.cuh") + UNITS
@@ -115,9 +117,9 @@ def load_library() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(build())
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.rt_closest.argtypes = [P] * 10 + [I, I, I, I] + [P] * 8
-    lib.rt_occluded.argtypes = [P] * 10 + [I, I, I, I] + [P] * 5
-    lib.rt_frame.argtypes = [P] * 11 + [I, P] + [I] * 5 + [P] * 5
+    lib.rt_closest.argtypes = [P] * 11 + [I] * 5 + [P] * 8
+    lib.rt_occluded.argtypes = [P] * 11 + [I] * 5 + [P] * 5
+    lib.rt_frame.argtypes = [P] * 12 + [I, P] + [I] * 6 + [P] * 5
     for fn in (lib.rt_closest, lib.rt_occluded, lib.rt_frame):
         fn.restype = I
     lib.rt_error_string.argtypes = [I]

@@ -18,9 +18,10 @@ A flag whose path the port does not have yet (--devices N > 1,
 NotImplementedError message and exit code 2. --no-bvh and --variant
 bruteforce render every frame by brute force (ops/trace_brute.py), as the
 JAX CLI does; a --scene folder with a spheres.obj renders its spheres. --no-native,
---mxu-leaf, --pop-width and --adaptive-pop are accepted and change nothing
-here (see config.py). --stream picks streamed leaf rows as the JAX CLI does;
-the banner and the metrics record give the pipeline's resolved choice.
+--pop-width and --adaptive-pop are accepted and change nothing here (see
+config.py). --stream picks streamed leaf rows and --mxu-leaf / --no-mxu-leaf
+the tensor-core leaf test as the JAX CLI does (by the JAX prepare's rule);
+the banner and the metrics record give the pipeline's resolved choices.
 """
 
 from __future__ import annotations
@@ -107,8 +108,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "instead of the reference's squared diagonal")
     p.add_argument("--mxu-leaf", action=argparse.BooleanOptionalAction,
                    default=True,
-                   help="TPU matrix-unit leaf test; no effect here (the "
-                        "leaf test is always FP32)")
+                   help="the MXU leaf: tensor-core (bf16x3) leaf tests, "
+                        "taken where the JAX prepare takes its MXU leaf")
     p.add_argument("--tile", default="32x32",
                    help="pixel tile shape ROWSxCOLS")
     p.add_argument("--iterations", type=int, default=1)
@@ -231,7 +232,8 @@ def _run(args) -> int:
         + (f" ({device_name})" if device_name else "")
         + f", devices: 1, variant: {variant}"
         + (" (auto)" if cfg.variant == "auto" else "")
-        + f", stream: {pipe.stream}" + (" (auto)" if cfg.stream == "auto" else ""))
+        + f", stream: {pipe.stream}" + (" (auto)" if cfg.stream == "auto" else "")
+        + f", mxu: {pipe.mxu}")
     say(f"\n# Bvh settings #\nuse_bvh: {cfg.use_bvh}, heuristic: "
         f"{cfg.bvh_heuristic}, sah_bins: {cfg.sah_bins}, leaf: "
         f"{LEAF_SIZE}, max_depth: {cfg.bvh_max_depth}, seed: "
@@ -285,6 +287,7 @@ def _run(args) -> int:
             "build_ms": pipe.build_ms,
             "bvh_stats": pipe.bvh_stats,
             "stream": pipe.stream,
+            "mxu": pipe.mxu,
             "times_ms": times,
             **stats,
         }

@@ -102,10 +102,9 @@ class RenderConfig:
     # Fields of the JAX package's TPU paths, kept so that both packages'
     # configs build from one set of keyword arguments. The port ignores
     # use_native (it always builds with numpy; the image does not depend on
-    # the builder), pop_width and adaptive_pop (packet schedules; one
-    # thread traces one ray here) and mxu_leaf (its leaf test is always
-    # the FP32 one). num_devices != 1 (no sharding yet) and presplit > 0
-    # raise NotImplementedError.
+    # the builder) and pop_width and adaptive_pop (packet schedules; one
+    # thread traces one ray here). num_devices != 1 (no sharding yet) and
+    # presplit > 0 raise NotImplementedError.
     num_devices: int = 1
     use_native: bool = True
     # Node arity of the packed BVH: 2 (the binary tree), 4 or 8. Each has
@@ -118,6 +117,12 @@ class RenderConfig:
     dual_pop: bool = True
     pop_width: int = 8
     adaptive_pop: bool = True
+    # The MXU leaf: each leaf group's triangle tests as one tensor-core
+    # product of the rays' features with the group's C-matrix (bf16x3,
+    # ops/pack.build_cmat). prepare takes it by the JAX prepare's rule
+    # (ops/pack.mxu_decision: dual_pop, bvh_width >= 4, leaf rows not
+    # streamed, the table within JAX's TPU budget); otherwise, or with
+    # False, the leaf test is the FP32 one.
     mxu_leaf: bool = True
 
     # Score SAH splits by true surface area instead of the reference's

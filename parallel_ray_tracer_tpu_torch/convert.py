@@ -36,6 +36,10 @@ class SceneTables(NamedTuple):
     arity: int              # node arity: 2, 4 or 8, by the cbox row width
     compressed: bool = False  # cbox rows are bf16 (min|max) pairs (arity 4, 8)
     sph: Optional[torch.Tensor] = None  # (S, 16) f32 sphere table, or None
+    # The MXU leaf's C-matrix table, bf16: (rows, 32) [hi | lo]
+    # (ops/pack.split_cmat) or (rows, 128) (ops/pack.pack_cmi4); None: the
+    # FP32 leaf test.
+    cmat: Optional[torch.Tensor] = None
 
 
 def _upload_cbox(cbox, device, compressed: bool):
@@ -59,7 +63,7 @@ def _upload_cbox(cbox, device, compressed: bool):
 
 
 def packed_from_numpy(cbox, cmeta, tri, attr, lamb, *, device, leaf_size: int = 8,
-                      compressed: bool = False, sph=None) -> SceneTables:
+                      compressed: bool = False, sph=None, cmat=None) -> SceneTables:
     """Upload packed numpy tables to `device` as contiguous tensors. The
     node arity follows the cbox row width: 16 -> 2, 32 -> 4, 64 -> 8.
 
@@ -68,7 +72,10 @@ def packed_from_numpy(cbox, cmeta, tri, attr, lamb, *, device, leaf_size: int = 
     binary bf16 table and stays 16-bit (torch.bfloat16); it is never
     widened to f32. The bad combinations raise ValueError, as JAX asserts
     them (pallas_trace.py:3069, 3173, 3283). `sph` is the (S, 16) sphere
-    table of ops/pack.pack_spheres (None: no spheres)."""
+    table of ops/pack.pack_spheres (None: no spheres). `cmat` is the MXU
+    leaf's split C-matrix table as bf16 bits or values ((rows, 32) of
+    ops/pack.split_cmat or (rows, 128) of pack_cmi4; JAX's packed_dev[4]),
+    uploaded as torch.bfloat16 (None: the FP32 leaf test)."""
     cmeta = np.ascontiguousarray(cmeta, np.int32)
     tri = np.ascontiguousarray(tri, np.float32)
     attr = np.ascontiguousarray(attr, np.float32)
@@ -91,12 +98,21 @@ def packed_from_numpy(cbox, cmeta, tri, attr, lamb, *, device, leaf_size: int = 
     def up(a):
         return torch.tensor(a, device=device)  # copies: the input may be read-only
 
+    cmat_t = None
+    if cmat is not None:
+        cmat = np.asarray(cmat)
+        if (cmat.dtype.name not in _BF16_DTYPES or cmat.ndim != 2
+                or cmat.shape[1] not in (32, 128)):
+            raise ValueError(f"expected a bf16 (rows, 32) or (rows, 128) C-matrix "
+                             f"table, got {cmat.dtype} {cmat.shape}")
+        cmat_t = up(np.ascontiguousarray(cmat).view(np.int16)).view(torch.bfloat16)
+
     return SceneTables(
         cbox=cbox_t, cmeta=up(cmeta), tri=up(tri), attr=up(attr),
         lamb=up(lamb), leaf_size=int(leaf_size),
         stack_depth=stack_need(cmeta, arity), arity=arity,
         compressed=bool(compressed),
-        sph=None if sph is None or not len(sph) else up(sph),
+        sph=None if sph is None or not len(sph) else up(sph), cmat=cmat_t,
     )
 
 

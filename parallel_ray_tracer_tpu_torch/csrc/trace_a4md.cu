@@ -1,0 +1,8 @@
+// Arity-4 instances of the traversal kernels (csrc/trace.cuh) with the MXU
+// leaf, the DEEP stack tier (a global stack sized to the tree),
+// f32 boxes.
+
+#include "trace_launch.cuh"
+
+template struct RtLaunch<4, RT_F32, false, true, true>;
+template struct RtFrameLaunch<4, RT_F32, true, true>;

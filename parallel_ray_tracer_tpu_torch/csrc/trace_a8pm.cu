@@ -1,0 +1,7 @@
+// Arity-8 instances of the traversal kernels (csrc/trace.cuh) with the MXU
+// leaf, bf16 pair rows.
+
+#include "trace_launch.cuh"
+
+template struct RtLaunch<8, RT_PAIRS, false, false, true>;
+template struct RtFrameLaunch<8, RT_PAIRS, false, true>;

@@ -1,0 +1,8 @@
+// Arity-8 instances of the traversal kernels (csrc/trace.cuh) with the MXU
+// leaf, the DEEP stack tier (a global stack sized to the tree),
+// bf16 pair rows.
+
+#include "trace_launch.cuh"
+
+template struct RtLaunch<8, RT_PAIRS, false, true, true>;
+template struct RtFrameLaunch<8, RT_PAIRS, true, true>;

@@ -8,7 +8,10 @@
 // at arity 2) pick the instance for the node table's layout, and `stream`
 // (closest and any hit; arity 4 and 8, f32 or pairs) the instance with
 // streamed leaf rows, whose tri and attr hold whole blocks of
-// RT_STREAM_BLK rows. A non-null stk_ent picks the DEEP stack tier: stk_ent
+// RT_STREAM_BLK rows. A non-null cmat picks the MXU instance (arity 4 and
+// 8, f32 or pairs, not streamed): the C-matrix table as bf16 values, rows
+// of cmat_pitch values (32: [hi | lo] of one group's row; 128: four
+// groups' rows, pack_cmi4). A non-null stk_ent picks the DEEP stack tier: stk_ent
 // and stk_dst then hold need * n entries each (entry k of ray i at
 // k * n + i), need >= the tree's ops/pack.stack_need. The frame takes the
 // sphere instance when ns > 0 (sph: ns rows of 16 floats). It returns
@@ -16,7 +19,8 @@
 // cudaErrorInvalidValue for an arity, format and mode without instances.
 // Ray planes are n floats each; attr_out / col_out hold 12 / 3 planes of n.
 // With counts non-null the counting instance runs and adds its sums into
-// counts (RT_NCOUNTS with stream, the first RT_C_FILLS without; trace.cuh);
+// counts (RT_NCOUNTS with stream or cmat, the first RT_C_FILLS without;
+// trace.cuh);
 // with counts null the timed instance runs.
 
 #include "trace.cuh"
@@ -30,10 +34,11 @@ RtRays make_rays(const float* ox, const float* oy, const float* oz,
 }
 
 RtScene make_scene(const void* cbox, const int* cmeta, const float* tri,
-                   const float* attr) {
+                   const float* attr, const void* cmat, int cmat_pitch) {
   RtScene s = {reinterpret_cast<const uint4*>(cbox),
                reinterpret_cast<const int4*>(cmeta),
-               reinterpret_cast<const float4*>(tri), attr};
+               reinterpret_cast<const float4*>(tri), attr,
+               reinterpret_cast<const unsigned*>(cmat), cmat_pitch};
   return s;
 }
 
@@ -44,51 +49,64 @@ RtDeep make_deep(int* ent, float* dst, int n) {
 
 const int kNoInstance = (int)cudaErrorInvalidValue;
 
-// The instance key of (arity, box format, leaf-row mode, stack tier).
-constexpr int key(int arity, int box, int stream = 0, int deep = 0) {
-  return 128 * deep + 64 * stream + 16 * box + arity;
+// The instance key of (arity, box format, leaf-row mode, stack tier, leaf
+// test).
+constexpr int key(int arity, int box, int stream = 0, int deep = 0, int mxu = 0) {
+  return 256 * mxu + 128 * deep + 64 * stream + 16 * box + arity;
 }
 
 }  // namespace
 
-// The cases of one launcher over the instances of both stack tiers.
-#define RT_CASES(X)                                                   \
-  case key(2, RT_F32): return X(2, RT_F32, false, false);             \
-  case key(4, RT_F32): return X(4, RT_F32, false, false);             \
-  case key(8, RT_F32): return X(8, RT_F32, false, false);             \
-  case key(4, RT_PAIRS): return X(4, RT_PAIRS, false, false);         \
-  case key(8, RT_PAIRS): return X(8, RT_PAIRS, false, false);         \
-  case key(2, RT_BF16): return X(2, RT_BF16, false, false);           \
-  case key(4, RT_F32, 1): return X(4, RT_F32, true, false);           \
-  case key(8, RT_F32, 1): return X(8, RT_F32, true, false);           \
-  case key(4, RT_PAIRS, 1): return X(4, RT_PAIRS, true, false);       \
-  case key(8, RT_PAIRS, 1): return X(8, RT_PAIRS, true, false);       \
-  case key(2, RT_F32, 0, 1): return X(2, RT_F32, false, true);        \
-  case key(4, RT_F32, 0, 1): return X(4, RT_F32, false, true);        \
-  case key(8, RT_F32, 0, 1): return X(8, RT_F32, false, true);        \
-  case key(4, RT_PAIRS, 0, 1): return X(4, RT_PAIRS, false, true);    \
-  case key(8, RT_PAIRS, 0, 1): return X(8, RT_PAIRS, false, true);    \
-  case key(2, RT_BF16, 0, 1): return X(2, RT_BF16, false, true);      \
-  case key(4, RT_F32, 1, 1): return X(4, RT_F32, true, true);         \
-  case key(8, RT_F32, 1, 1): return X(8, RT_F32, true, true);         \
-  case key(4, RT_PAIRS, 1, 1): return X(4, RT_PAIRS, true, true);     \
-  case key(8, RT_PAIRS, 1, 1): return X(8, RT_PAIRS, true, true);
+// The cases of one launcher over the instances of both stack tiers and both
+// leaf tests (FP32 and MXU).
+#define RT_CASES(X)                                                           \
+  case key(2, RT_F32): return X(2, RT_F32, false, false, false);              \
+  case key(4, RT_F32): return X(4, RT_F32, false, false, false);              \
+  case key(8, RT_F32): return X(8, RT_F32, false, false, false);              \
+  case key(4, RT_PAIRS): return X(4, RT_PAIRS, false, false, false);          \
+  case key(8, RT_PAIRS): return X(8, RT_PAIRS, false, false, false);          \
+  case key(2, RT_BF16): return X(2, RT_BF16, false, false, false);            \
+  case key(4, RT_F32, 1): return X(4, RT_F32, true, false, false);            \
+  case key(8, RT_F32, 1): return X(8, RT_F32, true, false, false);            \
+  case key(4, RT_PAIRS, 1): return X(4, RT_PAIRS, true, false, false);        \
+  case key(8, RT_PAIRS, 1): return X(8, RT_PAIRS, true, false, false);        \
+  case key(2, RT_F32, 0, 1): return X(2, RT_F32, false, true, false);         \
+  case key(4, RT_F32, 0, 1): return X(4, RT_F32, false, true, false);         \
+  case key(8, RT_F32, 0, 1): return X(8, RT_F32, false, true, false);         \
+  case key(4, RT_PAIRS, 0, 1): return X(4, RT_PAIRS, false, true, false);     \
+  case key(8, RT_PAIRS, 0, 1): return X(8, RT_PAIRS, false, true, false);     \
+  case key(2, RT_BF16, 0, 1): return X(2, RT_BF16, false, true, false);       \
+  case key(4, RT_F32, 1, 1): return X(4, RT_F32, true, true, false);          \
+  case key(8, RT_F32, 1, 1): return X(8, RT_F32, true, true, false);          \
+  case key(4, RT_PAIRS, 1, 1): return X(4, RT_PAIRS, true, true, false);      \
+  case key(8, RT_PAIRS, 1, 1): return X(8, RT_PAIRS, true, true, false);      \
+  case key(4, RT_F32, 0, 0, 1): return X(4, RT_F32, false, false, true);      \
+  case key(4, RT_PAIRS, 0, 0, 1): return X(4, RT_PAIRS, false, false, true);  \
+  case key(8, RT_F32, 0, 0, 1): return X(8, RT_F32, false, false, true);      \
+  case key(8, RT_PAIRS, 0, 0, 1): return X(8, RT_PAIRS, false, false, true);  \
+  case key(4, RT_F32, 0, 1, 1): return X(4, RT_F32, false, true, true);       \
+  case key(4, RT_PAIRS, 0, 1, 1): return X(4, RT_PAIRS, false, true, true);   \
+  case key(8, RT_F32, 0, 1, 1): return X(8, RT_F32, false, true, true);       \
+  case key(8, RT_PAIRS, 0, 1, 1): return X(8, RT_PAIRS, false, true, true);
 
 extern "C" {
 
 int rt_closest(const float* ox, const float* oy, const float* oz,
                const float* dx, const float* dy, const float* dz,
                const void* cbox, const int* cmeta, const float* tri,
-               const float* attr, int arity, int box, int stream, int n,
-               int* stk_ent, float* stk_dst, float* t, int* idx, int* nd,
-               float* attr_out, unsigned long long* counts, void* cuda_stream) {
+               const float* attr, const void* cmat, int arity, int box,
+               int stream, int cmat_pitch, int n, int* stk_ent, float* stk_dst,
+               float* t, int* idx, int* nd, float* attr_out,
+               unsigned long long* counts, void* cuda_stream) {
   RtRays rays = make_rays(ox, oy, oz, dx, dy, dz);
-  RtScene s = make_scene(cbox, cmeta, tri, attr);
+  RtScene s = make_scene(cbox, cmeta, tri, attr, cmat, cmat_pitch);
   RtDeep g = make_deep(stk_ent, stk_dst, n);
   cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
-#define RT_CLOSEST(A, F, S, D) \
-  RtLaunch<A, F, S, D>::closest(rays, s, n, g, t, idx, nd, attr_out, counts, st)
-  switch (key(arity, box, stream != 0, stk_ent != nullptr)) { RT_CASES(RT_CLOSEST) }
+#define RT_CLOSEST(A, F, S, D, M) \
+  RtLaunch<A, F, S, D, M>::closest(rays, s, n, g, t, idx, nd, attr_out, counts, st)
+  switch (key(arity, box, stream != 0, stk_ent != nullptr, cmat != nullptr)) {
+    RT_CASES(RT_CLOSEST)
+  }
 #undef RT_CLOSEST
   return kNoInstance;
 }
@@ -96,16 +114,18 @@ int rt_closest(const float* ox, const float* oy, const float* oz,
 int rt_occluded(const float* ox, const float* oy, const float* oz,
                 const float* dx, const float* dy, const float* dz,
                 const float* max_dist2, const void* cbox, const int* cmeta,
-                const float* tri, int arity, int box, int stream, int n,
-                int* stk_ent, float* stk_dst, int* blocked,
-                unsigned long long* counts, void* cuda_stream) {
+                const float* tri, const void* cmat, int arity, int box,
+                int stream, int cmat_pitch, int n, int* stk_ent, float* stk_dst,
+                int* blocked, unsigned long long* counts, void* cuda_stream) {
   RtRays rays = make_rays(ox, oy, oz, dx, dy, dz);
-  RtScene s = make_scene(cbox, cmeta, tri, nullptr);
+  RtScene s = make_scene(cbox, cmeta, tri, nullptr, cmat, cmat_pitch);
   RtDeep g = make_deep(stk_ent, stk_dst, n);
   cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
-#define RT_OCCLUDED(A, F, S, D) \
-  RtLaunch<A, F, S, D>::occluded(rays, max_dist2, s, n, g, blocked, counts, st)
-  switch (key(arity, box, stream != 0, stk_ent != nullptr)) { RT_CASES(RT_OCCLUDED) }
+#define RT_OCCLUDED(A, F, S, D, M) \
+  RtLaunch<A, F, S, D, M>::occluded(rays, max_dist2, s, n, g, blocked, counts, st)
+  switch (key(arity, box, stream != 0, stk_ent != nullptr, cmat != nullptr)) {
+    RT_CASES(RT_OCCLUDED)
+  }
 #undef RT_OCCLUDED
   return kNoInstance;
 }
@@ -113,26 +133,34 @@ int rt_occluded(const float* ox, const float* oy, const float* oz,
 int rt_frame(const float* ox, const float* oy, const float* oz,
              const float* dx, const float* dy, const float* dz,
              const void* cbox, const int* cmeta, const float* tri,
-             const float* attr, const float* lamb, int num_lights,
-             const float* sph, int ns, int arity, int box, int n, int bounces,
-             int* stk_ent, float* stk_dst, float* col,
-             unsigned long long* counts, void* stream) {
+             const float* attr, const void* cmat, const float* lamb,
+             int num_lights, const float* sph, int ns, int arity, int box,
+             int cmat_pitch, int n, int bounces, int* stk_ent, float* stk_dst,
+             float* col, unsigned long long* counts, void* stream) {
   RtRays rays = make_rays(ox, oy, oz, dx, dy, dz);
-  RtScene s = make_scene(cbox, cmeta, tri, attr);
+  RtScene s = make_scene(cbox, cmeta, tri, attr, cmat, cmat_pitch);
   RtDeep g = make_deep(stk_ent, stk_dst, n);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define RT_FRAME(A, F, D)                                                     \
-  RtFrameLaunch<A, F, D>::frame(rays, s, lamb, num_lights, sph, ns, n, bounces, \
-                                g, col, counts, st)
-  switch (key(arity, box, 0, stk_ent != nullptr)) {
-    case key(4, RT_F32): return RT_FRAME(4, RT_F32, false);
-    case key(8, RT_F32): return RT_FRAME(8, RT_F32, false);
-    case key(4, RT_PAIRS): return RT_FRAME(4, RT_PAIRS, false);
-    case key(8, RT_PAIRS): return RT_FRAME(8, RT_PAIRS, false);
-    case key(4, RT_F32, 0, 1): return RT_FRAME(4, RT_F32, true);
-    case key(8, RT_F32, 0, 1): return RT_FRAME(8, RT_F32, true);
-    case key(4, RT_PAIRS, 0, 1): return RT_FRAME(4, RT_PAIRS, true);
-    case key(8, RT_PAIRS, 0, 1): return RT_FRAME(8, RT_PAIRS, true);
+#define RT_FRAME(A, F, D, M)                                                  \
+  RtFrameLaunch<A, F, D, M>::frame(rays, s, lamb, num_lights, sph, ns, n,       \
+                                   bounces, g, col, counts, st)
+  switch (key(arity, box, 0, stk_ent != nullptr, cmat != nullptr)) {
+    case key(4, RT_F32): return RT_FRAME(4, RT_F32, false, false);
+    case key(8, RT_F32): return RT_FRAME(8, RT_F32, false, false);
+    case key(4, RT_PAIRS): return RT_FRAME(4, RT_PAIRS, false, false);
+    case key(8, RT_PAIRS): return RT_FRAME(8, RT_PAIRS, false, false);
+    case key(4, RT_F32, 0, 1): return RT_FRAME(4, RT_F32, true, false);
+    case key(8, RT_F32, 0, 1): return RT_FRAME(8, RT_F32, true, false);
+    case key(4, RT_PAIRS, 0, 1): return RT_FRAME(4, RT_PAIRS, true, false);
+    case key(8, RT_PAIRS, 0, 1): return RT_FRAME(8, RT_PAIRS, true, false);
+    case key(4, RT_F32, 0, 0, 1): return RT_FRAME(4, RT_F32, false, true);
+    case key(8, RT_F32, 0, 0, 1): return RT_FRAME(8, RT_F32, false, true);
+    case key(4, RT_PAIRS, 0, 0, 1): return RT_FRAME(4, RT_PAIRS, false, true);
+    case key(8, RT_PAIRS, 0, 0, 1): return RT_FRAME(8, RT_PAIRS, false, true);
+    case key(4, RT_F32, 0, 1, 1): return RT_FRAME(4, RT_F32, true, true);
+    case key(8, RT_F32, 0, 1, 1): return RT_FRAME(8, RT_F32, true, true);
+    case key(4, RT_PAIRS, 0, 1, 1): return RT_FRAME(4, RT_PAIRS, true, true);
+    case key(8, RT_PAIRS, 0, 1, 1): return RT_FRAME(8, RT_PAIRS, true, true);
   }
 #undef RT_FRAME
   return kNoInstance;

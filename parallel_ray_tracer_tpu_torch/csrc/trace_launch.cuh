@@ -1,9 +1,10 @@
 // Definitions of the host launchers declared at the end of trace.cuh. Only
 // the per-arity, per-format units (trace_a{2,4,8}.cu, trace_a{4,8}p.cu,
-// trace_a2h.cu, the streamed trace_a{4,8}s.cu, trace_a{4,8}ps.cu, and the
-// DEEP tier's units of the same names with a `d` suffix) include this
-// file, each instantiating the launchers, and with them the kernels, of its
-// own arity, box format, leaf-row mode and stack tier.
+// trace_a2h.cu, the streamed trace_a{4,8}s.cu, trace_a{4,8}ps.cu, the MXU
+// trace_a{4,8}m.cu, trace_a{4,8}pm.cu, and the DEEP tier's units of the
+// same names with a `d` suffix) include this file, each instantiating the
+// launchers, and with them the kernels, of its own arity, box format, leaf
+// mode and stack tier.
 
 #pragma once
 
@@ -13,41 +14,41 @@ namespace rt_detail {
 inline int blocks_for(int n) { return (n + RT_BLOCK - 1) / RT_BLOCK; }
 }  // namespace rt_detail
 
-template <int A, RtBox F, bool S, bool D>
-int RtLaunch<A, F, S, D>::closest(const RtRays& rays, const RtScene& s, int n,
+template <int A, RtBox F, bool S, bool D, bool M>
+int RtLaunch<A, F, S, D, M>::closest(const RtRays& rays, const RtScene& s, int n,
                                   const RtDeep& g, float* t, int* idx, int* nd,
                                   float* attr_out, unsigned long long* counts,
                                   cudaStream_t st) {
   const int b = rt_detail::blocks_for(n);
   if (attr_out != nullptr) {
     if (counts != nullptr) {
-      closest_kernel<A, F, true, true, S, D><<<b, RT_BLOCK, 0, st>>>(
+      closest_kernel<A, F, true, true, S, D, M><<<b, RT_BLOCK, 0, st>>>(
           rays, s, n, g, t, idx, nd, attr_out, counts);
     } else {
-      closest_kernel<A, F, true, false, S, D><<<b, RT_BLOCK, 0, st>>>(
+      closest_kernel<A, F, true, false, S, D, M><<<b, RT_BLOCK, 0, st>>>(
           rays, s, n, g, t, idx, nd, attr_out, counts);
     }
   } else if (counts != nullptr) {
-    closest_kernel<A, F, false, true, S, D><<<b, RT_BLOCK, 0, st>>>(
+    closest_kernel<A, F, false, true, S, D, M><<<b, RT_BLOCK, 0, st>>>(
         rays, s, n, g, t, idx, nd, attr_out, counts);
   } else {
-    closest_kernel<A, F, false, false, S, D><<<b, RT_BLOCK, 0, st>>>(
+    closest_kernel<A, F, false, false, S, D, M><<<b, RT_BLOCK, 0, st>>>(
         rays, s, n, g, t, idx, nd, attr_out, counts);
   }
   return (int)cudaGetLastError();
 }
 
-template <int A, RtBox F, bool S, bool D>
-int RtLaunch<A, F, S, D>::occluded(const RtRays& rays, const float* max_dist2,
+template <int A, RtBox F, bool S, bool D, bool M>
+int RtLaunch<A, F, S, D, M>::occluded(const RtRays& rays, const float* max_dist2,
                                    const RtScene& s, int n, const RtDeep& g,
                                    int* blocked, unsigned long long* counts,
                                    cudaStream_t st) {
   const int b = rt_detail::blocks_for(n);
   if (counts != nullptr) {
-    occluded_kernel<A, F, true, S, D><<<b, RT_BLOCK, 0, st>>>(
+    occluded_kernel<A, F, true, S, D, M><<<b, RT_BLOCK, 0, st>>>(
         rays, max_dist2, s, n, g, blocked, counts);
   } else {
-    occluded_kernel<A, F, false, S, D><<<b, RT_BLOCK, 0, st>>>(
+    occluded_kernel<A, F, false, S, D, M><<<b, RT_BLOCK, 0, st>>>(
         rays, max_dist2, s, n, g, blocked, counts);
   }
   return (int)cudaGetLastError();
@@ -58,26 +59,26 @@ namespace rt_detail {
 // table of more than about 700 spheres) the kernel is allowed the bytes it
 // asks for first; past the card's limit the launch is refused and the
 // error is returned.
-template <int A, RtBox F, bool C, bool SPH, bool D>
+template <int A, RtBox F, bool C, bool SPH, bool D, bool M>
 int frame_launch(const RtRays& rays, const RtScene& s, const float* lamb,
                  int nl, const float* sph, int ns, int n, int bounces,
                  const RtDeep& g, float* col, unsigned long long* counts,
                  cudaStream_t st) {
   const size_t smem = sizeof(float) * (8 * (size_t)(nl + 1) + (SPH ? 16 * (size_t)ns : 0));
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(frame_kernel<A, F, C, SPH, D>,
+    cudaError_t e = cudaFuncSetAttribute(frame_kernel<A, F, C, SPH, D, M>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  frame_kernel<A, F, C, SPH, D><<<blocks_for(n), RT_BLOCK, smem, st>>>(
+  frame_kernel<A, F, C, SPH, D, M><<<blocks_for(n), RT_BLOCK, smem, st>>>(
       rays, s, lamb, nl, sph, ns, n, bounces, g, col, counts);
   return (int)cudaGetLastError();
 }
 }  // namespace rt_detail
 
-template <int A, RtBox F, bool D>
-int RtFrameLaunch<A, F, D>::frame(const RtRays& rays, const RtScene& s,
+template <int A, RtBox F, bool D, bool M>
+int RtFrameLaunch<A, F, D, M>::frame(const RtRays& rays, const RtScene& s,
                                   const float* lamb, int num_lights,
                                   const float* sph, int ns, int n, int bounces,
                                   const RtDeep& g, float* col,
@@ -85,14 +86,14 @@ int RtFrameLaunch<A, F, D>::frame(const RtRays& rays, const RtScene& s,
   using namespace rt_detail;
   if (ns > 0) {
     return counts != nullptr
-        ? frame_launch<A, F, true, true, D>(rays, s, lamb, num_lights, sph, ns, n,
+        ? frame_launch<A, F, true, true, D, M>(rays, s, lamb, num_lights, sph, ns, n,
                                             bounces, g, col, counts, st)
-        : frame_launch<A, F, false, true, D>(rays, s, lamb, num_lights, sph, ns, n,
+        : frame_launch<A, F, false, true, D, M>(rays, s, lamb, num_lights, sph, ns, n,
                                              bounces, g, col, counts, st);
   }
   return counts != nullptr
-      ? frame_launch<A, F, true, false, D>(rays, s, lamb, num_lights, sph, 0, n,
+      ? frame_launch<A, F, true, false, D, M>(rays, s, lamb, num_lights, sph, 0, n,
                                            bounces, g, col, counts, st)
-      : frame_launch<A, F, false, false, D>(rays, s, lamb, num_lights, sph, 0, n,
+      : frame_launch<A, F, false, false, D, M>(rays, s, lamb, num_lights, sph, 0, n,
                                             bounces, g, col, counts, st);
 }

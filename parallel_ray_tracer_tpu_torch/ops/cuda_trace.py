@@ -1,6 +1,6 @@
 """Port of the device half of parallel_ray_tracer_tpu/ops/pallas_trace.py: the
 wrappers of the CUDA traversal kernels (csrc/trace.cuh), at node arity 2, 4
-and 8, on f32 or bf16 node boxes.
+and 8, on f32 or bf16 node boxes, with the FP32 or the MXU leaf test.
 
 | wrapper              | kernel                        | replaces (pallas_trace.py)                                                  |
 | -------------------- | ----------------------------- | --------------------------------------------------------------------------- |
@@ -11,6 +11,7 @@ and 8, on f32 or bf16 node boxes.
 | `frame_tiles`, `sph` of S > 0 rows | `frame_kernel<A, F, COUNT, SPH = true>`, A 4, 8 | `_frame_fused_kernel(num_spheres > 0)` :2536 (`sphere_t` :2604, `sphere_closest_merge` :2626, `sphere_occluded_merge` :2655) |
 | `closest_tiles`, `closest_tiles_full`, `stream=True` | `closest_kernel<A, F, FULL, COUNT, true>`, A 4, 8 | `_closest_stream_kernel(n_attr=0, 12)` :2070 |
 | `occluded_tiles`, `stream=True` | `occluded_kernel<A, F, COUNT, true>`, A 4, 8 | `_occluded_stream_kernel` :2253 |
+| each, with `cmat`    | the same kernels with `MXU = true`, A 4, 8 | their `mxu=True` instances: the MXU leaf `_mxu_*` :1002-1466 |
 
 The arity A comes from the node table (cbox row width 16, 32 or 64, as
 pallas_trace.py:3068), the box format F from its dtype and `compressed`:
@@ -22,9 +23,21 @@ pallas_trace.py:3068), the box format F from its dtype and `compressed`:
     cbox_to_bf16, which JAX's binary kernels read with .astype(f32).
 Rays come as (rows, 128) f32 planes in the tile-major
 order of ops/render.generate_rays_tiled. The signatures are the JAX ones
-without the TPU schedule knobs (dual, npop, adaptive, smem_meta, sort,
-cmat): one thread traces one ray, so none of them applies, and the JAX
+without the TPU schedule knobs (dual, npop, nleaf, adaptive, smem_meta,
+sort): one thread traces one ray, so none of them applies, and the JAX
 single-pop and dual-pop kernels of one arity map to the same instance.
+
+`cmat`, the MXU leaf's C-matrix table as a torch.bfloat16 tensor ((G+1)*32
+rows of [hi(16) | lo(16)], ops/pack.split_cmat; or the four-group
+(ceil((G+1)/4)*32, 128) layout of ops/pack.pack_cmi4, whose hits are the
+same bit for bit), takes the MXU instances under JAX's own condition
+(pallas_trace.py:3084, :2896): arity 4 or 8 and leaf rows not streamed. At
+arity 2 and with stream=True the FP32 instances run, as JAX's wrappers
+fall back to the VPU leaf. The MXU instances test each leaf group as a
+tensor-core product of the rays' features with the group's C-matrix
+(bf16x3, csrc/trace.cuh); their hits are held to the repo's hit bounds
+against the FP32 ones, never bit for bit. A cmat of another dtype, width
+or row count raises ValueError.
 
 `stream=True` takes the instances with streamed leaf rows, which prefetch
 leaf blocks into L2 ahead of use (csrc/trace.cuh); their hits are those of
@@ -34,13 +47,15 @@ padded to whole blocks of STREAM_BLK rows (ops/pack.pad_stream_rows), on
 every device.
 
 A tensor on the CPU runs the kernel's plain version (ops/trace_plain.py, and
-ops/shade.trace_rays for the frame); the plain versions read no node table,
-so they are the oracle for every box format. A CUDA tensor launches the
-kernel, or raises: there is no fallback. Each wrapper checks device, dtype,
-shape and contiguity, counts its launches in `LAUNCHES` by kernel, arity
-and format (keys such as "closest_full<8>", or "frame<8,bf16>" and
-"occluded<2,bf16>" for the bf16 instances, "closest_full_stream<4>" for
-a streamed one), and raises if the launch reported an error.
+ops/shade.trace_rays for the frame; the `*_mxu_plain` versions with
+`cmat`); the plain versions read no node table, so they are the oracle for
+every box format. A CUDA tensor launches the kernel, or raises: there is no
+fallback. Each wrapper checks device, dtype, shape and contiguity, counts
+its launches in `LAUNCHES` by kernel, arity and format (keys such as
+"closest_full<8>", or "frame<8,bf16>" and "occluded<2,bf16>" for the bf16
+instances, "closest_full_stream<4>" for a streamed one, "frame_mxu<4>" or
+"occluded_mxu<8,bf16,deep>" for an MXU one), and raises if the launch
+reported an error.
 
 The kernels hold L = 8 triangles per leaf row and trace shadow rays from
 the light: `leaf_size` other than 8 and `reverse_shadows=False` raise
@@ -59,7 +74,7 @@ stack.
 
 `counters=True` (CUDA only) launches the kernel's counting instance and also
 returns an int64 tensor of the `COUNTS` sums over the rays (`STREAM_COUNTS`
-for a streamed launch).
+for a streamed launch, `MXU_COUNTS` for an MXU one).
 """
 
 from __future__ import annotations
@@ -75,7 +90,9 @@ from .intersect import T_MAX
 from .pack import ARITY_OF_WIDTH, LANES, META_WIDTH, STREAM_BLK, stack_need
 from .shade import trace_rays
 from .spheres import nearest_sphere
-from .trace_plain import Hit, HitFull, closest_full_plain, closest_plain, occluded_plain
+from .trace_plain import (Hit, HitFull, closest_full_mxu_plain, closest_full_plain,
+                          closest_mxu_plain, closest_plain, occluded_mxu_plain,
+                          occluded_plain)
 from .vecmath import Vec3
 
 # The standard tier's per-thread stack entries by arity, RtArity<A>::STACK
@@ -91,6 +108,14 @@ COUNTS = ("inner_visits", "box_tests", "leaf_visits", "tri_tests", "traversals")
 # ring's final clock) and the sync fetches (leaf visits whose block was in
 # no ring slot).
 STREAM_COUNTS = COUNTS + ("block_fills", "sync_fetches")
+# An MXU launch also counts its mma batches (one per leaf group a warp
+# serves: 24 mma.sync each) and the lanes served (rays that took a
+# group's result; the same number as leaf_visits).
+MXU_COUNTS = COUNTS + ("mma_batches", "lanes_served")
+# C-matrix table widths in bf16 values: one group per row ([hi | lo],
+# ops/pack.split_cmat) or four (ops/pack.pack_cmi4); rows per group.
+CMAT_WIDTHS = (32, 128)
+CMAT_GROUP_ROWS = 4 * LEAF_SIZE
 
 # The arities each kernel is instantiated for; every arity also has one
 # bf16 format (RT_PAIRS at 4 and 8, RT_BF16 at 2), and each instance a
@@ -101,8 +126,11 @@ ARITIES = {"closest": (2, 4, 8), "closest_full": (2, 4, 8),
 BOX_F32, BOX_PAIRS, BOX_BF16 = 0, 1, 2
 # The streamed instances (f32 and bf16 pair rows at each arity).
 STREAM_ARITIES = {"closest": (4, 8), "closest_full": (4, 8), "occluded": (4, 8)}
+# The MXU instances (f32 and bf16 pair rows at each arity, no streaming).
+MXU_ARITIES = {k: (4, 8) for k in ARITIES}
 LAUNCHES = {f"{k}{mode}<{a}{sfx}{tier}>": 0
-            for mode, kernels in (("", ARITIES), ("_stream", STREAM_ARITIES))
+            for mode, kernels in (("", ARITIES), ("_stream", STREAM_ARITIES),
+                                  ("_mxu", MXU_ARITIES))
             for k, arities in kernels.items() for a in arities
             for sfx in ("", ",bf16") for tier in ("", ",deep")}
 
@@ -186,11 +214,40 @@ def _check_stream(stream, arity, tri, attr):
                 f"{STREAM_BLK} rows (ops/pack.pad_stream_rows)")
 
 
+def _check_cmat(cmat, tri, device, mxu: bool) -> None:
+    """A C-matrix table: torch.bfloat16, (rows, 32) or (rows, 128),
+    contiguous, on the tables' device; where the MXU instance runs, with
+    the rows of tri's groups (32 per group, or per four groups)."""
+    if cmat is None:
+        return
+    width = cmat.shape[1] if isinstance(cmat, torch.Tensor) and cmat.dim() == 2 else None
+    if width not in CMAT_WIDTHS or cmat.dtype != torch.bfloat16:
+        raise ValueError(
+            f"cmat: {getattr(cmat, 'dtype', type(cmat).__name__)} of shape "
+            f"{tuple(getattr(cmat, 'shape', ()))}, expected torch.bfloat16 rows of 32 "
+            "(ops/pack.split_cmat) or 128 values (ops/pack.pack_cmi4)")
+    per_row = width // 32
+    rows = -(-tri.shape[0] // per_row) * CMAT_GROUP_ROWS
+    if mxu and cmat.shape[0] != rows:
+        raise ValueError(f"cmat: {cmat.shape[0]} rows, expected {rows} for "
+                         f"{tri.shape[0]} leaf groups")
+    if cmat.device != device:
+        raise ValueError(f"cmat: on {cmat.device}, expected {device}")
+    if not cmat.is_contiguous():
+        raise ValueError("cmat: must be contiguous")
+
+
+def _use_mxu(cmat, arity: int, stream: bool) -> bool:
+    """JAX's condition for the MXU leaf (pallas_trace.py:3084, :2896): a
+    C-matrix table, arity 4 or 8, leaf rows not streamed."""
+    return cmat is not None and arity >= 4 and not stream
+
+
 def _instance(kernel: str, arity: int, box: int, stream: bool = False,
-              deep: bool = False) -> str:
+              deep: bool = False, mxu: bool = False) -> str:
     """The LAUNCHES key of a launch, e.g. "closest<4,bf16>",
-    "occluded_stream<8>" or "frame_sph<4,deep>"."""
-    mode = "_stream" if stream else ""
+    "occluded_stream<8>", "frame_sph<4,deep>" or "frame_mxu<4>"."""
+    mode = "_stream" if stream else "_mxu" if mxu else ""
     return (f"{kernel}{mode}<{arity}{'' if box == BOX_F32 else ',bf16'}"
             f"{',deep' if deep else ''}>")
 
@@ -211,16 +268,14 @@ class _Launch(NamedTuple):
 
 
 def _launch_setup(cmeta, arity, stack_depth, counters, stream=False,
-                  n_rays=0) -> _Launch:
+                  n_rays=0, mxu=False) -> _Launch:
     """The library, a counts buffer, and the stack tier for the tree: the
     DEEP tier's stack of `need` entries for each of n_rays rays."""
     need = (stack_need(cmeta.cpu().numpy(), arity) if stack_depth is None
             else int(stack_depth))
-    counts = (
-        torch.zeros(len(STREAM_COUNTS if stream else COUNTS), dtype=torch.int64,
-                    device=cmeta.device)
-        if counters else None
-    )
+    names = STREAM_COUNTS if stream else MXU_COUNTS if mxu else COUNTS
+    counts = (torch.zeros(len(names), dtype=torch.int64, device=cmeta.device)
+              if counters else None)
     if not use_deep_tier(need, arity):
         return _Launch(load_library(), counts, False, None, None)
     return _Launch(load_library(), counts, True,
@@ -242,27 +297,38 @@ def _no_counters_on_cpu(counters):
         raise ValueError("counters are kept by the CUDA kernels only")
 
 
+def _cmat_args(cmat, mxu: bool):
+    """The C entry points' (cmat pointer, row pitch): null and 0 for the
+    FP32 instances."""
+    return (_ptr(cmat), int(cmat.shape[1])) if mxu else (_ptr(None), 0)
+
+
 def closest_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, leaf_size: int,
                   stack_depth: Optional[int] = None, counters: bool = False,
-                  compressed: bool = False, stream: bool = False):
+                  compressed: bool = False, stream: bool = False, cmat=None):
     """Closest hit over (rows, 128) ray planes -> Hit (t, idx, norm_dir)."""
     device, rows, arity, box = _check_inputs(cbox, cmeta, tri, None, None,
                                              (*o, *d), leaf_size, compressed)
     _check_stream(stream, arity, tri, None)
+    mxu = _use_mxu(cmat, arity, stream)
+    _check_cmat(cmat, tri, device, mxu)
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
+        if mxu:
+            return closest_mxu_plain(cmat, tri, o, d, leaf_size)
         return closest_plain(tri, o, d, leaf_size)
-    ls = _launch_setup(cmeta, arity, stack_depth, counters, stream, rows * LANES)
+    ls = _launch_setup(cmeta, arity, stack_depth, counters, stream, rows * LANES, mxu)
     t = torch.empty((rows, LANES), dtype=torch.float32, device=device)
     idx = torch.empty((rows, LANES), dtype=torch.int32, device=device)
     nd = torch.empty((rows, LANES), dtype=torch.int32, device=device)
+    cptr, cpitch = _cmat_args(cmat, mxu)
     rc = ls.lib.rt_closest(
         *(_ptr(p) for p in (*o, *d)), _ptr(cbox), _ptr(cmeta), _ptr(tri),
-        _ptr(None), arity, box, int(stream), rows * LANES, _ptr(ls.stk_ent),
-        _ptr(ls.stk_dst), _ptr(t), _ptr(idx), _ptr(nd), _ptr(None),
-        _ptr(ls.counts), _stream(device),
+        _ptr(None), cptr, arity, box, int(stream), cpitch, rows * LANES,
+        _ptr(ls.stk_ent), _ptr(ls.stk_dst), _ptr(t), _ptr(idx), _ptr(nd),
+        _ptr(None), _ptr(ls.counts), _stream(device),
     )
-    key = _instance("closest", arity, box, stream, ls.deep)
+    key = _instance("closest", arity, box, stream, ls.deep, mxu)
     LAUNCHES[key] += 1
     _raise_on(rc, key)
     hit = Hit(t=t, idx=idx, norm_dir=nd.bool())
@@ -271,27 +337,32 @@ def closest_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, leaf_size: int,
 
 def closest_tiles_full(cbox, cmeta, tri, attr, o: Vec3, d: Vec3, leaf_size: int,
                        stack_depth: Optional[int] = None, counters: bool = False,
-                       compressed: bool = False, stream: bool = False):
+                       compressed: bool = False, stream: bool = False, cmat=None):
     """Closest hit plus the winning triangle's raw normal and kd/ks/kr ->
     HitFull."""
     device, rows, arity, box = _check_inputs(cbox, cmeta, tri, attr, None,
                                              (*o, *d), leaf_size, compressed)
     _check_stream(stream, arity, tri, attr)
+    mxu = _use_mxu(cmat, arity, stream)
+    _check_cmat(cmat, tri, device, mxu)
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
+        if mxu:
+            return closest_full_mxu_plain(cmat, tri, attr, o, d, leaf_size)
         return closest_full_plain(tri, attr, o, d, leaf_size)
-    ls = _launch_setup(cmeta, arity, stack_depth, counters, stream, rows * LANES)
+    ls = _launch_setup(cmeta, arity, stack_depth, counters, stream, rows * LANES, mxu)
     t = torch.empty((rows, LANES), dtype=torch.float32, device=device)
     idx = torch.empty((rows, LANES), dtype=torch.int32, device=device)
     nd = torch.empty((rows, LANES), dtype=torch.int32, device=device)
     av = torch.empty((12, rows, LANES), dtype=torch.float32, device=device)
+    cptr, cpitch = _cmat_args(cmat, mxu)
     rc = ls.lib.rt_closest(
         *(_ptr(p) for p in (*o, *d)), _ptr(cbox), _ptr(cmeta), _ptr(tri),
-        _ptr(attr), arity, box, int(stream), rows * LANES, _ptr(ls.stk_ent),
-        _ptr(ls.stk_dst), _ptr(t), _ptr(idx), _ptr(nd), _ptr(av),
-        _ptr(ls.counts), _stream(device),
+        _ptr(attr), cptr, arity, box, int(stream), cpitch, rows * LANES,
+        _ptr(ls.stk_ent), _ptr(ls.stk_dst), _ptr(t), _ptr(idx), _ptr(nd),
+        _ptr(av), _ptr(ls.counts), _stream(device),
     )
-    key = _instance("closest_full", arity, box, stream, ls.deep)
+    key = _instance("closest_full", arity, box, stream, ls.deep, mxu)
     LAUNCHES[key] += 1
     _raise_on(rc, key)
     hit = HitFull(
@@ -304,23 +375,29 @@ def closest_tiles_full(cbox, cmeta, tri, attr, o: Vec3, d: Vec3, leaf_size: int,
 
 def occluded_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, max_dist2, leaf_size: int,
                    stack_depth: Optional[int] = None, counters: bool = False,
-                   compressed: bool = False, stream: bool = False):
+                   compressed: bool = False, stream: bool = False, cmat=None):
     """Any hit with t*t < max_dist2 over (rows, 128) ray planes -> bool."""
     device, rows, arity, box = _check_inputs(
         cbox, cmeta, tri, None, None, (*o, *d, max_dist2), leaf_size, compressed
     )
     _check_stream(stream, arity, tri, None)
+    mxu = _use_mxu(cmat, arity, stream)
+    _check_cmat(cmat, tri, device, mxu)
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
+        if mxu:
+            return occluded_mxu_plain(cmat, tri, o, d, max_dist2, leaf_size)
         return occluded_plain(tri, o, d, max_dist2, leaf_size)
-    ls = _launch_setup(cmeta, arity, stack_depth, counters, stream, rows * LANES)
+    ls = _launch_setup(cmeta, arity, stack_depth, counters, stream, rows * LANES, mxu)
     blocked = torch.empty((rows, LANES), dtype=torch.int32, device=device)
+    cptr, cpitch = _cmat_args(cmat, mxu)
     rc = ls.lib.rt_occluded(
         *(_ptr(p) for p in (*o, *d)), _ptr(max_dist2), _ptr(cbox), _ptr(cmeta),
-        _ptr(tri), arity, box, int(stream), rows * LANES, _ptr(ls.stk_ent),
-        _ptr(ls.stk_dst), _ptr(blocked), _ptr(ls.counts), _stream(device),
+        _ptr(tri), cptr, arity, box, int(stream), cpitch, rows * LANES,
+        _ptr(ls.stk_ent), _ptr(ls.stk_dst), _ptr(blocked), _ptr(ls.counts),
+        _stream(device),
     )
-    key = _instance("occluded", arity, box, stream, ls.deep)
+    key = _instance("occluded", arity, box, stream, ls.deep, mxu)
     LAUNCHES[key] += 1
     _raise_on(rc, key)
     return (blocked.bool(), ls.counts) if counters else blocked.bool()
@@ -329,11 +406,13 @@ def occluded_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, max_dist2, leaf_size: int
 def frame_tiles(cbox, cmeta, tri, attr, lamb, o: Vec3, d: Vec3, *, bounces: int,
                 leaf_size: int, stack_depth: Optional[int] = None,
                 reverse_shadows: bool = True, counters: bool = False,
-                compressed: bool = False, sph: Optional[torch.Tensor] = None):
+                compressed: bool = False, sph: Optional[torch.Tensor] = None,
+                cmat=None):
     """Fused whole-frame render over (rows, 128) ray planes -> unclamped
     colour planes (Vec3). `lamb` is the (num_lights + 1, 8) light table of
     ops/pack.pack_lights; `sph`, when it has rows, the (S, 16) sphere table
-    of ops/pack.pack_spheres, merged after each traversal."""
+    of ops/pack.pack_spheres, merged after each traversal; `cmat` takes
+    the MXU leaf in every traversal of the frame."""
     if not reverse_shadows:
         raise NotImplementedError("reverse_shadows=False is not ported")
     device, rows, arity, box = _check_inputs(cbox, cmeta, tri, attr, lamb,
@@ -343,19 +422,23 @@ def frame_tiles(cbox, cmeta, tri, attr, lamb, o: Vec3, d: Vec3, *, bounces: int,
     if sph is not None:
         _check("sph", sph, torch.float32, (None, SPHERE_COLS), device)
     ns = 0 if sph is None else int(sph.shape[0])
+    mxu = _use_mxu(cmat, arity, False)
+    _check_cmat(cmat, tri, device, mxu)
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
         return frame_plain(tri, attr, lamb, o, d, bounces=bounces,
-                           leaf_size=leaf_size, sph=sph)
-    ls = _launch_setup(cmeta, arity, stack_depth, counters, n_rays=rows * LANES)
+                           leaf_size=leaf_size, sph=sph, cmat=cmat)
+    ls = _launch_setup(cmeta, arity, stack_depth, counters, n_rays=rows * LANES, mxu=mxu)
     col = torch.empty((3, rows, LANES), dtype=torch.float32, device=device)
+    cptr, cpitch = _cmat_args(cmat, mxu)
     rc = ls.lib.rt_frame(
         *(_ptr(p) for p in (*o, *d)), _ptr(cbox), _ptr(cmeta), _ptr(tri),
-        _ptr(attr), _ptr(lamb), int(lamb.shape[0]) - 1, _ptr(sph if ns else None),
-        ns, arity, box, rows * LANES, int(bounces), _ptr(ls.stk_ent),
-        _ptr(ls.stk_dst), _ptr(col), _ptr(ls.counts), _stream(device),
+        _ptr(attr), cptr, _ptr(lamb), int(lamb.shape[0]) - 1,
+        _ptr(sph if ns else None), ns, arity, box, cpitch, rows * LANES,
+        int(bounces), _ptr(ls.stk_ent), _ptr(ls.stk_dst), _ptr(col),
+        _ptr(ls.counts), _stream(device),
     )
-    key = _instance("frame_sph" if ns else "frame", arity, box, deep=ls.deep)
+    key = _instance("frame_sph" if ns else "frame", arity, box, deep=ls.deep, mxu=mxu)
     LAUNCHES[key] += 1
     _raise_on(rc, key)
     out = Vec3(col[0], col[1], col[2])
@@ -388,20 +471,23 @@ def _merge_spheres(sph: torch.Tensor, n_slots: int, o: Vec3, d: Vec3,
 
 
 def frame_plain(tri, attr, lamb, o: Vec3, d: Vec3, *, bounces: int,
-                leaf_size: int, sph: Optional[torch.Tensor] = None) -> Vec3:
+                leaf_size: int, sph: Optional[torch.Tensor] = None,
+                cmat: Optional[torch.Tensor] = None) -> Vec3:
     """Plain version of frame_kernel: the pass-based bounce loop
     (ops/shade.trace_rays) over the plain traversals, on any device, with
     the sphere rows of `sph` merged after each traversal as the kernel
-    merges them."""
+    merges them; with `cmat` the MXU leaf's plain traversals."""
     ds = device_scene_from_lights(lamb)
     n_slots = tri.shape[0] * leaf_size
 
     def closest(o, d):
-        hit = closest_full_plain(tri, attr, o, d, leaf_size)
+        hit = (closest_full_plain(tri, attr, o, d, leaf_size) if cmat is None
+               else closest_full_mxu_plain(cmat, tri, attr, o, d, leaf_size))
         return hit if sph is None or not len(sph) else _merge_spheres(sph, n_slots, o, d, hit)
 
     def occluded(o, d, m2):
-        blocked = occluded_plain(tri, o, d, m2, leaf_size)
+        blocked = (occluded_plain(tri, o, d, m2, leaf_size) if cmat is None
+                   else occluded_mxu_plain(cmat, tri, o, d, m2, leaf_size))
         if sph is None or not len(sph):
             return blocked
         ts, _, _ = nearest_sphere(Vec3(sph[:, 0], sph[:, 1], sph[:, 2]), sph[:, 3], o, d)

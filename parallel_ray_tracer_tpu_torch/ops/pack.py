@@ -1,13 +1,14 @@
 """Port of the host half of parallel_ray_tracer_tpu/ops/pallas_trace.py: the
 numpy packers that turn a FlatBVH into the tables the kernels read.
 
-Copied from pallas_trace.py (pack_bvh :160-224 without `_build_cmat`,
+Copied from pallas_trace.py (pack_bvh :160-224, _build_cmat :227-263,
 pack_bvh4 :267-349, pack_bvh8 :352-417, pack_box_bf16_pairs :438-484,
-cbox_to_bf16 :487-505, pack_attr :2397, pack_spheres :2950, pack_lights
-:2971, required_stack_depth :61, _pad_stream_rows :3023) without the MXU leaf
-matrices (`cmat`), which the port does not take yet. Same inputs give
-bit-identical tables. `stream_decision` is the JAX prepare's choice of
-leaf-row streaming (pipeline.py:350-368).
+cbox_to_bf16 :487-505, pack_cmi4 :1356, pack_attr :2397, pack_spheres
+:2950, pack_lights :2971, required_stack_depth :61, _pad_stream_rows
+:3023). Same inputs give bit-identical tables. `stream_decision` is the JAX
+prepare's choice of leaf-row streaming (pipeline.py:350-368),
+`mxu_decision` its choice of the MXU leaf (pipeline.py:407-433), and
+`split_cmat` its upload of the C-matrix table (pipeline.py:442-446).
 
   - ``cbox`` f32 node rows, child k's [min.xyz, max.xyz] at lanes [6k, 6k+6):
     (Ni, 16) binary, (Nq+1, 32) BVH4, (No+1, 64) BVH8. In the BVH4 and BVH8
@@ -29,6 +30,14 @@ leaf-row streaming (pipeline.py:350-368).
   - ``tri`` (G+1, 128) f32: leaf groups of L triangles, 12 floats each
     [v0, e1, e2, n]; pad slots and the last (NULL) row are zero.
   - ``attr`` (G+1, 128) f32: triangle j's [kd, ks, kr] at lanes [9j, 9j+9).
+  - ``cmat`` ((G+1)*4L, 16) f32: the MXU leaf's C-matrices (build_cmat),
+    row 4L*g + L*q + j holding quantity q (det, t_num, u_num, v_num) of
+    triangle j of group g as a row against the ray's features
+    R = [d, o x d, o, 1, 0 x 6]; pad slots and the NULL group are zero.
+    The kernels read it split into bf16 halves: ((G+1)*4L, 32) rows
+    [hi(16) | lo(16)] (split_cmat), or four groups per 128-lane row
+    (pack_cmi4). bf16 tables are numpy uint16 bits, the bits of JAX's
+    ml_dtypes bfloat16 arrays.
   - ``lamb`` (nl+1, 8) f32: rows (light_pos.xyz, light_kl.rgb, 0, 0), then
     the ambient colour.
   - ``sph`` (S, 16) f32: rows (centre.xyz, r, kd.rgb, ks.rgb, kr.rgb, 0, 0,
@@ -64,6 +73,15 @@ STREAM_BLK = 4
 # on the TPU's VMEM): the port streams where JAX streams, so both packages
 # take the same path. It is not a limit of the CUDA card.
 RESIDENT_ROWS_CEILING_BYTES = 126 * 1024 * 1024
+# JAX's MXU-leaf budgets (pipeline.py:27-37), measured for the TPU's VMEM:
+# the padded C-matrix table (rows x 128 lanes x 2 bytes) plus the scene
+# rows must fit MXU_VMEM_BUDGET for its prepare to take the MXU leaf; the
+# second is its ceiling for the pack_cmi4 layout, which its prepare never
+# selects. The port keeps both so that the two packages pick the same leaf
+# test; neither is a limit of the CUDA card.
+MXU_VMEM_BUDGET = 88 * 1024 * 1024
+MXU_VMEM_BUDGET4 = 112 * 1024 * 1024
+CMAT_K = 16                          # features per ray in the MXU leaf
 
 
 def pad_stream_rows(a: np.ndarray) -> np.ndarray:
@@ -81,6 +99,20 @@ def stream_decision(n_cbox: int, n_cmeta: int, n_tri: int, mode: str) -> bool:
     padding, passes RESIDENT_ROWS_CEILING_BYTES."""
     resident = 512 * (int(n_cbox) + int(n_cmeta) + 2 * int(n_tri))
     return mode == "on" or (mode == "auto" and resident > RESIDENT_ROWS_CEILING_BYTES)
+
+
+def mxu_decision(cfg, n_rows_cmat: int, scene_bytes: int, stream: bool,
+                 leaf_size: int = 8) -> bool:
+    """Whether the leaf test is the MXU leaf, by the JAX prepare's rule
+    (pipeline.py:407-433): cfg.mxu_leaf, the dual-pop schedule, a node
+    arity of 4 or 8, leaves of 4 or 8 triangles, leaf rows not streamed,
+    and the padded C-matrix table (n_rows_cmat x 128 lanes x 2 bytes) plus
+    the scene rows (cbox, cmeta, tri and attr bytes) within
+    MXU_VMEM_BUDGET. The budget is the TPU's, kept so that both packages
+    take the same leaf test; it is no limit of the CUDA card."""
+    ok = (bool(cfg.mxu_leaf) and bool(cfg.dual_pop) and cfg.bvh_width >= 4
+          and leaf_size in (4, 8) and not stream)
+    return ok and int(n_rows_cmat) * 128 * 2 + int(scene_bytes) <= MXU_VMEM_BUDGET
 
 
 def required_stack_depth(tree_depth: int, arity: int, npop: int = 2) -> int:
@@ -125,10 +157,13 @@ class PackedBVH:
     cmeta: np.ndarray   # (Ni, 8) / (Nq+1, 8) / (No+1, 16) i32
     tri: np.ndarray     # (G+1, 128) f32
     compressed: bool = False   # cbox holds bf16 (min|max) pairs (f32 view)
+    cmat: "np.ndarray | None" = None   # ((G+1)*4L, 16) f32 MXU leaf C-matrices
 
 
-def pack_tri_rows(flat: FlatBVH, tri_verts: np.ndarray) -> np.ndarray:
-    """(G+1, 128) triangle group rows (pallas_trace.pack_bvh :201-218).
+def pack_leaf_rows(flat: FlatBVH, tri_verts: np.ndarray):
+    """(tri, cmat): the (G+1, 128) triangle group rows and the MXU leaf's
+    C-matrices of the same slots (build_cmat), as pallas_trace.pack_bvh
+    :201-223 makes both.
 
     Slot s = g*L + j lives at lanes [12j, 12j+12) of row g; pad slots
     (slot_map == -1) and the trailing NULL row stay zero (n == 0, never
@@ -148,7 +183,96 @@ def pack_tri_rows(flat: FlatBVH, tri_verts: np.ndarray) -> np.ndarray:
     data[sm < 0] = 0.0
     tri = np.zeros((G + 1, LANES), np.float32)
     tri[:G, : TRI_STRIDE * L] = data.reshape(G, L * TRI_STRIDE)
-    return tri
+    return tri, build_cmat(v0, e1, e2, n, sm, G, L)
+
+
+def build_cmat(v0, e1, e2, n, sm, G: int, L: int) -> np.ndarray:
+    """((G+1)*4L, 16) leaf C-matrices for the MXU leaf
+    (pallas_trace._build_cmat :227-263).
+
+    Möller-Trumbore's four quantities of a (ray, triangle) pair are linear
+    in the ray's features R = [d(3), M = o x d(3), o(3), 1, 0 x 6]:
+
+        det   = (-n) . d
+        t_num = n . o - (v0 . n)
+        u_num = e2 . M - (e2 x v0) . d
+        v_num = (e1 x v0) . d - e1 . M
+
+    so one (4L, 16) matrix per leaf group gives all of its tests as one
+    product with R. Row 4L*g + L*q + j holds quantity q of triangle j;
+    pad slots and the trailing NULL group are zero (det == 0: no hit).
+    v0 . n is summed in f64, as in JAX."""
+    c1 = np.cross(e1, v0)
+    c2 = np.cross(e2, v0)
+    S = v0.shape[0]
+    C = np.zeros((4, S, CMAT_K), np.float32)
+    C[0, :, 0:3] = -n
+    C[1, :, 6:9] = n
+    C[1, :, 9] = -np.sum(n.astype(np.float64) * v0, axis=1).astype(np.float32)
+    C[2, :, 3:6] = e2
+    C[2, :, 0:3] = -c2
+    C[3, :, 3:6] = -e1
+    C[3, :, 0:3] = c1
+    C[:, sm < 0] = 0.0
+    out = np.zeros(((G + 1) * 4 * L, CMAT_K), np.float32)
+    out[: G * 4 * L] = np.ascontiguousarray(
+        C.reshape(4, G, L, CMAT_K).transpose(1, 0, 2, 3)
+    ).reshape(G * 4 * L, CMAT_K)
+    return out
+
+
+def bf16_bits(x: np.ndarray) -> np.ndarray:
+    """f32 -> bf16 bits (uint16), rounded to nearest even, as JAX's and
+    ml_dtypes' conversion rounds; a NaN stays a (quiet) NaN."""
+    x = np.ascontiguousarray(x, np.float32)
+    u = x.view(np.uint32).astype(np.uint64)
+    r = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+    return np.where(np.isnan(x), np.uint16(0x7FC0), r)
+
+
+def bf16_value(bits: np.ndarray) -> np.ndarray:
+    """bf16 bits (uint16) -> their f32 values, exactly."""
+    return (np.asarray(bits, np.uint16).astype(np.uint32) << 16).view(np.float32)
+
+
+def _split(cmat: np.ndarray):
+    """(hi, lo) bf16 bits of an f32 table: hi = bf16(x), lo = bf16(x - hi)."""
+    cmat = np.ascontiguousarray(cmat, np.float32)
+    hi = bf16_bits(cmat)
+    return hi, bf16_bits(cmat - bf16_value(hi))
+
+
+def split_cmat(cmat: np.ndarray) -> np.ndarray:
+    """The C-matrix table as the kernels read it: (rows, 32) bf16 bits, row
+    [hi(16) | lo(16)] (the JAX prepare's upload, pipeline.py:442-446)."""
+    hi, lo = _split(cmat)
+    return np.concatenate([hi, lo], axis=1)
+
+
+def pack_cmi4(cmat: np.ndarray, L: int = 8) -> np.ndarray:
+    """The C-matrix table four groups per 128-lane row
+    (pallas_trace.pack_cmi4 :1356): group 4b+j's [hi(16) | lo(16)] at lanes
+    [32j, 32j+32) of block b's 4L rows; groups past the last are zero.
+    Returns (ceil(groups/4)*4L, 128) bf16 bits."""
+    GR = 4 * L
+    cmat = np.ascontiguousarray(cmat, np.float32)
+    rows = cmat.shape[0]
+    if rows % GR:
+        raise ValueError(f"cmat has {rows} rows, not a whole number of {GR}-row groups")
+    G = rows // GR
+    Gp = -(-G // 4) * 4
+    hi, lo = _split(cmat)
+
+    def blocks(a):
+        a = a.reshape(G, GR, CMAT_K)
+        if Gp != G:
+            a = np.concatenate([a, np.zeros((Gp - G, GR, CMAT_K), a.dtype)], axis=0)
+        return a.reshape(Gp // 4, 4, GR, CMAT_K).transpose(0, 2, 1, 3)
+
+    out = np.zeros((Gp // 4, GR, 4, 2 * CMAT_K), np.uint16)
+    out[:, :, :, :CMAT_K] = blocks(hi)
+    out[:, :, :, CMAT_K:] = blocks(lo)
+    return out.reshape(Gp // 4 * GR, 128)
 
 
 def pack_bvh(flat: FlatBVH, tri_verts: np.ndarray, bf16: bool = False) -> PackedBVH:
@@ -191,7 +315,8 @@ def pack_bvh(flat: FlatBVH, tri_verts: np.ndarray, bf16: bool = False) -> Packed
             assert (is_leaf | (remap[ch] >= 0)).all()
     if bf16:
         cbox = cbox_to_bf16(cbox)
-    return PackedBVH(cbox=cbox, cmeta=cmeta, tri=pack_tri_rows(flat, tri_verts))
+    tri, cmat = pack_leaf_rows(flat, tri_verts)
+    return PackedBVH(cbox=cbox, cmeta=cmeta, tri=tri, cmat=cmat)
 
 
 def pack_bvh4(flat: FlatBVH, tri_verts: np.ndarray, bf16: bool = False) -> PackedBVH:
@@ -202,7 +327,7 @@ def pack_bvh4(flat: FlatBVH, tri_verts: np.ndarray, bf16: bool = False) -> Packe
     L = flat.leaf_size
     count, a = flat.count, flat.a
     nmn, nmx = flat.node_min, flat.node_max
-    tri = pack_tri_rows(flat, tri_verts)
+    tri, cmat = pack_leaf_rows(flat, tri_verts)
 
     def leaf_enc(i):
         return -(int(a[i]) // L) - 1
@@ -247,7 +372,7 @@ def pack_bvh4(flat: FlatBVH, tri_verts: np.ndarray, bf16: bool = False) -> Packe
                 qmeta[row, k] = qid[j]
     if bf16:
         qbox = pack_box_bf16_pairs(qbox, 4)
-    return PackedBVH(cbox=qbox, cmeta=qmeta, tri=tri, compressed=bf16)
+    return PackedBVH(cbox=qbox, cmeta=qmeta, tri=tri, compressed=bf16, cmat=cmat)
 
 
 def pack_bvh8(flat: FlatBVH, tri_verts: np.ndarray, bf16: bool = False) -> PackedBVH:
@@ -257,7 +382,7 @@ def pack_bvh8(flat: FlatBVH, tri_verts: np.ndarray, bf16: bool = False) -> Packe
     L = flat.leaf_size
     count, a = flat.count, flat.a
     nmn, nmx = flat.node_min, flat.node_max
-    tri = pack_tri_rows(flat, tri_verts)
+    tri, cmat = pack_leaf_rows(flat, tri_verts)
 
     def leaf_enc(i):
         return -(int(a[i]) // L) - 1
@@ -301,7 +426,7 @@ def pack_bvh8(flat: FlatBVH, tri_verts: np.ndarray, bf16: bool = False) -> Packe
             ometa[row, k] = leaf_enc(j) if kind == "leaf" else oid[j]
     if bf16:
         obox = pack_box_bf16_pairs(obox, 8)
-    return PackedBVH(cbox=obox, cmeta=ometa, tri=tri, compressed=bf16)
+    return PackedBVH(cbox=obox, cmeta=ometa, tri=tri, compressed=bf16, cmat=cmat)
 
 
 def _round_bits(box: np.ndarray):

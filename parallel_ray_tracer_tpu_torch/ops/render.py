@@ -145,14 +145,15 @@ def render_bvh_fused(ds, tables, cam: Camera, width: int, height: int,
                      tile_cols: int = 32) -> torch.Tensor:
     """Whole-frame render with one launch of the fused frame kernel
     (cuda_trace.frame_tiles) -> (H, W, 3) f32 in [0, 1]. The tables' box
-    format (f32, bf16 pairs) picks the kernel instance, and their sphere
-    table (ops/pack.pack_spheres) its sphere instance."""
+    format (f32, bf16 pairs) picks the kernel instance, their sphere
+    table (ops/pack.pack_spheres) its sphere instance, and their C-matrix
+    table (ops/pack.split_cmat) its MXU instance."""
     o, d = _tiled_planes(cam, width, height, tile_rows, tile_cols, ds.device)
     col = cuda_trace.frame_tiles(
         tables.cbox, tables.cmeta, tables.tri, tables.attr, tables.lamb, o, d,
         bounces=bounces, leaf_size=tables.leaf_size,
         stack_depth=tables.stack_depth, compressed=tables.compressed,
-        sph=tables.sph,
+        sph=tables.sph, cmat=tables.cmat,
     )
     return _to_image(col, width, height, tile_rows, tile_cols)
 
@@ -166,10 +167,12 @@ def render_bvh_pallas(ds, tables, cam: Camera, width: int, height: int,
     kernels' streamed instances, as JAX's _render_bvh_pallas threads it.
     The scene's spheres are tested after each pass (ops/spheres.wrap_tracer,
     as pallas_trace.make_tracer wraps its tracers); with spheres the hits
-    are plain and shading gathers their attributes from `ds`."""
+    are plain and shading gathers their attributes from `ds`. The tables'
+    C-matrix table takes both kernels' MXU instances, as JAX's make_tracer
+    passes packed_dev's cmat on (render.py:274)."""
     o, d = _tiled_planes(cam, width, height, tile_rows, tile_cols, ds.device)
     kw = dict(leaf_size=tables.leaf_size, stack_depth=tables.stack_depth,
-              compressed=tables.compressed, stream=stream)
+              compressed=tables.compressed, stream=stream, cmat=tables.cmat)
 
     def closest(o, d):
         return cuda_trace.closest_tiles_full(

@@ -4,7 +4,8 @@ device tables -> render.
 `prepare` loads the scene, builds, flattens and packs the BVH at the
 configured node arity (bvh_width 2, 4 or 8) and box format (f32, or bf16
 with bf16_bvh) with the port's own numpy modules, decides as JAX does
-whether leaf rows stream, and uploads the tables and the scene planes
+whether leaf rows stream and whether the leaf test is the MXU leaf, and
+uploads the tables and the scene planes
 (DeviceScene, in the BVH's slot order) once; `Pipeline.render` then renders
 frames from them on the device. With use_bvh=False it builds no BVH, and
 every frame is the brute-force render.
@@ -29,8 +30,8 @@ from .ops import render as render_ops
 from .ops.bvh import build_bvh
 from .ops.bvh_flat import FlatBVH, flatten_bvh
 from .ops.cuda_trace import LEAF_SIZE
-from .ops.pack import (pack_attr, pack_bvh, pack_bvh4, pack_bvh8, pack_spheres,
-                       pad_stream_rows, stream_decision)
+from .ops.pack import (mxu_decision, pack_attr, pack_bvh, pack_bvh4, pack_bvh8,
+                       pack_spheres, pad_stream_rows, split_cmat, stream_decision)
 
 VARIANTS = ("auto", "fused", "pallas", "bruteforce")
 PACKERS = {2: pack_bvh, 4: pack_bvh4, 8: pack_bvh8}   # by bvh_width
@@ -49,6 +50,7 @@ class Pipeline:
     build_ms: float
     bvh_stats: Optional[dict] = None    # the host tree's stats (ops/bvh.py)
     stream: bool = False                # streamed leaf rows (pass-based path)
+    mxu: bool = False                   # the MXU leaf (tables.cmat is set)
 
     def bvh_metrics_banner(self) -> Optional[str]:
         """The reference's BVH_METRICS printout (cpu/src/bvh.c:381-387)."""
@@ -100,6 +102,7 @@ class Pipeline:
         device. "fused" launches the frame kernel once; "pallas" is the
         pass-based path (one closest-hit and one any-hit launch per light,
         per bounce), on the streamed instances when the leaf rows stream;
+        with the MXU leaf both take the MXU instances;
         "bruteforce" tests every ray against every triangle in torch ops
         (ops/trace_brute.py)."""
         cfg = self.cfg
@@ -176,10 +179,8 @@ def prepare(cfg: RenderConfig, scene: Optional[Scene] = None, device=None) -> Pi
 
     The device defaults to CUDA; with no card, pass device="cpu". The BVH
     is always built by the numpy builder (use_native is ignored: the image
-    does not depend on the builder). mxu_leaf is ignored too: the port's
-    leaf test is always the FP32 one, which is what the MXU leaf
-    approximates on the TPU. dual_pop is ignored as well: one thread traces
-    one ray, so both schedules reach the same kernels.
+    does not depend on the builder). Otherwise dual_pop changes nothing:
+    one thread traces one ray, so both schedules reach the same kernels.
 
     Leaf rows stream by the JAX prepare's rule (ops/pack.stream_decision,
     pipeline.py:350-368): stream="on" always, "off" never, "auto" when
@@ -187,6 +188,15 @@ def prepare(cfg: RenderConfig, scene: Optional[Scene] = None, device=None) -> Pi
     Streamed tables have tri and attr padded to whole blocks
     (pad_stream_rows); streaming at bvh_width 2 raises ValueError, as JAX
     asserts it.
+
+    The leaf test is the MXU leaf by the JAX prepare's rule
+    (ops/pack.mxu_decision, pipeline.py:407-446): mxu_leaf and dual_pop,
+    bvh_width 4 or 8, leaf rows not streamed, and the padded C-matrix
+    table plus the scene rows within JAX's TPU budget of 88 MiB (car_boxed
+    passes, the 180k-triangle dragon does not). The C-matrix table is
+    then uploaded split into bf16 halves (ops/pack.split_cmat) as
+    tables.cmat, which sends both the fused frame and the pass-based
+    tracer through the MXU instances; Pipeline.mxu records the choice.
 
     The scene's spheres go into the DeviceScene (the pass-based and
     brute-force paths test them in torch) and into the tables' sphere
@@ -229,10 +239,12 @@ def prepare(cfg: RenderConfig, scene: Optional[Scene] = None, device=None) -> Pi
     sph = pack_spheres(scene.spheres_center, scene.spheres_radius,
                        scene.spheres_mat, scene.mats_kd, scene.mats_ks,
                        scene.mats_kr)
+    scene_bytes = packed.cbox.nbytes + packed.cmeta.nbytes + packed.tri.nbytes + attr.nbytes
+    mxu = mxu_decision(cfg, packed.cmat.shape[0], scene_bytes, stream, leaf_size)
     tables = packed_from_numpy(
         packed.cbox, packed.cmeta, tri, attr, ds.lamb.cpu().numpy(),
         device=device, leaf_size=leaf_size, compressed=packed.compressed,
-        sph=sph,
+        sph=sph, cmat=split_cmat(packed.cmat) if mxu else None,
     )
     return Pipeline(cfg=cfg, scene=scene, ds=ds, flat=flat, tables=tables,
-                    build_ms=build_ms, bvh_stats=bvh.stats, stream=stream)
+                    build_ms=build_ms, bvh_stats=bvh.stats, stream=stream, mxu=mxu)
