@@ -85,6 +85,18 @@ against the reference BMP; the four-group table (pack_cmi4) must give the
 with their FP32 twins, with the lanes served per mma batch and ptxas's
 registers and spills.
 
+Its `microbench` phase runs the leaf-test probes of row 15a-15d
+(parallel_ray_tracer_tpu_torch/microbench/, csrc/microbench_*.cu): each
+probe kernel is held against its plain version at K = 3 iterations (the
+FP32 modes bit for bit, the tensor-core modes to the MXU bounds of the
+`mxu` phase (the overlap kernel's leaf steps, on the script's random C
+rows, with a floor of 1e-6 under the largest relative t error of 1e-5),
+the staged rows and the gather's chains exactly; the staging
+sweep must launch every size up to the card's opt-in limit and be refused
+past it), then the entry point (`python -m
+parallel_ray_tracer_tpu_torch.microbench`) runs each command with the
+launch counts from 0, and each probe's readings print as one JSON line.
+
 Each phase prints one JSON line; all of them, and the rendered frames, also
 go to DIR (default: chip_smoke_out/ beside this script). Any failed check
 exits non-zero before the last line; the last line is
@@ -97,8 +109,10 @@ non-zero without either.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gzip
+import io
 import json
 import os
 import statistics
@@ -141,6 +155,9 @@ OPS_SPHERE_TEST = 34
 # window det^2) + 6 (compares) = 14.
 OPS_MXU_EPILOGUE = 14
 WARMUP, TIMED = 10, 50
+# The arity phase times its tables (none of them the main path's) with
+# fewer repeats, to make room for the microbench phase.
+ARITY_WARMUP, ARITY_TIMED = 5, 20
 BANDS = (384, 704)          # 64-row bands: sky + geometry, car body
 BAND_ROWS = 64
 # The main path with the defaults (MXU_CFG: prepare takes the MXU leaf, as
@@ -258,6 +275,23 @@ KERNEL_ROWS = (
     ("occluded_kernel<8, PAIRS, STREAM>", "w8_bf16", "occluded_stream", 2253),
 )
 
+# The microbench phase: iterations of the kernel-vs-plain checks; for the
+# kernels line, the gather's table and steps (64 MiB, past the L2) and the
+# overlap kernel's iterations (its plain version loops in Python); each
+# probe's kernel, source and the TPU kernel it replaces.
+MB_ITERS = 3
+MB_GATHER_MB, MB_GATHER_STEPS = 64, 32
+MB_OVERLAP_ITERS = 64
+MB_KERNELS = {
+    "leaf": ("mb_leaf_kernel<BF16X3, FULL>", "microbench_leaf.cu",
+             "scripts/microbench_mxu_leaf.py:162"),
+    "stage": ("mb_stage_kernel", "microbench_probes.cu", "scripts/microbench_mxu_leaf.py:523"),
+    "gather": ("mb_gather_kernel", "microbench_probes.cu", "scripts/microbench_mxu_leaf.py:554"),
+    "overlap": ("mb_overlap_kernel<both_closest>", "microbench_overlap.cu",
+                "scripts/microbench_overlap.py:168"),
+}
+MB_COMMANDS = {"mxu_leaf": ("leaf",), "probes": ("stage", "gather"), "overlap": ("overlap",)}
+
 RECORDS = []
 FAILURES = []
 T_START = time.perf_counter()
@@ -339,7 +373,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out-dir", default=os.path.join(HERE, "chip_smoke_out"),
                     help="where the JSON records and the frames' BMPs go")
-    out_dir = ap.parse_args().out_dir
+    args = ap.parse_args()
+    out_dir = args.out_dir
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -847,9 +882,9 @@ def main() -> int:
         frames[key] = aimg
 
         # timing: every kernel of these tables, and render()
-        timing[key] = time_kernels(A)
+        timing[key] = time_kernels(A, ARITY_WARMUP, ARITY_TIMED)
         for variant in ("auto", "pallas") if auto == "fused" else ("auto",):
-            e2e = time_ms(lambda: apipe.render(variant=variant))
+            e2e = time_ms(lambda: apipe.render(variant=variant), ARITY_WARMUP, ARITY_TIMED)
             timing[key][f"render_{variant}_end_to_end"] = dict(
                 e2e, pixels=W * H, pixels_per_s=W * H / (e2e["median"] * 1e-3))
         # bf16 boxes beside the f32 table of the same width: work and time
@@ -1865,7 +1900,10 @@ def main() -> int:
                                   "(the plain MXU version reads no node table)", MXU_LINES[k]))
     del mpipe, M
 
-    # ---- 15. the command line: the width-8 frame, the --bf16-bvh frame -----
+    # ---- 15. the microbench probes (rows 15a-15d) ---------------------------
+    extra_rows += microbench_phase(card, out_dir)
+
+    # ---- 16. the command line: the width-8 frame, the --bf16-bvh frame -----
     def run_cli(name, flags, want):
         cli_bmp = os.path.join(out_dir, f"{name}.bmp")
         cli_json = os.path.join(out_dir, f"{name}.json")
@@ -1903,7 +1941,7 @@ def main() -> int:
     run_cli("cli_bf16", ["--bf16-bvh", "--no-mxu-leaf"], frames["w4_bf16"])
     del frames
 
-    # ---- 16. the kernels line --------------------------------------------
+    # ---- 17. the kernels line --------------------------------------------
     kernels = []
     for name, key, kernel, line in KERNEL_ROWS:
         t = timing[key][kernel]
@@ -1932,6 +1970,244 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def microbench_phase(card: str, out_dir: str) -> list:
+    """Phase `microbench`: kernels A-D of parallel_ray_tracer_tpu_torch/
+    microbench against their plain versions, then the entry point's three
+    commands with the launch counts from 0; returns their kernels-line
+    rows."""
+    from parallel_ray_tracer_tpu_torch import microbench as mb
+    from parallel_ray_tracer_tpu_torch.microbench import mxu_leaf as ml
+    from parallel_ray_tracer_tpu_torch.microbench import overlap as mo
+    from parallel_ray_tracer_tpu_torch.microbench import probes as mp
+    from parallel_ray_tracer_tpu_torch.microbench.__main__ import THREADS_PER_SM, WARPS_PER_SM
+    from parallel_ray_tracer_tpu_torch.microbench.__main__ import main as mb_main
+    from parallel_ray_tracer_tpu_torch.ops.intersect import T_MAX
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = sms * THREADS_PER_SM
+    n_warps = sms * WARPS_PER_SM
+
+    def agree(a, b):
+        return (a == b).float().mean().item() if a.numel() else 1.0
+
+    def vs_plain(name, k, p, exact, rel_max=True):
+        """k, p: {"t": ..., other outputs}. Exact: every output bit for bit.
+        Otherwise the mxu phase's bounds against the plain MXU version:
+        miss and every other output agreeing on >= 0.9999 of the threads
+        (idx where both hit), and where both hit with the same idx a
+        relative t error of mean < 1e-6 and max < 1e-5; with rel_max False
+        the relative bound takes a floor, |dt| <= 1e-6 + 1e-5 |t|, for
+        fixtures of random C rows whose smallest t are ill-conditioned (a
+        relative error of 1.15e-5 at |dt| near 1e-7; the largest |dt| of
+        the overlap fixture is 9.5e-7)."""
+        mk, mpl = k["t"] >= T_MAX, p["t"] >= T_MAX
+        both = ~mk & ~mpl
+        err = (k["t"] - p["t"]).abs()[both]
+        res = {"max_abs_err": err.max().item() if err.numel() else 0.0,
+               "miss_agree": agree(mk, mpl)}
+        if exact:
+            same = all(torch.equal(k[x], p[x]) for x in k)
+            check(name, same, "not its plain version bit for bit")
+            return dict(res, equal=same)
+        check(name, res["miss_agree"] >= 0.9999, f"miss agreement {res['miss_agree']}")
+        same = both
+        for x in k:
+            if x != "t":
+                a = agree(k[x][both], p[x][both]) if x == "idx" else agree(k[x], p[x])
+                res[f"{x}_agree"] = a
+                check(name, a >= 0.9999, f"{x} agreement {a}")
+                if x == "idx":
+                    same = both & (k[x] == p[x])
+        dt = (k["t"] - p["t"]).abs()[same]
+        rel = dt / p["t"][same].abs().clamp(min=1e-9)
+        res["rel_t_mean"] = rel.mean().item() if rel.numel() else 0.0
+        res["rel_t_max"] = rel.max().item() if rel.numel() else 0.0
+        check(name, res["rel_t_mean"] < 1e-6, f"relative t error mean {res['rel_t_mean']}")
+        if rel_max:
+            check(name, res["rel_t_max"] < 1e-5, f"relative t error max {res['rel_t_max']}")
+        else:
+            within = bool((dt <= 1e-6 + 1e-5 * p["t"][same].abs()).all())
+            check(name, within, "t beyond 1e-6 + 1e-5 |t|")
+        return res
+
+    # kernel A: every instance at every D, and the accuracy fixtures
+    t0 = time.perf_counter()
+    tab = ml.rand_tables(dev)
+    leaf_cmp = {}
+    for mode, full, layout, c_in_a in sorted(ml.INSTANCES):
+        for dd in ml.DISTINCT:
+            kw = dict(iters=MB_ITERS, n=n, full=full, distinct=dd)
+            tk, ik = ml.leaf_visits(tab, mode, layout=layout, c_in_a=c_in_a, **kw)
+            tp_, ip = ml.leaf_plain(tab, mode, **kw)
+            name = (f"microbench/leaf/{mode}{',full' if full else ''},{layout}"
+                    f"{',c_in_a' if c_in_a else ''},D{dd}")
+            leaf_cmp[name] = vs_plain(name, {"t": tk, "idx": ik}, {"t": tp_, "idx": ip},
+                                      mode not in ml.MXU_MODES)
+    accuracy = {}
+    for dense in (True, False):
+        atab = ml.accuracy_tables(dense, dev)
+        for mode in ml.MODES:
+            name = f"microbench/accuracy/{'dense' if dense else 'random'}/{mode}"
+            tk, ik = ml.leaf_visits(atab, mode, iters=1, full=True)
+            tp_, ip = ml.leaf_plain(atab, mode, iters=1, full=True)
+            leaf_cmp[name] = vs_plain(name, {"t": tk, "idx": ik}, {"t": tp_, "idx": ip},
+                                      mode not in ml.MXU_MODES)
+        accuracy["dense" if dense else "random"] = ml.accuracy(dense, dev)
+    emit({"phase": "microbench", "case": "leaf_vs_plain", "card": card, "n": n,
+          "iters": MB_ITERS, "seconds": time.perf_counter() - t0, "compare": leaf_cmp,
+          "accuracy_on_card": accuracy})
+
+    # kernels B and C
+    t0 = time.perf_counter()
+    optin = mp.smem_optin()
+    sweep = mp.stage_sweep(dev, optin)
+    for r in sweep:
+        name = f"microbench/stage/{r['layout']}/{r['bytes']}"
+        if r["bytes"] <= optin:
+            check(name, r["attr_rc"] == 0 and r["launch_rc"] == 0 and r["read_back_equal"],
+                  f"a size within the limit did not stage: {r}")
+        else:
+            check(name, r["launch_rc"] != 0 and r["attr_rc"] != 0,
+                  f"a size past the limit launched: {r}")
+    gt = mp.gather_table(MB_GATHER_MB, dev)
+    starts = mp.gather_starts(gt.shape[0], n_warps, dev)
+    lk, sk = mp.gather(gt, starts, MB_ITERS)
+    lp, sp_ = mp.gather_plain(gt, starts, MB_ITERS)
+    gather_eq = torch.equal(lk, lp) and torch.equal(sk, sp_)
+    check("microbench/gather", gather_eq, "chains or sums differ from the plain version")
+    emit({"phase": "microbench", "case": "probes_vs_plain", "card": card,
+          "seconds": time.perf_counter() - t0, "optin_bytes": optin,
+          "sweep": [{k: r[k] for k in ("bytes", "layout", "attr_rc", "launch_rc",
+                                         "read_back_equal")} for r in sweep],
+          "gather_equal": gather_eq})
+
+    # kernel D
+    t0 = time.perf_counter()
+    otab = mo.overlap_tables(dev)
+    over_cmp = {}
+    for body, (inner, leaf, _) in mo.BODIES.items():
+        rk = mo.overlap_iters(otab, body, MB_ITERS, n)
+        rp = mo.overlap_plain(otab, body, MB_ITERS, n)
+        over_cmp[body] = vs_plain(f"microbench/overlap/{body}", rk, rp, leaf == 0, False)
+    emit({"phase": "microbench", "case": "overlap_vs_plain", "card": card, "n": n,
+          "seconds": time.perf_counter() - t0, "compare": over_cmp})
+
+    # the entry point, each command with the counts from 0
+    mb_out = os.path.join(out_dir, "microbench")
+    launches, runs = {}, {}
+    for cmd, kernels in MB_COMMANDS.items():
+        mb.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = mb_main([cmd, "--out", mb_out])
+        torch.cuda.synchronize()
+        counts = dict(mb.LAUNCHES)
+        check(f"microbench/{cmd}", rc == 0, f"exit {rc}")
+        check(f"microbench/{cmd}", all(counts[k] > 0 for k in kernels)
+              and all(v == 0 for k, v in counts.items() if k not in kernels),
+              f"launches {counts}")
+        launches.update({k: counts[k] for k in kernels})
+        emit({"phase": "launches", "path": f"microbench {cmd}",
+              "seconds": time.perf_counter() - t0, "launches": counts})
+        with open(os.path.join(mb_out, f"{cmd}.json")) as f:
+            runs[cmd] = json.load(f)["records"]
+
+    # the readings, one line per probe
+    recs = runs["mxu_leaf"]
+    timed = [r for r in recs if "ns_per_1024_rays" in r]
+    sweep_d = {}
+    for r in timed:
+        if r["stage"] == "v5":
+            sweep_d.setdefault(r["mode"], {})[r["distinct"]] = r["ns_per_1024_rays"]
+    emit({"phase": "microbench", "case": "mxu_leaf", "card": card, "n": n,
+          "ns_per_1024_rays": {f"{r['stage']}/{r['mode']}{',full' if r['full'] else ''}"
+                               f"{'/' + r['layout'] if r['layout'] else ''}"
+                               f"{'/' + r['placement'] if r['placement'] else ''}"
+                               f"/D{r['distinct']}": r["ns_per_1024_rays"] for r in timed},
+          "clocks_sm_mhz": sorted({r["marginal"]["clocks_sm_mhz"] for r in timed}),
+          "bf16x3_over_mt_by_lanes_per_batch": {
+              32 // dd: sweep_d["bf16x3"][dd] / sweep_d["mt"][dd] for dd in ml.DISTINCT},
+          "accuracy": {r["accuracy"]: r["table"] for r in recs if "table" in r}})
+    stage_rec = runs["probes"][0]
+    gathers = [r for r in runs["probes"] if r.get("probe") == "gather"]
+    emit({"phase": "microbench", "case": "probes", "card": card,
+          "optin_bytes": stage_rec["optin_bytes"], "groups_per_block": stage_rec["groups_per_block"],
+          "largest_fitting": stage_rec["largest_fitting"],
+          "gather_ns_per_block": {r["table_mb"]: r["ns_per_block"] for r in gathers},
+          "gather_gb_per_s": {r["table_mb"]: r["gb_per_s"] for r in gathers},
+          "clocks_sm_mhz": sorted({r["marginal"]["clocks_sm_mhz"] for r in gathers})})
+    overs = runs["overlap"]
+    emit({"phase": "microbench", "case": "overlap", "card": card,
+          "ns_per_iteration": {f"{r['body']}@{r['blocks_per_sm']}": r["ns_per_iteration"]
+                               for r in overs if "body" in r},
+          "overlap": {r["blocks_per_sm"]: r["overlap"] for r in overs if "overlap" in r},
+          "clocks_sm_mhz": sorted({r["marginal"]["clocks_sm_mhz"] for r in overs if "body" in r})})
+
+    # the kernels line: each kernel at one configuration of its run, its
+    # plain version on the same inputs, its bound and (gather) the library
+    def once_ms(fn):
+        fn()
+        return time_ms(fn, 1, 3)["median"]
+
+    def ops_bound(fp32_ops, tensor_ops, bytes_):
+        t_ops = max(fp32_ops / PEAK_FP32_OPS, tensor_ops / PEAK_BF16_OPS) * 1e3
+        t_bytes = bytes_ / PEAK_BYTES * 1e3
+        return {"bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+    def entry(key, ms, plain_ms, bound, err, library_ms=None, **extra):
+        name, src, line = MB_KERNELS[key]
+        return {"name": name, "route": "cuda",
+                "source": f"parallel_ray_tracer_tpu_torch/csrc/{src}", "replaces": line,
+                "launches": launches[key], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                **bound, "library_ms": library_ms, **extra}
+
+    rows = []
+    prod = next(r for r in timed if r["stage"] == "v5" and r["mode"] == "bf16x3"
+                and r["distinct"] == 1)
+    m = prod["marginal"]
+    c = ml.Config("bf16x3", full=True)
+    ops = ml.visit_ops(c)
+    visits = m["k_hi"] * n
+    rows.append(entry(
+        "leaf", m["ms_hi"],
+        once_ms(lambda: ml.leaf_plain(tab, "bf16x3", iters=m["k_hi"], n=n, full=True)),
+        ops_bound(ops["fp32"] * visits, ops["tensor"] * visits,
+                  nbytes(*tab.planes, tab.cmat) + 8 * n),
+        max(v["max_abs_err"] for k, v in leaf_cmp.items() if "bf16x3" in k),
+        iters=m["k_hi"], threads=n, ns_per_1024_rays=prod["ns_per_1024_rays"],
+        config="bf16x3, full, interleaved, rays in A, D 1"))
+    big = mp.group_table(optin // mp.BLOCK_BYTES, "bf16", dev)
+    rows.append(entry(
+        "stage", stage_rec["largest_fitting"]["ms"]["median"], once_ms(big.clone),
+        ops_bound(0, 0, 2 * nbytes(big)), 0.0, bytes=nbytes(big)))
+    visited = []
+    mp.gather_plain(gt, starts, MB_GATHER_STEPS, visited)
+    idx = torch.cat(visited)
+    distinct = int(torch.unique(idx).numel())
+    lib = lambda: gt.index_select(0, idx).view(MB_GATHER_STEPS, n_warps, -1).sum(dim=(0, 2))
+    rows.append(entry(
+        "gather", once_ms(lambda: mp.gather(gt, starts, MB_GATHER_STEPS)),
+        once_ms(lambda: mp.gather_plain(gt, starts, MB_GATHER_STEPS)),
+        ops_bound(0, 0, distinct * mp.BLOCK_BYTES + 8 * n_warps), 0.0,
+        library_ms=once_ms(lib), table_mb=MB_GATHER_MB, steps=MB_GATHER_STEPS,
+        warps=n_warps, distinct_blocks=distinct))
+    del idx, visited, gt
+    ob = next(r for r in overs if r.get("body") == "both_closest" and r["blocks_per_sm"] == 16)
+    ops = mo.iteration_ops("both_closest")
+    its = MB_OVERLAP_ITERS * n
+    rows.append(entry(
+        "overlap", once_ms(lambda: mo.overlap_iters(otab, "both_closest", MB_OVERLAP_ITERS, n)),
+        once_ms(lambda: mo.overlap_plain(otab, "both_closest", MB_OVERLAP_ITERS, n)),
+        ops_bound(ops["fp32"] * its, ops["tensor"] * its,
+                  nbytes(*otab.planes, otab.cbox, otab.cmeta, otab.cmat) + 20 * n),
+        over_cmp["both_closest"]["max_abs_err"], iters=MB_OVERLAP_ITERS, threads=n,
+        ns_per_iteration=ob["ns_per_iteration"]))
+    emit({"phase": "microbench", "case": "kernels", "card": card, "rows": rows})
+    return rows
 
 
 def ratios(a: dict, b: dict) -> dict:

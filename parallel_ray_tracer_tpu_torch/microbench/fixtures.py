@@ -1,0 +1,173 @@
+"""Numpy copies of the microbench scripts' fixtures, from the same seeds.
+
+Copied from scripts/microbench_mxu_leaf.py (`split_bf16` :88, `build_cmat`
+:201, `build_rmat` :219, `rand_fixture` :229, the fixtures of
+`accuracy_check` :241) and scripts/microbench_overlap.py (`_rays` :56,
+`_boxes` :65, `_cmat` :79, `_rmats` :86). Same seeds give the same numbers:
+f32 arrays bit for bit, and bf16 arrays as their uint16 bits (rounded to
+nearest even, as JAX rounds).
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Tuple
+
+import numpy as np
+
+from ..ops.pack import bf16_bits, bf16_value
+
+# microbench_mxu_leaf.py: leaf groups resident in the table, triangles per
+# group, the hit test's epsilon.
+G = 512
+L = 8
+EPS = 1e-3
+# microbench_overlap.py: node rows and leaf groups of its tables; the
+# packet's (sublanes, lanes).
+N_NODES = 4096
+N_GROUPS = 512
+PACKET = (8, 128)
+
+
+def split_bf16(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(hi, lo) bf16 bits of an f32 array: hi = bf16(x), lo = bf16(x - hi)."""
+    x = np.ascontiguousarray(x, np.float32)
+    hi = bf16_bits(x)
+    return hi, bf16_bits(x - bf16_value(hi))
+
+
+def build_cmat(v0, e1, e2) -> np.ndarray:
+    """(4T, 16) C rows per triangle j: det (row j), t_num (8 + j), u_num
+    (16 + j), v_num (24 + j) against R = [d, o x d, o, 1, 0 x 6]; v0 . n
+    summed in f32, as the script sums it."""
+    n = np.cross(e1, e2)
+    c2 = np.cross(e2, v0)
+    c1 = np.cross(e1, v0)
+    T = v0.shape[0]
+    C = np.zeros((4, T, 16), np.float32)
+    C[0, :, 0:3] = -n
+    C[1, :, 6:9] = n
+    C[1, :, 9] = -np.sum(n * v0, axis=1)
+    C[2, :, 3:6] = e2
+    C[2, :, 0:3] = -c2
+    C[3, :, 3:6] = -e1
+    C[3, :, 0:3] = c1
+    return np.concatenate([C[q] for q in range(4)], axis=0)
+
+
+def build_rmat(o: np.ndarray, d: np.ndarray) -> np.ndarray:
+    """(16, n) feature rows R = [d, o x d, o, 1, 0 x 6] of (n, 3) rays."""
+    M = np.cross(o, d)
+    R = np.zeros((16, o.shape[0]), np.float32)
+    R[0:3] = d.T
+    R[3:6] = M.T
+    R[6:9] = o.T
+    R[9] = 1.0
+    return R
+
+
+class RandFixture(NamedTuple):
+    planes: List[np.ndarray]   # ox, oy, oz, dx, dy, dz: (8, 128) f32 each
+    tri: np.ndarray            # (G, 128) f32
+    rmat: np.ndarray           # (16, 1024) f32
+    cmat: np.ndarray           # (G * 32, 16) f32
+
+
+def rand_fixture(seed: int = 0) -> RandFixture:
+    """The timing fixture of microbench_mxu_leaf.py: uniform(-1, 1) ray
+    planes, tri rows, R and C tables, drawn in the script's order."""
+    rng = np.random.RandomState(seed)
+    planes = [rng.uniform(-1, 1, PACKET).astype(np.float32) for _ in range(6)]
+    tri = rng.uniform(-1, 1, (G, 128)).astype(np.float32)
+    rmat = rng.uniform(-1, 1, (16, 1024)).astype(np.float32)
+    cmat = rng.uniform(-1, 1, (G * 32, 16)).astype(np.float32)
+    return RandFixture(planes, tri, rmat, cmat)
+
+
+class AccuracyFixture(NamedTuple):
+    v0: np.ndarray   # (8, 3) f32: one leaf group of 8 triangles
+    e1: np.ndarray
+    e2: np.ndarray
+    o: np.ndarray    # (1024, 3) f32 rays
+    d: np.ndarray    # (1024, 3) f32, unit length
+
+
+def accuracy_fixture(dense: bool = True) -> AccuracyFixture:
+    """The fixtures of accuracy_check: dense aims every ray at a random
+    triangle of the group (hundreds of real hits); otherwise random
+    directions from one origin."""
+    rng = np.random.RandomState(1)
+    T = L
+    if dense:
+        v0 = rng.uniform(-30, 30, (T, 3)).astype(np.float32)
+        e1 = rng.uniform(-10, 10, (T, 3)).astype(np.float32)
+        e2 = rng.uniform(-10, 10, (T, 3)).astype(np.float32)
+        o = np.tile(np.array([[0.0, 0.0, -80.0]], np.float32), (1024, 1))
+        ti = rng.randint(0, T, 1024)
+        a = rng.uniform(0, 1, (1024, 1)).astype(np.float32)
+        b = (rng.uniform(0, 1, (1024, 1)) * (1 - a)).astype(np.float32)
+        target = v0[ti] + a * e1[ti] + b * e2[ti]
+        d = (target - o).astype(np.float32)
+    else:
+        v0 = rng.uniform(-50, 50, (T, 3)).astype(np.float32)
+        e1 = rng.uniform(-8, 8, (T, 3)).astype(np.float32)
+        e2 = rng.uniform(-8, 8, (T, 3)).astype(np.float32)
+        o = np.tile(rng.uniform(-60, -40, (1, 3)), (1024, 1)).astype(np.float32)
+        d = rng.uniform(-1, 1, (1024, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True).astype(np.float32)
+    return AccuracyFixture(v0, e1, e2, o, d)
+
+
+def tri_row(v0, e1, e2) -> np.ndarray:
+    """(1, 128) packed row [v0, e1, e2, n] of the group, as accuracy_check
+    packs it for _mt_scalar_tri."""
+    n = np.cross(e1, e2)
+    row = np.zeros((1, 128), np.float32)
+    row[0, : 12 * v0.shape[0]] = np.concatenate([v0, e1, e2, n], 1).reshape(-1)
+    return row
+
+
+def overlap_rays() -> List[np.ndarray]:
+    """microbench_overlap.py `_rays`: ox, oy, oz, dx, dy, dz as (8, 128) f32
+    planes of standard normals."""
+    rng = np.random.default_rng(0)
+    o = [rng.normal(size=PACKET).astype(np.float32) for _ in range(3)]
+    d = [rng.normal(size=PACKET).astype(np.float32) for _ in range(3)]
+    return o + d
+
+
+def overlap_boxes() -> Tuple[np.ndarray, np.ndarray]:
+    """`_boxes`: (N, 32) f32 node rows of 4 child boxes [min, max] at
+    [6k, 6k + 6) and (N, 8) i32 rows of 4 encodings in [-64, 64) and 4
+    validity flags of 1 (the BVH4 layout of ops/pack.py)."""
+    rng = np.random.default_rng(1)
+    mn = rng.uniform(-4, 3, size=(N_NODES, 4, 3)).astype(np.float32)
+    mx = mn + rng.uniform(0.1, 1.0, size=(N_NODES, 4, 3)).astype(np.float32)
+    qbox = np.zeros((N_NODES, 32), np.float32)
+    for k in range(4):
+        qbox[:, 6 * k : 6 * k + 3] = mn[:, k]
+        qbox[:, 6 * k + 3 : 6 * k + 6] = mx[:, k]
+    meta = np.zeros((N_NODES, 8), np.int32)
+    meta[:, :4] = rng.integers(-64, 64, size=(N_NODES, 4))
+    meta[:, 4:] = 1
+    return qbox, meta
+
+
+def overlap_cmat() -> np.ndarray:
+    """`_cmat`: (N_GROUPS * 32, 32) bf16 bits, rows [hi(16) | lo(16)] of a
+    normal (N_GROUPS * 32, 16) f32 table."""
+    rng = np.random.default_rng(2)
+    c = rng.normal(size=(N_GROUPS * 32, 16)).astype(np.float32)
+    hi, lo = split_bf16(c)
+    return np.concatenate([hi, lo], axis=1)
+
+
+def overlap_rmats(rays: List[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+    """`_rmats`: the (16, 1024) feature rows of the packet's rays, split into
+    bf16 halves (bits)."""
+    ox, oy, oz, dx, dy, dz = rays
+    feats = [dx, dy, dz, oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx,
+             ox, oy, oz]
+    R = np.concatenate(
+        [np.stack([f.reshape(-1) for f in feats], axis=0),
+         np.ones((1, ox.size), np.float32), np.zeros((6, ox.size), np.float32)], axis=0)
+    return split_bf16(R)
