@@ -85,7 +85,7 @@ against the reference BMP; the four-group table (pack_cmi4) must give the
 with their FP32 twins, with the lanes served per mma batch and ptxas's
 registers and spills.
 
-Its `microbench` phase runs the leaf-test probes of row 15a-15d
+Its `microbench` phase runs the probes of rows 15a-15h
 (parallel_ray_tracer_tpu_torch/microbench/, csrc/microbench_*.cu): each
 probe kernel is held against its plain version at K = 3 iterations (the
 FP32 modes bit for bit, the tensor-core modes to the MXU bounds of the
@@ -93,9 +93,17 @@ FP32 modes bit for bit, the tensor-core modes to the MXU bounds of the
 rows, with a floor of 1e-6 under the largest relative t error of 1e-5),
 the staged rows and the gather's chains exactly; the staging
 sweep must launch every size up to the card's opt-in limit and be refused
-past it), then the entry point (`python -m
-parallel_ray_tracer_tpu_torch.microbench`) runs each command with the
-launch counts from 0, and each probe's readings print as one JSON line.
+past it), and the bf16 probes of rows 15e-15h (every f32 and bf16x2 chain
+instance bit for bit, the slab pairs' loop index e exactly, on the
+script's rays and on normal rays), then the entry point (`python -m
+parallel_ray_tracer_tpu_torch.microbench`) runs each command, bf16
+included, with the launch counts from 0, and each probe's readings print
+as one JSON line.
+
+Every prepare must take the native host builder (native/, built with g++
+on the card's host): a prepare that fell back to the numpy builder fails,
+and each record carries its builder and BVH build milliseconds
+(synthetic_600k's and the dragon's beside the numpy builder's seconds).
 
 Each phase prints one JSON line; all of them, and the rendered frames, also
 go to DIR (default: chip_smoke_out/ beside this script). Any failed check
@@ -231,6 +239,9 @@ MXU_TURNS = ("frame", "closest", "closest_full", "occluded")
 MMA_OPS_PER_LANE = 3 * 2 * 32 * 10
 MMA_OPS_PER_BATCH = 24 * 2 * 16 * 8 * 16
 PEAK_BF16_OPS = 989e12
+# Packed bf16 outside the tensor cores: twice the FP32 rate on paper (H100
+# SXM), in element operations.
+PEAK_BF16X2_OPS = 134e12
 MXU_LINES = {"closest": 1443, "closest_full": 1443, "occluded": 1457, "frame": 2536,
              "frame_sph": 2536}
 # The kernels line: (instance, the tables it runs on, kernel, line of the
@@ -290,7 +301,20 @@ MB_KERNELS = {
     "overlap": ("mb_overlap_kernel<both_closest>", "microbench_overlap.cu",
                 "scripts/microbench_overlap.py:168"),
 }
-MB_COMMANDS = {"mxu_leaf": ("leaf",), "probes": ("stage", "gather"), "overlap": ("overlap",)}
+MB_COMMANDS = {"mxu_leaf": ("leaf",), "probes": ("stage", "gather"), "overlap": ("overlap",),
+               "bf16": ("chain", "slab")}
+# The bf16 probes (rows 15e-15h): the iterations at which the kernels line
+# times each instance and its plain version (the plain chains loop in
+# Python), and the iterations of the slab's e check on the overlap
+# script's normal rays, where e branches (the script's rays lie on one line).
+MB_BF16_ROW_ITERS = 64
+MB_SLAB_CHECK_ITERS = (MB_ITERS, 64)
+
+# The numpy builder's seconds on the card's host before the native builder
+# (PERF.md section 4-5): synthetic_600k's prepare and BVH build, the
+# dragon's BVH build; printed beside this run's.
+NUMPY_PREPARE_S = {"synthetic_600k": 51.1}
+NUMPY_BUILD_S = {"synthetic_600k": 50.9, "dragon": 13.08}
 
 RECORDS = []
 FAILURES = []
@@ -385,6 +409,7 @@ def main() -> int:
         from parallel_ray_tracer_tpu_torch.models.camera import ray_basis
         from parallel_ray_tracer_tpu_torch.models.procgen import chain_scene, with_spheres
         from parallel_ray_tracer_tpu_torch.models.scene import Scene, load_scene_npz
+        from parallel_ray_tracer_tpu_torch.native import builder as native
         from parallel_ray_tracer_tpu_torch.ops.pack import (pack_bvh4, pack_bvh8, pack_cmi4,
                                                             pad_stream_rows, split_cmat)
         from parallel_ray_tracer_tpu_torch.ops import cuda_trace as ct
@@ -402,6 +427,22 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    builds = []
+
+    def prepare_native(cfg, **kw):
+        """pipeline.prepare, held to the native builder: g++ is on the card's
+        host, so a prepare that fell back to the numpy builder fails (the
+        set-up time it saves must not vanish unseen). Each BVH build is
+        recorded with its builder and milliseconds."""
+        p = pipeline.prepare(cfg, **kw)
+        if cfg.use_bvh:
+            what = cfg.scene if not cfg.synthetic_triangles else f"synthetic_{cfg.synthetic_triangles}"
+            builds.append({"scene": what if kw.get("scene") is None else "given",
+                           "triangles": p.scene.num_triangles, "bvh_width": cfg.bvh_width,
+                           "builder": p.builder, "build_ms": p.build_ms})
+            check("prepare", p.builder == "native",
+                  f"{what}: the {p.builder} builder ran ({native.BUILD_INFO})")
+        return p
 
     # ---- 1. build -------------------------------------------------------
     card = subprocess.run(
@@ -424,11 +465,12 @@ def main() -> int:
     # ---- 2. prepare -----------------------------------------------------
     t0 = time.perf_counter()
     cfg = RenderConfig(**CFG)
-    pipe = pipeline.prepare(cfg)
+    pipe = prepare_native(cfg)
     torch.cuda.synchronize()
     T = pipe.tables
     L = T.leaf_size
     emit({"phase": "prepare", "seconds": time.perf_counter() - t0,
+          "builder": pipe.builder, "native_build": dict(native.BUILD_INFO),
           "bvh_build_ms": pipe.build_ms, "triangles": pipe.scene.num_triangles,
           "cbox": list(T.cbox.shape), "tri": list(T.tri.shape),
           "tree_depth": pipe.flat.depth, "stack_need": T.stack_depth,
@@ -778,7 +820,7 @@ def main() -> int:
     for key, extra in ARITY_CASES.items():
         t0 = time.perf_counter()
         acfg = RenderConfig(**CFG, **extra)
-        apipe = pipeline.prepare(acfg)
+        apipe = prepare_native(acfg)
         if key == "w8_bf16":
             apipe = pair_rows_w8(apipe)
         torch.cuda.synchronize()
@@ -790,15 +832,26 @@ def main() -> int:
                    compressed=A.compressed)
         check(key, a == acfg.bvh_width, f"arity {a}")
         check(key, bf16 == acfg.bf16_bvh, f"bf16 tables {bf16}")
-        check(key, torch.equal(A.tri, T.tri) and torch.equal(A.attr, T.attr),
-              "tri / attr differ from the width-4 tables")
+        # At width 2 the native builder's own leaf rows are kept, as JAX's
+        # native prepare keeps them: the width-4 rows' slots, with each
+        # triangle's normal (lanes 9-11 of its 12) rounded in another order.
+        # The kernels are held to the plain results on the width-4 rows of
+        # the same slots; the pipeline renders with its own.
+        normals = (torch.arange(A.tri.shape[1], device=A.tri.device) % 12) >= 9
+        tri_diff = (A.tri - T.tri).abs()
+        check(key, np.array_equal(apipe.flat.slot_map, pipe.flat.slot_map)
+              and torch.equal(A.attr, T.attr) and not bool(tri_diff[:, ~normals].any()),
+              "slots, attr or tri beyond the normals differ from the width-4 tables")
+        tri_normals_diff = tri_diff.max().item()
+        A = A._replace(tri=T.tri)
         box_b, meta_b = VISIT_BYTES[a, bf16]
         rec = {"phase": "arity", "case": key, **extra,
                "prepare_s": time.perf_counter() - t0, "cbox": list(A.cbox.shape),
                "cbox_dtype": str(A.cbox.dtype), "compressed": A.compressed,
                "cbox_bytes": nbytes(A.cbox), "cmeta": list(A.cmeta.shape),
                "visit_bytes": {"box": box_b, "meta": meta_b},
-               "stack_need": A.stack_depth, "stack_size": ct.STACK_SIZE[a]}
+               "stack_need": A.stack_depth, "stack_size": ct.STACK_SIZE[a],
+               "builder": apipe.builder, "tri_normals_max_abs_diff": tri_normals_diff}
 
         # each instance against the plain results: the bands, the frame
         errs = {k: 0.0 for k in ("closest", "closest_full", "occluded", "frame")}
@@ -909,7 +962,7 @@ def main() -> int:
         tag = "dragon_bf16" if bf16 else "dragon"
         t0 = time.perf_counter()
         dcfg = RenderConfig(**DRAGON, bf16_bvh=bf16)
-        dpipe = pipeline.prepare(dcfg)
+        dpipe = prepare_native(dcfg)
         torch.cuda.synchronize()
         prep_s = time.perf_counter() - t0
         D = dpipe.tables
@@ -918,7 +971,8 @@ def main() -> int:
         dkw = dict(leaf_size=D.leaf_size, stack_depth=D.stack_depth,
                    compressed=D.compressed)
         rec = {"phase": "dragon", "case": tag, "prepare_s": prep_s,
-               "bvh_build_ms": dpipe.build_ms,
+               "bvh_build_ms": dpipe.build_ms, "builder": dpipe.builder,
+               "numpy_build_s": NUMPY_BUILD_S["dragon"],
                "triangles": dpipe.scene.num_triangles, "cbox": list(D.cbox.shape),
                "tri": list(D.tri.shape), "stack_need": D.stack_depth,
                "stack_size": ct.STACK_SIZE[D.arity],
@@ -1105,7 +1159,7 @@ def main() -> int:
     # streams; "auto" must stream here too, and render pass-based
     t0 = time.perf_counter()
     scfg = RenderConfig(**SYNTHETIC_600K)
-    spipe = pipeline.prepare(scfg)
+    spipe = prepare_native(scfg)
     torch.cuda.synchronize()
     S = spipe.tables
     g_rows = spipe.flat.n_slots // S.leaf_size + 1     # tri rows before padding
@@ -1117,6 +1171,8 @@ def main() -> int:
           "tri and attr are not padded to whole blocks")
     rec = {"phase": "stream", "case": name, "card": card,
            "prepare_s": time.perf_counter() - t0, "bvh_build_ms": spipe.build_ms,
+           "builder": spipe.builder, "numpy_prepare_s": NUMPY_PREPARE_S["synthetic_600k"],
+           "numpy_build_s": NUMPY_BUILD_S["synthetic_600k"],
            "triangles": spipe.scene.num_triangles, "cbox": list(S.cbox.shape),
            "cmeta": list(S.cmeta.shape), "tri": list(S.tri.shape), "tri_rows_unpadded": g_rows,
            "table_bytes": {"cbox": nbytes(S.cbox), "cmeta": nbytes(S.cmeta),
@@ -1210,7 +1266,7 @@ def main() -> int:
     # each table of the earlier phases takes the sphere table as it is.
     t0 = time.perf_counter()
     ssc = with_spheres(load_scene_npz(os.path.join(HERE, "assets", "car_boxed.npz")))
-    spipe = pipeline.prepare(cfg, scene=ssc)
+    spipe = prepare_native(cfg, scene=ssc)
     torch.cuda.synchronize()
     name = "car_boxed_spheres"
     sph = spipe.tables.sph
@@ -1326,8 +1382,8 @@ def main() -> int:
     small = Scene(**{k: np.asarray(v, np.int32 if k in ("faces", "mat_idx", "spheres_mat")
                                    else np.float32) for k, v in SPHERE_SCENE.items()})
     bcfg = RenderConfig(**dict(CFG, bounces=2))
-    bpipe = pipeline.prepare(bcfg, scene=small)
-    npipe = pipeline.prepare(dataclasses.replace(bcfg, use_bvh=False), scene=small)
+    bpipe = prepare_native(bcfg, scene=small)
+    npipe = prepare_native(dataclasses.replace(bcfg, use_bvh=False), scene=small)
     rec = {"phase": "brute", "case": "sphere_scene_1080p", "card": card,
            "prepare_s": time.perf_counter() - t0}
     check("brute", npipe.tables is None and npipe.resolved_variant() == "bruteforce",
@@ -1397,7 +1453,7 @@ def main() -> int:
     dref = None
     for key, extra in DEEP_CASES.items():
         t0 = time.perf_counter()
-        dp = pipeline.prepare(RenderConfig(**DEEP_CFG, **extra), scene=chain)
+        dp = prepare_native(RenderConfig(**DEEP_CFG, **extra), scene=chain)
         if key == "w8_bf16":
             dp = pair_rows_w8(dp)
         D = dp.tables
@@ -1600,7 +1656,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     mcfg = RenderConfig(**MXU_CFG)
-    mpipe = pipeline.prepare(mcfg)
+    mpipe = prepare_native(mcfg)
     torch.cuda.synchronize()
     M = mpipe.tables
     check("mxu", mpipe.mxu and M.cmat is not None, "the default prepare did not take the MXU leaf")
@@ -1633,7 +1689,7 @@ def main() -> int:
     def mxu_tables(key):
         if key == "w4":
             return mpipe
-        p = pipeline.prepare(RenderConfig(**MXU_CFG, **MXU_CASES[key]))
+        p = prepare_native(RenderConfig(**MXU_CFG, **MXU_CASES[key]))
         if key == "w8_bf16":
             p = pair_rows_w8(p)
         check(f"mxu/{key}", p.mxu and p.tables.cmat is not None, "not the MXU leaf")
@@ -1758,7 +1814,7 @@ def main() -> int:
 
     # frame_sph_mxu<4>: car_boxed_spheres with the defaults
     ssc = with_spheres(load_scene_npz(os.path.join(HERE, "assets", "car_boxed.npz")))
-    sp = pipeline.prepare(mcfg, scene=ssc)
+    sp = prepare_native(mcfg, scene=ssc)
     S_ = sp.tables
     check("mxu/spheres", sp.mxu and S_.sph is not None, "not the MXU sphere tables")
     sfp, sph_ms = timed_once(lambda: ct.frame_plain(
@@ -1792,7 +1848,7 @@ def main() -> int:
     # the DEEP MXU instances on the chain scene, against their plain versions
     dref_m = None
     for key in MXU_CASES:
-        dp = pipeline.prepare(RenderConfig(**dict(DEEP_CFG, mxu_leaf=True), **MXU_CASES[key]),
+        dp = prepare_native(RenderConfig(**dict(DEEP_CFG, mxu_leaf=True), **MXU_CASES[key]),
                               scene=chain)
         if key == "w8_bf16":
             dp = pair_rows_w8(dp)
@@ -1900,7 +1956,7 @@ def main() -> int:
                                   "(the plain MXU version reads no node table)", MXU_LINES[k]))
     del mpipe, M
 
-    # ---- 15. the microbench probes (rows 15a-15d) ---------------------------
+    # ---- 15. the microbench probes (rows 15a-15h) ---------------------------
     extra_rows += microbench_phase(card, out_dir)
 
     # ---- 16. the command line: the width-8 frame, the --bf16-bvh frame -----
@@ -1930,13 +1986,16 @@ def main() -> int:
                 metrics = json.load(f)
             check(name, metrics.get("iterations") == 30,
                   f"iterations {metrics.get('iterations')}")
+            check(name, metrics.get("builder") == "native",
+                  f"the {metrics.get('builder')} builder ran")
             rec.update(bmp_equal=same, iterations=metrics.get("iterations"),
-                       backend=metrics.get("backend"),
+                       backend=metrics.get("backend"), builder=metrics.get("builder"),
                        device_name=metrics.get("device_name"),
                        median_ms=metrics.get("median_ms"),
                        mean_ms=metrics.get("mean_ms"), ci99_ms=metrics.get("ci99_ms"))
         emit(rec)
 
+    emit({"phase": "builds", "native_build": dict(native.BUILD_INFO), "builds": builds})
     run_cli("cli_w8", ["--bvh-width", "8", "--no-mxu-leaf"], frames["w8"])
     run_cli("cli_bf16", ["--bf16-bvh", "--no-mxu-leaf"], frames["w4_bf16"])
     del frames
@@ -1973,11 +2032,13 @@ def main() -> int:
 
 
 def microbench_phase(card: str, out_dir: str) -> list:
-    """Phase `microbench`: kernels A-D of parallel_ray_tracer_tpu_torch/
-    microbench against their plain versions, then the entry point's three
-    commands with the launch counts from 0; returns their kernels-line
-    rows."""
+    """Phase `microbench`: kernels A-D and the bf16 probes of
+    parallel_ray_tracer_tpu_torch/microbench against their plain versions,
+    then the entry point's four commands with the launch counts from 0;
+    returns their kernels-line rows."""
     from parallel_ray_tracer_tpu_torch import microbench as mb
+    from parallel_ray_tracer_tpu_torch.microbench import bf16 as mb16
+    from parallel_ray_tracer_tpu_torch.microbench import fixtures
     from parallel_ray_tracer_tpu_torch.microbench import mxu_leaf as ml
     from parallel_ray_tracer_tpu_torch.microbench import overlap as mo
     from parallel_ray_tracer_tpu_torch.microbench import probes as mp
@@ -2095,9 +2156,47 @@ def microbench_phase(card: str, out_dir: str) -> list:
     emit({"phase": "microbench", "case": "overlap_vs_plain", "card": card, "n": n,
           "seconds": time.perf_counter() - t0, "compare": over_cmp})
 
+    # rows 15e-15h: every chain instance on the full grid against its plain
+    # version at K = MB_ITERS, bit for bit (f32 and bf16 alike: each op
+    # rounds once to the tile's type in both); the slab pairs' e exactly,
+    # on the script's rays and on normal rays
+    t0 = time.perf_counter()
+    blocks = sms * mb16.BLOCKS_PER_SM
+    n16 = blocks * mb16.CHAIN_THREADS
+    bf16_cmp = {}
+    for case, (op, rows, is_bf16, ilp) in mb16.CHAIN_CASES.items():
+        a, b = mb16.chain_inputs(rows, is_bf16, dev)
+        tk = mb16.chain(a, b, op, MB_ITERS, ilp, blocks)
+        tp_ = mb16.chain_plain(a, b, op, MB_ITERS, ilp)
+        kb = tk.view(torch.int16 if is_bf16 else torch.int32)
+        pb = tp_.view(torch.int16 if is_bf16 else torch.int32)
+        equal = bool((kb == pb[None]).all())
+        fin = torch.isfinite(tp_.float())
+        err = (tk.float() - tp_.float()[None]).abs()[:, fin]
+        bf16_cmp[case] = {"equal": equal, "max_abs_err": err.max().item() if err.numel() else 0.0,
+                          "finite_frac": fin.float().mean().item(),
+                          "script_output": mb16.script_output(tp_)}
+        check(f"microbench/bf16/{case}", equal, "not its plain version bit for bit")
+    srows, splanes = mb16.slab_inputs(dev)
+    normal = tuple(torch.as_tensor(p.reshape(-1), device=dev) for p in fixtures.overlap_rays())
+    for case, is_bf16 in mb16.SLAB_CASES.items():
+        for rays, planes in (("script", splanes), ("normal", normal)):
+            for k in MB_SLAB_CHECK_ITERS:
+                ek = mb16.slab(srows, planes, is_bf16, k, n16)
+                ep = mb16.slab_plain(srows, planes, is_bf16, k, 32, n16)
+                equal = torch.equal(ek, ep)
+                bf16_cmp[f"{case}/{rays}/K{k}"] = {
+                    "equal": equal, "max_abs_err": float((ek - ep).abs().max()),
+                    "branched_frac": (ep != k).float().mean().item()}
+                check(f"microbench/bf16/{case}/{rays}/K{k}", equal,
+                      "e differs from the plain version's")
+    emit({"phase": "microbench", "case": "bf16_vs_plain", "card": card, "blocks": blocks,
+          "n": n16, "iters": MB_ITERS, "seconds": time.perf_counter() - t0,
+          "compare": bf16_cmp})
+
     # the entry point, each command with the counts from 0
     mb_out = os.path.join(out_dir, "microbench")
-    launches, runs = {}, {}
+    launches, runs, instances = {}, {}, {}
     for cmd, kernels in MB_COMMANDS.items():
         mb.reset_launch_counts()
         t0 = time.perf_counter()
@@ -2105,6 +2204,11 @@ def microbench_phase(card: str, out_dir: str) -> list:
             rc = mb_main([cmd, "--out", mb_out])
         torch.cuda.synchronize()
         counts = dict(mb.LAUNCHES)
+        if cmd == "bf16":
+            instances.update(mb.INSTANCE_LAUNCHES)
+            want = mb16.INSTANCES | {mb16.slab_instance(f) for f in mb16.SLAB_CASES.values()}
+            check("microbench/bf16", set(instances) == want and min(instances.values()) > 0,
+                  f"instance launches {instances}")
         check(f"microbench/{cmd}", rc == 0, f"exit {rc}")
         check(f"microbench/{cmd}", all(counts[k] > 0 for k in kernels)
               and all(v == 0 for k, v in counts.items() if k not in kernels),
@@ -2139,6 +2243,17 @@ def microbench_phase(card: str, out_dir: str) -> list:
           "gather_ns_per_block": {r["table_mb"]: r["ns_per_block"] for r in gathers},
           "gather_gb_per_s": {r["table_mb"]: r["gb_per_s"] for r in gathers},
           "clocks_sm_mhz": sorted({r["marginal"]["clocks_sm_mhz"] for r in gathers})})
+    b16 = runs["bf16"]
+    emit({"phase": "microbench", "case": "bf16", "card": card,
+          "ns_per_op_per_1024": {r["case"]: r["ns_per_op_per_1024"] for r in b16
+                                 if "ns_per_op_per_1024" in r},
+          "ns_per_op": {r["case"]: r["ns_per_op"] for r in b16 if "ns_per_op" in r},
+          "ns_per_visit_per_1024": {r["case"]: r["ns_per_visit_per_1024"] for r in b16
+                                    if "ns_per_visit_per_1024" in r},
+          "ratios_bf16x2_over_f32": next(r for r in b16 if "ratios_bf16x2_over_f32" in r)[
+              "ratios_bf16x2_over_f32"],
+          "clocks_sm_mhz": sorted({r["marginal"]["clocks_sm_mhz"] for r in b16
+                                   if "marginal" in r})})
     overs = runs["overlap"]
     emit({"phase": "microbench", "case": "overlap", "card": card,
           "ns_per_iteration": {f"{r['body']}@{r['blocks_per_sm']}": r["ns_per_iteration"]
@@ -2154,6 +2269,16 @@ def microbench_phase(card: str, out_dir: str) -> list:
 
     def ops_bound(fp32_ops, tensor_ops, bytes_):
         t_ops = max(fp32_ops / PEAK_FP32_OPS, tensor_ops / PEAK_BF16_OPS) * 1e3
+        t_bytes = bytes_ / PEAK_BYTES * 1e3
+        return {"bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+    def rate_bound(ops, bytes_):
+        """FP32 operations over the FP32 rate plus bf16 element operations
+        over the packed bf16 rate (one FMA pipe issues both), or the bytes
+        over the memory rate, the larger."""
+        t_ops = (ops.get("fp32", 0.0) / PEAK_FP32_OPS
+                 + ops.get("bf16x2", 0.0) / PEAK_BF16X2_OPS) * 1e3
         t_bytes = bytes_ / PEAK_BYTES * 1e3
         return {"bound_ms": max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -2206,6 +2331,46 @@ def microbench_phase(card: str, out_dir: str) -> list:
                   nbytes(*otab.planes, otab.cbox, otab.cmeta, otab.cmat) + 20 * n),
         over_cmp["both_closest"]["max_abs_err"], iters=MB_OVERLAP_ITERS, threads=n,
         ns_per_iteration=ob["ns_per_iteration"]))
+    # rows 15e-15h: one row per instance, at MB_BF16_ROW_ITERS iterations
+    # of the entry point's grid (kernel and plain version on the same
+    # inputs), its bound the element operations over the FP32 rate or the
+    # packed bf16 rate (the slab's bf16x2 and f32 operations both on the
+    # FMA pipe, so their times add)
+    kk = MB_BF16_ROW_ITERS
+    by_case = {r["case"]: r for r in b16 if "case" in r}
+    for case, (op, rows_, is_bf16, ilp) in mb16.CHAIN_CASES.items():
+        a, b = mb16.chain_inputs(rows_, is_bf16, dev)
+        ops = mb16.chain_ops(case, kk, blocks)
+        inst = mb16.chain_instance(op, rows_, is_bf16, ilp)
+        w = rows_ * 128 // (2 if is_bf16 else 1) // mb16.CHAIN_THREADS
+        rows.append({
+            "name": f"mb_chain_kernel<{'__nv_bfloat162' if is_bf16 else 'float'}, "
+                    f"{'MB_FMS' if op == 'fms' else 'MB_MNX'}, {w}, {ilp}> ({case})",
+            "route": "cuda", "source": "parallel_ray_tracer_tpu_torch/csrc/microbench_bf16.cu",
+            "replaces": "scripts/microbench_bf16.py:"
+                        f"{mb16.SCRIPT_LINE['chain1' if ilp == 1 else 'chain4']}",
+            "launches": instances[inst], "max_abs_err": bf16_cmp[case]["max_abs_err"],
+            "ms": time_ms(lambda: mb16.chain(a, b, op, kk, ilp, blocks), 2, 5)["median"],
+            "plain_ms": once_ms(lambda: mb16.chain_plain(a, b, op, kk, ilp)),
+            **rate_bound(ops, nbytes(a, b) * (1 + blocks)), "library_ms": None,
+            "iters": kk, "blocks": blocks, "in_script": case not in mb16.NOT_IN_SCRIPT,
+            "ns_per_op_per_1024": by_case[case]["ns_per_op_per_1024"]})
+    for case, is_bf16 in mb16.SLAB_CASES.items():
+        so = mb16.SLAB_OPS[is_bf16]
+        ops = {"fp32": so["fp32"] * n16 * kk, "bf16x2": 2 * so["bf16x2"] * n16 * kk}
+        rows.append({
+            "name": f"mb_slab_kernel<{'true' if is_bf16 else 'false'}> ({case})", "route": "cuda",
+            "source": "parallel_ray_tracer_tpu_torch/csrc/microbench_bf16.cu",
+            "replaces": "scripts/microbench_bf16.py:"
+                        f"{mb16.SCRIPT_LINE['slab_bf16' if is_bf16 else 'slab_f32']}",
+            "launches": instances[mb16.slab_instance(is_bf16)],
+            "max_abs_err": max(v["max_abs_err"] for k, v in bf16_cmp.items()
+                               if k.startswith(case + "/")),
+            "ms": time_ms(lambda: mb16.slab(srows, splanes, is_bf16, kk, n16), 2, 5)["median"],
+            "plain_ms": once_ms(lambda: mb16.slab_plain(srows, splanes, is_bf16, kk, 32, n16)),
+            **rate_bound(ops, nbytes(srows, *splanes) + 4 * n16 // 32), "library_ms": None,
+            "iters": kk, "threads": n16,
+            "ns_per_visit_per_1024": by_case[case]["ns_per_visit_per_1024"]})
     emit({"phase": "microbench", "case": "kernels", "card": card, "rows": rows})
     return rows
 

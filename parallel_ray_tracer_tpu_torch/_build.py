@@ -3,7 +3,7 @@
 nvcc compiles each unit of csrc/ for sm_90a, all of them at once (one
 process per unit: the C entry points and one unit per node arity, box
 format, leaf mode (resident FP32, streamed, MXU) and stack tier, and the
-three units of the microbench probes), and links
+four units of the microbench probes), and links
 them into `_build/<hash>/libtrace.so`, where the hash covers the sources and
 the flags, so a changed source builds anew and an unchanged one is reused.
 The build happens at first use, inside the call that launches a kernel;
@@ -29,8 +29,10 @@ CSRC = os.path.join(_PKG, "csrc")
 # stack tier (csrc/trace.cuh).
 _TIER_UNITS = ("a2", "a4", "a8", "a4p", "a8p", "a2h", "a4s", "a8s", "a4ps", "a8ps",
                "a4m", "a8m", "a4pm", "a8pm")
-# The probes of microbench/ (kernels A, B and C, D), which include trace.cuh.
-MICROBENCH_UNITS = ("microbench_leaf.cu", "microbench_probes.cu", "microbench_overlap.cu")
+# The probes of microbench/ (kernels A, B and C, D; the bf16 chains and slab
+# pairs), which include trace.cuh.
+MICROBENCH_UNITS = ("microbench_leaf.cu", "microbench_probes.cu", "microbench_overlap.cu",
+                    "microbench_bf16.cu")
 UNITS = ("trace_kernels.cu",) + tuple(
     f"trace_{u}{tier}.cu" for tier in ("", "d") for u in _TIER_UNITS) + MICROBENCH_UNITS
 SOURCES = ("trace.cuh", "trace_launch.cuh") + UNITS
@@ -130,7 +132,10 @@ def load_library() -> ctypes.CDLL:
     lib.mb_smem_optin.argtypes = [P]
     lib.mb_gather.argtypes = [P, I, I, P, P, P, P]
     lib.mb_overlap.argtypes = [P] * 6 + [I] + [P] * 3 + [I] * 7 + [P] * 8
-    for fn in (lib.mb_leaf, lib.mb_stage, lib.mb_smem_optin, lib.mb_gather, lib.mb_overlap):
+    lib.mb_chain.argtypes = [P, P] + [I] * 6 + [P, P]
+    lib.mb_slab.argtypes = [P] * 7 + [I] * 4 + [P, P]
+    for fn in (lib.mb_leaf, lib.mb_stage, lib.mb_smem_optin, lib.mb_gather, lib.mb_overlap,
+               lib.mb_chain, lib.mb_slab):
         fn.restype = I
     lib.rt_error_string.argtypes = [I]
     lib.rt_error_string.restype = ctypes.c_char_p

@@ -17,9 +17,10 @@ A flag whose path the port does not have yet (--devices N > 1,
 --no-reverse-shadows, --leaf-size 4, --variant jax) ends the run with the
 NotImplementedError message and exit code 2. --no-bvh and --variant
 bruteforce render every frame by brute force (ops/trace_brute.py), as the
-JAX CLI does; a --scene folder with a spheres.obj renders its spheres. --no-native,
---pop-width and --adaptive-pop are accepted and change nothing here (see
-config.py). --stream picks streamed leaf rows and --mxu-leaf / --no-mxu-leaf
+JAX CLI does; a --scene folder with a spheres.obj renders its spheres.
+--no-native takes the numpy scene loader and BVH builder instead of the C++
+ones (native/). --pop-width and --adaptive-pop are accepted and change
+nothing here (see config.py). --stream picks streamed leaf rows and --mxu-leaf / --no-mxu-leaf
 the tensor-core leaf test as the JAX CLI does (by the JAX prepare's rule);
 the banner and the metrics record give the pipeline's resolved choices.
 """
@@ -132,7 +133,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--interpret", action="store_true",
                    help="Pallas interpreter mode (not ported)")
     p.add_argument("--no-native", action="store_true",
-                   help="NumPy loaders and builders; always so here")
+                   help="NumPy loaders and builders instead of the C++ ones")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="capture a profiler trace (not ported)")
     p.add_argument("--quiet", action="store_true")
@@ -285,6 +286,7 @@ def _run(args) -> int:
             "backend": str(device),
             "device_name": device_name,
             "build_ms": pipe.build_ms,
+            "builder": pipe.builder,
             "bvh_stats": pipe.bvh_stats,
             "stream": pipe.stream,
             "mxu": pipe.mxu,

@@ -100,10 +100,11 @@ class RenderConfig:
     asset_root: Optional[str] = None
 
     # Fields of the JAX package's TPU paths, kept so that both packages'
-    # configs build from one set of keyword arguments. The port ignores
-    # use_native (it always builds with numpy; the image does not depend on
-    # the builder) and pop_width and adaptive_pop (packet schedules; one
-    # thread traces one ray here). num_devices != 1 (no sharding yet) and
+    # configs build from one set of keyword arguments. use_native takes
+    # the C++ scene loader and BVH builder (native/, built with g++ at first
+    # use; the numpy builder where g++ is missing), as in JAX. The port
+    # ignores pop_width and adaptive_pop (packet schedules; one thread
+    # traces one ray here). num_devices != 1 (no sharding yet) and
     # presplit > 0 raise NotImplementedError.
     num_devices: int = 1
     use_native: bool = True

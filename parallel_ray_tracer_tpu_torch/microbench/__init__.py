@@ -1,5 +1,6 @@
-"""Probes that ask the H100 what a leaf visit costs: the port of the leaf-test
-microbenchmarks of scripts/ (row 15a-15d of PERF.md's kernel table).
+"""Probes that ask the H100 what a leaf visit costs, and whether it issues
+packed bf16x2 at the rate of f32: the port of the microbenchmarks of
+scripts/ (rows 15a-15h of PERF.md's kernel table).
 
 Each TPU script asked the TPU one question about the MXU leaf; each kernel
 here asks the card the same question, through the production device
@@ -12,18 +13,24 @@ pallas_trace.py's:
 | `probes.py`   | B `mb_stage_kernel` (microbench_probes.cu) | `probe_pad` microbench_mxu_leaf.py:513 (call :523)  |
 | `probes.py`   | C `mb_gather_kernel` (microbench_probes.cu) | `probe_ceiling` microbench_mxu_leaf.py:544 (call :554) |
 | `overlap.py`  | D `mb_overlap_kernel` (microbench_overlap.cu) | `_run` microbench_overlap.py:160 (call :168)     |
+| `bf16.py`     | `mb_chain_kernel` (microbench_bf16.cu)  | `_chain_bench` :85 (:101), `_chain_bench_ilp` :116 (:140) of microbench_bf16.py |
+| `bf16.py`     | `mb_slab_kernel` (microbench_bf16.cu)   | `_slab_pair_f32` :155 (:185), `_slab_pair_bf16` :200 (:255) of microbench_bf16.py |
 
 `fixtures.py` holds numpy copies of the scripts' fixtures, `_timing.py` the
 marginal-cost method with CUDA events. Each wrapper runs its kernel's plain
 PyTorch version for tensors on the CPU and launches the kernel, or raises,
 for tensors on the card; it counts its launches in LAUNCHES. The entry
 point is `python -m parallel_ray_tracer_tpu_torch.microbench
-{mxu_leaf,probes,overlap}` (__main__.py).
+{mxu_leaf,probes,overlap,bf16}` (__main__.py).
 """
 
-LAUNCHES = {"leaf": 0, "stage": 0, "gather": 0, "overlap": 0}
+LAUNCHES = {"leaf": 0, "stage": 0, "gather": 0, "overlap": 0, "chain": 0, "slab": 0}
+# Launches per kernel instance, for the kernels whose instances are probes
+# of their own (bf16.py: "chain<bf16x2,fms,16x128>", "slab<f32>", ...).
+INSTANCE_LAUNCHES = {}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    INSTANCE_LAUNCHES.clear()

@@ -1,13 +1,15 @@
 """The microbench probes' command line.
 
-    python -m parallel_ray_tracer_tpu_torch.microbench {mxu_leaf,probes,overlap}
+    python -m parallel_ray_tracer_tpu_torch.microbench {mxu_leaf,probes,overlap,bf16}
         [--stage v1..v6|all] [--device cpu] [--out DIR]
 
 `mxu_leaf` times kernel A's leaf visit in each stage's configurations
 (mxu_leaf.STAGES; --stage, default all) and prints the accuracy tables;
 `probes` runs the shared-memory staging sweep (B) and the L2 ceiling's
 gather sweep (C); `overlap` times kernel D's bodies and prints the overlap
-harvested. On the card (the default) every time is a marginal cost per loop
+harvested; `bf16` times the f32 and bf16x2 chains (ns per op per 1,024
+elements, and the script's bf16(16,128) / f32(8,128) mul-sub ratio line)
+and the f32 and packed bf16 slab pairs (ns per visit per 1,024 rays). On the card (the default) every time is a marginal cost per loop
 iteration measured with CUDA events on that card (microbench/_timing.py),
 with the SM clock beside it; the card's name and power limit head the
 output. With --device cpu the plain versions run at a few iterations and
@@ -27,9 +29,9 @@ from typing import List, Optional
 
 import torch
 
-from . import _timing, mxu_leaf, overlap, probes
+from . import _timing, bf16, mxu_leaf, overlap, probes
 
-COMMANDS = ("mxu_leaf", "probes", "overlap")
+COMMANDS = ("mxu_leaf", "probes", "overlap", "bf16")
 DEFAULT_OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "chiprun_out", "microbench")
 # Resident threads per SM: the grid of the timed kernels fills the card.
@@ -74,11 +76,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         records = mxu_leaf.run(stages, device, n, timing)
     elif args.command == "probes":
         records = probes.run(device, timing, n_warps=sms * WARPS_PER_SM)
-    else:
+    elif args.command == "overlap":
         records = overlap.run(device, timing, sms=sms)
+    else:
+        records = bf16.run(device, timing, sms=sms)
     print(json.dumps(head), flush=True)
     for rec in records:
         print(json.dumps(rec), flush=True)
+        if "script_line" in rec:
+            print(rec["script_line"], flush=True)
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, f"{args.command}.json"), "w") as f:
         json.dump({"head": head, "records": records}, f, indent=1)

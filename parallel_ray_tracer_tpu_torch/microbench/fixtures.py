@@ -2,8 +2,9 @@
 
 Copied from scripts/microbench_mxu_leaf.py (`split_bf16` :88, `build_cmat`
 :201, `build_rmat` :219, `rand_fixture` :229, the fixtures of
-`accuracy_check` :241) and scripts/microbench_overlap.py (`_rays` :56,
-`_boxes` :65, `_cmat` :79, `_rmats` :86). Same seeds give the same numbers:
+`accuracy_check` :241), scripts/microbench_overlap.py (`_rays` :56,
+`_boxes` :65, `_cmat` :79, `_rmats` :86) and scripts/microbench_bf16.py
+(`_box_rows` :51, `_rand` :62). Same seeds give the same numbers:
 f32 arrays bit for bit, and bf16 arrays as their uint16 bits (rounded to
 nearest even, as JAX rounds).
 """
@@ -26,6 +27,8 @@ EPS = 1e-3
 N_NODES = 4096
 N_GROUPS = 512
 PACKET = (8, 128)
+# microbench_bf16.py: node rows of the slab probe.
+BF16_NODES = 4096
 
 
 def split_bf16(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -171,3 +174,25 @@ def overlap_rmats(rays: List[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
         [np.stack([f.reshape(-1) for f in feats], axis=0),
          np.ones((1, ox.size), np.float32), np.zeros((6, ox.size), np.float32)], axis=0)
     return split_bf16(R)
+
+
+def bf16_rand(shape, bf16: bool = False) -> np.ndarray:
+    """microbench_bf16.py `_rand`: normal(size=shape) + 2 from
+    default_rng(0) (a fresh generator each call, so every call with one
+    shape gives the same values), as f32, or as bf16 bits (rounded to
+    nearest even from f32, as jnp.asarray(..., bfloat16) gives them)."""
+    x = (np.random.default_rng(0).normal(size=shape) + 2.0).astype(np.float32)
+    return bf16_bits(x) if bf16 else x
+
+
+def bf16_box_rows() -> np.ndarray:
+    """`_box_rows`: (4096, 16) f32 node rows of two random child boxes,
+    [min, max] of child k at [6k, 6k + 6) (default_rng(1))."""
+    rng = np.random.default_rng(1)
+    mn = rng.uniform(-4, 3, size=(BF16_NODES, 2, 3)).astype(np.float32)
+    mx = mn + rng.uniform(0.1, 1.0, size=(BF16_NODES, 2, 3)).astype(np.float32)
+    rows = np.zeros((BF16_NODES, 16), np.float32)
+    for k in range(2):
+        rows[:, 6 * k : 6 * k + 3] = mn[:, k]
+        rows[:, 6 * k + 3 : 6 * k + 6] = mx[:, k]
+    return rows

@@ -3,7 +3,8 @@ device tables -> render.
 
 `prepare` loads the scene, builds, flattens and packs the BVH at the
 configured node arity (bvh_width 2, 4 or 8) and box format (f32, or bf16
-with bf16_bvh) with the port's own numpy modules, decides as JAX does
+with bf16_bvh) with the port's C++ host runtime (native/, with use_native)
+or its own numpy modules, decides as JAX does
 whether leaf rows stream and whether the leaf test is the MXU leaf, and
 uploads the tables and the scene planes
 (DeviceScene, in the BVH's slot order) once; `Pipeline.render` then renders
@@ -30,8 +31,9 @@ from .ops import render as render_ops
 from .ops.bvh import build_bvh
 from .ops.bvh_flat import FlatBVH, flatten_bvh
 from .ops.cuda_trace import LEAF_SIZE
-from .ops.pack import (mxu_decision, pack_attr, pack_bvh, pack_bvh4, pack_bvh8,
-                       pack_spheres, pad_stream_rows, split_cmat, stream_decision)
+from .ops.pack import (cbox_to_bf16, mxu_decision, pack_attr, pack_bvh, pack_bvh4,
+                       pack_bvh8, pack_spheres, pad_stream_rows, split_cmat,
+                       stream_decision)
 
 VARIANTS = ("auto", "fused", "pallas", "bruteforce")
 PACKERS = {2: pack_bvh, 4: pack_bvh4, 8: pack_bvh8}   # by bvh_width
@@ -48,7 +50,8 @@ class Pipeline:
     flat: Optional[FlatBVH]             # None when use_bvh=False
     tables: Optional[SceneTables]       # None when use_bvh=False
     build_ms: float
-    bvh_stats: Optional[dict] = None    # the host tree's stats (ops/bvh.py)
+    bvh_stats: Optional[dict] = None    # the host tree's stats (ops/bvh.py or C++)
+    builder: Optional[str] = None       # "native" (C++) or "numpy"; None without a BVH
     stream: bool = False                # streamed leaf rows (pass-based path)
     mxu: bool = False                   # the MXU leaf (tables.cmat is set)
 
@@ -137,20 +140,24 @@ def _check_ported(cfg: RenderConfig) -> None:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
 
 
-def _load(cfg: RenderConfig) -> Scene:
-    """Synthetic scene, else the repo's npz snapshot, else the OBJ folder,
-    else the procedural substitute (dragon, two_cars, sportscar; the last two
-    need a car_only OBJ folder), as the JAX prepare (pipeline.py:252-257)."""
+def _load(cfg: RenderConfig, native=None) -> Scene:
+    """Synthetic scene, else the OBJ folder (through the native loader when
+    `native` is given, else the Python parser), else the repo's npz
+    snapshot, else the procedural substitute (dragon, two_cars, sportscar;
+    the last two need a car_only OBJ folder), as the JAX prepare
+    (pipeline.py:227-257)."""
     if cfg.synthetic_triangles > 0:
         return synthetic_scene(cfg.synthetic_triangles, seed=cfg.seed)
     roots = (cfg.asset_root,) if cfg.asset_root else DEFAULT_ASSET_ROOTS
-    for root in roots:
-        snap = os.path.join(root, cfg.scene + ".npz")
-        if os.path.isfile(snap):
-            return load_scene_npz(snap)
     try:
-        return load_scene(cfg.asset_dir())
+        asset_dir = cfg.asset_dir()
+        return (native.load_scene_native(asset_dir) if native else None) \
+            or load_scene(asset_dir)
     except FileNotFoundError:
+        for root in roots:
+            snap = os.path.join(root, cfg.scene + ".npz")
+            if os.path.isfile(snap):
+                return load_scene_npz(snap)
         scene = substitute_scene(cfg.scene, roots, seed=cfg.seed)
         if scene is None:
             raise
@@ -171,15 +178,20 @@ def prepare(cfg: RenderConfig, scene: Optional[Scene] = None, device=None) -> Pi
     """Load the scene, build + flatten + pack the BVH at cfg.bvh_width,
     upload the tables.
 
-    bf16_bvh packs what the JAX prepare packs (use_native=False,
-    pipeline.py:297-343): bf16 pair rows at width 4 (compressed), the raw
-    bf16 binary table at width 2 (JAX's branch for every backend but the
-    TPU; the card reads 16-bit rows directly), and f32 rows at width 8,
-    where JAX's prepare passes bf16=False to pack_bvh8.
+    bf16_bvh packs what the JAX prepare packs (pipeline.py:297-343): bf16
+    pair rows at width 4 (compressed), the raw bf16 binary table at width 2
+    (JAX's branch for every backend but the TPU; the card reads 16-bit rows
+    directly), and f32 rows at width 8, where JAX's prepare passes
+    bf16=False to pack_bvh8.
 
-    The device defaults to CUDA; with no card, pass device="cpu". The BVH
-    is always built by the numpy builder (use_native is ignored: the image
-    does not depend on the builder). Otherwise dual_pop changes nothing:
+    The device defaults to CUDA; with no card, pass device="cpu". With
+    use_native (the default) the scene folder is parsed and the BVH built,
+    flattened and packed by the C++ host runtime (native/builder.py), as
+    JAX's prepare does (pipeline.py:221-250, 281-325): the binary table
+    comes from C++, widths 4 and 8 repack its flat tree, and a bf16 binary
+    table rounds its boxes (cbox_to_bf16). Where g++ is missing or fails,
+    and with use_native=False, the numpy builder runs; Pipeline.builder
+    says which ran. Both build the same tree. dual_pop changes nothing:
     one thread traces one ray, so both schedules reach the same kernels.
 
     Leaf rows stream by the JAX prepare's rule (ops/pack.stream_decision,
@@ -204,8 +216,14 @@ def prepare(cfg: RenderConfig, scene: Optional[Scene] = None, device=None) -> Pi
     builds no BVH: the DeviceScene alone is uploaded."""
     _check_ported(cfg)
     device = _pick_device(device)
+    native = None
+    if cfg.use_native:
+        from .native import builder as native
+
+        if not native.available():
+            native = None
     if scene is None:
-        scene = _load(cfg)
+        scene = _load(cfg, native)
     if not cfg.use_bvh:
         ds = device_scene_from_host(scene, ambient=cfg.ambient, device=device)
         return Pipeline(cfg=cfg, scene=scene, ds=ds, flat=None, tables=None,
@@ -215,14 +233,35 @@ def prepare(cfg: RenderConfig, scene: Optional[Scene] = None, device=None) -> Pi
     # the only leaf size the kernels are built for.
     leaf_size = LEAF_SIZE
     tv = scene.triangle_vertices()
+    bf16 = cfg.bf16_bvh and cfg.bvh_width != 8
     t0 = time.perf_counter()
-    bvh = build_bvh(
-        tv, heuristic=cfg.bvh_heuristic, max_depth=cfg.bvh_max_depth,
-        leaf_threshold=max(cfg.leaf_threshold, leaf_size),
-        sah_bins=cfg.sah_bins, seed=cfg.seed, true_sah=cfg.true_sah,
-    )
-    flat = flatten_bvh(bvh, tv, leaf_size=leaf_size)
-    packed = PACKERS[cfg.bvh_width](flat, tv, bf16=cfg.bf16_bvh and cfg.bvh_width != 8)
+    res = None
+    if native is not None:
+        res = native.build_bvh_native(
+            tv, heuristic=cfg.bvh_heuristic, max_depth=cfg.bvh_max_depth,
+            leaf_threshold=max(cfg.leaf_threshold, leaf_size),
+            sah_bins=cfg.sah_bins, seed=cfg.seed, leaf_size=leaf_size,
+            true_sah=cfg.true_sah,
+        )
+    if res is not None:
+        # The C++ builder packs the binary table; widths 4 and 8 repack the
+        # flat tree, as JAX's prepare does (pipeline.py:318-329).
+        flat, packed, bvh_stats = res
+        if cfg.bvh_width != 2:
+            packed = PACKERS[cfg.bvh_width](flat, tv, bf16=bf16)
+        elif bf16:
+            packed = dataclasses.replace(packed, cbox=cbox_to_bf16(packed.cbox))
+        builder = "native"
+    else:
+        bvh = build_bvh(
+            tv, heuristic=cfg.bvh_heuristic, max_depth=cfg.bvh_max_depth,
+            leaf_threshold=max(cfg.leaf_threshold, leaf_size),
+            sah_bins=cfg.sah_bins, seed=cfg.seed, true_sah=cfg.true_sah,
+        )
+        flat = flatten_bvh(bvh, tv, leaf_size=leaf_size)
+        packed = PACKERS[cfg.bvh_width](flat, tv, bf16=bf16)
+        bvh_stats = bvh.stats
+        builder = "numpy"
     attr = pack_attr(flat, scene.mat_idx, scene.mats_kd, scene.mats_ks, scene.mats_kr)
     build_ms = (time.perf_counter() - t0) * 1e3
 
@@ -240,11 +279,15 @@ def prepare(cfg: RenderConfig, scene: Optional[Scene] = None, device=None) -> Pi
                        scene.spheres_mat, scene.mats_kd, scene.mats_ks,
                        scene.mats_kr)
     scene_bytes = packed.cbox.nbytes + packed.cmeta.nbytes + packed.tri.nbytes + attr.nbytes
-    mxu = mxu_decision(cfg, packed.cmat.shape[0], scene_bytes, stream, leaf_size)
+    # The native binary table carries no C-matrices; width 2 never takes
+    # the MXU leaf.
+    mxu = packed.cmat is not None and mxu_decision(
+        cfg, packed.cmat.shape[0], scene_bytes, stream, leaf_size)
     tables = packed_from_numpy(
         packed.cbox, packed.cmeta, tri, attr, ds.lamb.cpu().numpy(),
         device=device, leaf_size=leaf_size, compressed=packed.compressed,
         sph=sph, cmat=split_cmat(packed.cmat) if mxu else None,
     )
     return Pipeline(cfg=cfg, scene=scene, ds=ds, flat=flat, tables=tables,
-                    build_ms=build_ms, bvh_stats=bvh.stats, stream=stream, mxu=mxu)
+                    build_ms=build_ms, bvh_stats=bvh_stats, stream=stream, mxu=mxu,
+                    builder=builder)

@@ -43,6 +43,8 @@ from parallel_ray_tracer_tpu_torch.convert import packed_from_numpy
 from parallel_ray_tracer_tpu_torch.ops import cuda_trace
 from parallel_ray_tracer_tpu_torch.ops import pack as t_pack
 
+torch.set_num_threads(2)  # the suite's workers share the cores with XLA's pools
+
 J_PACK = {2: j_pt.pack_bvh, 4: j_pt.pack_bvh4, 8: j_pt.pack_bvh8}
 T_PACK = {2: t_pack.pack_bvh, 4: t_pack.pack_bvh4, 8: t_pack.pack_bvh8}
 

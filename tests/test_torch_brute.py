@@ -45,6 +45,8 @@ from parallel_ray_tracer_tpu_torch.ops.render import render_bruteforce
 from parallel_ray_tracer_tpu_torch.ops.vecmath import Vec3 as TVec3
 from parallel_ray_tracer_tpu_torch.utils.bmp import read_bmp
 
+torch.set_num_threads(2)  # the suite's workers share the cores with XLA's pools
+
 # tests/test_spheres.py's sphere_scene: a floor, a diffuse red sphere, a
 # mirror sphere and one light.
 SPHERE_SCENE = dict(

@@ -23,6 +23,8 @@ from parallel_ray_tracer_tpu_torch import cli, pipeline
 from parallel_ray_tracer_tpu_torch.utils import stats as t_stats
 from parallel_ray_tracer_tpu_torch.utils.bmp import bmp_bytes
 
+torch.set_num_threads(2)  # the suite's workers share the cores with XLA's pools
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGS = ["--device", "cpu", "--scene", "car_boxed", "--width", "64",
         "--height", "32", "--bounces", "1", "--iterations", "2",

@@ -14,6 +14,7 @@ the bounds of tests/test_fused.py. The card runs the DEEP instances
 
 import numpy as np
 import pytest
+import torch
 
 from test_torch_frame import _assert_close
 from parallel_ray_tracer_tpu import pipeline as j_pipeline
@@ -24,6 +25,8 @@ from parallel_ray_tracer_tpu_torch import pipeline as t_pipeline
 from parallel_ray_tracer_tpu_torch.config import RenderConfig as TConfig
 from parallel_ray_tracer_tpu_torch.models.procgen import chain_scene
 from parallel_ray_tracer_tpu_torch.ops import cuda_trace
+
+torch.set_num_threads(2)  # the suite's workers share the cores with XLA's pools
 
 CFG = dict(width=16, height=16, bounces=1, bvh_heuristic=1, bvh_max_depth=64,
            tile_rows=32, tile_cols=32, use_native=False, mxu_leaf=False)

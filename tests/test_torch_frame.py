@@ -12,12 +12,15 @@ isolated silhouette pixel may flip a binary occlusion), median below 1e-5.
 
 import numpy as np
 import pytest
+import torch
 
 from conftest import blocker_cloud_scene
 from parallel_ray_tracer_tpu import pipeline as j_pipeline
 from parallel_ray_tracer_tpu.config import RenderConfig as JConfig
 from parallel_ray_tracer_tpu_torch import pipeline as t_pipeline
 from parallel_ray_tracer_tpu_torch.config import RenderConfig as TConfig
+
+torch.set_num_threads(2)  # the suite's workers share the cores with XLA's pools
 
 REF = dict(use_native=False, mxu_leaf=False)
 

@@ -27,6 +27,8 @@ from parallel_ray_tracer_tpu_torch.ops.bvh import build_bvh as t_build
 from parallel_ray_tracer_tpu_torch.ops.bvh_flat import flatten_bvh as t_flatten
 from parallel_ray_tracer_tpu_torch.utils import bmp as t_bmp
 
+torch.set_num_threads(2)  # the suite's workers share the cores with XLA's pools
+
 ASSETS = os.path.join(os.path.dirname(os.path.dirname(__file__)), "assets")
 SCENE_FIELDS = (
     "verts", "faces", "mat_idx", "mats_kd", "mats_ks", "mats_kr",

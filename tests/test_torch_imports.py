@@ -16,6 +16,8 @@ from parallel_ray_tracer_tpu_torch.convert import packed_from_numpy
 from parallel_ray_tracer_tpu_torch.ops import cuda_trace
 from parallel_ray_tracer_tpu_torch.ops.vecmath import Vec3
 
+torch.set_num_threads(2)  # the suite's workers share the cores with XLA's pools
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "parallel_ray_tracer_tpu_torch")
 
@@ -58,6 +60,7 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import parallel_ray_tracer_tpu_torch.utils.stats\n"
         "import parallel_ray_tracer_tpu_torch.models.procgen\n"
         "import parallel_ray_tracer_tpu_torch.microbench.__main__\n"
+        "import parallel_ray_tracer_tpu_torch.native.builder\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'parallel_ray_tracer_tpu')]\n"
         "print(bad)\n"

@@ -56,6 +56,8 @@ from parallel_ray_tracer_tpu_torch import microbench
 from parallel_ray_tracer_tpu_torch.microbench import fixtures, mxu_leaf, overlap, probes
 from parallel_ray_tracer_tpu_torch.microbench.__main__ import main as mb_main
 
+torch.set_num_threads(2)  # the suite's workers share the cores with XLA's pools
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K = 3
 T_MAX = np.float32(3.4028235e38)

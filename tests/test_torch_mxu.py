@@ -52,6 +52,8 @@ from parallel_ray_tracer_tpu_torch.ops import pack as t_pack
 from parallel_ray_tracer_tpu_torch.ops.bvh import build_bvh as t_build
 from parallel_ray_tracer_tpu_torch.ops.bvh_flat import flatten_bvh as t_flatten
 
+torch.set_num_threads(2)  # the suite's workers share the cores with XLA's pools
+
 L = 8
 J_PACK = {2: j_pt.pack_bvh, 4: j_pt.pack_bvh4, 8: j_pt.pack_bvh8}
 T_PACK = {2: t_pack.pack_bvh, 4: t_pack.pack_bvh4, 8: t_pack.pack_bvh8}

@@ -16,6 +16,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from parallel_ray_tracer_tpu.models import procgen as j_procgen
 from parallel_ray_tracer_tpu.models.scene import load_scene_npz as j_load_npz
@@ -23,6 +24,8 @@ from parallel_ray_tracer_tpu_torch import pipeline as t_pipeline
 from parallel_ray_tracer_tpu_torch.config import RenderConfig as TConfig
 from parallel_ray_tracer_tpu_torch.models import procgen as t_procgen
 from parallel_ray_tracer_tpu_torch.models.scene import load_scene_npz as t_load_npz
+
+torch.set_num_threads(2)  # the suite's workers share the cores with XLA's pools
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CAR_NPZ = os.path.join(REPO, "assets", "car_only.npz")

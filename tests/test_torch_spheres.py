@@ -54,6 +54,8 @@ from parallel_ray_tracer_tpu_torch.ops.spheres import wrap_tracer
 from parallel_ray_tracer_tpu_torch.ops.vecmath import Vec3 as TVec3
 from parallel_ray_tracer_tpu_torch.models.scene import load_scene_npz as t_load_npz
 
+torch.set_num_threads(2)  # the suite's workers share the cores with XLA's pools
+
 REF = dict(use_native=False, mxu_leaf=False)
 FRAME = dict(width=32, height=32, bvh_heuristic=6, tile_rows=32, tile_cols=32, **REF)
 

@@ -42,6 +42,8 @@ from parallel_ray_tracer_tpu_torch.convert import packed_from_numpy
 from parallel_ray_tracer_tpu_torch.ops import cuda_trace
 from parallel_ray_tracer_tpu_torch.ops import pack as t_pack
 
+torch.set_num_threads(2)  # the suite's workers share the cores with XLA's pools
+
 REF = dict(use_native=False, mxu_leaf=False)
 
 

@@ -31,6 +31,8 @@ from parallel_ray_tracer_tpu_torch.ops import cuda_trace
 from parallel_ray_tracer_tpu_torch.ops.intersect import clip_inv_dir, mt_rows
 from parallel_ray_tracer_tpu_torch.ops.vecmath import Vec3 as TVec3
 
+torch.set_num_threads(2)  # the suite's workers share the cores with XLA's pools
+
 W, H = 128, 64
 LIGHT = np.asarray([4.0, -2.0, 6.0], np.float32)
 

@@ -4,12 +4,15 @@ pass-based path otherwise (parallel_ray_tracer_tpu/pipeline.py:80-104).
 The port does not have fast_light=False yet, so there it must raise."""
 
 import pytest
+import torch
 
 from conftest import blocker_cloud_scene
 from parallel_ray_tracer_tpu import pipeline as j_pipeline
 from parallel_ray_tracer_tpu.config import RenderConfig as JConfig
 from parallel_ray_tracer_tpu_torch import pipeline as t_pipeline
 from parallel_ray_tracer_tpu_torch.config import RenderConfig as TConfig
+
+torch.set_num_threads(2)  # the suite's workers share the cores with XLA's pools
 
 
 @pytest.mark.parametrize("fast_light", [True, False])
