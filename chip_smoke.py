@@ -95,10 +95,16 @@ the staged rows and the gather's chains exactly; the staging
 sweep must launch every size up to the card's opt-in limit and be refused
 past it), and the bf16 probes of rows 15e-15h (every f32 and bf16x2 chain
 instance bit for bit, the slab pairs' loop index e exactly, on the
-script's rays and on normal rays), then the entry point (`python -m
-parallel_ray_tracer_tpu_torch.microbench`) runs each command, bf16
-included, with the launch counts from 0, and each probe's readings print
-as one JSON line.
+script's rays and on normal rays), and the inner-visit and branch probes
+of rows 15i, 15j and 15l (every instance of microbench_inner.cu,
+microbench_glue.cu and microbench_cond.cu on the full grid at K = 3 and
+16: e, top and acc bit for bit, the tensor-core leaf's acc within K 1e-6 +
+1e-5 |acc|), then the entry point (`python -m
+parallel_ray_tracer_tpu_torch.microbench`) runs each of its seven
+commands with the launch counts from 0 (every bf16, inner, glue and cond
+instance must be launched), and each probe's readings print as one JSON
+line; the inner record sets the cost of one packet-1 inner visit (body A)
+times the width-4 frame kernel's inner visits beside the frame's time.
 
 Every prepare must take the native host builder (native/, built with g++
 on the card's host): a prepare that fell back to the numpy builder fails,
@@ -302,13 +308,24 @@ MB_KERNELS = {
                 "scripts/microbench_overlap.py:168"),
 }
 MB_COMMANDS = {"mxu_leaf": ("leaf",), "probes": ("stage", "gather"), "overlap": ("overlap",),
-               "bf16": ("chain", "slab")}
+               "bf16": ("chain", "slab"), "inner": ("inner",), "glue": ("glue",),
+               "cond": ("cond",)}
 # The bf16 probes (rows 15e-15h): the iterations at which the kernels line
 # times each instance and its plain version (the plain chains loop in
 # Python), and the iterations of the slab's e check on the overlap
 # script's normal rays, where e branches (the script's rays lie on one line).
 MB_BF16_ROW_ITERS = 64
 MB_SLAB_CHECK_ITERS = (MB_ITERS, 64)
+# The inner-visit probes (rows 15i, 15j) and the branch probe (15l): the
+# iterations of the kernel-vs-plain checks and of the kernels-line rows
+# (kernel and plain version alike) and the glue rows' npop. The tensor-core
+# leaf's acc (its products sum in the tensor cores' order) is held to the
+# overlap kernel's bound on one leaf step's t, |dt| <= 1e-6 + 1e-5 |t|,
+# summed over the K steps whose packet minima acc adds up:
+# |d acc| <= K 1e-6 + 1e-5 |acc| (every t > EPS > 0).
+MB_INNER_CHECK_ITERS = (MB_ITERS, 16)
+MB_INNER_ROW_ITERS = 64
+MB_GLUE_ROW_NPOP = 4
 
 # The numpy builder's seconds on the card's host before the native builder
 # (PERF.md section 4-5): synthetic_600k's prepare and BVH build, the
@@ -1957,7 +1974,7 @@ def main() -> int:
     del mpipe, M
 
     # ---- 15. the microbench probes (rows 15a-15h) ---------------------------
-    extra_rows += microbench_phase(card, out_dir)
+    extra_rows += microbench_phase(card, out_dir, timing["w4"]["frame"])
 
     # ---- 16. the command line: the width-8 frame, the --bf16-bvh frame -----
     def run_cli(name, flags, want):
@@ -2031,13 +2048,18 @@ def main() -> int:
     return 0
 
 
-def microbench_phase(card: str, out_dir: str) -> list:
-    """Phase `microbench`: kernels A-D and the bf16 probes of
-    parallel_ray_tracer_tpu_torch/microbench against their plain versions,
-    then the entry point's four commands with the launch counts from 0;
-    returns their kernels-line rows."""
+def microbench_phase(card: str, out_dir: str, frame: dict) -> list:
+    """Phase `microbench`: kernels A-D, the bf16 probes and the inner-visit
+    and branch probes of parallel_ray_tracer_tpu_torch/microbench against
+    their plain versions, then the entry point's seven commands with the
+    launch counts from 0, and the inner visit's cost set beside the width-4
+    frame kernel's time (`frame`: its timing record); returns their
+    kernels-line rows."""
     from parallel_ray_tracer_tpu_torch import microbench as mb
     from parallel_ray_tracer_tpu_torch.microbench import bf16 as mb16
+    from parallel_ray_tracer_tpu_torch.microbench import cond as mc
+    from parallel_ray_tracer_tpu_torch.microbench import glue as mg
+    from parallel_ray_tracer_tpu_torch.microbench import inner as mi
     from parallel_ray_tracer_tpu_torch.microbench import fixtures
     from parallel_ray_tracer_tpu_torch.microbench import mxu_leaf as ml
     from parallel_ray_tracer_tpu_torch.microbench import overlap as mo
@@ -2194,6 +2216,58 @@ def microbench_phase(card: str, out_dir: str) -> list:
           "n": n16, "iters": MB_ITERS, "seconds": time.perf_counter() - t0,
           "compare": bf16_cmp})
 
+    # rows 15i, 15j: every instance on the full grid against its plain
+    # version at K = MB_INNER_CHECK_ITERS, bit for bit (e, acc, top; the
+    # tensor-core leaf's acc to its bound); the plain results are shared by
+    # the instances of one body, npop and packet (twins, placements) and by
+    # the glue bodies of one plain version (glue.SEMANTICS)
+    t0 = time.perf_counter()
+    ptab = mi.probe_tables(dev)
+    inner_cmp, plain_of = {}, {}
+    for inst in mi.inner_instances() + mg.glue_instances():
+        glue_row = inst.row == "glue"
+        sem = mg.SEMANTICS.get(inst.body, inst.body) if glue_row else inst.body
+        for k in MB_INNER_CHECK_ITERS:
+            key = (inst.row, sem, inst.npop, inst.packet, k)
+            if key not in plain_of:
+                plain_of[key] = (mg.glue_plain(ptab, sem, inst.npop, k, inst.packet, n)
+                                 if glue_row else mi.inner_plain(ptab, sem, k, inst.packet, n))
+            p = plain_of[key]
+            r = (mg.probe(ptab, inst.body, inst.npop, k, inst.packet, n, inst.stack, inst.meta)
+                 if glue_row else
+                 mi.probe(ptab, inst.body, k, inst.packet, n, inst.stack, inst.meta))
+            res = {"e_equal": torch.equal(r["e"], p["e"]), "top_equal": torch.equal(r["top"], p["top"]),
+                   "acc_equal": torch.equal(r["acc"].view(torch.int32), p["acc"].view(torch.int32)),
+                   "e_distinct": int(p["e"].unique().numel())}
+            fin = torch.isfinite(p["acc"])
+            err = (r["acc"] - p["acc"]).abs()[fin]
+            res["max_abs_err"] = err.max().item() if err.numel() else 0.0
+            name = f"microbench/{inst.name}/K{k}"
+            check(name, res["e_equal"] and res["top_equal"], "e or top differ from the plain version")
+            if inst.body in mi.LEAF_BODIES:
+                res["acc_within"] = bool(
+                    torch.equal(fin, torch.isfinite(r["acc"]))
+                    and (err <= k * 1e-6 + 1e-5 * p["acc"].abs()[fin]).all())
+                check(name, res["acc_within"], "acc beyond K 1e-6 + 1e-5 |acc|")
+            else:
+                check(name, res["acc_equal"], "acc not its plain version's bits")
+            inner_cmp[name] = res
+    # row 15l: every shape in both cases, e and each thread's maximum exactly
+    ctile = mc.tile(dev)
+    for shape in mc.SHAPES:
+        for uniform in (False, True):
+            for k in MB_INNER_CHECK_ITERS:
+                r = mc.cond(ctile, shape, uniform, k, n)
+                p = mc.cond_plain(ctile, uniform, k, n)
+                same = torch.equal(r["e"], p["e"]) and torch.equal(r["max"], p["max"])
+                name = f"microbench/{mc.instance(shape, uniform)}/K{k}"
+                inner_cmp[name] = {"equal": same, "max_abs_err": float((r["max"] - p["max"]).abs().max()),
+                                   "e_distinct": int(p["e"].unique().numel())}
+                check(name, same, "not its plain version bit for bit")
+    emit({"phase": "microbench", "case": "inner_vs_plain", "card": card, "n": n,
+          "iters": MB_INNER_CHECK_ITERS, "seconds": time.perf_counter() - t0,
+          "compare": inner_cmp})
+
     # the entry point, each command with the counts from 0
     mb_out = os.path.join(out_dir, "microbench")
     launches, runs, instances = {}, {}, {}
@@ -2204,11 +2278,13 @@ def microbench_phase(card: str, out_dir: str) -> list:
             rc = mb_main([cmd, "--out", mb_out])
         torch.cuda.synchronize()
         counts = dict(mb.LAUNCHES)
-        if cmd == "bf16":
-            instances.update(mb.INSTANCE_LAUNCHES)
-            want = mb16.INSTANCES | {mb16.slab_instance(f) for f in mb16.SLAB_CASES.values()}
-            check("microbench/bf16", set(instances) == want and min(instances.values()) > 0,
-                  f"instance launches {instances}")
+        want = {"bf16": mb16.INSTANCES | {mb16.slab_instance(f) for f in mb16.SLAB_CASES.values()},
+                "inner": mi.INSTANCES, "glue": mg.INSTANCES, "cond": mc.INSTANCES}.get(cmd)
+        if want is not None:
+            got = dict(mb.INSTANCE_LAUNCHES)
+            instances.update(got)
+            check(f"microbench/{cmd}", set(got) == want and min(got.values()) > 0,
+                  f"instances launched {sorted(got)}, missing {sorted(want - set(got))}")
         check(f"microbench/{cmd}", rc == 0, f"exit {rc}")
         check(f"microbench/{cmd}", all(counts[k] > 0 for k in kernels)
               and all(v == 0 for k, v in counts.items() if k not in kernels),
@@ -2218,6 +2294,26 @@ def microbench_phase(card: str, out_dir: str) -> list:
               "seconds": time.perf_counter() - t0, "launches": counts})
         with open(os.path.join(mb_out, f"{cmd}.json")) as f:
             runs[cmd] = json.load(f)["records"]
+
+    # traps 1 and 2 (csrc/microbench_inner.cuh, csrc/microbench_cond.cu):
+    # every 15i, 15j and 15l instance has its SASS counts; each push body
+    # keeps a store per push and iteration (STL, or STS for a shared stack);
+    # the cond arms keep their branches
+    for cmd, want in (("inner", mi.INSTANCES), ("glue", mg.INSTANCES), ("cond", mc.INSTANCES)):
+        got = {r["instance"] for r in runs[cmd] if r.get("sass")}
+        check(f"microbench/{cmd}/sass", got == want, f"no SASS counts for {sorted(want - got)}")
+    for r in runs["inner"] + runs["glue"]:
+        if r.get("sass"):
+            pushes = (mi.PUSHES.get(r["body"], 0) if r["row"] == "inner"
+                      else mg.pushes(r["body"], r["npop"]))
+            op = "STS" if r["stack"] == "shared" else "STL"
+            check(f"microbench/{r['instance']}/sass", r["sass"][op] >= pushes,
+                  f"{r['sass'][op]} {op} for {pushes} pushes an iteration")
+    bra = {r["instance"]: r["sass"]["BRA"] for r in runs["cond"] if r.get("sass")}
+    for uniform in (False, True):
+        b = {shape: bra.get(mc.instance(shape, uniform), 0) for shape in mc.SHAPES}
+        check("microbench/cond/sass", b["straight"] < b["cond1"] < b["cond2_nested"]
+              and b["straight"] < b["switch4"], f"branches {b}")
 
     # the readings, one line per probe
     recs = runs["mxu_leaf"]
@@ -2260,6 +2356,56 @@ def microbench_phase(card: str, out_dir: str) -> list:
                                for r in overs if "body" in r},
           "overlap": {r["blocks_per_sm"]: r["overlap"] for r in overs if "overlap" in r},
           "clocks_sm_mhz": sorted({r["marginal"]["clocks_sm_mhz"] for r in overs if "body" in r})})
+
+    # rows 15i, 15j, 15l: the readings, the breakdown of one arity-4 inner
+    # visit at packet 1 and its share of the width-4 frame kernel
+    def per_1024(recs):
+        return {r["instance"] + (f"@{r['twin_of']}" if r.get("twin_of") else ""):
+                r["ns_per_1024_rays"] for r in recs if "ns_per_1024_rays" in r}
+
+    irecs, grecs, crecs = runs["inner"], runs["glue"], runs["cond"]
+    p1 = {r["body"]: r["ns_per_1024_rays"] for r in irecs
+          if r.get("packet") == 1 and r["stack"] == "local" and not r.get("twin_of")
+          and r["meta"] == ("shared" if r["body"] in mi.SMEM_META else "global")}
+    g_shared = {r["npop"]: r["ns_per_1024_rays"] for r in grecs
+                if r.get("body") == "full" and r["packet"] == 1 and r["stack"] == "shared"}
+    g_twin = {r["npop"]: r["ns_per_1024_rays"] for r in grecs
+              if r.get("body") == "full" and r["packet"] == 1 and r.get("twin_of") == "stack=shared"}
+    g_stack = {r["instance"] + (f"@{r['twin_of']}" if r.get("twin_of") else ""):
+               r["ns_per_1024_rays"] for r in irecs if r.get("body") == "G" and r["packet"] == 1}
+    comps = {f"npop{r['npop']}/p{r['packet']}": r["components"] for r in grecs if "components" in r}
+    breakdown = {"row_load_J": p1["J"], "slab_const_boxes_N": p1["N"], "vector_B": p1["B"],
+                 "meta8_D": p1["D"], "meta4_H": p1["H"], "sort_F": p1["F"],
+                 "push_G_local": p1["G"], "push_G_local_at_shared_occupancy":
+                     next(v for k, v in g_stack.items() if k.endswith("@stack=shared")),
+                 "push_G_shared": g_stack["inner<G,p1,stack=shared>"],
+                 "full_visit_A": p1["A"], "glue_full_shared_stacks": g_shared,
+                 "glue_full_local_at_shared_occupancy": g_twin,
+                 "glue_components_p1": {k: v for k, v in comps.items() if k.endswith("/p1")}}
+    visits = frame["inner_visits"]
+    share = {"frame_ms": frame["median"], "inner_visits": visits,
+             "A_ms": visits * p1["A"] / 1024 * 1e-6, "M_per_node_ms": visits * p1["M"] / 2048 * 1e-6}
+    share["A_share_of_frame"] = share["A_ms"] / frame["median"]
+    emit({"phase": "microbench", "case": "inner", "card": card, "n": n,
+          "ns_per_1024_rays": per_1024(irecs),
+          "occupancy": {r["instance"] + (f"@{r['twin_of']}" if r.get("twin_of") else ""):
+                        r["threads_per_sm"] for r in irecs if "threads_per_sm" in r},
+          "sass": {r["instance"]: r["sass"] for r in irecs if r.get("sass")},
+          "breakdown_p1_ns_per_1024_rays": breakdown, "frame_share": share,
+          "clocks_sm_mhz": sorted({r["marginal"]["clocks_sm_mhz"] for r in irecs if "marginal" in r})})
+    emit({"phase": "microbench", "case": "glue", "card": card, "n": n,
+          "ns_per_1024_rays": per_1024(grecs), "components": comps,
+          "occupancy": {r["instance"] + (f"@{r['twin_of']}" if r.get("twin_of") else ""):
+                        r["threads_per_sm"] for r in grecs if "threads_per_sm" in r},
+          "sass": {r["instance"]: r["sass"] for r in grecs if r.get("sass")},
+          "clocks_sm_mhz": sorted({r["marginal"]["clocks_sm_mhz"] for r in grecs if "marginal" in r})})
+    emit({"phase": "microbench", "case": "cond", "card": card, "n": n,
+          "ns_per_1024_elements": {r["instance"]: r["ns_per_1024_elements"] for r in crecs
+                                   if "instance" in r},
+          "costs": {r["case"]: {k: v for k, v in r.items() if k.endswith("_ns")}
+                    for r in crecs if "case" in r},
+          "sass": {r["instance"]: r["sass"] for r in crecs if r.get("sass")},
+          "clocks_sm_mhz": sorted({r["marginal"]["clocks_sm_mhz"] for r in crecs if "marginal" in r})})
 
     # the kernels line: each kernel at one configuration of its run, its
     # plain version on the same inputs, its bound and (gather) the library
@@ -2371,6 +2517,66 @@ def microbench_phase(card: str, out_dir: str) -> list:
             **rate_bound(ops, nbytes(srows, *splanes) + 4 * n16 // 32), "library_ms": None,
             "iters": kk, "threads": n16,
             "ns_per_visit_per_1024": by_case[case]["ns_per_visit_per_1024"]})
+    # rows 15i, 15j, 15l: one row per body (15i at packet 1, Lf at 32; 15j
+    # at npop MB_GLUE_ROW_NPOP and packet 1) and per step shape and case
+    # (15l), kernel and plain version at MB_INNER_ROW_ITERS iterations of
+    # the grid of the checks; the bound is the body's FP32 operations (and
+    # Lf's tensor-core products) over the peak rates, or over the memory
+    # rate the bytes it must move: of its tables what this run reads, once
+    # (the rows its e chains visit, from the plain version), and its
+    # outputs (e, acc, top), once
+    kk = MB_INNER_ROW_ITERS
+
+    def probe_row(inst, launch, plain, ops, reads, line, body_line):
+        visited = []
+        plain(1, None)                                      # the warm-up
+        plain_ms = time_ms(lambda: plain(kk, visited), 0, 1)["median"]
+        moved = reads(visited) + 12 * n                     # the rows this run visited
+        return {"name": f"mb_inner_kernel {inst.name}", "route": "cuda",
+                "source": "parallel_ray_tracer_tpu_torch/csrc/microbench_inner.cuh",
+                "replaces": line, "body_line": body_line,
+                "launches": instances[inst.name],
+                "max_abs_err": max(v["max_abs_err"] for k, v in inner_cmp.items()
+                                   if k.startswith(f"microbench/{inst.name}/")),
+                "ms": time_ms(launch, 2, 5)["median"],
+                "plain_ms": plain_ms,
+                **ops_bound(ops.get("fp32", 0) * n * kk, ops.get("tensor", 0) * n * kk, moved),
+                "library_ms": None, "iters": kk, "threads": n, "bytes": moved}
+
+    for inst in mi.inner_instances():
+        if inst.stack == "shared" or (inst.body in mi.SMEM_META and inst.meta == "global") \
+                or inst.packet != (32 if inst.body in mi.LEAF_BODIES else 1):
+            continue
+        b = inst.body
+        rows.append(probe_row(
+            inst, lambda: mi.probe(ptab, b, kk, inst.packet, n),
+            lambda k, v: mi.inner_plain(ptab, b, k, inst.packet, n, v), mi.iteration_ops(b),
+            lambda v: mi.read_bytes(ptab, b, v), "scripts/microbench_inner.py:108",
+            mi.SCRIPT_LINES[b]))
+    for inst in mg.glue_instances():
+        if inst.npop != MB_GLUE_ROW_NPOP or inst.packet != 1 or inst.stack == "shared" \
+                or (inst.body in mg.SMEM_META and inst.meta == "global"):
+            continue
+        b = inst.body
+        rows.append(probe_row(
+            inst, lambda: mg.probe(ptab, b, inst.npop, kk, 1, n),
+            lambda k, v: mg.glue_plain(ptab, b, inst.npop, k, 1, n, v),
+            mg.iteration_ops(b, inst.npop), lambda v: mg.read_bytes(ptab, b, inst.npop, v),
+            "scripts/microbench_glue.py:135", mg.SCRIPT_LINES[b]))
+    for shape in mc.SHAPES:
+        for uniform in (False, True):
+            name = mc.instance(shape, uniform)
+            rows.append({
+                "name": f"mb_cond_kernel {name}", "route": "cuda",
+                "source": "parallel_ray_tracer_tpu_torch/csrc/microbench_cond.cu",
+                "replaces": "scripts/microbench_cond.py:54", "body_line": mc.SCRIPT_LINES[shape],
+                "launches": instances[name],
+                "max_abs_err": max(v["max_abs_err"] for k, v in inner_cmp.items()
+                                   if k.startswith(f"microbench/{name}/")),
+                "ms": time_ms(lambda: mc.cond(ctile, shape, uniform, kk, n), 2, 5)["median"],
+                "plain_ms": time_ms(lambda: mc.cond_plain(ctile, uniform, kk, n), 1, 1)["median"],
+                **ops_bound(mc.OPS_PER_ELEMENT * mc.W * n * kk, 0, nbytes(ctile) + 8 * n),
+                "library_ms": None, "iters": kk, "threads": n})
     emit({"phase": "microbench", "case": "kernels", "card": card, "rows": rows})
     return rows
 

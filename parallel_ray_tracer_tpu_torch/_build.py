@@ -3,7 +3,7 @@
 nvcc compiles each unit of csrc/ for sm_90a, all of them at once (one
 process per unit: the C entry points and one unit per node arity, box
 format, leaf mode (resident FP32, streamed, MXU) and stack tier, and the
-four units of the microbench probes), and links
+seven units of the microbench probes), and links
 them into `_build/<hash>/libtrace.so`, where the hash covers the sources and
 the flags, so a changed source builds anew and an unchanged one is reused.
 The build happens at first use, inside the call that launches a kernel;
@@ -30,12 +30,14 @@ CSRC = os.path.join(_PKG, "csrc")
 _TIER_UNITS = ("a2", "a4", "a8", "a4p", "a8p", "a2h", "a4s", "a8s", "a4ps", "a8ps",
                "a4m", "a8m", "a4pm", "a8pm")
 # The probes of microbench/ (kernels A, B and C, D; the bf16 chains and slab
-# pairs), which include trace.cuh.
+# pairs; the inner-visit probes of rows 15i and 15j, whose kernel is
+# microbench_inner.cuh; the branch probe of row 15l), which include trace.cuh.
 MICROBENCH_UNITS = ("microbench_leaf.cu", "microbench_probes.cu", "microbench_overlap.cu",
-                    "microbench_bf16.cu")
+                    "microbench_bf16.cu", "microbench_inner.cu", "microbench_glue.cu",
+                    "microbench_cond.cu")
 UNITS = ("trace_kernels.cu",) + tuple(
     f"trace_{u}{tier}.cu" for tier in ("", "d") for u in _TIER_UNITS) + MICROBENCH_UNITS
-SOURCES = ("trace.cuh", "trace_launch.cuh") + UNITS
+SOURCES = ("trace.cuh", "trace_launch.cuh", "microbench_inner.cuh") + UNITS
 BUILD_ROOT = os.path.join(_PKG, "_build")
 
 # -fmad=false: products round on their own, as in the plain versions and the
@@ -72,12 +74,19 @@ def library_path() -> str:
     return os.path.join(BUILD_ROOT, _digest(), "libtrace.so")
 
 
+def object_path(unit: str) -> str:
+    """A unit's object file, kept beside the library (microbench/sass.py
+    reads the probes' SASS from it)."""
+    return os.path.join(BUILD_ROOT, _digest(), "obj", unit + ".o")
+
+
 def build() -> str:
     """Compile the library unless this source hash is built; returns its path.
 
     The units compile in parallel into a temporary directory, and the .so
     is linked under a temporary name and renamed into place, so a
-    concurrent or interrupted build never leaves a partial library."""
+    concurrent or interrupted build never leaves a partial library; the
+    objects are kept in obj/ beside it."""
     out = library_path()
     if os.path.isfile(out):
         BUILD_INFO.update(path=out, seconds=0.0, cached=True)
@@ -109,6 +118,9 @@ def build() -> str:
         logf.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        os.makedirs(os.path.dirname(object_path(UNITS[0])), exist_ok=True)
+        for unit, obj in zip(UNITS, objs):
+            os.replace(obj, object_path(unit))
         os.replace(so, out)
     BUILD_INFO.update(path=out, seconds=time.perf_counter() - t0, cached=False,
                       log=log)
@@ -134,8 +146,14 @@ def load_library() -> ctypes.CDLL:
     lib.mb_overlap.argtypes = [P] * 6 + [I] + [P] * 3 + [I] * 7 + [P] * 8
     lib.mb_chain.argtypes = [P, P] + [I] * 6 + [P, P]
     lib.mb_slab.argtypes = [P] * 7 + [I] * 4 + [P, P]
+    for fn in (lib.mb_inner, lib.mb_glue):
+        fn.argtypes = [P] * 6 + [I] + [P] * 3 + [I] + [P] * 2 + [I] * 9 + [P] * 4
+    for fn in (lib.mb_inner_occupancy, lib.mb_glue_occupancy):
+        fn.argtypes = [I] * 7 + [P]
+    lib.mb_cond.argtypes = [P, P] + [I] * 4 + [P] * 3
     for fn in (lib.mb_leaf, lib.mb_stage, lib.mb_smem_optin, lib.mb_gather, lib.mb_overlap,
-               lib.mb_chain, lib.mb_slab):
+               lib.mb_chain, lib.mb_slab, lib.mb_inner, lib.mb_glue, lib.mb_inner_occupancy,
+               lib.mb_glue_occupancy, lib.mb_cond):
         fn.restype = I
     lib.rt_error_string.argtypes = [I]
     lib.rt_error_string.restype = ctypes.c_char_p

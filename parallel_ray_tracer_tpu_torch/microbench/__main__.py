@@ -1,7 +1,8 @@
 """The microbench probes' command line.
 
-    python -m parallel_ray_tracer_tpu_torch.microbench {mxu_leaf,probes,overlap,bf16}
-        [--stage v1..v6|all] [--device cpu] [--out DIR]
+    python -m parallel_ray_tracer_tpu_torch.microbench
+        {mxu_leaf,probes,overlap,bf16,inner,glue,cond}
+        [--stage v1..v6|all] [--probes-only] [--device cpu] [--out DIR]
 
 `mxu_leaf` times kernel A's leaf visit in each stage's configurations
 (mxu_leaf.STAGES; --stage, default all) and prints the accuracy tables;
@@ -9,7 +10,14 @@
 gather sweep (C); `overlap` times kernel D's bodies and prints the overlap
 harvested; `bf16` times the f32 and bf16x2 chains (ns per op per 1,024
 elements, and the script's bf16(16,128) / f32(8,128) mul-sub ratio line)
-and the f32 and packed bf16 slab pairs (ns per visit per 1,024 rays). On the card (the default) every time is a marginal cost per loop
+and the f32 and packed bf16 slab pairs (ns per visit per 1,024 rays);
+`inner` times each body of row 15i at packet 1 and 32 (ns per iteration
+per 1,024 rays, occupancy, SASS counts; the shared-memory units beside
+their twins); `glue` each body of row 15j at npop 4 and 8 and the script's
+components (--probes-only: full, full_xs and xb, as the script's flag);
+`cond` the four step shapes per thread and warp-uniform and the script's
+cond_cost_ns, nested_extra_ns and switch_vs_nested_ns. On the card (the
+default) every time is a marginal cost per loop
 iteration measured with CUDA events on that card (microbench/_timing.py),
 with the SM clock beside it; the card's name and power limit head the
 output. With --device cpu the plain versions run at a few iterations and
@@ -29,9 +37,9 @@ from typing import List, Optional
 
 import torch
 
-from . import _timing, bf16, mxu_leaf, overlap, probes
+from . import _timing, bf16, cond, glue, inner, mxu_leaf, overlap, probes
 
-COMMANDS = ("mxu_leaf", "probes", "overlap", "bf16")
+COMMANDS = ("mxu_leaf", "probes", "overlap", "bf16", "inner", "glue", "cond")
 DEFAULT_OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "chiprun_out", "microbench")
 # Resident threads per SM: the grid of the timed kernels fills the card.
@@ -54,6 +62,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("command", choices=COMMANDS)
     ap.add_argument("--stage", default="all", choices=sorted(mxu_leaf.STAGES) + ["all"],
                     help="mxu_leaf: the stage to run")
+    ap.add_argument("--probes-only", action="store_true",
+                    help="glue: only full, full_xs and xb (the script's --probes-only)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--out", default=DEFAULT_OUT, help="where <command>.json goes")
     args = ap.parse_args(argv)
@@ -78,8 +88,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         records = probes.run(device, timing, n_warps=sms * WARPS_PER_SM)
     elif args.command == "overlap":
         records = overlap.run(device, timing, sms=sms)
-    else:
+    elif args.command == "bf16":
         records = bf16.run(device, timing, sms=sms)
+    elif args.command == "inner":
+        records = inner.run(device, timing, sms=sms, card=head.get("card", ""))
+    elif args.command == "glue":
+        records = glue.run(device, timing, sms=sms, card=head.get("card", ""),
+                           probes_only=args.probes_only)
+    else:
+        records = cond.run(device, timing, sms=sms, card=head.get("card", ""))
     print(json.dumps(head), flush=True)
     for rec in records:
         print(json.dumps(rec), flush=True)

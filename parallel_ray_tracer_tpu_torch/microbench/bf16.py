@@ -43,7 +43,7 @@ from .._build import load_library
 from ..ops.cuda_trace import _check, _ptr, _raise_on, _stream
 from ..ops.intersect import T_MAX, clip_inv_dir
 from ..ops.vecmath import Vec3
-from . import INSTANCE_LAUNCHES, LAUNCHES, fixtures
+from . import count_launch, fixtures
 
 N_OPS = 40                  # n_ops of the script's chains
 CHAIN_THREADS = 512         # MB_CHAIN_THREADS: threads holding one tile
@@ -100,11 +100,6 @@ def slab_instance(bf16: bool) -> str:
 
 
 INSTANCES = frozenset(chain_instance(*c) for c in CHAIN_CASES.values())
-
-
-def _count(name: str, key: str) -> None:
-    LAUNCHES[key] += 1
-    INSTANCE_LAUNCHES[name] = INSTANCE_LAUNCHES.get(name, 0) + 1
 
 
 # ---- the chains (rows 15e, 15f) ----------------------------------------------------
@@ -170,7 +165,7 @@ def chain(a: torch.Tensor, b: torch.Tensor, op: str, iters: int, ilp: int = 1,
     out = torch.empty((blocks, *a.shape), dtype=a.dtype, device=a.device)
     rc = load_library().mb_chain(_ptr(a), _ptr(b), int(a.dtype == torch.bfloat16), OPS[op],
                                  _words(a), ilp, iters, blocks, _ptr(out), _stream(a.device))
-    _count(name, "chain")
+    count_launch(name, "chain")
     _raise_on(rc, f"mb_chain_kernel {name}")
     return out
 
@@ -269,7 +264,7 @@ def slab(rows: torch.Tensor, planes, bf16: bool, iters: int, n: int = 0) -> torc
     rc = load_library().mb_slab(_ptr(rows), *(_ptr(p) for p in planes), n_src, int(bf16),
                                 iters, n, _ptr(out), _stream(device))
     name = slab_instance(bf16)
-    _count(name, "slab")
+    count_launch(name, "slab")
     _raise_on(rc, f"mb_slab_kernel {name}")
     return out
 

@@ -3,8 +3,13 @@
 Copied from scripts/microbench_mxu_leaf.py (`split_bf16` :88, `build_cmat`
 :201, `build_rmat` :219, `rand_fixture` :229, the fixtures of
 `accuracy_check` :241), scripts/microbench_overlap.py (`_rays` :56,
-`_boxes` :65, `_cmat` :79, `_rmats` :86) and scripts/microbench_bf16.py
-(`_box_rows` :51, `_rand` :62). Same seeds give the same numbers:
+`_boxes` :65, `_cmat` :79, `_rmats` :86), scripts/microbench_bf16.py
+(`_box_rows` :51, `_rand` :62), scripts/microbench_inner.py and
+scripts/microbench_glue.py (`_rays` :47 / :78 and `_boxes` :56 / :87: the
+overlap script's, same seeds and construction; inner's `meta_flat` :459,
+the Lf table `cmi`, `rmat` :420-429; glue's `meta_s` :662) and
+scripts/microbench_cond.py (the (8, 128) tile of `_bench` :62). Same seeds
+give the same numbers:
 f32 arrays bit for bit, and bf16 arrays as their uint16 bits (rounded to
 nearest even, as JAX rounds).
 """
@@ -29,6 +34,8 @@ N_GROUPS = 512
 PACKET = (8, 128)
 # microbench_bf16.py: node rows of the slab probe.
 BF16_NODES = 4096
+# microbench_inner.py's Lf bodies: leaf groups of the C table.
+LF_GROUPS = 512
 
 
 def split_bf16(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -196,3 +203,31 @@ def bf16_box_rows() -> np.ndarray:
         rows[:, 6 * k : 6 * k + 3] = mn[:, k]
         rows[:, 6 * k + 3 : 6 * k + 6] = mx[:, k]
     return rows
+
+
+def inner_meta_flat() -> np.ndarray:
+    """microbench_inner.py's `meta_flat`: the (N, 8) meta rows of
+    overlap_boxes flattened, (N * 8,) i32 (bodies E and I)."""
+    return np.ascontiguousarray(overlap_boxes()[1].reshape(-1))
+
+
+def glue_meta_s() -> np.ndarray:
+    """microbench_glue.py's `meta_s`: the 4 encodings of each meta row,
+    (N * 4,) i32 (full_xs and xb)."""
+    return np.ascontiguousarray(overlap_boxes()[1][:, :4].reshape(-1).astype(np.int32))
+
+
+def lf_tables() -> Tuple[np.ndarray, np.ndarray]:
+    """The Lf bodies' tables (default_rng(7)): cmi, (LF_GROUPS * 32, 32) bf16
+    bits of a normal table ([Ch | Cl]: two independent halves, not a split),
+    then rmat, (16, 1024) f32 normal feature rows."""
+    rng = np.random.default_rng(7)
+    cmi = bf16_bits(rng.normal(size=(LF_GROUPS * 32, 32)).astype(np.float32))
+    rmat = rng.normal(size=(16, PACKET[0] * PACKET[1])).astype(np.float32)
+    return cmi, rmat
+
+
+def cond_tile() -> np.ndarray:
+    """microbench_cond.py's (8, 128) f32 tile of standard normals
+    (default_rng(0))."""
+    return np.random.default_rng(0).normal(size=PACKET).astype(np.float32)
