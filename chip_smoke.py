@@ -85,6 +85,30 @@ against the reference BMP; the four-group table (pack_cmi4) must give the
 with their FP32 twins, with the lanes served per mma batch and ptxas's
 registers and spills.
 
+Its `leaf4` phase runs every traversal kernel at leaf size 4
+(csrc/trace_*_l4.cu): prepare(leaf_size=4) on car_boxed with the defaults
+(the L = 4 MXU frame kernel, frame_mxu<4,l4>, as JAX's prepare takes it),
+with the FP32 leaf, at widths 2, 4 and 8, on bf16 boxes, and with the MXU
+leaf on each width-4 and width-8 table; each L = 4 kernel against its plain
+version on one band (the plain L = 4 hits, themselves the plain L = 8 hits
+through the slot maps; the frames against the band's L = 8 plain frames),
+its paths with the counts from 0, its 1080p frame against the full-frame
+plain frame of phase 7, its L = 8 twin's frame and the reference BMP, its
+time and work per ray (the two main frames in turns with their L = 8
+twins); the streamed instances on the padded L = 4 tables, the sphere
+frames on car_boxed_spheres and the DEEP instances on the chain scene.
+
+Its `shadows` phase renders with reverse_shadows=False (shadow rays from the
+hit point to the light): the fused frame with the FP32 and the MXU leaf
+against its plain version on one band, the pass-based forward render and
+the reference BMP, the sphere frame against the pass-based sphere render,
+the forward and reversed frame kernels timed in turns; fast_light=False
+(the closest-hit kernel finds the shadows on the pass-based path) and
+presplit=0.125 against the reference BMP; and the command line with
+--leaf-size 4 (with and without --no-mxu-leaf), --no-reverse-shadows,
+--no-fast-light and --presplit 0.125, all at once, each BMP the in-process
+frame of its configuration.
+
 Its `microbench` phase runs the probes of rows 15a-15h
 (parallel_ray_tracer_tpu_torch/microbench/, csrc/microbench_*.cu): each
 probe kernel is held against its plain version at K = 3 iterations (the
@@ -111,6 +135,10 @@ on the card's host): a prepare that fell back to the numpy builder fails,
 and each record carries its builder and BVH build milliseconds
 (synthetic_600k's and the dragon's beside the numpy builder's seconds).
 
+The build phase records the build's seconds, the CPU seconds of its nvcc
+processes, its units and the host's cores, and ptxas's registers and spills
+of every kernel (by mangled name, so two runs' tables compare key by key).
+
 Each phase prints one JSON line; all of them, and the rendered frames, also
 go to DIR (default: chip_smoke_out/ beside this script). Any failed check
 exits non-zero before the last line; the last line is
@@ -129,6 +157,7 @@ import gzip
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -170,7 +199,10 @@ OPS_SPHERE_TEST = 34
 OPS_MXU_EPILOGUE = 14
 WARMUP, TIMED = 10, 50
 # The arity phase times its tables (none of them the main path's) with
-# fewer repeats, to make room for the microbench phase.
+# fewer repeats, and so do the stream, deep, spheres and mxu phases (the
+# streamed, DEEP, sphere and MXU instances, synthetic_600k and the turns
+# against the FP32 twins) and the leaf4 phase's tables other than the main
+# path's, to make room for the microbench, leaf4 and shadows phases.
 ARITY_WARMUP, ARITY_TIMED = 5, 20
 BANDS = (384, 704)          # 64-row bands: sky + geometry, car body
 BAND_ROWS = 64
@@ -242,8 +274,34 @@ DEEP_SPHERES = [[-1.5, 2.0, 0.3, 0.7, 0.7, 0.2, 0.2, 0.3, 0.3, 0.3, 0.0, 0.0, 0.
 MXU_CASES = {"w4": {}, "w8": dict(bvh_width=8), "w4_bf16": dict(bf16_bvh=True),
              "w8_bf16": dict(bvh_width=8, bf16_bvh=True)}
 MXU_TURNS = ("frame", "closest", "closest_full", "occluded")
-MMA_OPS_PER_LANE = 3 * 2 * 32 * 10
-MMA_OPS_PER_BATCH = 24 * 2 * 16 * 8 * 16
+# The leaf4 phase: car_boxed's tables at leaf size 4, as (MXU leaf, config):
+# the main path with the defaults (the MXU leaf, as JAX's prepare takes it
+# at L = 4), the FP32 leaf at widths 4, 8 and 2 and on bf16 boxes, and the
+# MXU leaf on each other width-4 and width-8 table. Each takes the command
+# line's leaf threshold, 8 (RenderConfig's is 2, which builds leaves of up
+# to L = 4 triangles): the tree is the L = 8 tree with each leaf cut into
+# groups of 4, and the frames are those of `--leaf-size 4`.
+L4_LEAF_THRESHOLD = 8
+L4_CASES = {"w4_mxu": (True, {}), "w4": (False, {}), "w8": (False, dict(bvh_width=8)),
+            "w2": (False, dict(bvh_width=2)), "w4_bf16": (False, dict(bf16_bvh=True)),
+            "w8_bf16": (False, dict(bvh_width=8, bf16_bvh=True)),
+            "w2_bf16": (False, dict(bvh_width=2, bf16_bvh=True)),
+            "w8_mxu": (True, dict(bvh_width=8)), "w4_bf16_mxu": (True, dict(bf16_bvh=True)),
+            "w8_bf16_mxu": (True, dict(bvh_width=8, bf16_bvh=True))}
+
+
+def mma_ops_per_lane(leaf: int) -> int:
+    """Products one served lane needs: bf16x3 (3 products) of its ray's 10
+    live features with the group's 4L C-matrix rows, 2 operations each."""
+    return 3 * 2 * 4 * leaf * 10
+
+
+def mma_ops_per_batch(leaf: int) -> int:
+    """Products one warp batch issues: 3 x (L / 2) n-tiles x 2 m-tiles
+    m16n8k16 mma (24 at L = 8, 12 at L = 4), 2 x 16 x 8 x 16 each."""
+    return 3 * (leaf // 2) * 2 * 2 * 16 * 8 * 16
+
+
 PEAK_BF16_OPS = 989e12
 # Packed bf16 outside the tensor cores: twice the FP32 rate on paper (H100
 # SXM), in element operations.
@@ -375,7 +433,7 @@ def nbytes(*ts) -> int:
     return int(sum(t.numel() * t.element_size() for t in ts))
 
 
-def bound(counts, names, in_bytes, out_bytes, spheres=0):
+def bound(counts, names, in_bytes, out_bytes, spheres=0, leaf=8):
     """Least time for the work the function needs on these inputs: the
     counted box tests and triangle tests, and with `spheres` rows the
     sphere tests of the frame (spheres x traversals), over the FP32 rate;
@@ -384,9 +442,9 @@ def bound(counts, names, in_bytes, out_bytes, spheres=0):
     triangle test as a product on the tensor cores and an epilogue on the
     FP32 pipe: its FP32 work charges each counted triangle test
     OPS_MXU_EPILOGUE, and its tensor-core work is the products its served
-    leaf visits need (lanes served x MMA_OPS_PER_LANE; the products a warp
-    issues for idle lanes and padding are not needed, and are recorded as
-    mma_ops_issued) over the bf16 rate. The two pipes run side by side, so
+    leaf visits need (lanes served x mma_ops_per_lane(leaf), leaf the
+    tables' leaf size; the products a warp issues for idle lanes and padding
+    are not needed, and are recorded as mma_ops_issued) over the bf16 rate. The two pipes run side by side, so
     its operations take the larger of the two times. counts are the
     kernel's work counters, named by names."""
     c = dict(zip(names, (int(v) for v in counts)))
@@ -398,8 +456,8 @@ def bound(counts, names, in_bytes, out_bytes, spheres=0):
            + c.get("sphere_tests", 0) * OPS_SPHERE_TEST)
     t_ops = ops / PEAK_FP32_OPS * 1e3
     if mxu:
-        c["mma_ops"] = c["lanes_served"] * MMA_OPS_PER_LANE
-        c["mma_ops_issued"] = c["mma_batches"] * MMA_OPS_PER_BATCH
+        c["mma_ops"] = c["lanes_served"] * mma_ops_per_lane(leaf)
+        c["mma_ops_issued"] = c["mma_batches"] * mma_ops_per_batch(leaf)
         c["lanes_per_batch"] = c["lanes_served"] / max(c["mma_batches"], 1)
         c["fp32_pipe_ms"] = t_ops
         c["tensor_pipe_ms"] = c["mma_ops"] / PEAK_BF16_OPS * 1e3
@@ -469,15 +527,15 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load_library()
     build_s = time.perf_counter() - t0
-    ptxas = []
-    if _build.BUILD_INFO.get("log"):
-        ptxas = [ln.strip() for ln in open(_build.BUILD_INFO["log"])
-                 if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-    spills = [ln for ln in ptxas
-              if "spill" in ln and ", 0 bytes spill stores, 0 bytes spill loads" not in ln]
-    emit({"phase": "build", "seconds": build_s, "card": card,
+    ptxas_table = read_ptxas(_build.BUILD_INFO.get("log"))
+    spills = [k for k, v in ptxas_table.items() if v.get("spill_stores") or v.get("spill_loads")]
+    build = {k: _build.BUILD_INFO.get(k)
+             for k in ("units", "cores", "cpu_seconds", "unit_cpu_seconds", "cached")}
+    emit({"phase": "build", "seconds": build_s, "card": card, **build,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "ptxas": ptxas, "spilling_kernels": len(spills)})
+          "ptxas": ptxas_table, "spilling_kernels": len(spills),
+          "instances_by_leaf": {leaf: sum(entry_leaf(k) == leaf for k in ptxas_table)
+                                for leaf in (4, 8)}})
 
     # ---- 2. prepare -----------------------------------------------------
     t0 = time.perf_counter()
@@ -672,11 +730,13 @@ def main() -> int:
         with gzip.open(os.path.join(out_dir, f"{name}.bmp.gz"), "wb") as f:
             f.write(data)
 
-    def hold_reference(name, img):
+    def hold_reference(name, img, save=True):
         """The frame against the reference binary's BMP, within the bounds
-        of tests/test_reference_parity.py::_assert_parity."""
+        of tests/test_reference_parity.py::_assert_parity; with `save`, its
+        BMP goes to DIR."""
         ours = (img.clamp(0, 1) * 255.0).to(torch.uint8).cpu().numpy()
-        save_frame(name, bmp_bytes(ours))
+        if save:
+            save_frame(name, bmp_bytes(ours))
         check(name, ours.shape == ref_bmp.shape, f"shape {ours.shape}")
         dd = np.abs(ours.astype(np.int32) - ref_bmp.astype(np.int32)).max(axis=-1)
         parity = {"frac_any": float((dd > 0).mean()),
@@ -1052,7 +1112,8 @@ def main() -> int:
         del spipe, simg, rimg
 
         # timing: the primary pass (bench.py's metric) and render()
-        t = time_ms(lambda: ct.closest_tiles(D.cbox, D.cmeta, D.tri, do, dd, **dkw))
+        t = time_ms(lambda: ct.closest_tiles(D.cbox, D.cmeta, D.tri, do, dd, **dkw),
+                      ARITY_WARMUP, ARITY_TIMED)
         counts = ct.closest_tiles(D.cbox, D.cmeta, D.tri, do, dd, counters=True,
                                   **dkw)[1].cpu().tolist()
         b = bound(counts, ct.COUNTS, nbytes(*do, *dd, D.cbox, D.cmeta, D.tri),
@@ -1063,7 +1124,7 @@ def main() -> int:
             bound_rays_per_s=dn / (b["bound_ms"] * 1e-3),
             hit_frac=(dhit.idx >= 0).float().mean().item(),
             node_bytes_per_ray=b["inner_visits"] * (box_b + meta_b) / dn, **b)
-        e2e = time_ms(dpipe.render)
+        e2e = time_ms(dpipe.render, ARITY_WARMUP, ARITY_TIMED)
         rec["render_fused_end_to_end"] = dict(
             e2e, pixels=W * H, pixels_per_s=W * H / (e2e["median"] * 1e-3))
         dragon[tag] = rec
@@ -1135,8 +1196,8 @@ def main() -> int:
                   "differs from the resident twin")
             errs[k] = max(errs[k], against_plain(name, k, h, plain[k]))
             del h
-            t_res = time_ms(lambda: call(k, False, *rays))
-            t_str = time_ms(lambda: call(k, True, *rays))
+            t_res = time_ms(lambda: call(k, False, *rays), ARITY_WARMUP, ARITY_TIMED)
+            t_str = time_ms(lambda: call(k, True, *rays), ARITY_WARMUP, ARITY_TIMED)
             in_b = (ray_b + nbytes(A.cbox, A.cmeta, A.tri)
                     + (nbytes(A.attr) if k == "closest_full" else 0)
                     + (out_plane if k == "occluded" else 0))
@@ -1161,7 +1222,7 @@ def main() -> int:
         launches[key].update(closest_stream=on_p[f"closest_stream<{a}{sfx}>"],
                              closest_full_stream=on_s[f"closest_full_stream<{a}{sfx}>"],
                              occluded_stream=on_s[f"occluded_stream<{a}{sfx}>"])
-        e2e = time_ms(sp.render)
+        e2e = time_ms(sp.render, ARITY_WARMUP, ARITY_TIMED)
         res["render_stream_end_to_end"] = dict(e2e, pixels=W * H,
                                                pixels_per_s=W * H / (e2e["median"] * 1e-3))
         timing[key].update(res)
@@ -1210,7 +1271,8 @@ def main() -> int:
     rec["hit_frac"] = (h_res.idx >= 0).float().mean().item()
     del h_res, h_str
     # in turns: resident, streamed, streamed, resident
-    turns = [time_ms(lambda: primary(s)) for s in (False, True, True, False)]
+    turns = [time_ms(lambda: primary(s), ARITY_WARMUP, ARITY_TIMED)
+             for s in (False, True, True, False)]
     n6, in_b = o6.x.numel(), nbytes(*o6, *d6, S.cbox, S.cmeta, S.tri)
     for s, label, names, ts in ((False, "resident", ct.COUNTS, (turns[0], turns[3])),
                                 (True, "streamed", ct.STREAM_COUNTS, (turns[1], turns[2]))):
@@ -1264,13 +1326,14 @@ def main() -> int:
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": None, "rays": n_rays}
 
-    def time_one(A, kernel, **rays):
-        """Time, work counts and bound of one kernel of tables A."""
-        fn, counted, in_b, out_b = kernel_runs(A, **rays)[kernel]
-        t = time_ms(fn)
+    def time_one(A, kernel, cmat=None, **rays):
+        """Time, work counts and bound of one kernel of tables A (with
+        `cmat`, its MXU instance)."""
+        fn, counted, in_b, out_b = kernel_runs(A, cmat=cmat, **rays)[kernel]
+        t = time_ms(fn, ARITY_WARMUP, ARITY_TIMED)
         return dict(t, rays=n_rays, **bound(
-            counted().cpu().tolist(), ct.COUNTS, in_b, out_b,
-            spheres=A.sph.shape[0] if kernel == "frame_sph" else 0))
+            counted().cpu().tolist(), ct.COUNTS if cmat is None else ct.MXU_COUNTS, in_b, out_b,
+            spheres=A.sph.shape[0] if kernel == "frame_sph" else 0, leaf=A.leaf_size))
 
     def box_name(A):
         return ", PAIRS" if A.compressed else (", BF16" if A.cbox.dtype == torch.bfloat16 else "")
@@ -1309,20 +1372,19 @@ def main() -> int:
     # the sphere frame kernel at each table against its plain version, on
     # one band (the plain version reads no node table)
     bo, bd = band(o, SPHERE_BAND), band(d, SPHERE_BAND)
-    fp, sph_plain_ms = timed_once(lambda: ct.frame_plain(
+    sph_fp, sph_plain_ms = timed_once(lambda: ct.frame_plain(
         T.tri, T.attr, T.lamb, bo, bd, bounces=cfg.bounces, leaf_size=L, sph=sph))
     rec["band_plain_ms"] = sph_plain_ms
     rec["band_changed_by_spheres"] = (
-        fp.stack(-1) - band_ref[SPHERE_BAND]["frame"].stack(-1)).abs().max().item()
+        sph_fp.stack(-1) - band_ref[SPHERE_BAND]["frame"].stack(-1)).abs().max().item()
     sph_err, rec["band"] = {}, {}
     for key, A in sph_cases.items():
         akw = dict(leaf_size=L, stack_depth=A.stack_depth, compressed=A.compressed)
         res = cmp_frame(f"{name}/{key}/frame_sph@{SPHERE_BAND}", ct.frame_tiles(
             A.cbox, A.cmeta, A.tri, A.attr, A.lamb, bo, bd, bounces=cfg.bounces,
-            sph=sph, **akw), fp, 0.99)
+            sph=sph, **akw), sph_fp, 0.99)
         sph_err[key] = res["max_abs_err"]
         rec["band"][key] = res
-    del fp
 
     # the paths, each with its counts from 0
     simg, on_f = on_path(f"{name}/render_fused", spipe.render, {"frame_sph<4>": 1})
@@ -1375,7 +1437,7 @@ def main() -> int:
     sph_t = {key: time_one(A, "frame_sph") for key, A in sph_cases.items()}
     rec["timing"] = {"frame_sph": sph_t, "frame_free_w4": time_one(T, "frame")}
     for variant in ("fused", "pallas"):
-        e2e = time_ms(lambda: spipe.render(variant=variant))
+        e2e = time_ms(lambda: spipe.render(variant=variant), ARITY_WARMUP, ARITY_TIMED)
         rec["timing"][f"render_{variant}_end_to_end"] = dict(
             e2e, pixels=W * H, pixels_per_s=W * H / (e2e["median"] * 1e-3))
     rec["profile"] = {"fused": profile(spipe.render),
@@ -1387,6 +1449,7 @@ def main() -> int:
             f"frame_kernel<{A.arity}{box_name(A)}, SPH>", f"{key}+spheres",
             sph_launches[key], sph_err[key], sph_t[key], sph_plain_ms,
             f"one {BAND_ROWS}-row band (y {SPHERE_BAND}), the same rays", 2536))
+    sph_pipe = spipe    # kept for the shadows phase
     del spipe, sph_cases, simg, simg_pass
 
     # ---- 12. brute force: the oracle ------------------------------------------
@@ -1467,138 +1530,152 @@ def main() -> int:
     chain = chain_scene()
     dsph = torch.tensor(np.pad(np.asarray(DEEP_SPHERES, np.float32), ((0, 0), (0, 3))),
                         device=pipe.device)
-    dref = None
-    for key, extra in DEEP_CASES.items():
-        t0 = time.perf_counter()
-        dp = prepare_native(RenderConfig(**DEEP_CFG, **extra), scene=chain)
-        if key == "w8_bf16":
-            dp = pair_rows_w8(dp)
-        D = dp.tables
-        a = D.arity
-        bf = D.compressed or D.cbox.dtype == torch.bfloat16
-        sfx = ",bf16" if bf else ""
-        need = D.stack_depth
-        rec = {"phase": "deep", "case": key, "card": card, "prepare_s": time.perf_counter() - t0,
-               "tree_depth": dp.flat.depth, "stack_need": need,
-               "standard_stack": ct.STACK_SIZE[a],
-               "standard_tier_refuses": need > ct.STACK_SIZE[a]}
-        check(f"deep/{key}", need > ct.STACK_SIZE[a] and ct.use_deep_tier(need, a)
-              and bf == bool(extra.get("bf16_bvh")),
-              f"stack need {need} does not pass the standard tier's {ct.STACK_SIZE[a]}")
-        dkw = dict(leaf_size=L, stack_depth=need, compressed=D.compressed)
-        if dref is None:   # the plain results (they read no node table)
-            hp, ms_cf = timed_once(lambda: tp.closest_full_plain(D.tri, D.attr, o, d, L))
-            dso, dsd, dm2 = shadow_rays(o, d, hp, D.lamb)
-            dref = {"closest_full": (hp, ms_cf),
-                    "closest": timed_once(lambda: tp.closest_plain(D.tri, o, d, L)),
-                    "occluded": timed_once(lambda: tp.occluded_plain(D.tri, dso, dsd, dm2, L)),
-                    "frame": timed_once(lambda: ct.frame_plain(
-                        D.tri, D.attr, D.lamb, o, d, bounces=1, leaf_size=L)),
-                    "frame_sph": timed_once(lambda: ct.frame_plain(
-                        D.tri, D.attr, D.lamb, o, d, bounces=1, leaf_size=L, sph=dsph))}
-            rec["hit_frac"] = (hp.idx >= 0).float().mean().item()
-        Ds = D._replace(sph=dsph)
-        errs = {
-            "closest": cmp_hits(f"deep/{key}/closest", ct.closest_tiles(
-                D.cbox, D.cmeta, D.tri, o, d, **dkw), dref["closest"][0], False),
-            "closest_full": cmp_hits(f"deep/{key}/closest_full", ct.closest_tiles_full(
-                D.cbox, D.cmeta, D.tri, D.attr, o, d, **dkw), dref["closest_full"][0], True),
-            "occluded": cmp_blocked(f"deep/{key}/occluded", ct.occluded_tiles(
-                D.cbox, D.cmeta, D.tri, dso, dsd, dm2, **dkw), dref["occluded"][0])}
-        if a >= 4:
-            errs["frame"] = cmp_frame(f"deep/{key}/frame", ct.frame_tiles(
-                D.cbox, D.cmeta, D.tri, D.attr, D.lamb, o, d, bounces=1, **dkw),
-                dref["frame"][0])
-            errs["frame_sph"] = cmp_frame(f"deep/{key}/frame_sph", ct.frame_tiles(
-                D.cbox, D.cmeta, D.tri, D.attr, D.lamb, o, d, bounces=1, sph=dsph, **dkw),
-                dref["frame_sph"][0], 0.99)
 
-        # the paths, each with its counts from 0
-        dl = {}
-        pass_counts = {f"closest_full<{a}{sfx},deep>": 1, f"occluded<{a}{sfx},deep>": 1}
-        if a >= 4:
-            _, on_a = on_path(f"deep/{key}/render_auto", dp.render, {f"frame<{a}{sfx},deep>": 1})
-            dl["frame"] = on_a[f"frame<{a}{sfx},deep>"]
-            _, on_s = on_path(f"deep/{key}/render_fused_spheres",
-                              dataclasses.replace(dp, tables=Ds).render,
-                              {f"frame_sph<{a}{sfx},deep>": 1})
-            dl["frame_sph"] = on_s[f"frame_sph<{a}{sfx},deep>"]
-            _, on_p = on_path(f"deep/{key}/render_pass_based",
-                              lambda: dp.render(variant="pallas"), pass_counts)
-        else:
-            _, on_p = on_path(f"deep/{key}/render_auto", dp.render, pass_counts)
-        dl["closest_full"] = on_p[f"closest_full<{a}{sfx},deep>"]
-        dl["occluded"] = on_p[f"occluded<{a}{sfx},deep>"]
-        _, on_c = on_path(f"deep/{key}/primary_closest_pass",
-                          lambda: ct.closest_tiles(D.cbox, D.cmeta, D.tri, o, d, **dkw),
-                          {f"closest<{a}{sfx},deep>": 1})
-        dl["closest"] = on_c[f"closest<{a}{sfx},deep>"]
+    def deep_cases(leaf):
+        """Each DEEP instance of leaf size `leaf` on the chain scene (the
+        cases of DEEP_CASES): against its plain version at the frame's
+        shapes, through its paths with the counts from 0, timed; its
+        kernels-line rows go to extra_rows."""
+        tag, lname, ltab = (",l4", ", L=4", "_l4") if leaf == 4 else ("", "", "")
+        dref = {}
+        for key, extra in DEEP_CASES.items():
+            t0 = time.perf_counter()
+            dp = prepare_native(RenderConfig(**DEEP_CFG, leaf_size=leaf, **extra), scene=chain)
+            if key == "w8_bf16":
+                dp = pair_rows_w8(dp)
+            D = dp.tables
+            a = D.arity
+            bf = D.compressed or D.cbox.dtype == torch.bfloat16
+            sfx = ",bf16" if bf else ""
+            need = D.stack_depth
+            rec = {"phase": "deep", "case": key, "leaf_size": leaf, "card": card,
+                   "prepare_s": time.perf_counter() - t0,
+                   "tree_depth": dp.flat.depth, "stack_need": need,
+                   "standard_stack": ct.STACK_SIZE[a],
+                   "standard_tier_refuses": need > ct.STACK_SIZE[a]}
+            check(f"deep{ltab}/{key}", need > ct.STACK_SIZE[a] and ct.use_deep_tier(need, a)
+                  and bf == bool(extra.get("bf16_bvh")),
+                  f"stack need {need} does not pass the standard tier's {ct.STACK_SIZE[a]}")
+            check(f"deep{ltab}/{key}", D.leaf_size == leaf, f"leaf size {D.leaf_size}")
+            dkw = dict(leaf_size=leaf, stack_depth=need, compressed=D.compressed)
+            if not dref:   # the plain results (they read no node table)
+                hp, ms_cf = timed_once(lambda: tp.closest_full_plain(D.tri, D.attr, o, d, leaf))
+                dso, dsd, dm2 = shadow_rays(o, d, hp, D.lamb)
+                dref.update({"closest_full": (hp, ms_cf), "shadow": (dso, dsd, dm2),
+                             "closest": timed_once(lambda: tp.closest_plain(D.tri, o, d, leaf)),
+                             "occluded": timed_once(lambda: tp.occluded_plain(
+                                 D.tri, dso, dsd, dm2, leaf)),
+                             "frame": timed_once(lambda: ct.frame_plain(
+                                 D.tri, D.attr, D.lamb, o, d, bounces=1, leaf_size=leaf)),
+                             "frame_sph": timed_once(lambda: ct.frame_plain(
+                                 D.tri, D.attr, D.lamb, o, d, bounces=1, leaf_size=leaf,
+                                 sph=dsph))})
+                rec["hit_frac"] = (hp.idx >= 0).float().mean().item()
+            dso, dsd, dm2 = dref["shadow"]
+            Ds = D._replace(sph=dsph)
+            errs = {
+                "closest": cmp_hits(f"deep{ltab}/{key}/closest", ct.closest_tiles(
+                    D.cbox, D.cmeta, D.tri, o, d, **dkw), dref["closest"][0], False),
+                "closest_full": cmp_hits(f"deep{ltab}/{key}/closest_full", ct.closest_tiles_full(
+                    D.cbox, D.cmeta, D.tri, D.attr, o, d, **dkw), dref["closest_full"][0], True),
+                "occluded": cmp_blocked(f"deep{ltab}/{key}/occluded", ct.occluded_tiles(
+                    D.cbox, D.cmeta, D.tri, dso, dsd, dm2, **dkw), dref["occluded"][0])}
+            if a >= 4:
+                errs["frame"] = cmp_frame(f"deep{ltab}/{key}/frame", ct.frame_tiles(
+                    D.cbox, D.cmeta, D.tri, D.attr, D.lamb, o, d, bounces=1, **dkw),
+                    dref["frame"][0])
+                errs["frame_sph"] = cmp_frame(f"deep{ltab}/{key}/frame_sph", ct.frame_tiles(
+                    D.cbox, D.cmeta, D.tri, D.attr, D.lamb, o, d, bounces=1, sph=dsph, **dkw),
+                    dref["frame_sph"][0], 0.99)
 
-        # timing, and the kernels line
-        drays = dict(so=dso, sd=dsd, m2=dm2, bounces=1)
-        dt = {k: time_one(Ds if k == "frame_sph" else D, k, **drays) for k in errs}
-        bn = box_name(D)
-        names = {"closest": f"closest_kernel<{a}{bn}, false, DEEP>",
-                 "closest_full": f"closest_kernel<{a}{bn}, true, DEEP>",
-                 "occluded": f"occluded_kernel<{a}{bn}, DEEP>",
-                 "frame": f"frame_kernel<{a}{bn}, DEEP>",
-                 "frame_sph": f"frame_kernel<{a}{bn}, SPH, DEEP>"}
-        lines = {"closest": 610 if a == 2 else 1774, "closest_full": 2437 if a == 2 else 1774,
-                 "occluded": 676 if a == 2 else 1835, "frame": 2536, "frame_sph": 2536}
-        for k in errs:
-            extra_rows.append(row(names[k], f"deep_{key}", dl[k], errs[k]["max_abs_err"],
-                                  dt[k], dref[k][1], "the chain scene, the same rays",
-                                  lines[k]))
+            # the paths, each with its counts from 0
+            dl = {}
+            pass_counts = {f"closest_full<{a}{sfx},deep{tag}>": 1, f"occluded<{a}{sfx},deep{tag}>": 1}
+            if a >= 4:
+                _, on_a = on_path(f"deep{ltab}/{key}/render_auto", dp.render, {f"frame<{a}{sfx},deep{tag}>": 1})
+                dl["frame"] = on_a[f"frame<{a}{sfx},deep{tag}>"]
+                _, on_s = on_path(f"deep{ltab}/{key}/render_fused_spheres",
+                                  dataclasses.replace(dp, tables=Ds).render,
+                                  {f"frame_sph<{a}{sfx},deep{tag}>": 1})
+                dl["frame_sph"] = on_s[f"frame_sph<{a}{sfx},deep{tag}>"]
+                _, on_p = on_path(f"deep{ltab}/{key}/render_pass_based",
+                                  lambda: dp.render(variant="pallas"), pass_counts)
+            else:
+                _, on_p = on_path(f"deep{ltab}/{key}/render_auto", dp.render, pass_counts)
+            dl["closest_full"] = on_p[f"closest_full<{a}{sfx},deep{tag}>"]
+            dl["occluded"] = on_p[f"occluded<{a}{sfx},deep{tag}>"]
+            _, on_c = on_path(f"deep{ltab}/{key}/primary_closest_pass",
+                              lambda: ct.closest_tiles(D.cbox, D.cmeta, D.tri, o, d, **dkw),
+                              {f"closest<{a}{sfx},deep{tag}>": 1})
+            dl["closest"] = on_c[f"closest<{a}{sfx},deep{tag}>"]
 
-        # streamed leaf rows (arity 4 and 8): bit for bit against the
-        # resident DEEP twin, through a streamed pipeline's paths
-        if a >= 4:
-            sdp = streamed(dp)
-            S_ = sdp.tables
-            skw = dict(dkw, stream=True)
-            outs = {"closest": (lambda s_: planes(ct.closest_tiles(
-                                    S_.cbox, S_.cmeta, S_.tri, o, d, stream=s_, **dkw))),
-                    "closest_full": (lambda s_: planes(ct.closest_tiles_full(
-                                    S_.cbox, S_.cmeta, S_.tri, S_.attr, o, d, stream=s_, **dkw),
-                                    True)),
-                    "occluded": (lambda s_: [ct.occluded_tiles(
-                                    S_.cbox, S_.cmeta, S_.tri, dso, dsd, dm2, stream=s_, **dkw)])}
-            for k, fn in outs.items():
-                check(f"deep/{key}/{k}_stream", same_bits(fn(True), fn(False)),
-                      "differs from the resident DEEP twin")
-            _, on_ss = on_path(f"deep/{key}/stream_render_auto", sdp.render,
-                               {f"closest_full_stream<{a}{sfx},deep>": 1,
-                                f"occluded_stream<{a}{sfx},deep>": 1})
-            _, on_sc = on_path(f"deep/{key}/stream_primary_closest_pass",
-                               lambda: ct.closest_tiles(S_.cbox, S_.cmeta, S_.tri, o, d, **skw),
-                               {f"closest_stream<{a}{sfx},deep>": 1})
-            st_launch = {"closest": on_sc[f"closest_stream<{a}{sfx},deep>"],
-                         "closest_full": on_ss[f"closest_full_stream<{a}{sfx},deep>"],
-                         "occluded": on_ss[f"occluded_stream<{a}{sfx},deep>"]}
-            st_calls = {"closest": lambda c=False: ct.closest_tiles(
-                            S_.cbox, S_.cmeta, S_.tri, o, d, counters=c, **skw),
-                        "closest_full": lambda c=False: ct.closest_tiles_full(
-                            S_.cbox, S_.cmeta, S_.tri, S_.attr, o, d, counters=c, **skw),
-                        "occluded": lambda c=False: ct.occluded_tiles(
-                            S_.cbox, S_.cmeta, S_.tri, dso, dsd, dm2, counters=c, **skw)}
-            st_out = {"closest": 3, "closest_full": 15, "occluded": 1}
-            for k, fn in st_calls.items():
-                tt = time_ms(fn)
-                in_b = (ray_b + nbytes(S_.cbox, S_.cmeta, S_.tri)
-                        + (nbytes(S_.attr) if k == "closest_full" else 0)
-                        + (out_plane if k == "occluded" else 0))
-                tt.update(bound(fn(True)[1].cpu().tolist(), ct.STREAM_COUNTS, in_b,
-                                st_out[k] * out_plane))
-                dt[k + "_stream"] = tt
-                extra_rows.append(row(
-                    names[k].replace("DEEP>", "STREAM, DEEP>"), f"deep_{key}_stream",
-                    st_launch[k], errs[k]["max_abs_err"], tt, dref[k][1],
-                    "the chain scene, the same rays", 2253 if k == "occluded" else 2070))
-            del sdp, S_
-        rec.update(max_abs_err={k: v["max_abs_err"] for k, v in errs.items()},
-                   launches=dl, timing=dt)
-        emit(rec)
-        del dp, D, Ds
+            # timing, and the kernels line
+            drays = dict(so=dso, sd=dsd, m2=dm2, bounces=1)
+            dt = {k: time_one(Ds if k == "frame_sph" else D, k, **drays) for k in errs}
+            bn = box_name(D)
+            names = {"closest": f"closest_kernel<{a}{bn}, false, DEEP{lname}>",
+                     "closest_full": f"closest_kernel<{a}{bn}, true, DEEP{lname}>",
+                     "occluded": f"occluded_kernel<{a}{bn}, DEEP{lname}>",
+                     "frame": f"frame_kernel<{a}{bn}, DEEP{lname}>",
+                     "frame_sph": f"frame_kernel<{a}{bn}, SPH, DEEP{lname}>"}
+            lines = {"closest": 610 if a == 2 else 1774, "closest_full": 2437 if a == 2 else 1774,
+                     "occluded": 676 if a == 2 else 1835, "frame": 2536, "frame_sph": 2536}
+            for k in errs:
+                extra_rows.append(row(names[k], f"deep_{key}{ltab}", dl[k], errs[k]["max_abs_err"],
+                                      dt[k], dref[k][1], "the chain scene, the same rays",
+                                      lines[k]))
+
+            # streamed leaf rows (arity 4 and 8): bit for bit against the
+            # resident DEEP twin, through a streamed pipeline's paths
+            if a >= 4:
+                sdp = streamed(dp)
+                S_ = sdp.tables
+                skw = dict(dkw, stream=True)
+                outs = {"closest": (lambda s_: planes(ct.closest_tiles(
+                                        S_.cbox, S_.cmeta, S_.tri, o, d, stream=s_, **dkw))),
+                        "closest_full": (lambda s_: planes(ct.closest_tiles_full(
+                                        S_.cbox, S_.cmeta, S_.tri, S_.attr, o, d, stream=s_, **dkw),
+                                        True)),
+                        "occluded": (lambda s_: [ct.occluded_tiles(
+                                        S_.cbox, S_.cmeta, S_.tri, dso, dsd, dm2, stream=s_, **dkw)])}
+                for k, fn in outs.items():
+                    check(f"deep{ltab}/{key}/{k}_stream", same_bits(fn(True), fn(False)),
+                          "differs from the resident DEEP twin")
+                _, on_ss = on_path(f"deep{ltab}/{key}/stream_render_auto", sdp.render,
+                                   {f"closest_full_stream<{a}{sfx},deep{tag}>": 1,
+                                    f"occluded_stream<{a}{sfx},deep{tag}>": 1})
+                _, on_sc = on_path(f"deep{ltab}/{key}/stream_primary_closest_pass",
+                                   lambda: ct.closest_tiles(S_.cbox, S_.cmeta, S_.tri, o, d, **skw),
+                                   {f"closest_stream<{a}{sfx},deep{tag}>": 1})
+                st_launch = {"closest": on_sc[f"closest_stream<{a}{sfx},deep{tag}>"],
+                             "closest_full": on_ss[f"closest_full_stream<{a}{sfx},deep{tag}>"],
+                             "occluded": on_ss[f"occluded_stream<{a}{sfx},deep{tag}>"]}
+                st_calls = {"closest": lambda c=False: ct.closest_tiles(
+                                S_.cbox, S_.cmeta, S_.tri, o, d, counters=c, **skw),
+                            "closest_full": lambda c=False: ct.closest_tiles_full(
+                                S_.cbox, S_.cmeta, S_.tri, S_.attr, o, d, counters=c, **skw),
+                            "occluded": lambda c=False: ct.occluded_tiles(
+                                S_.cbox, S_.cmeta, S_.tri, dso, dsd, dm2, counters=c, **skw)}
+                st_out = {"closest": 3, "closest_full": 15, "occluded": 1}
+                for k, fn in st_calls.items():
+                    tt = time_ms(fn, ARITY_WARMUP, ARITY_TIMED)
+                    in_b = (ray_b + nbytes(S_.cbox, S_.cmeta, S_.tri)
+                            + (nbytes(S_.attr) if k == "closest_full" else 0)
+                            + (out_plane if k == "occluded" else 0))
+                    tt.update(bound(fn(True)[1].cpu().tolist(), ct.STREAM_COUNTS, in_b,
+                                    st_out[k] * out_plane))
+                    dt[k + "_stream"] = tt
+                    extra_rows.append(row(
+                        names[k].replace(", DEEP", ", STREAM, DEEP"), f"deep_{key}_stream{ltab}",
+                        st_launch[k], errs[k]["max_abs_err"], tt, dref[k][1],
+                        "the chain scene, the same rays", 2253 if k == "occluded" else 2070))
+                del sdp, S_
+            rec.update(max_abs_err={k: v["max_abs_err"] for k, v in errs.items()},
+                       launches=dl, timing=dt)
+            emit(rec)
+            del dp, D, Ds
+
+    deep_cases(L)
 
     # the DEEP tier forced on car_boxed's width-4 tables (a stack depth past
     # the standard tier's), in turns with the standard tier: same hits, and
@@ -1612,7 +1689,7 @@ def main() -> int:
                                                           **k_))):
         eq = same_bits(list(call(**fkw)), list(call(**kw)))
         check(f"deep/forced/{k}", eq, "the DEEP tier's output differs from the standard tier's")
-        turns = [time_ms(lambda: call(**(fkw if deep else kw)))
+        turns = [time_ms(lambda: call(**(fkw if deep else kw)), ARITY_WARMUP, ARITY_TIMED)
                  for deep in (False, True, True, False)]
         std = statistics.median([turns[0]["median"], turns[3]["median"]])
         dpt = statistics.median([turns[1]["median"], turns[2]["median"]])
@@ -1778,12 +1855,12 @@ def main() -> int:
             fn_f = runs[k][0]
             fn_m, counted, in_b, out_b = runs_m[k]
             if key in ("w4", "w8") and (key == "w4" or k == "frame"):
-                turns = [time_ms(fn_m if i in (1, 2) else fn_f) for i in range(4)]
+                turns = [time_ms(fn_m if i in (1, 2) else fn_f, ARITY_WARMUP, ARITY_TIMED) for i in range(4)]
                 t_m = dict(turns[1], median=statistics.median(
                     [turns[1]["median"], turns[2]["median"]]))
                 fp32_ms = statistics.median([turns[0]["median"], turns[3]["median"]])
             else:
-                t_m, fp32_ms, turns = time_ms(fn_m), None, None
+                t_m, fp32_ms, turns = time_ms(fn_m, ARITY_WARMUP, ARITY_TIMED), None, None
             b = bound(counted().cpu().tolist(), ct.MXU_COUNTS, in_b, out_b)
             tm[k] = dict(t_m, rays=n_rays, fp32_ms=fp32_ms, turns=turns,
                          vs_fp32=t_m["median"] / fp32_ms if fp32_ms else None, **b)
@@ -1796,8 +1873,8 @@ def main() -> int:
                                   "frame": tm["frame"]["lanes_per_batch"]}
         if key == "w4":   # render() of the defaults and of mxu_leaf=False, in turns
             for variant in ("fused", "pallas"):
-                turns = [time_ms(lambda: (mpipe if i in (1, 2) else pipe).render(variant=variant))
-                         for i in range(4)]
+                turns = [time_ms(lambda: (mpipe if i in (1, 2) else pipe).render(variant=variant),
+                                 ARITY_WARMUP, ARITY_TIMED) for i in range(4)]
                 res[f"render_{variant}_end_to_end"] = {
                     "mxu_ms": statistics.median([turns[1]["median"], turns[2]["median"]]),
                     "fp32_ms": statistics.median([turns[0]["median"], turns[3]["median"]]),
@@ -1834,14 +1911,13 @@ def main() -> int:
     sp = prepare_native(mcfg, scene=ssc)
     S_ = sp.tables
     check("mxu/spheres", sp.mxu and S_.sph is not None, "not the MXU sphere tables")
-    sfp, sph_ms = timed_once(lambda: ct.frame_plain(
+    sph_mxu_plain, sph_mxu_plain_ms = timed_once(lambda: ct.frame_plain(
         S_.tri, S_.attr, S_.lamb, bo, bd, bounces=cfg.bounces, leaf_size=L, sph=S_.sph,
         cmat=S_.cmat))
     skw = dict(leaf_size=L, stack_depth=S_.stack_depth)
     sres = {"band": cmp_frame("mxu/spheres/frame_sph", ct.frame_tiles(
         S_.cbox, S_.cmeta, S_.tri, S_.attr, S_.lamb, bo, bd, bounces=cfg.bounces,
-        sph=S_.sph, cmat=S_.cmat, **skw), sfp, 0.99)}
-    del sfp
+        sph=S_.sph, cmat=S_.cmat, **skw), sph_mxu_plain, 0.99)}
     simg, on_s = on_path("mxu/spheres/render_fused", sp.render, {"frame_sph_mxu<4>": 1})
     simg_pass, _ = on_path("mxu/spheres/render_pass_based", lambda: sp.render(variant="pallas"),
                            {"closest_full_mxu<4>": cfg.bounces, "occluded_mxu<4>": cfg.bounces * nl})
@@ -1850,114 +1926,122 @@ def main() -> int:
     fn_s = lambda c=False: ct.frame_tiles(S_.cbox, S_.cmeta, S_.tri, S_.attr, S_.lamb, o, d,
                                           bounces=cfg.bounces, sph=S_.sph, cmat=S_.cmat,
                                           counters=c, **skw)
-    ts = time_ms(fn_s)
+    ts = time_ms(fn_s, ARITY_WARMUP, ARITY_TIMED)
     ts.update(bound(fn_s(True)[1].cpu().tolist(), ct.MXU_COUNTS,
                     ray_b + nbytes(S_.cbox, S_.cmeta, S_.tri, S_.attr, S_.lamb, S_.sph, S_.cmat),
                     3 * out_plane, spheres=S_.sph.shape[0]))
-    emit({"phase": "mxu", "case": "car_boxed_spheres", "card": card, "plain_ms": sph_ms,
+    emit({"phase": "mxu", "case": "car_boxed_spheres", "card": card,
+          "plain_ms": sph_mxu_plain_ms,
           "launches": on_s["frame_sph_mxu<4>"], "timing": ts, **sres})
     extra_rows.append(dict(row("frame_kernel<4, SPH, MXU>", "w4+spheres, mxu",
                                on_s["frame_sph_mxu<4>"], sres["band"]["max_abs_err"], ts,
-                               sph_ms, f"one {BAND_ROWS}-row band (y {y0}), the same rays",
+                               sph_mxu_plain_ms,
+                               f"one {BAND_ROWS}-row band (y {y0}), the same rays",
                                MXU_LINES["frame_sph"])))
     del sp, S_
 
     # the DEEP MXU instances on the chain scene, against their plain versions
-    dref_m = None
-    for key in MXU_CASES:
-        dp = prepare_native(RenderConfig(**dict(DEEP_CFG, mxu_leaf=True), **MXU_CASES[key]),
-                              scene=chain)
-        if key == "w8_bf16":
-            dp = pair_rows_w8(dp)
-        D = dp.tables
-        a, sfx = D.arity, ",bf16" if D.compressed else ""
-        check(f"mxu/deep/{key}", dp.mxu and ct.use_deep_tier(D.stack_depth, a),
-              "not the DEEP MXU instances")
-        dkw = dict(leaf_size=L, stack_depth=D.stack_depth, compressed=D.compressed)
-        if dref_m is None:
-            hp, ms_cf = timed_once(lambda: tp.closest_full_mxu_plain(D.cmat, D.tri, D.attr, o, d, L))
-            dso_m, dsd_m, dm2_m = shadow_rays(o, d, hp, D.lamb)
-            dref_m = {"closest_full": (hp, ms_cf),
-                      "closest": timed_once(lambda: tp.closest_mxu_plain(D.cmat, D.tri, o, d, L)),
-                      "occluded": timed_once(lambda: tp.occluded_mxu_plain(
-                          D.cmat, D.tri, dso_m, dsd_m, dm2_m, L)),
-                      "frame": timed_once(lambda: ct.frame_plain(
-                          D.tri, D.attr, D.lamb, o, d, bounces=1, leaf_size=L, cmat=D.cmat)),
-                      "frame_sph": timed_once(lambda: ct.frame_plain(
-                          D.tri, D.attr, D.lamb, o, d, bounces=1, leaf_size=L, sph=dsph,
-                          cmat=D.cmat))}
-        Ds = D._replace(sph=dsph)
-        calls = {
-            "closest": lambda c=False: ct.closest_tiles(D.cbox, D.cmeta, D.tri, o, d,
-                                                        cmat=D.cmat, counters=c, **dkw),
-            "closest_full": lambda c=False: ct.closest_tiles_full(
-                D.cbox, D.cmeta, D.tri, D.attr, o, d, cmat=D.cmat, counters=c, **dkw),
-            "occluded": lambda c=False: ct.occluded_tiles(D.cbox, D.cmeta, D.tri, dso_m, dsd_m,
-                                                          dm2_m, cmat=D.cmat, counters=c, **dkw),
-            "frame": lambda c=False: ct.frame_tiles(D.cbox, D.cmeta, D.tri, D.attr, D.lamb, o, d,
-                                                    bounces=1, cmat=D.cmat, counters=c, **dkw),
-            "frame_sph": lambda c=False: ct.frame_tiles(D.cbox, D.cmeta, D.tri, D.attr, D.lamb,
-                                                        o, d, bounces=1, sph=dsph, cmat=D.cmat,
-                                                        counters=c, **dkw)}
-        errs = {"closest": cmp_hits_mxu(f"mxu/deep/{key}/closest", calls["closest"](),
-                                        dref_m["closest"][0], False),
-                "closest_full": cmp_hits_mxu(f"mxu/deep/{key}/closest_full",
-                                             calls["closest_full"](), dref_m["closest_full"][0],
-                                             True),
-                "occluded": cmp_blocked(f"mxu/deep/{key}/occluded", calls["occluded"](),
-                                        dref_m["occluded"][0], 0.9999),
-                "frame": cmp_frame(f"mxu/deep/{key}/frame", calls["frame"](),
-                                   dref_m["frame"][0]),
-                "frame_sph": cmp_frame(f"mxu/deep/{key}/frame_sph", calls["frame_sph"](),
-                                       dref_m["frame_sph"][0], 0.99)}
-        dl = {}
-        _, on_a = on_path(f"mxu/deep/{key}/render_auto", dp.render,
-                          {f"frame_mxu<{a}{sfx},deep>": 1})
-        _, on_s2 = on_path(f"mxu/deep/{key}/render_fused_spheres",
-                           dataclasses.replace(dp, tables=Ds).render,
-                           {f"frame_sph_mxu<{a}{sfx},deep>": 1})
-        _, on_p = on_path(f"mxu/deep/{key}/render_pass_based", lambda: dp.render(variant="pallas"),
-                          {f"closest_full_mxu<{a}{sfx},deep>": 1, f"occluded_mxu<{a}{sfx},deep>": 1})
-        _, on_c = on_path(f"mxu/deep/{key}/primary_closest_pass", calls["closest"],
-                          {f"closest_mxu<{a}{sfx},deep>": 1})
-        dl = {"frame": on_a[f"frame_mxu<{a}{sfx},deep>"],
-              "frame_sph": on_s2[f"frame_sph_mxu<{a}{sfx},deep>"],
-              "closest_full": on_p[f"closest_full_mxu<{a}{sfx},deep>"],
-              "occluded": on_p[f"occluded_mxu<{a}{sfx},deep>"],
-              "closest": on_c[f"closest_mxu<{a}{sfx},deep>"]}
-        dt = {}
-        bn = box_name(D)
-        for k, fn in calls.items():
-            tt = time_ms(fn)
-            in_b = (ray_b + nbytes(D.cbox, D.cmeta, D.tri, D.cmat)
-                    + (nbytes(D.attr, D.lamb) if k.startswith("frame") or k == "closest_full" else 0)
-                    + (out_plane if k == "occluded" else 0))
-            out_n = {"closest": 3, "closest_full": 15, "occluded": 1, "frame": 3, "frame_sph": 3}[k]
-            tt.update(bound(fn(True)[1].cpu().tolist(), ct.MXU_COUNTS, in_b, out_n * out_plane,
-                            spheres=dsph.shape[0] if k == "frame_sph" else 0))
-            dt[k] = tt
-            name = {"closest": f"closest_kernel<{a}{bn}, false, DEEP, MXU>",
-                    "closest_full": f"closest_kernel<{a}{bn}, true, DEEP, MXU>",
-                    "occluded": f"occluded_kernel<{a}{bn}, DEEP, MXU>",
-                    "frame": f"frame_kernel<{a}{bn}, DEEP, MXU>",
-                    "frame_sph": f"frame_kernel<{a}{bn}, SPH, DEEP, MXU>"}[k]
-            extra_rows.append(row(name, f"deep_{key}, mxu", dl[k], errs[k]["max_abs_err"], tt,
-                                  dref_m[k][1], "the chain scene, the same rays", MXU_LINES[k]))
-        emit({"phase": "mxu", "case": f"deep_{key}", "card": card, "stack_need": D.stack_depth,
-              "launches": dl, "max_abs_err": {k: v["max_abs_err"] for k, v in errs.items()},
-              "compare": errs, "timing": dt})
-        del dp, D, Ds
+    def mxu_deep_cases(leaf):
+        """The DEEP MXU instances of leaf size `leaf` on the chain scene (the
+        tables of MXU_CASES), against their plain versions, through their
+        paths with the counts from 0, timed; rows to extra_rows."""
+        tag, lname, ltab = (",l4", ", L=4", "_l4") if leaf == 4 else ("", "", "")
+        dref_m = {}
+        for key in MXU_CASES:
+            dp = prepare_native(RenderConfig(**dict(DEEP_CFG, mxu_leaf=True), leaf_size=leaf,
+                                             **MXU_CASES[key]), scene=chain)
+            if key == "w8_bf16":
+                dp = pair_rows_w8(dp)
+            D = dp.tables
+            a, sfx = D.arity, ",bf16" if D.compressed else ""
+            check(f"mxu/deep{ltab}/{key}", dp.mxu and ct.use_deep_tier(D.stack_depth, a)
+                  and D.leaf_size == leaf, "not the DEEP MXU instances")
+            dkw = dict(leaf_size=leaf, stack_depth=D.stack_depth, compressed=D.compressed)
+            if not dref_m:
+                hp, ms_cf = timed_once(lambda: tp.closest_full_mxu_plain(
+                    D.cmat, D.tri, D.attr, o, d, leaf))
+                dso_m, dsd_m, dm2_m = shadow_rays(o, d, hp, D.lamb)
+                dref_m.update({
+                    "closest_full": (hp, ms_cf), "shadow": (dso_m, dsd_m, dm2_m),
+                    "closest": timed_once(lambda: tp.closest_mxu_plain(D.cmat, D.tri, o, d, leaf)),
+                    "occluded": timed_once(lambda: tp.occluded_mxu_plain(
+                        D.cmat, D.tri, dso_m, dsd_m, dm2_m, leaf)),
+                    "frame": timed_once(lambda: ct.frame_plain(
+                        D.tri, D.attr, D.lamb, o, d, bounces=1, leaf_size=leaf, cmat=D.cmat)),
+                    "frame_sph": timed_once(lambda: ct.frame_plain(
+                        D.tri, D.attr, D.lamb, o, d, bounces=1, leaf_size=leaf, sph=dsph,
+                        cmat=D.cmat))})
+            dso_m, dsd_m, dm2_m = dref_m["shadow"]
+            Ds = D._replace(sph=dsph)
+            calls = {
+                "closest": lambda c=False: ct.closest_tiles(D.cbox, D.cmeta, D.tri, o, d,
+                                                            cmat=D.cmat, counters=c, **dkw),
+                "closest_full": lambda c=False: ct.closest_tiles_full(
+                    D.cbox, D.cmeta, D.tri, D.attr, o, d, cmat=D.cmat, counters=c, **dkw),
+                "occluded": lambda c=False: ct.occluded_tiles(D.cbox, D.cmeta, D.tri, dso_m, dsd_m,
+                                                              dm2_m, cmat=D.cmat, counters=c, **dkw),
+                "frame": lambda c=False: ct.frame_tiles(D.cbox, D.cmeta, D.tri, D.attr, D.lamb, o, d,
+                                                        bounces=1, cmat=D.cmat, counters=c, **dkw),
+                "frame_sph": lambda c=False: ct.frame_tiles(D.cbox, D.cmeta, D.tri, D.attr, D.lamb,
+                                                            o, d, bounces=1, sph=dsph, cmat=D.cmat,
+                                                            counters=c, **dkw)}
+            errs = {"closest": cmp_hits_mxu(f"mxu/deep{ltab}/{key}/closest", calls["closest"](),
+                                            dref_m["closest"][0], False),
+                    "closest_full": cmp_hits_mxu(f"mxu/deep{ltab}/{key}/closest_full",
+                                                 calls["closest_full"](), dref_m["closest_full"][0],
+                                                 True),
+                    "occluded": cmp_blocked(f"mxu/deep{ltab}/{key}/occluded", calls["occluded"](),
+                                            dref_m["occluded"][0], 0.9999),
+                    "frame": cmp_frame(f"mxu/deep{ltab}/{key}/frame", calls["frame"](),
+                                       dref_m["frame"][0]),
+                    "frame_sph": cmp_frame(f"mxu/deep{ltab}/{key}/frame_sph", calls["frame_sph"](),
+                                           dref_m["frame_sph"][0], 0.99)}
+            dl = {}
+            _, on_a = on_path(f"mxu/deep{ltab}/{key}/render_auto", dp.render,
+                              {f"frame_mxu<{a}{sfx},deep{tag}>": 1})
+            _, on_s2 = on_path(f"mxu/deep{ltab}/{key}/render_fused_spheres",
+                               dataclasses.replace(dp, tables=Ds).render,
+                               {f"frame_sph_mxu<{a}{sfx},deep{tag}>": 1})
+            _, on_p = on_path(f"mxu/deep{ltab}/{key}/render_pass_based", lambda: dp.render(variant="pallas"),
+                              {f"closest_full_mxu<{a}{sfx},deep{tag}>": 1, f"occluded_mxu<{a}{sfx},deep{tag}>": 1})
+            _, on_c = on_path(f"mxu/deep{ltab}/{key}/primary_closest_pass", calls["closest"],
+                              {f"closest_mxu<{a}{sfx},deep{tag}>": 1})
+            dl = {"frame": on_a[f"frame_mxu<{a}{sfx},deep{tag}>"],
+                  "frame_sph": on_s2[f"frame_sph_mxu<{a}{sfx},deep{tag}>"],
+                  "closest_full": on_p[f"closest_full_mxu<{a}{sfx},deep{tag}>"],
+                  "occluded": on_p[f"occluded_mxu<{a}{sfx},deep{tag}>"],
+                  "closest": on_c[f"closest_mxu<{a}{sfx},deep{tag}>"]}
+            dt = {}
+            bn = box_name(D)
+            for k, fn in calls.items():
+                tt = time_ms(fn, ARITY_WARMUP, ARITY_TIMED)
+                in_b = (ray_b + nbytes(D.cbox, D.cmeta, D.tri, D.cmat)
+                        + (nbytes(D.attr, D.lamb) if k.startswith("frame") or k == "closest_full" else 0)
+                        + (out_plane if k == "occluded" else 0))
+                out_n = {"closest": 3, "closest_full": 15, "occluded": 1, "frame": 3, "frame_sph": 3}[k]
+                tt.update(bound(fn(True)[1].cpu().tolist(), ct.MXU_COUNTS, in_b, out_n * out_plane,
+                                spheres=dsph.shape[0] if k == "frame_sph" else 0,
+                                leaf=D.leaf_size))
+                dt[k] = tt
+                name = {"closest": f"closest_kernel<{a}{bn}, false, DEEP, MXU{lname}>",
+                        "closest_full": f"closest_kernel<{a}{bn}, true, DEEP, MXU{lname}>",
+                        "occluded": f"occluded_kernel<{a}{bn}, DEEP, MXU{lname}>",
+                        "frame": f"frame_kernel<{a}{bn}, DEEP, MXU{lname}>",
+                        "frame_sph": f"frame_kernel<{a}{bn}, SPH, DEEP, MXU{lname}>"}[k]
+                extra_rows.append(row(name, f"deep_{key}{ltab}, mxu", dl[k],
+                                      errs[k]["max_abs_err"], tt,
+                                      dref_m[k][1], "the chain scene, the same rays", MXU_LINES[k]))
+            emit({"phase": "mxu", "case": f"deep_{key}{ltab}", "leaf_size": leaf, "card": card,
+                  "stack_need": D.stack_depth,
+                  "launches": dl, "max_abs_err": {k: v["max_abs_err"] for k, v in errs.items()},
+                  "compare": errs, "timing": dt})
+            del dp, D, Ds
+
+    mxu_deep_cases(L)
 
     # registers and spills of the MXU instances (ptxas, from the build log)
-    mxu_ptxas = []
-    if _build.BUILD_INFO.get("log"):
-        entry = None
-        for ln in open(_build.BUILD_INFO["log"]):
-            if "Compiling entry" in ln:
-                entry = ln.split("'")[1] if "'" in ln else ln.strip()
-            elif entry and "Lb1EEv" in entry and ("registers" in ln or "spill" in ln):
-                mxu_ptxas.append(f"{entry}: {ln.strip()}")
-    emit({"phase": "mxu", "case": "ptxas", "lines": mxu_ptxas})
+    emit({"phase": "mxu", "case": "ptxas",
+          "instances": {k: v for k, v in ptxas_table.items() if entry_mxu(k)}})
     for key in MXU_CASES:
         for k in MXU_TURNS:
             t = mxu_t[key][k]
@@ -1971,53 +2055,499 @@ def main() -> int:
                                   mplain[k + "_ms"],
                                   f"one {BAND_ROWS}-row band (y {y0}) of the same rays "
                                   "(the plain MXU version reads no node table)", MXU_LINES[k]))
+    # ---- 15. leaf size 4: every traversal kernel at L = 4 --------------------
+    # prepare(leaf_size=4) packs 4 triangles a leaf group (the same binary
+    # tree: each leaf of up to 8 triangles becomes groups of 4), and every
+    # launch takes the L = 4 instances (keys "...,l4>"). Per table (L4_CASES:
+    # the main path's MXU frame, the FP32 leaf, widths 2, 4 and 8, bf16 boxes,
+    # the MXU leaf on each width-4 and width-8 table), each L = 4 kernel is
+    # held against its plain version on one band with the bounds of the
+    # L = 8 phases: the hits against the plain L = 4 hits (slots g * 4 + j;
+    # MXU: the plain MXU versions), the frames against the band's L = 8
+    # plain frames (a frame does not depend on how slots are grouped, and
+    # the plain versions test every slot whatever L is). The plain L = 4
+    # hits are also the plain L = 8 hits, triangle for triangle through the
+    # slot maps. Each table's paths run with the counts from 0; its 1080p
+    # frame is held against phase 7's full-frame plain frame (the FP32 leaf
+    # to cmp_frame's bound, the MXU leaf to the 99% of tests/test_fused.py,
+    # JAX's L = 4 against L = 8 bound), its L = 8 twin's frame and the
+    # reference BMP; its kernels are timed (the main path's frames in turns
+    # with their L = 8 twins), with leaf visits and triangle tests per ray.
+    # Then the streamed instances on the padded L = 4 tables, the sphere
+    # frames on car_boxed_spheres, and the DEEP instances on the chain scene.
+    t0 = time.perf_counter()
+    L4 = 4
+    y4 = BANDS[0]
+    bref4 = band_ref[y4]
+    b4o, b4d = bref4["rays"]["primary"]
+    b4so, b4sd, b4m2 = bref4["shadow_rays"]
+    mode_of = {False: "", True: "_mxu"}
+    l4_t, l4_launch, l4_err, l4_plain_ms = {}, {}, {}, {}
+    l4_tables = {}
+
+    def tri_ids(h, flat):
+        """A hit's triangle ids (slot_map of its slots), -1 on a miss."""
+        sm = torch.as_tensor(flat.slot_map, device=h.idx.device).long()
+        return torch.where(h.idx >= 0, sm[h.idx.long().clamp(min=0)], -1)
+
+    p4 = {}      # the plain L = 4 hits on the band, FP32 and MXU
+    for key, (mxu, extra) in L4_CASES.items():
+        p = prepare_native(RenderConfig(**(MXU_CFG if mxu else CFG), leaf_size=L4,
+                                        leaf_threshold=L4_LEAF_THRESHOLD, **extra))
+        if extra.get("bvh_width") == 8 and extra.get("bf16_bvh"):
+            p = pair_rows_w8(p)
+        A = p.tables
+        a = A.arity
+        bf = A.compressed or A.cbox.dtype == torch.bfloat16
+        sfx, mode = ",bf16" if bf else "", mode_of[mxu]
+        name = f"leaf4/{key}"
+        check(name, p.leaf_size == A.leaf_size == L4 and p.mxu == mxu
+              and (A.cmat is not None) == mxu and a == extra.get("bvh_width", 4)
+              and bf == bool(extra.get("bf16_bvh")), "not this case's L = 4 tables")
+        check(name, not bool(A.tri[:, 12 * L4:].any()), "tri rows hold more than 4 triangles")
+        if "fp32" not in p4:
+            # the plain L = 4 hits on the band (the first table's rows; every
+            # table of the phase has the same slots and rows, checked below)
+            first = p
+            p4["fp32"] = {
+                "closest": timed_once(lambda: tp.closest_plain(A.tri, b4o, b4d, L4)),
+                "closest_full": timed_once(lambda: tp.closest_full_plain(
+                    A.tri, A.attr, b4o, b4d, L4)),
+                "shadow": (tp.closest_plain(A.tri, *bref4["rays"]["shadow"], L4), None),
+                "occluded": timed_once(lambda: tp.occluded_plain(A.tri, b4so, b4sd, b4m2, L4)),
+                "frame": (bref4["frame"], cmp["frame"]["band_plain_ms"])}
+            h4, h8 = p4["fp32"]["closest"][0], bref4["closest", "primary"]
+            same_tri = (tri_ids(h4, p.flat) == tri_ids(h8, pipe.flat)).float().mean().item()
+            check("leaf4/plain", torch.equal(h4.t, h8.t) and same_tri >= 0.999,
+                  f"the plain L = 4 hits are not the L = 8 hits (triangles {same_tri})")
+            p4["vs_l8_same_triangle"] = same_tri
+        # the same slots and rows as the first table (width 2 keeps the native
+        # builder's own rows, whose normals round otherwise: held on the
+        # first table's rows, as the arity phase holds width 2)
+        F = first.tables
+        normals = (torch.arange(A.tri.shape[1], device=A.tri.device) % 12) >= 9
+        check(name, np.array_equal(p.flat.slot_map, first.flat.slot_map)
+              and torch.equal(A.attr, F.attr)
+              and not bool((A.tri - F.tri).abs()[:, ~normals].any()),
+              "slots, attr or tri beyond the normals differ from the first L = 4 table")
+        A = A._replace(tri=F.tri)
+        if mxu and "mxu" not in p4:
+            p4["mxu"] = {
+                "closest": timed_once(lambda: tp.closest_mxu_plain(A.cmat, A.tri, b4o, b4d, L4)),
+                "closest_full": timed_once(lambda: tp.closest_full_mxu_plain(
+                    A.cmat, A.tri, A.attr, b4o, b4d, L4)),
+                "shadow": (tp.closest_mxu_plain(A.cmat, A.tri, *bref4["rays"]["shadow"], L4),
+                           None),
+                "occluded": timed_once(lambda: tp.occluded_mxu_plain(
+                    A.cmat, A.tri, b4so, b4sd, b4m2, L4)),
+                "frame": (mplain["frame"], mplain["frame_ms"])}
+            mcmat4 = A.cmat
+        if mxu:
+            check(name, torch.equal(A.cmat.view(torch.int16), mcmat4.view(torch.int16)),
+                  "its C-matrix table is not the first MXU table's")
+        l4_tables[key] = (p, A)
+        refs = p4["mxu" if mxu else "fp32"]
+        akw = dict(leaf_size=L4, stack_depth=A.stack_depth, compressed=A.compressed, cmat=A.cmat)
+
+        def hits(nm, hk, hp, full):
+            return (cmp_hits_mxu(nm, hk, hp, full) if mxu else cmp_hits(nm, hk, hp, full))
+
+        errs = {}
+        res = {}
+        for kind, (ro, rd) in bref4["rays"].items():
+            res[f"closest_{kind}"] = hits(
+                f"{name}/closest/{kind}@{y4}", ct.closest_tiles(A.cbox, A.cmeta, A.tri, ro, rd, **akw),
+                refs["closest" if kind == "primary" else "shadow"][0], False)
+        res["closest_full"] = hits(
+            f"{name}/closest_full@{y4}",
+            ct.closest_tiles_full(A.cbox, A.cmeta, A.tri, A.attr, b4o, b4d, **akw),
+            refs["closest_full"][0], True)
+        res["occluded"] = cmp_blocked(
+            f"{name}/occluded@{y4}", ct.occluded_tiles(A.cbox, A.cmeta, A.tri, b4so, b4sd, b4m2,
+                                                       **akw),
+            refs["occluded"][0], 0.9999 if mxu else 0.999)
+        errs = {"closest": max(res["closest_primary"]["max_abs_err"],
+                               res["closest_shadow"]["max_abs_err"]),
+                "closest_full": res["closest_full"]["max_abs_err"],
+                "occluded": res["occluded"]["max_abs_err"]}
+        if a >= 4:
+            res["frame"] = cmp_frame(f"{name}/frame@{y4}", ct.frame_tiles(
+                A.cbox, A.cmeta, A.tri, A.attr, A.lamb, b4o, b4d, bounces=cfg.bounces, **akw),
+                refs["frame"][0])
+            errs["frame"] = res["frame"]["max_abs_err"]
+
+        # the paths, each with its counts from 0
+        pass_counts = {f"closest_full{mode}<{a}{sfx},l4>": cfg.bounces,
+                       f"occluded{mode}<{a}{sfx},l4>": cfg.bounces * nl}
+        auto = p.resolved_variant()
+        check(name, auto == ("fused" if a >= 4 else "pallas"), f"auto -> {auto}")
+        frame_key = f"frame{mode}<{a}{sfx},l4>"
+        pimg, on_a = on_path(f"{name}/render_auto", p.render,
+                             {frame_key: 1} if a >= 4 else pass_counts)
+        if a >= 4:
+            pimg_pass, on_p = on_path(f"{name}/render_pass_based",
+                                      lambda: p.render(variant="pallas"), pass_counts)
+        else:
+            pimg_pass, on_p = pimg, on_a
+        _, on_c = on_path(f"{name}/primary_closest_pass",
+                          lambda: ct.closest_tiles(A.cbox, A.cmeta, A.tri, o, d, **akw),
+                          {f"closest{mode}<{a}{sfx},l4>": 1})
+        l4_launch[key] = {"closest": on_c[f"closest{mode}<{a}{sfx},l4>"],
+                          "closest_full": on_p[f"closest_full{mode}<{a}{sfx},l4>"],
+                          "occluded": on_p[f"occluded{mode}<{a}{sfx},l4>"]}
+        # the whole frame: phase 7's plain frame, the L = 8 twin, the reference
+        twin = key.replace("_mxu", "")
+        twin_img = img if twin == "w4" else frames[twin]
+        if a >= 4:
+            l4_launch[key]["frame"] = on_a[frame_key]
+            fk = ct.frame_tiles(A.cbox, A.cmeta, A.tri, A.attr, A.lamb, o, d,
+                                bounces=cfg.bounces, **akw)
+            res["frame_vs_plain_frame"] = cmp_frame(f"{name}/frame/frame", fk, plain["frame"],
+                                                    0.99 if mxu else 0.9999)
+            errs["frame"] = max(errs["frame"], res["frame_vs_plain_frame"]["max_abs_err"])
+            del fk
+            res["pass_based_vs_fused"] = hold_frames(f"{name}/fused_vs_pass", pimg, pimg_pass,
+                                                     0.99 if mxu else 0.9999)
+        res["vs_l8_fp32_frame"] = hold_frames(f"{name}/vs_l8_{twin}", pimg, twin_img, 0.99)
+        if key == "w4_mxu":
+            res["vs_l8_mxu_frame"] = hold_frames(f"{name}/vs_l8_mxu", pimg, mimg, 0.99)
+        res["reference_image"] = hold_reference(f"car_boxed_1080p_l4_{key}", pimg,
+                                                save=key == "w4_mxu")
+        if key in ("w4", "w4_mxu"):
+            l4_tables[key] = (p, A, pimg)
+        del pimg, pimg_pass
+
+        # timing: each kernel at the main path's shapes, with its work per
+        # ray; the main path's frames in turns with their L = 8 twins
+        names = ct.MXU_COUNTS if mxu else ct.COUNTS
+        tm = {}
+        runs = kernel_runs(A, cmat=A.cmat)
+        for k, (fn, counted, in_b, out_b) in runs.items():
+            b = bound(counted().cpu().tolist(), names, in_b, out_b, leaf=A.leaf_size)
+            if key in ("w4", "w4_mxu") and k == "frame":
+                fn8 = kernel_runs(M if mxu else T, cmat=M.cmat if mxu else None)[k][0]
+                turns = [time_ms(fn if i in (1, 2) else fn8) for i in range(4)]
+                t = dict(turns[1], median=statistics.median([turns[1]["median"],
+                                                             turns[2]["median"]]))
+                c8 = dict(zip(names, kernel_runs(M if mxu else T, cmat=M.cmat if mxu else None)[k][1]()
+                              .cpu().tolist()))
+                l8_ms = statistics.median([turns[0]["median"], turns[3]["median"]])
+                t.update(turns=turns, l8_ms=l8_ms, vs_l8=t["median"] / l8_ms,
+                         l8_leaf_visits_per_ray=c8["leaf_visits"] / n_rays,
+                         l8_tri_tests_per_ray=c8["tri_tests"] / n_rays,
+                         l8_inner_visits_per_ray=c8["inner_visits"] / n_rays)
+            else:
+                t = time_ms(fn, 2, 5)
+            tm[k] = dict(t, rays=n_rays, leaf_visits_per_ray=b["leaf_visits"] / n_rays,
+                         tri_tests_per_ray=b["tri_tests"] / n_rays,
+                         inner_visits_per_ray=b["inner_visits"] / n_rays, **b)
+        l4_t[key], l4_err[key] = tm, errs
+        l4_plain_ms[key] = {k: refs[k][1] for k in errs}
+        emit({"phase": "leaf4", "case": key, "card": card, "mxu": mxu, "cbox": list(A.cbox.shape),
+              "tri": list(A.tri.shape), "cmat": None if A.cmat is None else list(A.cmat.shape),
+              "stack_need": A.stack_depth, "builder": p.builder, "compare": res,
+              "max_abs_err": errs, "launches": l4_launch[key], "timing": tm,
+              "plain_vs_l8_same_triangle": p4["vs_l8_same_triangle"]})
+        bn = box_name(A)
+        mname = ", MXU" if mxu else ""
+        for k, t in tm.items():
+            kname = {"closest": f"closest_kernel<{a}{bn}, false{mname}, L=4>",
+                     "closest_full": f"closest_kernel<{a}{bn}, true{mname}, L=4>",
+                     "occluded": f"occluded_kernel<{a}{bn}{mname}, L=4>",
+                     "frame": f"frame_kernel<{a}{bn}{mname}, L=4>"}[k]
+            line = (MXU_LINES[k] if mxu else
+                    {"closest": 610 if a == 2 else 1774, "closest_full": 2437 if a == 2 else 1774,
+                     "occluded": 676 if a == 2 else 1835, "frame": 2536}[k])
+            extra_rows.append(row(kname, f"{key}, L=4", l4_launch[key][k], errs[k], t,
+                                  l4_plain_ms[key][k],
+                                  f"one {BAND_ROWS}-row band (y {y4}), the same rays", line))
+
+        # streamed leaf rows at L = 4: bit for bit against the resident
+        # twin, against the plain hits, through a streamed pipeline's paths
+        if not mxu and a >= 4:
+            sp = streamed(dataclasses.replace(p, tables=A))
+            S = sp.tables
+            skw = dict(leaf_size=L4, stack_depth=S.stack_depth, compressed=S.compressed)
+            scalls = {"closest": lambda s_, ro=b4o, rd=b4d, **x: ct.closest_tiles(
+                          S.cbox, S.cmeta, S.tri, ro, rd, stream=s_, **skw, **x),
+                      "closest_full": lambda s_, ro=b4o, rd=b4d, **x: ct.closest_tiles_full(
+                          S.cbox, S.cmeta, S.tri, S.attr, ro, rd, stream=s_, **skw, **x),
+                      "occluded": lambda s_, ro=b4so, rd=b4sd, m=b4m2, **x: ct.occluded_tiles(
+                          S.cbox, S.cmeta, S.tri, ro, rd, m, stream=s_, **skw, **x)}
+            serr = {}
+            for k, fn in scalls.items():
+                hs = fn(True)
+                outs = ((lambda h: [h]) if k == "occluded"
+                        else (lambda h: planes(h, k == "closest_full")))
+                check(f"{name}/{k}_stream", same_bits(outs(hs), outs(fn(False))),
+                      "differs from the resident twin")
+                serr[k] = (cmp_blocked(f"{name}/{k}_stream@{y4}", hs, refs["occluded"][0])
+                           if k == "occluded" else
+                           cmp_hits(f"{name}/{k}_stream@{y4}", hs, refs[k][0],
+                                    k == "closest_full"))["max_abs_err"]
+            _, on_s = on_path(f"{name}/stream_render_auto", sp.render,
+                              {f"closest_full_stream<{a}{sfx},l4>": cfg.bounces,
+                               f"occluded_stream<{a}{sfx},l4>": cfg.bounces * nl})
+            _, on_sc = on_path(f"{name}/stream_primary_closest_pass",
+                               lambda: scalls["closest"](True, o, d),
+                               {f"closest_stream<{a}{sfx},l4>": 1})
+            slaunch = {"closest": on_sc[f"closest_stream<{a}{sfx},l4>"],
+                       "closest_full": on_s[f"closest_full_stream<{a}{sfx},l4>"],
+                       "occluded": on_s[f"occluded_stream<{a}{sfx},l4>"]}
+            st = {}
+            for k, rays in (("closest", (o, d)), ("closest_full", (o, d)),
+                            ("occluded", (so, sd, m2))):
+                fn = scalls[k]
+                t = time_ms(lambda: fn(True, *rays), 2, 5)
+                in_b = (ray_b + nbytes(S.cbox, S.cmeta, S.tri)
+                        + (nbytes(S.attr) if k == "closest_full" else 0)
+                        + (out_plane if k == "occluded" else 0))
+                t.update(bound(fn(True, *rays, counters=True)[1].cpu().tolist(),
+                               ct.STREAM_COUNTS, in_b,
+                               {"closest": 3, "closest_full": 15, "occluded": 1}[k] * out_plane))
+                st[k] = t
+                kname = {"closest": f"closest_kernel<{a}{bn}, false, STREAM, L=4>",
+                         "closest_full": f"closest_kernel<{a}{bn}, true, STREAM, L=4>",
+                         "occluded": f"occluded_kernel<{a}{bn}, STREAM, L=4>"}[k]
+                extra_rows.append(row(kname, f"{key}, L=4, streamed", slaunch[k], serr[k], t,
+                                      refs[k][1], f"one {BAND_ROWS}-row band (y {y4}), the same "
+                                      "rays", 2253 if k == "occluded" else 2070))
+            emit({"phase": "leaf4", "case": f"{key}_stream", "card": card,
+                  "tri_rows": [A.tri.shape[0], S.tri.shape[0]], "max_abs_err": serr,
+                  "launches": slaunch, "timing": st})
+            del sp, S
+
+        # the sphere frame (car_boxed_spheres: car_boxed's triangles, so the
+        # L = 4 tables take its sphere table as it is) against the plain
+        # sphere frame of the spheres phase's band
+        if a >= 4 and (not mxu or key == "w4_mxu"):
+            As = A._replace(sph=sph)
+            ref_s, ms_s = (sph_mxu_plain, sph_mxu_plain_ms) if mxu else (sph_fp, sph_plain_ms)
+            so_b, sd_b = band(o, SPHERE_BAND if not mxu else y4), band(d, SPHERE_BAND if not mxu else y4)
+            es = cmp_frame(f"{name}/frame_sph", ct.frame_tiles(
+                As.cbox, As.cmeta, As.tri, As.attr, As.lamb, so_b, sd_b, bounces=cfg.bounces,
+                sph=sph, **akw), ref_s, 0.99)
+            ks = f"frame_sph{mode}<{a}{sfx},l4>"
+            _, on_f = on_path(f"{name}/render_fused_spheres",
+                              dataclasses.replace(p, tables=As).render, {ks: 1})
+            ts = time_one(As, "frame_sph", cmat=A.cmat)
+            emit({"phase": "leaf4", "case": f"{key}_spheres", "card": card,
+                  "max_abs_err": es["max_abs_err"], "compare": es, "launches": on_f[ks],
+                  "timing": ts})
+            extra_rows.append(row(f"frame_kernel<{a}{bn}, SPH{mname}, L=4>",
+                                  f"{key}+spheres, L=4", on_f[ks], es["max_abs_err"], ts, ms_s,
+                                  f"one {BAND_ROWS}-row band (y {SPHERE_BAND if not mxu else y4}), "
+                                  "the same rays", 2536))
+        del p, A
+    emit({"phase": "leaf4", "case": "summary", "seconds": time.perf_counter() - t0,
+          "frame_l4_vs_l8": {k: {kk: l4_t[k]["frame"].get(kk) for kk in (
+              "median", "l8_ms", "vs_l8", "leaf_visits_per_ray", "l8_leaf_visits_per_ray",
+              "tri_tests_per_ray", "l8_tri_tests_per_ray", "inner_visits_per_ray",
+              "l8_inner_visits_per_ray", "lanes_per_batch")} for k in ("w4", "w4_mxu")}})
+    # the DEEP instances at L = 4 on the chain scene
+    deep_cases(L4)
+    mxu_deep_cases(L4)
+    del p4
+
+    def run_clis(cases, wants, warmup=5, iterations=30):
+        """Run the command line at car_boxed 1080p once per case (name ->
+        flags), all cases at once, each writing its BMP and metrics record;
+        each BMP must be the in-process frame wants[name], and the record
+        must show the native builder, the iterations and the leaf size.
+        Emits each record (phase `cli`) and returns them. The CLI's frame
+        times are kept only from a run alone on the card: with more cases
+        they shared it, and say nothing of a frame's time."""
+        procs = {}
+        t0 = time.perf_counter()
+        for name, flags in cases.items():
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "parallel_ray_tracer_tpu_torch", "--scene",
+                 "car_boxed", "--resolution", "1080p", "--heuristic", "6", *flags,
+                 "--warmup", str(warmup), "--iterations", str(iterations),
+                 "--output", os.path.join(out_dir, f"{name}.bmp"),
+                 "--metrics-json", os.path.join(out_dir, f"{name}.json")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=HERE)
+        recs = {}
+        for name, proc in procs.items():
+            try:
+                out, err = proc.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+            rec = {"phase": "cli", "case": name, "flags": cases[name], "rc": proc.returncode,
+                   "concurrent": len(cases), "seconds": time.perf_counter() - t0,
+                   "stdout_tail": out[-1500:], "stderr_tail": err[-1500:]}
+            check(name, proc.returncode == 0, f"exit {proc.returncode}")
+            if proc.returncode == 0:
+                cli_bmp = os.path.join(out_dir, f"{name}.bmp")
+                with open(cli_bmp, "rb") as f:
+                    data = f.read()
+                os.remove(cli_bmp)
+                save_frame(name, data)
+                same = data == bmp_bytes(wants[name].cpu().numpy())
+                check(name, same, "its BMP is not the in-process frame")
+                with open(os.path.join(out_dir, f"{name}.json")) as f:
+                    metrics = json.load(f)
+                check(name, metrics.get("iterations") == iterations,
+                      f"iterations {metrics.get('iterations')}")
+                check(name, metrics.get("builder") == "native",
+                      f"the {metrics.get('builder')} builder ran")
+                leaf = 4 if "--leaf-size" in cases[name] else 8
+                check(name, metrics.get("leaf_size") == leaf,
+                      f"leaf size {metrics.get('leaf_size')}")
+                rec.update(bmp_equal=same, iterations=metrics.get("iterations"),
+                           backend=metrics.get("backend"), builder=metrics.get("builder"),
+                           leaf_size=metrics.get("leaf_size"), mxu=metrics.get("mxu"),
+                           device_name=metrics.get("device_name"))
+                if len(cases) == 1:
+                    rec.update({k: metrics.get(k) for k in ("median_ms", "mean_ms", "ci99_ms")})
+            emit(rec)
+            recs[name] = {k: v for k, v in rec.items() if k not in ("stdout_tail", "phase")}
+        return recs
+
+    # ---- 16. forward shadow rays, closest-hit shadows, the pre-split --------
+    # reverse_shadows=False: the fused frame traces each shadow ray from the
+    # hit point to the light (window dist^2), as JAX's frame kernel does,
+    # and so does the pass-based render. The forward fused frame (FP32 and
+    # MXU leaf) is held against its plain version on one band, against the
+    # pass-based forward render and the reference BMP (the reference
+    # traces hit -> light), with the counts from 0; the sphere frame's
+    # forward pass against the pass-based sphere render; the forward and the
+    # reversed frame kernel are timed in turns. fast_light=False finds
+    # shadows with the closest-hit kernel on the pass-based path, and
+    # presplit=0.125 splits car_boxed's large triangles before the build:
+    # each frame against the reference BMP. The command line renders the
+    # slice's flags (--leaf-size 4, with and without --no-mxu-leaf,
+    # --no-reverse-shadows, --no-fast-light, --presplit 0.125), each BMP
+    # the in-process frame of its configuration.
+    t0 = time.perf_counter()
+    rec = {"phase": "shadows", "card": card}
+    fwd_cfg = RenderConfig(**CFG, reverse_shadows=False)
+    fpipe = dataclasses.replace(pipe, cfg=fwd_cfg)
+    fimg, on_ff = on_path("shadows/render_fused", fpipe.render, {"frame<4>": 1})
+    fimg_pass, _ = on_path("shadows/render_pass_based", lambda: fpipe.render(variant="pallas"),
+                           {"closest_full<4>": cfg.bounces, "occluded<4>": cfg.bounces * nl})
+    rec["fused_vs_pass"] = hold_frames("shadows/fused_vs_pass", fimg, fimg_pass)
+    rec["reference_image"] = hold_reference("car_boxed_1080p_forward_shadows", fimg)
+    rec["vs_reversed"] = hold_frames("shadows/vs_reversed", fimg, img, 0.99)
+    del fimg_pass
+    # the kernels against their plain versions on one band
+    fo, fd = band(o, BANDS[0]), band(d, BANDS[0])
+    fkw = dict(bounces=cfg.bounces, reverse_shadows=False)
+    fp_f, fwd_plain_ms = timed_once(lambda: ct.frame_plain(T.tri, T.attr, T.lamb, fo, fd,
+                                                           leaf_size=L, **fkw))
+    rec["band"] = cmp_frame(f"shadows/frame@{BANDS[0]}", ct.frame_tiles(
+        T.cbox, T.cmeta, T.tri, T.attr, T.lamb, fo, fd, leaf_size=L,
+        stack_depth=T.stack_depth, **fkw), fp_f)
+    rec["band_plain_vs_reversed_plain"] = (
+        fp_f.stack(-1) - band_ref[BANDS[0]]["frame"].stack(-1)).abs().max().item()
+    mfp_f, mfwd_plain_ms = timed_once(lambda: ct.frame_plain(
+        M.tri, M.attr, M.lamb, fo, fd, leaf_size=L, cmat=M.cmat, **fkw))
+    mkw = dict(leaf_size=L, stack_depth=M.stack_depth, cmat=M.cmat)
+    rec["band_mxu"] = cmp_frame(f"shadows/frame_mxu@{BANDS[0]}", ct.frame_tiles(
+        M.cbox, M.cmeta, M.tri, M.attr, M.lamb, fo, fd, **mkw, **fkw), mfp_f)
+    del fp_f, mfp_f
+    mfpipe = dataclasses.replace(mpipe, cfg=RenderConfig(**MXU_CFG, reverse_shadows=False))
+    mfimg, on_mf = on_path("shadows/mxu/render_fused", mfpipe.render, {"frame_mxu<4>": 1})
+    mfimg_pass, _ = on_path("shadows/mxu/render_pass_based",
+                            lambda: mfpipe.render(variant="pallas"),
+                            {"closest_full_mxu<4>": cfg.bounces,
+                             "occluded_mxu<4>": cfg.bounces * nl})
+    rec["mxu_fused_vs_pass"] = hold_frames("shadows/mxu/fused_vs_pass", mfimg, mfimg_pass)
+    rec["mxu_reference_image"] = hold_reference("car_boxed_1080p_mxu_forward_shadows", mfimg,
+                                                save=False)
+    del mfimg_pass
+    # the sphere pass: car_boxed_spheres, fused forward against pass-based forward
+    spf = dataclasses.replace(sph_pipe, cfg=RenderConfig(**CFG, reverse_shadows=False))
+    simg_f, on_sf = on_path("shadows/spheres/render_fused", spf.render, {"frame_sph<4>": 1})
+    simg_fp, _ = on_path("shadows/spheres/render_pass_based", lambda: spf.render(variant="pallas"),
+                         {"closest_full<4>": cfg.bounces, "occluded<4>": cfg.bounces * nl})
+    rec["spheres_fused_vs_pass"] = hold_frames("shadows/spheres/fused_vs_pass", simg_f, simg_fp,
+                                               0.99)
+    del simg_f, simg_fp
+    # timing: the reversed and the forward frame kernel in turns, with work
+    fwd_t, shadow_work = {}, {}
+    for tag, tabs, ckw in (("fp32", T, {}), ("mxu", M, {"cmat": M.cmat})):
+        kw_ = dict(leaf_size=L, stack_depth=tabs.stack_depth, **ckw)
+
+        def frame_call(rev, counters=False):
+            return ct.frame_tiles(tabs.cbox, tabs.cmeta, tabs.tri, tabs.attr, tabs.lamb, o, d,
+                                  bounces=cfg.bounces, reverse_shadows=rev, counters=counters,
+                                  **kw_)
+
+        turns = [time_ms(lambda: frame_call(i in (0, 3))) for i in range(4)]
+        names = ct.MXU_COUNTS if ckw else ct.COUNTS
+        in_b = ray_b + nbytes(tabs.cbox, tabs.cmeta, tabs.tri, tabs.attr, tabs.lamb,
+                              *((tabs.cmat,) if ckw else ()))
+        b_f = bound(frame_call(False, True)[1].cpu().tolist(), names, in_b, 3 * out_plane,
+                    leaf=tabs.leaf_size)
+        b_r = bound(frame_call(True, True)[1].cpu().tolist(), names, in_b, 3 * out_plane,
+                    leaf=tabs.leaf_size)
+        fwd_ms = statistics.median([turns[1]["median"], turns[2]["median"]])
+        rev_ms = statistics.median([turns[0]["median"], turns[3]["median"]])
+        fwd_t[tag] = dict(turns[1], median=fwd_ms, rays=n_rays, turns=turns, reversed_ms=rev_ms,
+                          vs_reversed=fwd_ms / rev_ms, **b_f)
+        shadow_work[tag] = {k: {"forward": b_f[k], "reversed": b_r[k]}
+                            for k in ("traversals", "inner_visits", "box_tests", "leaf_visits",
+                                      "tri_tests")}
+    rec.update(timing=fwd_t, work=shadow_work,
+               launches={"frame<4>": on_ff["frame<4>"], "frame_mxu<4>": on_mf["frame_mxu<4>"],
+                         "frame_sph<4>": on_sf["frame_sph<4>"]})
+    extra_rows.append(row("frame_kernel<4>, forward shadows", "w4, reverse_shadows=False",
+                          on_ff["frame<4>"], rec["band"]["max_abs_err"], fwd_t["fp32"],
+                          fwd_plain_ms, f"one {BAND_ROWS}-row band (y {BANDS[0]}), the same rays",
+                          2756))
+    extra_rows.append(row("frame_kernel<4, MXU>, forward shadows",
+                          "w4, mxu, reverse_shadows=False", on_mf["frame_mxu<4>"],
+                          rec["band_mxu"]["max_abs_err"], fwd_t["mxu"], mfwd_plain_ms,
+                          f"one {BAND_ROWS}-row band (y {BANDS[0]}), the same rays", 2756))
+
+    # fast_light=False: shadows by the closest-hit kernel, forward, pass-based
+    nf = dataclasses.replace(pipe, cfg=RenderConfig(**CFG, fast_light=False))
+    check("shadows/no_fast_light", nf.resolved_variant() == "pallas", "auto is not pass-based")
+    nfimg, _ = on_path("shadows/no_fast_light/render_auto", nf.render,
+                       {"closest_full<4>": cfg.bounces * (1 + nl)})
+    rec["no_fast_light"] = {"reference_image": hold_reference(
+        "car_boxed_1080p_no_fast_light", nfimg, save=False),
+        "vs_forward_fused": hold_frames("shadows/no_fast_light/vs_forward", nfimg, fimg, 0.99)}
+    # presplit=0.125: the split scene's fused frame
+    ps = prepare_native(RenderConfig(**CFG, presplit=0.125))
+    psimg, _ = on_path("shadows/presplit/render_fused", ps.render, {"frame<4>": 1})
+    rec["presplit"] = {"triangles": ps.scene.num_triangles, "bvh_build_ms": ps.build_ms,
+                       "reference_image": hold_reference("car_boxed_1080p_presplit", psimg,
+                                                         save=False),
+                       "vs_unsplit": hold_frames("shadows/presplit/vs_unsplit", psimg, img, 0.99),
+                       "frame": dict(time_ms(ps.render, 2, 10), pixels=W * H)}
+    check("shadows/presplit", ps.scene.num_triangles > pipe.scene.num_triangles,
+          "presplit did not split car_boxed")
+    del nfimg, psimg, nf
+
+    # the command line: the slice's flags, concurrently, each BMP the
+    # in-process frame of the same configuration
+    want = {"cli_leaf4": (["--leaf-size", "4"], l4_tables["w4_mxu"][2]),
+            "cli_leaf4_fp32": (["--leaf-size", "4", "--no-mxu-leaf"], l4_tables["w4"][2]),
+            "cli_no_reverse_shadows": (["--no-reverse-shadows"], mfimg),
+            "cli_no_fast_light": (["--no-fast-light"], dataclasses.replace(
+                mpipe, cfg=RenderConfig(**MXU_CFG, fast_light=False)).render()),
+            "cli_presplit": (["--presplit", "0.125"], prepare_native(
+                RenderConfig(**MXU_CFG, presplit=0.125)).render())}
+    rec["cli"] = run_clis({k: v[0] for k, v in want.items()},
+                          {k: v[1] for k, v in want.items()}, warmup=1, iterations=3)
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    del fimg, mfimg, want, l4_tables, fpipe, mfpipe, spf, sph_pipe
     del mpipe, M
 
-    # ---- 15. the microbench probes (rows 15a-15h) ---------------------------
+    # ---- 17. the microbench probes (rows 15a-15h) ---------------------------
     extra_rows += microbench_phase(card, out_dir, timing["w4"]["frame"])
 
-    # ---- 16. the command line: the width-8 frame, the --bf16-bvh frame -----
-    def run_cli(name, flags, want):
-        cli_bmp = os.path.join(out_dir, f"{name}.bmp")
-        cli_json = os.path.join(out_dir, f"{name}.json")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "parallel_ray_tracer_tpu_torch", "--scene",
-             "car_boxed", "--resolution", "1080p", "--heuristic", "6", *flags,
-             "--warmup", "5", "--iterations", "30", "--output", cli_bmp,
-             "--metrics-json", cli_json],
-            capture_output=True, text=True, cwd=HERE, timeout=300,
-        )
-        rec = {"phase": "cli", "case": name, "flags": flags, "rc": proc.returncode,
-               "seconds": time.perf_counter() - t0,
-               "stdout_tail": proc.stdout[-1500:], "stderr_tail": proc.stderr[-1500:]}
-        check(name, proc.returncode == 0, f"exit {proc.returncode}")
-        if proc.returncode == 0:
-            with open(cli_bmp, "rb") as f:
-                data = f.read()
-            os.remove(cli_bmp)
-            save_frame(name, data)
-            same = data == bmp_bytes(want.cpu().numpy())
-            check(name, same, "its BMP is not the in-process frame")
-            with open(cli_json) as f:
-                metrics = json.load(f)
-            check(name, metrics.get("iterations") == 30,
-                  f"iterations {metrics.get('iterations')}")
-            check(name, metrics.get("builder") == "native",
-                  f"the {metrics.get('builder')} builder ran")
-            rec.update(bmp_equal=same, iterations=metrics.get("iterations"),
-                       backend=metrics.get("backend"), builder=metrics.get("builder"),
-                       device_name=metrics.get("device_name"),
-                       median_ms=metrics.get("median_ms"),
-                       mean_ms=metrics.get("mean_ms"), ci99_ms=metrics.get("ci99_ms"))
-        emit(rec)
-
+    # ---- 18. the command line: the width-8 frame, the --bf16-bvh frame -----
     emit({"phase": "builds", "native_build": dict(native.BUILD_INFO), "builds": builds})
-    run_cli("cli_w8", ["--bvh-width", "8", "--no-mxu-leaf"], frames["w8"])
-    run_cli("cli_bf16", ["--bf16-bvh", "--no-mxu-leaf"], frames["w4_bf16"])
+    run_clis({"cli_w8": ["--bvh-width", "8", "--no-mxu-leaf"]}, {"cli_w8": frames["w8"]})
+    run_clis({"cli_bf16": ["--bf16-bvh", "--no-mxu-leaf"]}, {"cli_bf16": frames["w4_bf16"]})
     del frames
 
-    # ---- 17. the kernels line --------------------------------------------
+    # ---- 19. the kernels line --------------------------------------------
     kernels = []
     for name, key, kernel, line in KERNEL_ROWS:
         t = timing[key][kernel]
@@ -2579,6 +3109,44 @@ def microbench_phase(card: str, out_dir: str, frame: dict) -> list:
                 "library_ms": None, "iters": kk, "threads": n})
     emit({"phase": "microbench", "case": "kernels", "card": card, "rows": rows})
     return rows
+
+
+# The traversal kernels' mangled names: their template arguments end in
+# MXU and the leaf size L, the frame kernel's in MXU, L and FWD.
+TRAVERSAL_ENTRY = re.compile(r"_Z\d+(closest|occluded|frame)_kernel")
+TEMPLATE_TAIL = re.compile(r"ELb(?P<mxu>[01])ELi(?P<leaf>\d+)E(?:Lb(?P<fwd>[01])E)?Ev")
+
+
+def entry_leaf(k: str) -> int:
+    """The leaf size of a traversal kernel's mangled name, else 0."""
+    m = TEMPLATE_TAIL.search(k) if TRAVERSAL_ENTRY.match(k) else None
+    return int(m.group("leaf")) if m else 0
+
+
+def entry_mxu(k: str) -> bool:
+    m = TEMPLATE_TAIL.search(k) if TRAVERSAL_ENTRY.match(k) else None
+    return bool(m) and m.group("mxu") == "1"
+
+
+def read_ptxas(log) -> dict:
+    """{mangled kernel: registers, stack frame and spill bytes} from an nvcc
+    build log written with -Xptxas -v."""
+    table, entry = {}, None
+    if not log:
+        return table
+    for ln in open(log):
+        if "Compiling entry" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln.strip()
+            table[entry] = {}
+        elif entry and "Used" in ln and "registers" in ln:
+            table[entry]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+        elif entry and "spill" in ln:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", ln)
+            if m:
+                table[entry].update(zip(("stack", "spill_stores", "spill_loads"),
+                                        map(int, m.groups())))
+    return table
 
 
 def ratios(a: dict, b: dict) -> dict:

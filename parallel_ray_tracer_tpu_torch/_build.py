@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels (csrc/) as a plain C shared library.
 
 nvcc compiles each unit of csrc/ for sm_90a, all of them at once (one
-process per unit: the C entry points and one unit per node arity, box
-format, leaf mode (resident FP32, streamed, MXU) and stack tier, and the
-seven units of the microbench probes), and links
+process per object: the C entry points, one unit per node arity, box
+format, leaf mode (resident FP32, streamed, MXU) and stack tier, compiled
+once for each leaf size, and the seven units of the microbench probes), and
+links
 them into `_build/<hash>/libtrace.so`, where the hash covers the sources and
 the flags, so a changed source builds anew and an unchanged one is reused.
 The build happens at first use, inside the call that launches a kernel;
@@ -17,6 +18,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import resource
 import subprocess
 import tempfile
 import time
@@ -25,19 +27,28 @@ from typing import Optional
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 # One unit per node arity, box format and leaf mode (`s` streamed leaf
-# rows, `m` the MXU leaf), and each again with a `d` suffix for the DEEP
-# stack tier (csrc/trace.cuh).
+# rows, `m` the MXU leaf), each again with a `d` suffix for the DEEP stack
+# tier (csrc/trace.cuh). Each is compiled once per leaf size (RT_UNIT_LEAF,
+# csrc/trace_launch.cuh).
 _TIER_UNITS = ("a2", "a4", "a8", "a4p", "a8p", "a2h", "a4s", "a8s", "a4ps", "a8ps",
                "a4m", "a8m", "a4pm", "a8pm")
+LEAF_SIZES = (8, 4)
 # The probes of microbench/ (kernels A, B and C, D; the bf16 chains and slab
 # pairs; the inner-visit probes of rows 15i and 15j, whose kernel is
 # microbench_inner.cuh; the branch probe of row 15l), which include trace.cuh.
 MICROBENCH_UNITS = ("microbench_leaf.cu", "microbench_probes.cu", "microbench_overlap.cu",
                     "microbench_bf16.cu", "microbench_inner.cu", "microbench_glue.cu",
                     "microbench_cond.cu")
-UNITS = ("trace_kernels.cu",) + tuple(
-    f"trace_{u}{tier}.cu" for tier in ("", "d") for u in _TIER_UNITS) + MICROBENCH_UNITS
-SOURCES = ("trace.cuh", "trace_launch.cuh", "microbench_inner.cuh") + UNITS
+TIER_SOURCES = tuple(f"trace_{u}{tier}.cu" for tier in ("", "d") for u in _TIER_UNITS)
+SOURCES = ("trace.cuh", "trace_launch.cuh", "microbench_inner.cuh", "trace_kernels.cu") \
+    + TIER_SOURCES + MICROBENCH_UNITS
+# The objects, each {name: (source, extra nvcc flags)}: a tier unit at leaf
+# size 8 is named by its source, at another leaf size L by its source and
+# `.l<L>`.
+UNITS = {"trace_kernels.cu": ("trace_kernels.cu", ()),
+         **{src if leaf == 8 else f"{src}.l{leaf}": (src, (f"-DRT_UNIT_LEAF={leaf}",))
+            for leaf in LEAF_SIZES for src in TIER_SOURCES},
+         **{src: (src, ()) for src in MICROBENCH_UNITS}}
 BUILD_ROOT = os.path.join(_PKG, "_build")
 
 # -fmad=false: products round on their own, as in the plain versions and the
@@ -63,7 +74,7 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((" ".join(NVCC_FLAGS) + repr(UNITS)).encode())
     for name in SOURCES:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
@@ -75,8 +86,8 @@ def library_path() -> str:
 
 
 def object_path(unit: str) -> str:
-    """A unit's object file, kept beside the library (microbench/sass.py
-    reads the probes' SASS from it)."""
+    """The object file of one of UNITS, kept beside the library
+    (microbench/sass.py reads the probes' SASS from it)."""
     return os.path.join(BUILD_ROOT, _digest(), "obj", unit + ".o")
 
 
@@ -86,7 +97,9 @@ def build() -> str:
     The units compile in parallel into a temporary directory, and the .so
     is linked under a temporary name and renamed into place, so a
     concurrent or interrupted build never leaves a partial library; the
-    objects are kept in obj/ beside it."""
+    objects are kept in obj/ beside it. BUILD_INFO records the wall seconds,
+    the CPU seconds of all nvcc processes and of each unit's, the units and
+    the host's cores."""
     out = library_path()
     if os.path.isfile(out):
         BUILD_INFO.update(path=out, seconds=0.0, cached=True)
@@ -94,22 +107,31 @@ def build() -> str:
     os.makedirs(os.path.dirname(out), exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
+    cpu0 = resource.getrusage(resource.RUSAGE_CHILDREN)
     log = os.path.join(os.path.dirname(out), "build.log")
+    unit_cpu = {}
     with tempfile.TemporaryDirectory(dir=os.path.dirname(out)) as tmp, \
             open(log, "w") as logf:
         objs, procs = [], []
-        for unit in UNITS:
+        for unit, (src, flags) in UNITS.items():
             obj = os.path.join(tmp, unit + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC, unit)]
+            cmd = [nvcc, *NVCC_FLAGS, *flags, "-c", "-o", obj, os.path.join(CSRC, src)]
             objs.append(obj)
-            procs.append((cmd, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            with open(obj + ".log", "w") as f:   # a file, so a long log never blocks nvcc
+                procs.append((unit, cmd, obj + ".log", subprocess.Popen(
+                    cmd, stdout=f, stderr=subprocess.STDOUT)))
         failed = []
-        for cmd, proc in procs:
-            text = proc.communicate()[0]
+        for unit, cmd, out_log, proc in procs:
+            # wait4 reaps the unit with its rusage (nvcc's own and its
+            # children's, which nvcc waits for)
+            _, status, usage = os.wait4(proc.pid, 0)
+            proc.returncode = os.waitstatus_to_exitcode(status)
+            unit_cpu[unit] = usage.ru_utime + usage.ru_stime
+            with open(out_log) as f:
+                text = f.read()
             logf.write(" ".join(cmd) + "\n" + text)
             if proc.returncode != 0:
-                failed.append(f"{os.path.basename(cmd[-1])} ({proc.returncode}):\n{text[-4000:]}")
+                failed.append(f"{unit} ({proc.returncode}):\n{text[-4000:]}")
         if failed:
             raise RuntimeError("nvcc failed: " + "\n".join(failed))
         so = os.path.join(tmp, "libtrace.so")
@@ -118,12 +140,15 @@ def build() -> str:
         logf.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-        os.makedirs(os.path.dirname(object_path(UNITS[0])), exist_ok=True)
+        os.makedirs(os.path.dirname(object_path("trace_kernels.cu")), exist_ok=True)
         for unit, obj in zip(UNITS, objs):
             os.replace(obj, object_path(unit))
         os.replace(so, out)
+    cpu1 = resource.getrusage(resource.RUSAGE_CHILDREN)
     BUILD_INFO.update(path=out, seconds=time.perf_counter() - t0, cached=False,
-                      log=log)
+                      log=log, units=len(UNITS), cores=os.cpu_count(),
+                      cpu_seconds=(cpu1.ru_utime - cpu0.ru_utime)
+                      + (cpu1.ru_stime - cpu0.ru_stime), unit_cpu_seconds=unit_cpu)
     return out
 
 
@@ -134,9 +159,9 @@ def load_library() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(build())
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.rt_closest.argtypes = [P] * 11 + [I] * 5 + [P] * 8
-    lib.rt_occluded.argtypes = [P] * 11 + [I] * 5 + [P] * 5
-    lib.rt_frame.argtypes = [P] * 12 + [I, P] + [I] * 6 + [P] * 5
+    lib.rt_closest.argtypes = [P] * 11 + [I] * 6 + [P] * 8
+    lib.rt_occluded.argtypes = [P] * 11 + [I] * 6 + [P] * 5
+    lib.rt_frame.argtypes = [P] * 12 + [I, P] + [I] * 8 + [P] * 5
     for fn in (lib.rt_closest, lib.rt_occluded, lib.rt_frame):
         fn.restype = I
     lib.mb_leaf.argtypes = [P] * 6 + [I] + [P] * 4 + [I] * 9 + [P] * 3

@@ -13,9 +13,14 @@ mean/median/stddev/99% CI/FPS (cpu/src/main.c:194-209), an optional BMP and
 a JSON metrics record.
 
 A flag whose path the port does not have yet (--devices N > 1,
---checkpoint, --profile, --interpret, --no-fast-light, --presplit,
---no-reverse-shadows, --leaf-size 4, --variant jax) ends the run with the
-NotImplementedError message and exit code 2. --no-bvh and --variant
+--checkpoint, --profile, --interpret, --variant jax) ends the run with the
+NotImplementedError message and exit code 2. --leaf-size 4 packs and
+traces leaf groups of 4 triangles (the kernels' L = 4 instances),
+--no-reverse-shadows traces shadow rays from the hit point to the light,
+--no-fast-light finds shadows by the closest-hit kernel on the pass-based
+path, and --presplit RATIO splits large triangles before the BVH build, as
+the JAX CLI does; the banner and the metrics record give the leaf size.
+--no-bvh and --variant
 bruteforce render every frame by brute force (ops/trace_brute.py), as the
 JAX CLI does; a --scene folder with a spheres.obj renders its spheres.
 --no-native takes the numpy scene loader and BVH builder instead of the C++
@@ -74,14 +79,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--leaf-threshold", type=int, default=8,
                    help="BVH_ELEMENT_THRESHOLD")
     p.add_argument("--leaf-size", type=int, default=None, choices=(4, 8),
-                   help="triangles per packed leaf group row (default 8, "
-                        "the only size the kernels hold)")
+                   help="triangles per packed leaf group row (default 8)")
     p.add_argument("--max-depth", type=int, default=32, help="BVH_MAX_ITER")
     p.add_argument("--seed", type=int, default=1,
                    help="SEED; 0 = time-based (options.h:66-71)")
     p.add_argument("--no-fast-light", action="store_true",
                    help="USE_BVH_FAST_LIGHT=0: closest-hit shadow traversal "
-                        "(not ported)")
+                        "(the pass-based path)")
     p.add_argument("--no-bvh-metrics", action="store_true",
                    help="BVH_METRICS=0: suppress the leaf statistics banner")
     p.add_argument("--bf16-bvh", action="store_true",
@@ -93,7 +97,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--adaptive-pop", action=argparse.BooleanOptionalAction,
                    default=True, help="TPU pop schedule; no effect here")
     p.add_argument("--no-reverse-shadows", action="store_true",
-                   help="trace shadow segments hit->light (not ported)")
+                   help="trace shadow segments hit->light")
     p.add_argument("--no-dual-pop", action="store_true",
                    help="single-pop traversal schedule; the same kernels "
                         "as dual-pop here (one thread traces one ray)")
@@ -102,7 +106,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(auto: where the JAX package streams, past its "
                         "126 MiB row model, about 450k triangles)")
     p.add_argument("--presplit", type=float, default=0.0, metavar="RATIO",
-                   help="pre-split oversized triangles (not ported)")
+                   help="pre-split triangles whose box diagonal passes RATIO "
+                        "of the scene's (0 = off)")
     p.add_argument("--true-sah", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="score heuristic-6 splits by true surface area "
@@ -212,7 +217,6 @@ def _run(args) -> int:
     import torch
 
     from . import pipeline
-    from .ops.cuda_trace import LEAF_SIZE
     from .utils.bmp import write_bmp
     from .utils.stats import format_summary, summarize
 
@@ -237,7 +241,7 @@ def _run(args) -> int:
         + f", mxu: {pipe.mxu}")
     say(f"\n# Bvh settings #\nuse_bvh: {cfg.use_bvh}, heuristic: "
         f"{cfg.bvh_heuristic}, sah_bins: {cfg.sah_bins}, leaf: "
-        f"{LEAF_SIZE}, max_depth: {cfg.bvh_max_depth}, seed: "
+        f"{pipe.leaf_size}, max_depth: {cfg.bvh_max_depth}, seed: "
         f"{cfg.seed}, fast_light: {cfg.fast_light}, bf16: {cfg.bf16_bvh}, "
         f"width: {cfg.bvh_width}")
     if cfg.use_bvh:
@@ -290,6 +294,7 @@ def _run(args) -> int:
             "bvh_stats": pipe.bvh_stats,
             "stream": pipe.stream,
             "mxu": pipe.mxu,
+            "leaf_size": pipe.leaf_size,
             "times_ms": times,
             **stats,
         }

@@ -30,6 +30,8 @@
 //                                <- the same kernels' mxu=True instances:
 //                                   the MXU leaf _mxu_* :1002-1466 on the
 //                                   C-matrices of _build_cmat :227
+// each at leaf size L = 8 and L = 4 (the kernels' last template parameter;
+// the JAX factories' L), the frame with shadow rays in either direction,
 // with F = RT_F32 for f32 tables, RT_PAIRS for those kernels' compressed=True
 // instances at A 4 and 8 (_load_node_row :740-758, _child_extract :761-764,
 // rows of pack_box_bf16_pairs :438), and RT_BF16 for _closest_kernel,
@@ -93,15 +95,25 @@
 // drop of pops beyond t and the leaf test are those of the resident
 // instances, so the hits are theirs to the bit.
 //
-// Leaves hold L = 8 triangles (one 128-float row), the only leaf size the
-// port prepares; shadow rays are always traced from the light (the
-// reference's reverse_shadows=True).
+// Leaf size: every traversal takes the leaf size L as a template parameter,
+// instantiated at L = 8 and L = 4 (the sizes JAX's CLI offers). A leaf group
+// is one 128-float tri row either way: L triangles of 12 floats, the rest of
+// the row zero (at L = 4 only its first 48 floats hold triangles, as JAX's
+// packers leave them); slot g * L + j is triangle j of group g.
+//
+// Shadow rays: the frame traces them from the light to the hit point, window
+// (dist - EPS)^2 (the reference's reverse_shadows=True), or, in the frame
+// kernel's FWD instances, from the hit point to the light, window dist^2
+// (reverse_shadows=False, _frame_fused_kernel :2756-2762). The direction is
+// a template parameter, so a reversed instance holds no code of the forward
+// branch: a uniform kernel argument and its selects changed the registers
+// of most frame instances, and the spills of some.
 //
 // The MXU leaf (MXU instances): Möller-Trumbore's four quantities (det,
 // t_num, u_num, v_num) of a ray and a triangle are linear in the ray's
 // features R = [d, o x d, o, 1, 0 x 6] (K = 16), so a leaf group's tests are
-// the product of R with the group's (32, 16) C-matrix (ops/pack.build_cmat;
-// row 8q + j: quantity q of triangle j). JAX takes it on the MXU in bf16x3:
+// the product of R with the group's (4L, 16) C-matrix (ops/pack.build_cmat;
+// row Lq + j: quantity q of triangle j). JAX takes it on the MXU in bf16x3:
 // both operands split into bf16 halves, Ch.Rh + Ch.Rl + Cl.Rh summed in f32
 // (_mxu_leaf_quants_n :1393). Here it is the same product on the tensor
 // cores, mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, in that order
@@ -114,11 +126,19 @@
 // every lane whose group it is takes its result. A is R: m-tile m holds
 // the rays of lanes 16m..16m+15, built once per traversal with shuffles and
 // split into hi and lo in registers. B is the C-matrix transposed: n-tile q
-// is quantity q of triangles 0..7, 32-bit loads of the table's [hi | lo]
-// rows (or of the four-group rows of pack_cmi4). In the accumulator
-// fragment, lane 4r + c holds the quantities of triangles 2c and 2c + 1
-// for rays r and r + 8 of the m-tile, so each lane finishes those tests
-// where they lie: JAX's divided hit test (_mxu_rows, IEEE 1/det) and the
+// is C rows 8q..8q+7 of the group, 32-bit loads of the table's [hi | lo]
+// rows (or of the four-group rows of pack_cmi4). At L = 8 that is quantity
+// q of triangles 0..7 (four n-tiles), and in the accumulator fragment lane
+// 4r + c holds the quantities of triangles 2c and 2c + 1 for rays r and
+// r + 8 of the m-tile. At L = 4 a group has 16 rows, two n-tiles: n-tile p
+// holds quantity 2p of triangles 0..3 (columns 0..3) and 2p + 1 (columns
+// 4..7), so lane 4r + c holds quantity 2p + (c >> 1) of triangles 2(c & 1)
+// and 2(c & 1) + 1; one exchange with lane c ^ 2 per value gives each lane
+// all four quantities of those two triangles (lanes c and c ^ 2 then test
+// the same pairs, which the quad's reduction absorbs). The L = 4 design is
+// the simple one: one group per warp step, 12 mma instead of 24; serving
+// two groups per step (JAX's default_nleaf doubles nleaf at L = 4) is
+// later work. Each lane finishes its tests where they lie: JAX's divided hit test (_mxu_rows, IEEE 1/det) and the
 // smallest t with the smallest j on ties (_mxu_winners), reduced over the
 // quad and handed to the ray's lane, which merges it on a strict <
 // (_mxu_merge_winner); or the division-free any-hit test (_mxu_occl_merge),
@@ -128,7 +148,8 @@
 // are those of the FP32 instances; the tensor cores sum in their own
 // order, so the MXU hits are held to bounds against the plain version,
 // not to the bit. What bounds it: a served group costs the warp 24 mma and
-// 16 loads of 4 bytes a lane whatever the number of lanes served, so the
+// 16 loads of 4 bytes a lane (L = 4: 12 and 8) whatever the number of lanes
+// served, so the
 // cost follows the distinct groups a warp's rays want per step (the
 // counting instance counts these batches and the lanes served); a group's
 // table rows are 2 KB, four times its tri row, and car_boxed's 17 MB table
@@ -180,7 +201,8 @@
 #define RT_LANES 128           // floats per tri / attr row
 #define RT_TRI_STRIDE 12       // [v0, e1, e2, n] per triangle
 #define RT_ATTR_STRIDE 9       // [kd, ks, kr] per triangle
-#define RT_LEAF 8              // triangles per leaf row
+#define RT_LEAF 8              // triangles per leaf row of the default
+                               // instances and of the microbench probes
 #define RT_BLOCK 128           // threads per block
 // The TPU streamed kernels' constants (pallas_trace.py:1909-1916), with the
 // same meaning here: ring slots, pending leaves prefetched per step, leaf
@@ -563,8 +585,9 @@ RT_FN void rt_ring_ahead(const RtScene& s, RtRing& q, const SI& stk,
 
 // The 9 attribute floats of slot idx (rt_slot_attrs' attr loads), as one
 // bulk prefetch of the 16-byte aligned span that holds them.
+template <int L>
 RT_FN void rt_prefetch_slot_attrs(const RtScene& s, int idx) {
-  const int g = idx / RT_LEAF, j = idx - g * RT_LEAF;
+  const int g = idx / L, j = idx - g * L;
   const unsigned lo = (unsigned)(RT_ATTR_STRIDE * j * sizeof(float)) & ~15u;
   const unsigned hi =
       ((unsigned)(RT_ATTR_STRIDE * (j + 1) * sizeof(float)) + 15u) & ~15u;
@@ -572,11 +595,11 @@ RT_FN void rt_prefetch_slot_attrs(const RtScene& s, int idx) {
                  hi - lo);
 }
 
-// Closest hit of one ray: returns the slot g*RT_LEAF + j (or -1) and sets
+// Closest hit of one ray: returns the slot g*L + j (or -1) and sets
 // t and neg (det < 0 of the winner). Strict < keeps the first of equal hits.
 // STREAM adds the block ring's prefetches; the traversal is unchanged.
 // stk / dst: the ray's stack (a private array, or RtSlots of the DEEP tier).
-template <int A, RtBox F, bool STREAM, class C, class SI, class SF>
+template <int A, RtBox F, bool STREAM, int L, class C, class SI, class SF>
 RT_FN int rt_closest_on(const RtScene& s, const RtRay& r, float& t, bool& neg,
                         C& cnt, SI& stk, SF& dst) {
   int sp = 1, idx = -1;
@@ -601,19 +624,19 @@ RT_FN int rt_closest_on(const RtScene& s, const RtRay& r, float& t, bool& neg,
       }
       const float4* row = s.tri + (size_t)g * (RT_LANES / 4);
 #pragma unroll
-      for (int j = 0; j < RT_LEAF; ++j) {
+      for (int j = 0; j < L; ++j) {
         bool nj;
         float4 c = __ldg(row + 3 * j + 2);
         cnt.tri(c);
         float tj = rt_mt(r, __ldg(row + 3 * j), __ldg(row + 3 * j + 1), c, nj);
         if (tj < t) {
           t = tj;
-          idx = g * RT_LEAF + j;
+          idx = g * L + j;
           neg = nj;
         }
       }
       if constexpr (STREAM) {
-        if (s.attr != nullptr && idx != best) rt_prefetch_slot_attrs(s, idx);
+        if (s.attr != nullptr && idx != best) rt_prefetch_slot_attrs<L>(s, idx);
       }
     } else {
       rt_visit<A, F>(s, e, r, t, stk, dst, sp, cnt);
@@ -626,7 +649,7 @@ RT_FN int rt_closest_on(const RtScene& s, const RtRay& r, float& t, bool& neg,
 // Any hit of one ray with t*t < max_dist2 (pallas_trace._run_occluded_dual);
 // boxes are cut at sqrt(max_dist2), the ray stops at its first blocker.
 // Every pushed entry lies within the cut, so the ring takes any leaf entry.
-template <int A, RtBox F, bool STREAM, class C, class SI, class SF>
+template <int A, RtBox F, bool STREAM, int L, class C, class SI, class SF>
 RT_FN bool rt_occluded_on(const RtScene& s, const RtRay& r, float max_dist2,
                           C& cnt, SI& stk, SF& dst) {
   int sp = 1;
@@ -647,7 +670,7 @@ RT_FN bool rt_occluded_on(const RtScene& s, const RtRay& r, float max_dist2,
       }
       const float4* row = s.tri + (size_t)g * (RT_LANES / 4);
 #pragma unroll
-      for (int j = 0; j < RT_LEAF; ++j) {
+      for (int j = 0; j < L; ++j) {
         bool nj;
         float4 c = __ldg(row + 3 * j + 2);
         cnt.tri(c);
@@ -664,31 +687,31 @@ RT_FN bool rt_occluded_on(const RtScene& s, const RtRay& r, float max_dist2,
 
 // The two traversals on the ray's stack tier: the standard tier's private
 // arrays, or the DEEP tier's global slots (g already offset to the ray).
-template <int A, RtBox F, bool STREAM, bool DEEP, class C>
+template <int A, RtBox F, bool STREAM, bool DEEP, int L, class C>
 RT_FN int rt_closest(const RtScene& s, const RtRay& r, float& t, bool& neg,
                      C& cnt, const RtDeep& g) {
   if constexpr (DEEP) {
     RtSlots<int> stk = {g.ent, g.n};
     RtSlots<float> dst = {g.dst, g.n};
-    return rt_closest_on<A, F, STREAM>(s, r, t, neg, cnt, stk, dst);
+    return rt_closest_on<A, F, STREAM, L>(s, r, t, neg, cnt, stk, dst);
   } else {
     int stk[RtArity<A>::STACK];
     float dst[RtArity<A>::STACK];
-    return rt_closest_on<A, F, STREAM>(s, r, t, neg, cnt, stk, dst);
+    return rt_closest_on<A, F, STREAM, L>(s, r, t, neg, cnt, stk, dst);
   }
 }
 
-template <int A, RtBox F, bool STREAM, bool DEEP, class C>
+template <int A, RtBox F, bool STREAM, bool DEEP, int L, class C>
 RT_FN bool rt_occluded(const RtScene& s, const RtRay& r, float max_dist2,
                        C& cnt, const RtDeep& g) {
   if constexpr (DEEP) {
     RtSlots<int> stk = {g.ent, g.n};
     RtSlots<float> dst = {g.dst, g.n};
-    return rt_occluded_on<A, F, STREAM>(s, r, max_dist2, cnt, stk, dst);
+    return rt_occluded_on<A, F, STREAM, L>(s, r, max_dist2, cnt, stk, dst);
   } else {
     int stk[RtArity<A>::STACK];
     float dst[RtArity<A>::STACK];
-    return rt_occluded_on<A, F, STREAM>(s, r, max_dist2, cnt, stk, dst);
+    return rt_occluded_on<A, F, STREAM, L>(s, r, max_dist2, cnt, stk, dst);
   }
 }
 
@@ -702,12 +725,16 @@ struct RtMxuA {
   unsigned h[2][4], l[2][4];
 };
 
-// B fragments of one group: n-tile q is quantity q of triangles 0..7
-// (column j = C row 8q + j), b[0] rows (k) 2c, 2c + 1 and b[1] rows
-// 2c + 8, 2c + 9 of column r (lane 4r + c), hi and lo halves.
-struct RtMxuB {
-  unsigned h[4][2], l[4][2];
+// B fragments of one group of L triangles: n-tile q is C rows 8q..8q+7
+// of the group (column j = C row 8q + j; L = 8: quantity q of triangles
+// 0..7; L = 4: quantities 2q and 2q + 1 of triangles 0..3), b[0] rows (k)
+// 2c, 2c + 1 and b[1] rows 2c + 8, 2c + 9 of column r (lane 4r + c), hi
+// and lo halves.
+template <int L>
+struct RtMxuBL {
+  unsigned h[L / 2][2], l[L / 2][2];
 };
+using RtMxuB = RtMxuBL<RT_LEAF>;
 
 // Two f32 values as bf16 halves (_split_bf16): hi = bf16(x), lo = bf16(x -
 // hi), rounded to nearest even, packed two to a word, the lower column in
@@ -748,17 +775,18 @@ RT_FN void rt_mxu_rays(const RtRay& r, RtMxuA& a) {
 }
 
 // Group g's B fragments from the C-matrix table: row 8q + r of the group
-// starts at word ((g >> sh) * 32 + 8q + r) * cpitch / 2 + 16 * (g & (2^sh -
+// starts at word ((g >> sh) * 4L + 8q + r) * cpitch / 2 + 16 * (g & (2^sh -
 // 1)), sh = 0 for (rows, 32) and 2 for the four-group rows; its words 0..7
 // are hi, 8..15 lo.
-RT_FN void rt_mxu_load(const RtScene& s, int g, RtMxuB& b) {
+template <int L>
+RT_FN void rt_mxu_load(const RtScene& s, int g, RtMxuBL<L>& b) {
   const int lane = threadIdx.x & 31, row = lane >> 2, c = lane & 3;
   const int sh = s.cpitch == 128 ? 2 : 0;
   const size_t words = (size_t)(s.cpitch / 2);
-  const unsigned* base = s.cmat + ((size_t)(g >> sh) * 32 + row) * words
+  const unsigned* base = s.cmat + ((size_t)(g >> sh) * (4 * L) + row) * words
                          + 16 * (g & ((1 << sh) - 1));
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
+  for (int q = 0; q < L / 2; ++q) {
     const unsigned* w = base + (size_t)(8 * q) * words;
     b.h[q][0] = __ldg(w + c);
     b.h[q][1] = __ldg(w + 4 + c);
@@ -775,16 +803,45 @@ RT_FN void rt_mma(float (&acc)[4], const unsigned (&a)[4], const unsigned (&b)[2
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// The lane's first triangle of a group: its two are j and j + 1 (lane
+// 4r + c; see RtMxuBL).
+template <int L>
+RT_FN int rt_mxu_tri0() {
+  const int c = threadIdx.x & 3;
+  return L == 8 ? 2 * c : 2 * (c & 1);
+}
+
 // The four quantities of m-tile m against one group: acc[q][2s + k] is
-// quantity q of triangle 2c + k for ray r + 8s of the m-tile (lane 4r + c),
-// summed as Ch.Rh, then Ch.Rl, then Cl.Rh. The warp must be converged.
-RT_FN void rt_mxu_quants(const RtMxuA& a, int m, const RtMxuB& b, float (&acc)[4][4]) {
+// quantity q of triangle rt_mxu_tri0<L>() + k for ray r + 8s of the m-tile
+// (lane 4r + c), summed as Ch.Rh, then Ch.Rl, then Cl.Rh. At L = 4 each
+// n-tile's values are exchanged with lane c ^ 2, which holds the other
+// quantity of the same triangles. The warp must be converged.
+template <int L>
+RT_FN void rt_mxu_quants(const RtMxuA& a, int m, const RtMxuBL<L>& b, float (&acc)[4][4]) {
+  static_assert(L == 8 || L == 4, "the MXU leaf holds 4 or 8 triangles a group");
+  if constexpr (L == 8) {
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.f;
-    rt_mma(acc[q], a.h[m], b.h[q]);
-    rt_mma(acc[q], a.l[m], b.h[q]);
-    rt_mma(acc[q], a.h[m], b.l[q]);
+    for (int q = 0; q < 4; ++q) {
+      acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.f;
+      rt_mma(acc[q], a.h[m], b.h[q]);
+      rt_mma(acc[q], a.l[m], b.h[q]);
+      rt_mma(acc[q], a.h[m], b.l[q]);
+    }
+  } else {
+    const bool upper = (threadIdx.x & 2) != 0;  // columns 4..7: quantity 2p + 1
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      rt_mma(v, a.h[m], b.h[p]);
+      rt_mma(v, a.l[m], b.h[p]);
+      rt_mma(v, a.h[m], b.l[p]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float o = __shfl_xor_sync(RT_WARP, v[e], 2);
+        acc[2 * p][e] = upper ? o : v[e];
+        acc[2 * p + 1][e] = upper ? v[e] : o;
+      }
+    }
   }
 }
 
@@ -792,9 +849,10 @@ RT_FN void rt_mxu_quants(const RtMxuA& a, int m, const RtMxuB& b, float (&acc)[4
 // its two triangles for its two rays, the quad keeps the smallest t (the
 // smallest j on ties) and its det < 0, and the lanes of the m-tile take
 // their ray's winner: t, and j | nd << 3.
+template <int L = RT_LEAF>
 RT_FN void rt_mxu_closest_tile(const float (&acc)[4][4], int m, float& t_own,
                                int& code_own) {
-  const int lane = threadIdx.x & 31, c = lane & 3;
+  const int lane = threadIdx.x & 31, j0 = rt_mxu_tri0<L>();
   float bt[2];
   int bc[2];
 #pragma unroll
@@ -810,7 +868,7 @@ RT_FN void rt_mxu_closest_tile(const float (&acc)[4][4], int m, float& t_own,
       const bool hit = (fabsf(det) >= RT_EPS) && (tt > RT_EPS) && (u >= 0.f) &&
                        (v >= 0.f) && ((u + v) <= 1.f);
       const float tc = hit ? tt : RT_TMAX;
-      const int code = (2 * c + k) | (det < 0.f ? 8 : 0);
+      const int code = (j0 + k) | (det < 0.f ? 8 : 0);
       if (k == 0 || tc < bt[s]) {
         bt[s] = tc;
         bc[s] = code;
@@ -868,14 +926,14 @@ RT_FN bool rt_mxu_occluded_tile(const float (&acc)[4][4], int m, const float (&m
 
 // One lane served with group g: a leaf visit, a lane served, and (counting
 // instance) its live slots' triangle tests, as the FP32 instances count.
-template <class C>
+template <int L, class C>
 RT_FN void rt_mxu_served(const RtScene& s, int g, C& cnt) {
   cnt.add(RT_C_LEAF);
   cnt.add(RT_C_SERVED);
   if constexpr (C::on) {
     const float4* row = s.tri + (size_t)g * (RT_LANES / 4);
 #pragma unroll
-    for (int j = 0; j < RT_LEAF; ++j) cnt.tri(__ldg(row + 3 * j + 2));
+    for (int j = 0; j < L; ++j) cnt.tri(__ldg(row + 3 * j + 2));
   }
 }
 
@@ -891,7 +949,7 @@ RT_FN int rt_mxu_next(unsigned pend, int g, unsigned& served, int& leader) {
 // Closest hit of the lane's ray with the MXU leaf (every lane of the warp
 // calls it; `active` false: no ray, -1 and t = RT_TMAX). The traversal,
 // the drop of pops beyond t and the merge order are rt_closest_on's.
-template <int A, RtBox F, class C, class SI, class SF>
+template <int A, RtBox F, int L, class C, class SI, class SF>
 RT_FN int rt_closest_mxu_on(const RtScene& s, const RtRay& r, bool active,
                             float& t, bool& neg, C& cnt, SI& stk, SF& dst) {
   const int lane = threadIdx.x & 31;
@@ -926,7 +984,7 @@ RT_FN int rt_closest_mxu_on(const RtScene& s, const RtRay& r, bool active,
       unsigned served;
       int leader;
       const int gl = rt_mxu_next(pend, g, served, leader);
-      RtMxuB b;
+      RtMxuBL<L> b;
       rt_mxu_load(s, gl, b);
       float tn = RT_TMAX;
       int code = 0;
@@ -935,15 +993,15 @@ RT_FN int rt_closest_mxu_on(const RtScene& s, const RtRay& r, bool active,
         if (served & (0xFFFFu << (16 * m))) {  // the same for every lane
           float acc[4][4];
           rt_mxu_quants(a, m, b, acc);
-          rt_mxu_closest_tile(acc, m, tn, code);
+          rt_mxu_closest_tile<L>(acc, m, tn, code);
         }
       }
       if (lane == leader) cnt.add(RT_C_BATCHES);
       if (g == gl) {
-        rt_mxu_served(s, gl, cnt);
+        rt_mxu_served<L>(s, gl, cnt);
         if (tn < t) {
           t = tn;
-          idx = gl * RT_LEAF + (code & 7);
+          idx = gl * L + (code & 7);
           neg = (code >> 3) != 0;
         }
       }
@@ -955,7 +1013,7 @@ RT_FN int rt_closest_mxu_on(const RtScene& s, const RtRay& r, bool active,
 
 // Any hit of the lane's ray with the MXU leaf (rt_occluded_on's traversal;
 // every lane calls it; a blocked ray leaves its loop as an inactive lane).
-template <int A, RtBox F, class C, class SI, class SF>
+template <int A, RtBox F, int L, class C, class SI, class SF>
 RT_FN bool rt_occluded_mxu_on(const RtScene& s, const RtRay& r, bool active,
                               float max_dist2, C& cnt, SI& stk, SF& dst) {
   const int lane = threadIdx.x & 31, row = lane >> 2;
@@ -994,7 +1052,7 @@ RT_FN bool rt_occluded_mxu_on(const RtScene& s, const RtRay& r, bool active,
       unsigned served;
       int leader;
       const int gl = rt_mxu_next(pend, g, served, leader);
-      RtMxuB b;
+      RtMxuBL<L> b;
       rt_mxu_load(s, gl, b);
       bool hit = false;
 #pragma unroll
@@ -1007,7 +1065,7 @@ RT_FN bool rt_occluded_mxu_on(const RtScene& s, const RtRay& r, bool active,
       }
       if (lane == leader) cnt.add(RT_C_BATCHES);
       if (g == gl) {
-        rt_mxu_served(s, gl, cnt);
+        rt_mxu_served<L>(s, gl, cnt);
         if (hit) {
           blocked = true;
           sp = 0;
@@ -1019,39 +1077,40 @@ RT_FN bool rt_occluded_mxu_on(const RtScene& s, const RtRay& r, bool active,
   return blocked;
 }
 
-template <int A, RtBox F, bool DEEP, class C>
+template <int A, RtBox F, bool DEEP, int L, class C>
 RT_FN int rt_closest_mxu(const RtScene& s, const RtRay& r, bool active, float& t,
                          bool& neg, C& cnt, const RtDeep& g) {
   if constexpr (DEEP) {
     RtSlots<int> stk = {g.ent, g.n};
     RtSlots<float> dst = {g.dst, g.n};
-    return rt_closest_mxu_on<A, F>(s, r, active, t, neg, cnt, stk, dst);
+    return rt_closest_mxu_on<A, F, L>(s, r, active, t, neg, cnt, stk, dst);
   } else {
     int stk[RtArity<A>::STACK];
     float dst[RtArity<A>::STACK];
-    return rt_closest_mxu_on<A, F>(s, r, active, t, neg, cnt, stk, dst);
+    return rt_closest_mxu_on<A, F, L>(s, r, active, t, neg, cnt, stk, dst);
   }
 }
 
-template <int A, RtBox F, bool DEEP, class C>
+template <int A, RtBox F, bool DEEP, int L, class C>
 RT_FN bool rt_occluded_mxu(const RtScene& s, const RtRay& r, bool active,
                            float max_dist2, C& cnt, const RtDeep& g) {
   if constexpr (DEEP) {
     RtSlots<int> stk = {g.ent, g.n};
     RtSlots<float> dst = {g.dst, g.n};
-    return rt_occluded_mxu_on<A, F>(s, r, active, max_dist2, cnt, stk, dst);
+    return rt_occluded_mxu_on<A, F, L>(s, r, active, max_dist2, cnt, stk, dst);
   } else {
     int stk[RtArity<A>::STACK];
     float dst[RtArity<A>::STACK];
-    return rt_occluded_mxu_on<A, F>(s, r, active, max_dist2, cnt, stk, dst);
+    return rt_occluded_mxu_on<A, F, L>(s, r, active, max_dist2, cnt, stk, dst);
   }
 }
 
 RT_FN float rt_rsq(float v) { return 1.0f / sqrtf(fmaxf(v, 1e-30f)); }
 
 // Raw normal and kd/ks/kr of slot idx (HitFull layout: n, kd, ks, kr).
+template <int L>
 RT_FN void rt_slot_attrs(const RtScene& s, int idx, float* av) {
-  int g = idx / RT_LEAF, j = idx - g * RT_LEAF;
+  int g = idx / L, j = idx - g * L;
   const float* trow = reinterpret_cast<const float*>(s.tri) + (size_t)g * RT_LANES;
   const float* arow = s.attr + (size_t)g * RT_LANES;
 #pragma unroll
@@ -1127,13 +1186,15 @@ RT_FN void rt_sphere_attrs(const float* row, float3 o, float3 d, float t,
 // The whole Whitted bounce loop of one ray (pallas_trace._frame_fused_kernel).
 // lamb: nl light rows (pos.xyz, kl.rgb, 0, 0) + ambient. SPH: the ns sphere
 // rows of sph are merged after each traversal. Shadow rays run from the
-// light to the hit point, window (dist - EPS)^2. MXU: every lane of the warp
+// light to the hit point, window (dist - EPS)^2, or with FWD from the hit
+// point to the light, window dist^2 (the JAX kernel's reverse_shadows
+// branches, :2745-2762). MXU: every lane of the warp
 // calls the MXU traversals at every bounce and for every light, with
 // `active` false where it has no ray to trace (no ray at all, a finished
 // ray, a back-facing light), until no lane of the warp is alive; a
 // finished lane's colour does not change. Without MXU a finished ray
 // leaves the loop.
-template <int A, RtBox F, bool SPH, bool DEEP, bool MXU, class C>
+template <int A, RtBox F, bool SPH, bool DEEP, bool MXU, int L, bool FWD, class C>
 RT_FN float3 rt_frame_ray(const RtScene& s, const float* lamb, int nl,
                           const float* sph, int ns, float3 o, float3 d,
                           int bounces, bool active, const RtDeep& g, C& cnt) {
@@ -1151,9 +1212,9 @@ RT_FN float3 rt_frame_ray(const RtScene& s, const float* lamb, int nl,
     int idx = -1, win = -1;
     const bool tr = alive && !rt_dead(d);
     if constexpr (MXU) {
-      idx = rt_closest_mxu<A, F, DEEP>(s, rt_ray(o, d), tr, t, neg, cnt, g);
+      idx = rt_closest_mxu<A, F, DEEP, L>(s, rt_ray(o, d), tr, t, neg, cnt, g);
     } else if (tr) {
-      idx = rt_closest<A, F, false, DEEP>(s, rt_ray(o, d), t, neg, cnt, g);
+      idx = rt_closest<A, F, false, DEEP, L>(s, rt_ray(o, d), t, neg, cnt, g);
     }
     if constexpr (SPH) {
       if (tr) win = rt_sphere_closest(sph, ns, o, d, t, neg);
@@ -1171,7 +1232,7 @@ RT_FN float3 rt_frame_ray(const RtScene& s, const float* lamb, int nl,
     if (SPH && win >= 0) {
       rt_sphere_attrs(sph + 16 * win, o, d, t, av);
     } else if (alive) {
-      rt_slot_attrs(s, idx, av);
+      rt_slot_attrs<L>(s, idx, av);
     } else {
 #pragma unroll
       for (int k = 0; k < 12; ++k) av[k] = 0.f;
@@ -1196,16 +1257,27 @@ RT_FN float3 rt_frame_ray(const RtScene& s, const float* lamb, int nl,
       bool backface = (lvx * nx + lvy * ny + lvz * nz) < 0.f;
       const bool need = alive && !backface;
       bool blocked = false;
-      const float q = fmaxf(mag2 * imag - RT_EPS, 0.f);
-      const float3 so = make_float3(lr[0], lr[1], lr[2]);
-      const float3 sd = make_float3(-lx, -ly, -lz);
+      // light -> hit point, window (dist - EPS)^2; or (FWD) hit point ->
+      // light, window dist^2
+      float3 so, sd;
+      float sm2;
+      if constexpr (FWD) {
+        so = make_float3(px, py, pz);
+        sd = make_float3(lx, ly, lz);
+        sm2 = mag2;
+      } else {
+        const float q = fmaxf(mag2 * imag - RT_EPS, 0.f);
+        so = make_float3(lr[0], lr[1], lr[2]);
+        sd = make_float3(-lx, -ly, -lz);
+        sm2 = q * q;
+      }
       if constexpr (MXU) {
-        blocked = rt_occluded_mxu<A, F, DEEP>(s, rt_ray(so, sd), need, q * q, cnt, g);
+        blocked = rt_occluded_mxu<A, F, DEEP, L>(s, rt_ray(so, sd), need, sm2, cnt, g);
       } else if (need) {
-        blocked = rt_occluded<A, F, false, DEEP>(s, rt_ray(so, sd), q * q, cnt, g);
+        blocked = rt_occluded<A, F, false, DEEP, L>(s, rt_ray(so, sd), sm2, cnt, g);
       }
       if constexpr (SPH) {
-        if (need) blocked = rt_sphere_blocked(sph, ns, so, sd, q * q) || blocked;
+        if (need) blocked = rt_sphere_blocked(sph, ns, so, sd, sm2) || blocked;
       }
       float vis = (backface ? 0.f : 1.f) * (1.f - (blocked ? 1.f : 0.f));
       float w = vis / fmaxf(mag2, 1e-30f);
@@ -1269,8 +1341,10 @@ RT_FN bool rt_load_lane(const RtRays& p, int i, int n, float3& o, float3& d) {
 // stay for the warp-wide count reduction (and, MXU, the warp's leaf steps).
 // STREAM: the streamed leaf rows (arity 4 and 8, f32 or pair rows; tri and
 // attr padded to whole blocks). DEEP: the stack tier with the global stack
-// g (need * n entries). MXU: the MXU leaf on s.cmat.
-template <int A, RtBox F, bool FULL, bool COUNT, bool STREAM, bool DEEP, bool MXU = false>
+// g (need * n entries). MXU: the MXU leaf on s.cmat. L: triangles per leaf
+// group (8 or 4).
+template <int A, RtBox F, bool FULL, bool COUNT, bool STREAM, bool DEEP, bool MXU = false,
+          int L = RT_LEAF>
 __global__ void __launch_bounds__(RT_BLOCK)
 closest_kernel(RtRays rays, RtScene s, int n, RtDeep g, float* t_out,
                int* idx_out, int* nd_out, float* attr_out,
@@ -1287,14 +1361,14 @@ closest_kernel(RtRays rays, RtScene s, int n, RtDeep g, float* t_out,
   if constexpr (MXU) {
     float3 o, d;
     const bool in = rt_load_lane(rays, i, n, o, d);
-    idx = rt_closest_mxu<A, F, DEEP>(s, rt_ray(o, d), in && !rt_dead(d), t, neg,
-                                     cnt, rt_deep_at(g, in ? i : 0));
+    idx = rt_closest_mxu<A, F, DEEP, L>(s, rt_ray(o, d), in && !rt_dead(d), t, neg,
+                                        cnt, rt_deep_at(g, in ? i : 0));
   } else if (i < n) {
     float3 o, d;
     rt_load(rays, i, o, d);
     if (!rt_dead(d))
-      idx = rt_closest<A, F, STREAM, DEEP>(s, rt_ray(o, d), t, neg, cnt,
-                                           rt_deep_at(g, i));
+      idx = rt_closest<A, F, STREAM, DEEP, L>(s, rt_ray(o, d), t, neg, cnt,
+                                              rt_deep_at(g, i));
   }
   if (i < n) {
     t_out[i] = t;
@@ -1303,7 +1377,7 @@ closest_kernel(RtRays rays, RtScene s, int n, RtDeep g, float* t_out,
     if (FULL) {
       float av[12];
       if (idx >= 0) {
-        rt_slot_attrs(s, idx, av);
+        rt_slot_attrs<L>(s, idx, av);
       } else {
 #pragma unroll
         for (int k = 0; k < 12; ++k) av[k] = 0.f;
@@ -1315,7 +1389,8 @@ closest_kernel(RtRays rays, RtScene s, int n, RtDeep g, float* t_out,
   rt_count<rt_ncounts(STREAM || MXU)>(counts, cnt);
 }
 
-template <int A, RtBox F, bool COUNT, bool STREAM, bool DEEP, bool MXU = false>
+template <int A, RtBox F, bool COUNT, bool STREAM, bool DEEP, bool MXU = false,
+          int L = RT_LEAF>
 __global__ void __launch_bounds__(RT_BLOCK)
 occluded_kernel(RtRays rays, const float* max_dist2, RtScene s, int n,
                 RtDeep g, int* blocked_out, unsigned long long* counts) {
@@ -1329,23 +1404,24 @@ occluded_kernel(RtRays rays, const float* max_dist2, RtScene s, int n,
   if constexpr (MXU) {
     float3 o, d;
     const bool in = rt_load_lane(rays, i, n, o, d);
-    blocked = rt_occluded_mxu<A, F, DEEP>(s, rt_ray(o, d), in && !rt_dead(d),
-                                          in ? max_dist2[i] : 0.f, cnt,
-                                          rt_deep_at(g, in ? i : 0));
+    blocked = rt_occluded_mxu<A, F, DEEP, L>(s, rt_ray(o, d), in && !rt_dead(d),
+                                             in ? max_dist2[i] : 0.f, cnt,
+                                             rt_deep_at(g, in ? i : 0));
   } else if (i < n) {
     float3 o, d;
     rt_load(rays, i, o, d);
     if (!rt_dead(d))
-      blocked = rt_occluded<A, F, STREAM, DEEP>(s, rt_ray(o, d), max_dist2[i],
-                                                cnt, rt_deep_at(g, i));
+      blocked = rt_occluded<A, F, STREAM, DEEP, L>(s, rt_ray(o, d), max_dist2[i],
+                                                   cnt, rt_deep_at(g, i));
   }
   if (i < n) blocked_out[i] = blocked ? 1 : 0;
   rt_count<rt_ncounts(STREAM || MXU)>(counts, cnt);
 }
 
 // The light table, and with SPH the ns sphere rows after it, are copied to
-// shared memory once per block.
-template <int A, RtBox F, bool COUNT, bool SPH, bool DEEP, bool MXU = false>
+// shared memory once per block. FWD: forward shadow rays (rt_frame_ray).
+template <int A, RtBox F, bool COUNT, bool SPH, bool DEEP, bool MXU = false,
+          int L = RT_LEAF, bool FWD = false>
 __global__ void __launch_bounds__(RT_BLOCK)
 frame_kernel(RtRays rays, RtScene s, const float* lamb, int nl,
              const float* sph, int ns, int n, int bounces, RtDeep g,
@@ -1365,13 +1441,15 @@ frame_kernel(RtRays rays, RtScene s, const float* lamb, int nl,
   if constexpr (MXU) {
     float3 o, d;
     const bool in = rt_load_lane(rays, i, n, o, d);
-    c = rt_frame_ray<A, F, SPH, DEEP, true>(s, lamb_s, nl, sph_s, ns, o, d, bounces,
-                                            in, rt_deep_at(g, in ? i : 0), cnt);
+    c = rt_frame_ray<A, F, SPH, DEEP, true, L, FWD>(s, lamb_s, nl, sph_s, ns, o, d,
+                                                    bounces, in,
+                                                    rt_deep_at(g, in ? i : 0), cnt);
   } else if (i < n) {
     float3 o, d;
     rt_load(rays, i, o, d);
-    c = rt_frame_ray<A, F, SPH, DEEP, false>(s, lamb_s, nl, sph_s, ns, o, d,
-                                             bounces, true, rt_deep_at(g, i), cnt);
+    c = rt_frame_ray<A, F, SPH, DEEP, false, L, FWD>(s, lamb_s, nl, sph_s, ns, o, d,
+                                                     bounces, true, rt_deep_at(g, i),
+                                                     cnt);
   }
   if (i < n) {
     col_out[i] = c.x;
@@ -1381,17 +1459,18 @@ frame_kernel(RtRays rays, RtScene s, const float* lamb, int nl,
   rt_count<rt_ncounts(MXU)>(counts, cnt);
 }
 
-// Host launchers, one set per arity, box format and stack tier: defined in
-// trace_launch.cuh and instantiated in trace_a{2,4,8}.cu (RT_F32),
-// trace_a{4,8}p.cu (RT_PAIRS) and trace_a2h.cu (RT_BF16), the streamed
-// ones (STREAM = true) in trace_a{4,8}s.cu and trace_a{4,8}ps.cu, the MXU
-// ones (MXU = true) in trace_a{4,8}m.cu and trace_a{4,8}pm.cu, and the
+// Host launchers, one set per arity, box format, stack tier and leaf size:
+// defined in trace_launch.cuh and instantiated in trace_a{2,4,8}.cu
+// (RT_F32), trace_a{4,8}p.cu (RT_PAIRS) and trace_a2h.cu (RT_BF16), the
+// streamed ones (STREAM = true) in trace_a{4,8}s.cu and trace_a{4,8}ps.cu,
+// the MXU ones (MXU = true) in trace_a{4,8}m.cu and trace_a{4,8}pm.cu, the
 // DEEP tier of each in the unit of the same name with a `d` suffix
-// (trace_a4d.cu, ...), which nvcc compiles in parallel. Each launches one
-// kernel on stream st (the counting instance when counts is non-null), does
-// not synchronise, and returns cudaGetLastError() after the launch. The
-// frame launcher takes the SPH instance when ns > 0.
-template <int A, RtBox F, bool STREAM, bool DEEP, bool MXU = false>
+// (trace_a4d.cu, ...), each unit at L = 8 and again at L = 4
+// (RT_UNIT_LEAF), all of which nvcc compiles in parallel. Each launches one kernel on stream st
+// (the counting instance when counts is non-null), does not synchronise,
+// and returns cudaGetLastError() after the launch. The frame launcher takes
+// the SPH instance when ns > 0, and the FWD instance when fwd != 0.
+template <int A, RtBox F, bool STREAM, bool DEEP, bool MXU = false, int L = RT_LEAF>
 struct RtLaunch {
   static int closest(const RtRays& rays, const RtScene& s, int n,
                      const RtDeep& g, float* t, int* idx, int* nd,
@@ -1402,10 +1481,10 @@ struct RtLaunch {
                       unsigned long long* counts, cudaStream_t st);
 };
 
-template <int A, RtBox F, bool DEEP, bool MXU = false>
+template <int A, RtBox F, bool DEEP, bool MXU = false, int L = RT_LEAF>
 struct RtFrameLaunch {
   static int frame(const RtRays& rays, const RtScene& s, const float* lamb,
                    int num_lights, const float* sph, int ns, int n,
-                   int bounces, const RtDeep& g, float* col,
+                   int bounces, int fwd, const RtDeep& g, float* col,
                    unsigned long long* counts, cudaStream_t st);
 };

@@ -2,4 +2,4 @@
 
 #include "trace_launch.cuh"
 
-template struct RtLaunch<2, RT_F32, false, false>;
+template struct RtLaunch<2, RT_F32, false, false, false, RT_UNIT_LEAF>;

@@ -3,4 +3,4 @@
 
 #include "trace_launch.cuh"
 
-template struct RtLaunch<2, RT_F32, false, true>;
+template struct RtLaunch<2, RT_F32, false, true, false, RT_UNIT_LEAF>;

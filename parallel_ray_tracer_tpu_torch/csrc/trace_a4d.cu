@@ -3,5 +3,5 @@
 
 #include "trace_launch.cuh"
 
-template struct RtLaunch<4, RT_F32, false, true>;
-template struct RtFrameLaunch<4, RT_F32, true>;
+template struct RtLaunch<4, RT_F32, false, true, false, RT_UNIT_LEAF>;
+template struct RtFrameLaunch<4, RT_F32, true, false, RT_UNIT_LEAF>;

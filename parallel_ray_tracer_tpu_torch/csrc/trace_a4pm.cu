@@ -3,5 +3,5 @@
 
 #include "trace_launch.cuh"
 
-template struct RtLaunch<4, RT_PAIRS, false, false, true>;
-template struct RtFrameLaunch<4, RT_PAIRS, false, true>;
+template struct RtLaunch<4, RT_PAIRS, false, false, true, RT_UNIT_LEAF>;
+template struct RtFrameLaunch<4, RT_PAIRS, false, true, RT_UNIT_LEAF>;

@@ -4,5 +4,5 @@
 
 #include "trace_launch.cuh"
 
-template struct RtLaunch<4, RT_PAIRS, false, true, true>;
-template struct RtFrameLaunch<4, RT_PAIRS, true, true>;
+template struct RtLaunch<4, RT_PAIRS, false, true, true, RT_UNIT_LEAF>;
+template struct RtFrameLaunch<4, RT_PAIRS, true, true, RT_UNIT_LEAF>;

@@ -3,4 +3,4 @@
 
 #include "trace_launch.cuh"
 
-template struct RtLaunch<4, RT_PAIRS, true, false>;
+template struct RtLaunch<4, RT_PAIRS, true, false, false, RT_UNIT_LEAF>;

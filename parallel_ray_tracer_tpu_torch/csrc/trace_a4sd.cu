@@ -4,4 +4,4 @@
 
 #include "trace_launch.cuh"
 
-template struct RtLaunch<4, RT_F32, true, true>;
+template struct RtLaunch<4, RT_F32, true, true, false, RT_UNIT_LEAF>;

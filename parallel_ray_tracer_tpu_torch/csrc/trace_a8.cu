@@ -2,5 +2,5 @@
 
 #include "trace_launch.cuh"
 
-template struct RtLaunch<8, RT_F32, false, false>;
-template struct RtFrameLaunch<8, RT_F32, false>;
+template struct RtLaunch<8, RT_F32, false, false, false, RT_UNIT_LEAF>;
+template struct RtFrameLaunch<8, RT_F32, false, false, RT_UNIT_LEAF>;

@@ -4,5 +4,5 @@
 
 #include "trace_launch.cuh"
 
-template struct RtLaunch<8, RT_F32, false, true, true>;
-template struct RtFrameLaunch<8, RT_F32, true, true>;
+template struct RtLaunch<8, RT_F32, false, true, true, RT_UNIT_LEAF>;
+template struct RtFrameLaunch<8, RT_F32, true, true, RT_UNIT_LEAF>;

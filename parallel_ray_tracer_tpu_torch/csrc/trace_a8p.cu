@@ -2,5 +2,5 @@
 
 #include "trace_launch.cuh"
 
-template struct RtLaunch<8, RT_PAIRS, false, false>;
-template struct RtFrameLaunch<8, RT_PAIRS, false>;
+template struct RtLaunch<8, RT_PAIRS, false, false, false, RT_UNIT_LEAF>;
+template struct RtFrameLaunch<8, RT_PAIRS, false, false, RT_UNIT_LEAF>;

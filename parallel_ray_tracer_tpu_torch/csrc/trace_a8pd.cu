@@ -3,5 +3,5 @@
 
 #include "trace_launch.cuh"
 
-template struct RtLaunch<8, RT_PAIRS, false, true>;
-template struct RtFrameLaunch<8, RT_PAIRS, true>;
+template struct RtLaunch<8, RT_PAIRS, false, true, false, RT_UNIT_LEAF>;
+template struct RtFrameLaunch<8, RT_PAIRS, true, false, RT_UNIT_LEAF>;

@@ -4,4 +4,4 @@
 
 #include "trace_launch.cuh"
 
-template struct RtLaunch<8, RT_PAIRS, true, true>;
+template struct RtLaunch<8, RT_PAIRS, true, true, false, RT_UNIT_LEAF>;

@@ -3,4 +3,4 @@
 
 #include "trace_launch.cuh"
 
-template struct RtLaunch<8, RT_F32, true, false>;
+template struct RtLaunch<8, RT_F32, true, false, false, RT_UNIT_LEAF>;

@@ -13,10 +13,14 @@
 // of cmat_pitch values (32: [hi | lo] of one group's row; 128: four
 // groups' rows, pack_cmi4). A non-null stk_ent picks the DEEP stack tier: stk_ent
 // and stk_dst then hold need * n entries each (entry k of ray i at
-// k * n + i), need >= the tree's ops/pack.stack_need. The frame takes the
-// sphere instance when ns > 0 (sph: ns rows of 16 floats). It returns
+// k * n + i), need >= the tree's ops/pack.stack_need. `leaf` (8 or 4) picks
+// the instances of that many triangles per leaf group. The frame takes the
+// sphere instance when ns > 0 (sph: ns rows of 16 floats), and traces
+// shadow rays from the hit point to the light when fwd != 0 (else from the
+// light). It returns
 // cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for an arity, format and mode without instances.
+// cudaErrorInvalidValue for an arity, format, mode and leaf size without
+// instances.
 // Ray planes are n floats each; attr_out / col_out hold 12 / 3 planes of n.
 // With counts non-null the counting instance runs and adds its sums into
 // counts (RT_NCOUNTS with stream or cmat, the first RT_C_FILLS without;
@@ -50,7 +54,7 @@ RtDeep make_deep(int* ent, float* dst, int n) {
 const int kNoInstance = (int)cudaErrorInvalidValue;
 
 // The instance key of (arity, box format, leaf-row mode, stack tier, leaf
-// test).
+// test), at one leaf size.
 constexpr int key(int arity, int box, int stream = 0, int deep = 0, int mxu = 0) {
   return 256 * mxu + 128 * deep + 64 * stream + 16 * box + arity;
 }
@@ -58,36 +62,36 @@ constexpr int key(int arity, int box, int stream = 0, int deep = 0, int mxu = 0)
 }  // namespace
 
 // The cases of one launcher over the instances of both stack tiers and both
-// leaf tests (FP32 and MXU).
-#define RT_CASES(X)                                                           \
-  case key(2, RT_F32): return X(2, RT_F32, false, false, false);              \
-  case key(4, RT_F32): return X(4, RT_F32, false, false, false);              \
-  case key(8, RT_F32): return X(8, RT_F32, false, false, false);              \
-  case key(4, RT_PAIRS): return X(4, RT_PAIRS, false, false, false);          \
-  case key(8, RT_PAIRS): return X(8, RT_PAIRS, false, false, false);          \
-  case key(2, RT_BF16): return X(2, RT_BF16, false, false, false);            \
-  case key(4, RT_F32, 1): return X(4, RT_F32, true, false, false);            \
-  case key(8, RT_F32, 1): return X(8, RT_F32, true, false, false);            \
-  case key(4, RT_PAIRS, 1): return X(4, RT_PAIRS, true, false, false);        \
-  case key(8, RT_PAIRS, 1): return X(8, RT_PAIRS, true, false, false);        \
-  case key(2, RT_F32, 0, 1): return X(2, RT_F32, false, true, false);         \
-  case key(4, RT_F32, 0, 1): return X(4, RT_F32, false, true, false);         \
-  case key(8, RT_F32, 0, 1): return X(8, RT_F32, false, true, false);         \
-  case key(4, RT_PAIRS, 0, 1): return X(4, RT_PAIRS, false, true, false);     \
-  case key(8, RT_PAIRS, 0, 1): return X(8, RT_PAIRS, false, true, false);     \
-  case key(2, RT_BF16, 0, 1): return X(2, RT_BF16, false, true, false);       \
-  case key(4, RT_F32, 1, 1): return X(4, RT_F32, true, true, false);          \
-  case key(8, RT_F32, 1, 1): return X(8, RT_F32, true, true, false);          \
-  case key(4, RT_PAIRS, 1, 1): return X(4, RT_PAIRS, true, true, false);      \
-  case key(8, RT_PAIRS, 1, 1): return X(8, RT_PAIRS, true, true, false);      \
-  case key(4, RT_F32, 0, 0, 1): return X(4, RT_F32, false, false, true);      \
-  case key(4, RT_PAIRS, 0, 0, 1): return X(4, RT_PAIRS, false, false, true);  \
-  case key(8, RT_F32, 0, 0, 1): return X(8, RT_F32, false, false, true);      \
-  case key(8, RT_PAIRS, 0, 0, 1): return X(8, RT_PAIRS, false, false, true);  \
-  case key(4, RT_F32, 0, 1, 1): return X(4, RT_F32, false, true, true);       \
-  case key(4, RT_PAIRS, 0, 1, 1): return X(4, RT_PAIRS, false, true, true);   \
-  case key(8, RT_F32, 0, 1, 1): return X(8, RT_F32, false, true, true);       \
-  case key(8, RT_PAIRS, 0, 1, 1): return X(8, RT_PAIRS, false, true, true);
+// leaf tests (FP32 and MXU), at leaf size L.
+#define RT_CASES(X, L)                                                           \
+  case key(2, RT_F32): return X(2, RT_F32, false, false, false, L);              \
+  case key(4, RT_F32): return X(4, RT_F32, false, false, false, L);              \
+  case key(8, RT_F32): return X(8, RT_F32, false, false, false, L);              \
+  case key(4, RT_PAIRS): return X(4, RT_PAIRS, false, false, false, L);          \
+  case key(8, RT_PAIRS): return X(8, RT_PAIRS, false, false, false, L);          \
+  case key(2, RT_BF16): return X(2, RT_BF16, false, false, false, L);            \
+  case key(4, RT_F32, 1): return X(4, RT_F32, true, false, false, L);            \
+  case key(8, RT_F32, 1): return X(8, RT_F32, true, false, false, L);            \
+  case key(4, RT_PAIRS, 1): return X(4, RT_PAIRS, true, false, false, L);        \
+  case key(8, RT_PAIRS, 1): return X(8, RT_PAIRS, true, false, false, L);        \
+  case key(2, RT_F32, 0, 1): return X(2, RT_F32, false, true, false, L);         \
+  case key(4, RT_F32, 0, 1): return X(4, RT_F32, false, true, false, L);         \
+  case key(8, RT_F32, 0, 1): return X(8, RT_F32, false, true, false, L);         \
+  case key(4, RT_PAIRS, 0, 1): return X(4, RT_PAIRS, false, true, false, L);     \
+  case key(8, RT_PAIRS, 0, 1): return X(8, RT_PAIRS, false, true, false, L);     \
+  case key(2, RT_BF16, 0, 1): return X(2, RT_BF16, false, true, false, L);       \
+  case key(4, RT_F32, 1, 1): return X(4, RT_F32, true, true, false, L);          \
+  case key(8, RT_F32, 1, 1): return X(8, RT_F32, true, true, false, L);          \
+  case key(4, RT_PAIRS, 1, 1): return X(4, RT_PAIRS, true, true, false, L);      \
+  case key(8, RT_PAIRS, 1, 1): return X(8, RT_PAIRS, true, true, false, L);      \
+  case key(4, RT_F32, 0, 0, 1): return X(4, RT_F32, false, false, true, L);      \
+  case key(4, RT_PAIRS, 0, 0, 1): return X(4, RT_PAIRS, false, false, true, L);  \
+  case key(8, RT_F32, 0, 0, 1): return X(8, RT_F32, false, false, true, L);      \
+  case key(8, RT_PAIRS, 0, 0, 1): return X(8, RT_PAIRS, false, false, true, L);  \
+  case key(4, RT_F32, 0, 1, 1): return X(4, RT_F32, false, true, true, L);       \
+  case key(4, RT_PAIRS, 0, 1, 1): return X(4, RT_PAIRS, false, true, true, L);   \
+  case key(8, RT_F32, 0, 1, 1): return X(8, RT_F32, false, true, true, L);       \
+  case key(8, RT_PAIRS, 0, 1, 1): return X(8, RT_PAIRS, false, true, true, L);
 
 extern "C" {
 
@@ -95,17 +99,20 @@ int rt_closest(const float* ox, const float* oy, const float* oz,
                const float* dx, const float* dy, const float* dz,
                const void* cbox, const int* cmeta, const float* tri,
                const float* attr, const void* cmat, int arity, int box,
-               int stream, int cmat_pitch, int n, int* stk_ent, float* stk_dst,
-               float* t, int* idx, int* nd, float* attr_out,
+               int stream, int cmat_pitch, int leaf, int n, int* stk_ent,
+               float* stk_dst, float* t, int* idx, int* nd, float* attr_out,
                unsigned long long* counts, void* cuda_stream) {
   RtRays rays = make_rays(ox, oy, oz, dx, dy, dz);
   RtScene s = make_scene(cbox, cmeta, tri, attr, cmat, cmat_pitch);
   RtDeep g = make_deep(stk_ent, stk_dst, n);
   cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
-#define RT_CLOSEST(A, F, S, D, M) \
-  RtLaunch<A, F, S, D, M>::closest(rays, s, n, g, t, idx, nd, attr_out, counts, st)
-  switch (key(arity, box, stream != 0, stk_ent != nullptr, cmat != nullptr)) {
-    RT_CASES(RT_CLOSEST)
+#define RT_CLOSEST(A, F, S, D, M, L) \
+  RtLaunch<A, F, S, D, M, L>::closest(rays, s, n, g, t, idx, nd, attr_out, counts, st)
+  const int k = key(arity, box, stream != 0, stk_ent != nullptr, cmat != nullptr);
+  if (leaf == 8) {
+    switch (k) { RT_CASES(RT_CLOSEST, 8) }
+  } else if (leaf == 4) {
+    switch (k) { RT_CASES(RT_CLOSEST, 4) }
   }
 #undef RT_CLOSEST
   return kNoInstance;
@@ -115,16 +122,20 @@ int rt_occluded(const float* ox, const float* oy, const float* oz,
                 const float* dx, const float* dy, const float* dz,
                 const float* max_dist2, const void* cbox, const int* cmeta,
                 const float* tri, const void* cmat, int arity, int box,
-                int stream, int cmat_pitch, int n, int* stk_ent, float* stk_dst,
-                int* blocked, unsigned long long* counts, void* cuda_stream) {
+                int stream, int cmat_pitch, int leaf, int n, int* stk_ent,
+                float* stk_dst, int* blocked, unsigned long long* counts,
+                void* cuda_stream) {
   RtRays rays = make_rays(ox, oy, oz, dx, dy, dz);
   RtScene s = make_scene(cbox, cmeta, tri, nullptr, cmat, cmat_pitch);
   RtDeep g = make_deep(stk_ent, stk_dst, n);
   cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
-#define RT_OCCLUDED(A, F, S, D, M) \
-  RtLaunch<A, F, S, D, M>::occluded(rays, max_dist2, s, n, g, blocked, counts, st)
-  switch (key(arity, box, stream != 0, stk_ent != nullptr, cmat != nullptr)) {
-    RT_CASES(RT_OCCLUDED)
+#define RT_OCCLUDED(A, F, S, D, M, L) \
+  RtLaunch<A, F, S, D, M, L>::occluded(rays, max_dist2, s, n, g, blocked, counts, st)
+  const int k = key(arity, box, stream != 0, stk_ent != nullptr, cmat != nullptr);
+  if (leaf == 8) {
+    switch (k) { RT_CASES(RT_OCCLUDED, 8) }
+  } else if (leaf == 4) {
+    switch (k) { RT_CASES(RT_OCCLUDED, 4) }
   }
 #undef RT_OCCLUDED
   return kNoInstance;
@@ -135,33 +146,39 @@ int rt_frame(const float* ox, const float* oy, const float* oz,
              const void* cbox, const int* cmeta, const float* tri,
              const float* attr, const void* cmat, const float* lamb,
              int num_lights, const float* sph, int ns, int arity, int box,
-             int cmat_pitch, int n, int bounces, int* stk_ent, float* stk_dst,
-             float* col, unsigned long long* counts, void* stream) {
+             int cmat_pitch, int leaf, int n, int bounces, int fwd, int* stk_ent,
+             float* stk_dst, float* col, unsigned long long* counts, void* stream) {
   RtRays rays = make_rays(ox, oy, oz, dx, dy, dz);
   RtScene s = make_scene(cbox, cmeta, tri, attr, cmat, cmat_pitch);
   RtDeep g = make_deep(stk_ent, stk_dst, n);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define RT_FRAME(A, F, D, M)                                                  \
-  RtFrameLaunch<A, F, D, M>::frame(rays, s, lamb, num_lights, sph, ns, n,       \
-                                   bounces, g, col, counts, st)
-  switch (key(arity, box, 0, stk_ent != nullptr, cmat != nullptr)) {
-    case key(4, RT_F32): return RT_FRAME(4, RT_F32, false, false);
-    case key(8, RT_F32): return RT_FRAME(8, RT_F32, false, false);
-    case key(4, RT_PAIRS): return RT_FRAME(4, RT_PAIRS, false, false);
-    case key(8, RT_PAIRS): return RT_FRAME(8, RT_PAIRS, false, false);
-    case key(4, RT_F32, 0, 1): return RT_FRAME(4, RT_F32, true, false);
-    case key(8, RT_F32, 0, 1): return RT_FRAME(8, RT_F32, true, false);
-    case key(4, RT_PAIRS, 0, 1): return RT_FRAME(4, RT_PAIRS, true, false);
-    case key(8, RT_PAIRS, 0, 1): return RT_FRAME(8, RT_PAIRS, true, false);
-    case key(4, RT_F32, 0, 0, 1): return RT_FRAME(4, RT_F32, false, true);
-    case key(8, RT_F32, 0, 0, 1): return RT_FRAME(8, RT_F32, false, true);
-    case key(4, RT_PAIRS, 0, 0, 1): return RT_FRAME(4, RT_PAIRS, false, true);
-    case key(8, RT_PAIRS, 0, 0, 1): return RT_FRAME(8, RT_PAIRS, false, true);
-    case key(4, RT_F32, 0, 1, 1): return RT_FRAME(4, RT_F32, true, true);
-    case key(8, RT_F32, 0, 1, 1): return RT_FRAME(8, RT_F32, true, true);
-    case key(4, RT_PAIRS, 0, 1, 1): return RT_FRAME(4, RT_PAIRS, true, true);
-    case key(8, RT_PAIRS, 0, 1, 1): return RT_FRAME(8, RT_PAIRS, true, true);
+#define RT_FRAME(A, F, D, M, L)                                                    \
+  RtFrameLaunch<A, F, D, M, L>::frame(rays, s, lamb, num_lights, sph, ns, n,       \
+                                      bounces, fwd, g, col, counts, st)
+#define RT_FRAME_CASES(L)                                                          \
+  case key(4, RT_F32): return RT_FRAME(4, RT_F32, false, false, L);                \
+  case key(8, RT_F32): return RT_FRAME(8, RT_F32, false, false, L);                \
+  case key(4, RT_PAIRS): return RT_FRAME(4, RT_PAIRS, false, false, L);            \
+  case key(8, RT_PAIRS): return RT_FRAME(8, RT_PAIRS, false, false, L);            \
+  case key(4, RT_F32, 0, 1): return RT_FRAME(4, RT_F32, true, false, L);           \
+  case key(8, RT_F32, 0, 1): return RT_FRAME(8, RT_F32, true, false, L);           \
+  case key(4, RT_PAIRS, 0, 1): return RT_FRAME(4, RT_PAIRS, true, false, L);       \
+  case key(8, RT_PAIRS, 0, 1): return RT_FRAME(8, RT_PAIRS, true, false, L);       \
+  case key(4, RT_F32, 0, 0, 1): return RT_FRAME(4, RT_F32, false, true, L);        \
+  case key(8, RT_F32, 0, 0, 1): return RT_FRAME(8, RT_F32, false, true, L);        \
+  case key(4, RT_PAIRS, 0, 0, 1): return RT_FRAME(4, RT_PAIRS, false, true, L);    \
+  case key(8, RT_PAIRS, 0, 0, 1): return RT_FRAME(8, RT_PAIRS, false, true, L);    \
+  case key(4, RT_F32, 0, 1, 1): return RT_FRAME(4, RT_F32, true, true, L);         \
+  case key(8, RT_F32, 0, 1, 1): return RT_FRAME(8, RT_F32, true, true, L);         \
+  case key(4, RT_PAIRS, 0, 1, 1): return RT_FRAME(4, RT_PAIRS, true, true, L);     \
+  case key(8, RT_PAIRS, 0, 1, 1): return RT_FRAME(8, RT_PAIRS, true, true, L);
+  const int k = key(arity, box, 0, stk_ent != nullptr, cmat != nullptr);
+  if (leaf == 8) {
+    switch (k) { RT_FRAME_CASES(8) }
+  } else if (leaf == 4) {
+    switch (k) { RT_FRAME_CASES(4) }
   }
+#undef RT_FRAME_CASES
 #undef RT_FRAME
   return kNoInstance;
 }

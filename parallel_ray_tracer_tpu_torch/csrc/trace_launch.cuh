@@ -4,51 +4,56 @@
 // trace_a{4,8}m.cu, trace_a{4,8}pm.cu, and the DEEP tier's units of the
 // same names with a `d` suffix) include this file, each instantiating the
 // launchers, and with them the kernels, of its own arity, box format, leaf
-// mode and stack tier.
+// mode and stack tier, at the leaf size RT_UNIT_LEAF: _build.py compiles
+// each unit once as it is (8) and once with -DRT_UNIT_LEAF=4.
 
 #pragma once
 
 #include "trace.cuh"
 
+#ifndef RT_UNIT_LEAF
+#define RT_UNIT_LEAF RT_LEAF
+#endif
+
 namespace rt_detail {
 inline int blocks_for(int n) { return (n + RT_BLOCK - 1) / RT_BLOCK; }
 }  // namespace rt_detail
 
-template <int A, RtBox F, bool S, bool D, bool M>
-int RtLaunch<A, F, S, D, M>::closest(const RtRays& rays, const RtScene& s, int n,
+template <int A, RtBox F, bool S, bool D, bool M, int L>
+int RtLaunch<A, F, S, D, M, L>::closest(const RtRays& rays, const RtScene& s, int n,
                                   const RtDeep& g, float* t, int* idx, int* nd,
                                   float* attr_out, unsigned long long* counts,
                                   cudaStream_t st) {
   const int b = rt_detail::blocks_for(n);
   if (attr_out != nullptr) {
     if (counts != nullptr) {
-      closest_kernel<A, F, true, true, S, D, M><<<b, RT_BLOCK, 0, st>>>(
+      closest_kernel<A, F, true, true, S, D, M, L><<<b, RT_BLOCK, 0, st>>>(
           rays, s, n, g, t, idx, nd, attr_out, counts);
     } else {
-      closest_kernel<A, F, true, false, S, D, M><<<b, RT_BLOCK, 0, st>>>(
+      closest_kernel<A, F, true, false, S, D, M, L><<<b, RT_BLOCK, 0, st>>>(
           rays, s, n, g, t, idx, nd, attr_out, counts);
     }
   } else if (counts != nullptr) {
-    closest_kernel<A, F, false, true, S, D, M><<<b, RT_BLOCK, 0, st>>>(
+    closest_kernel<A, F, false, true, S, D, M, L><<<b, RT_BLOCK, 0, st>>>(
         rays, s, n, g, t, idx, nd, attr_out, counts);
   } else {
-    closest_kernel<A, F, false, false, S, D, M><<<b, RT_BLOCK, 0, st>>>(
+    closest_kernel<A, F, false, false, S, D, M, L><<<b, RT_BLOCK, 0, st>>>(
         rays, s, n, g, t, idx, nd, attr_out, counts);
   }
   return (int)cudaGetLastError();
 }
 
-template <int A, RtBox F, bool S, bool D, bool M>
-int RtLaunch<A, F, S, D, M>::occluded(const RtRays& rays, const float* max_dist2,
+template <int A, RtBox F, bool S, bool D, bool M, int L>
+int RtLaunch<A, F, S, D, M, L>::occluded(const RtRays& rays, const float* max_dist2,
                                    const RtScene& s, int n, const RtDeep& g,
                                    int* blocked, unsigned long long* counts,
                                    cudaStream_t st) {
   const int b = rt_detail::blocks_for(n);
   if (counts != nullptr) {
-    occluded_kernel<A, F, true, S, D, M><<<b, RT_BLOCK, 0, st>>>(
+    occluded_kernel<A, F, true, S, D, M, L><<<b, RT_BLOCK, 0, st>>>(
         rays, max_dist2, s, n, g, blocked, counts);
   } else {
-    occluded_kernel<A, F, false, S, D, M><<<b, RT_BLOCK, 0, st>>>(
+    occluded_kernel<A, F, false, S, D, M, L><<<b, RT_BLOCK, 0, st>>>(
         rays, max_dist2, s, n, g, blocked, counts);
   }
   return (int)cudaGetLastError();
@@ -59,41 +64,53 @@ namespace rt_detail {
 // table of more than about 700 spheres) the kernel is allowed the bytes it
 // asks for first; past the card's limit the launch is refused and the
 // error is returned.
-template <int A, RtBox F, bool C, bool SPH, bool D, bool M>
+template <int A, RtBox F, bool C, bool SPH, bool D, bool M, int L, bool FWD>
 int frame_launch(const RtRays& rays, const RtScene& s, const float* lamb,
                  int nl, const float* sph, int ns, int n, int bounces,
                  const RtDeep& g, float* col, unsigned long long* counts,
                  cudaStream_t st) {
   const size_t smem = sizeof(float) * (8 * (size_t)(nl + 1) + (SPH ? 16 * (size_t)ns : 0));
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(frame_kernel<A, F, C, SPH, D, M>,
+    cudaError_t e = cudaFuncSetAttribute(frame_kernel<A, F, C, SPH, D, M, L, FWD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  frame_kernel<A, F, C, SPH, D, M><<<blocks_for(n), RT_BLOCK, smem, st>>>(
+  frame_kernel<A, F, C, SPH, D, M, L, FWD><<<blocks_for(n), RT_BLOCK, smem, st>>>(
       rays, s, lamb, nl, sph, ns, n, bounces, g, col, counts);
   return (int)cudaGetLastError();
 }
-}  // namespace rt_detail
 
-template <int A, RtBox F, bool D, bool M>
-int RtFrameLaunch<A, F, D, M>::frame(const RtRays& rays, const RtScene& s,
-                                  const float* lamb, int num_lights,
-                                  const float* sph, int ns, int n, int bounces,
-                                  const RtDeep& g, float* col,
-                                  unsigned long long* counts, cudaStream_t st) {
-  using namespace rt_detail;
+// The counting or timed instance, with spheres or without.
+template <int A, RtBox F, bool D, bool M, int L, bool FWD>
+int frame_pick(const RtRays& rays, const RtScene& s, const float* lamb, int nl,
+               const float* sph, int ns, int n, int bounces, const RtDeep& g,
+               float* col, unsigned long long* counts, cudaStream_t st) {
   if (ns > 0) {
     return counts != nullptr
-        ? frame_launch<A, F, true, true, D, M>(rays, s, lamb, num_lights, sph, ns, n,
-                                            bounces, g, col, counts, st)
-        : frame_launch<A, F, false, true, D, M>(rays, s, lamb, num_lights, sph, ns, n,
-                                             bounces, g, col, counts, st);
+        ? frame_launch<A, F, true, true, D, M, L, FWD>(rays, s, lamb, nl, sph, ns, n,
+                                                      bounces, g, col, counts, st)
+        : frame_launch<A, F, false, true, D, M, L, FWD>(rays, s, lamb, nl, sph, ns, n,
+                                                       bounces, g, col, counts, st);
   }
   return counts != nullptr
-      ? frame_launch<A, F, true, false, D, M>(rays, s, lamb, num_lights, sph, 0, n,
-                                           bounces, g, col, counts, st)
-      : frame_launch<A, F, false, false, D, M>(rays, s, lamb, num_lights, sph, 0, n,
-                                            bounces, g, col, counts, st);
+      ? frame_launch<A, F, true, false, D, M, L, FWD>(rays, s, lamb, nl, sph, 0, n,
+                                                     bounces, g, col, counts, st)
+      : frame_launch<A, F, false, false, D, M, L, FWD>(rays, s, lamb, nl, sph, 0, n,
+                                                      bounces, g, col, counts, st);
+}
+}  // namespace rt_detail
+
+template <int A, RtBox F, bool D, bool M, int L>
+int RtFrameLaunch<A, F, D, M, L>::frame(const RtRays& rays, const RtScene& s,
+                                     const float* lamb, int num_lights,
+                                     const float* sph, int ns, int n, int bounces,
+                                     int fwd, const RtDeep& g, float* col,
+                                     unsigned long long* counts, cudaStream_t st) {
+  using namespace rt_detail;
+  return fwd != 0
+      ? frame_pick<A, F, D, M, L, true>(rays, s, lamb, num_lights, sph, ns, n, bounces,
+                                        g, col, counts, st)
+      : frame_pick<A, F, D, M, L, false>(rays, s, lamb, num_lights, sph, ns, n, bounces,
+                                         g, col, counts, st);
 }

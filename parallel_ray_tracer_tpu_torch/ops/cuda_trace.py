@@ -1,6 +1,7 @@
 """Port of the device half of parallel_ray_tracer_tpu/ops/pallas_trace.py: the
 wrappers of the CUDA traversal kernels (csrc/trace.cuh), at node arity 2, 4
-and 8, on f32 or bf16 node boxes, with the FP32 or the MXU leaf test.
+and 8, on f32 or bf16 node boxes, with the FP32 or the MXU leaf test, at
+leaf size 8 or 4.
 
 | wrapper              | kernel                        | replaces (pallas_trace.py)                                                  |
 | -------------------- | ----------------------------- | --------------------------------------------------------------------------- |
@@ -54,15 +55,20 @@ fallback. Each wrapper checks device, dtype, shape and contiguity, counts
 its launches in `LAUNCHES` by kernel, arity and format (keys such as
 "closest_full<8>", or "frame<8,bf16>" and "occluded<2,bf16>" for the bf16
 instances, "closest_full_stream<4>" for a streamed one, "frame_mxu<4>" or
-"occluded_mxu<8,bf16,deep>" for an MXU one), and raises if the launch
-reported an error.
+"occluded_mxu<8,bf16,deep>" for an MXU one; ",l4" at leaf size 4, as
+"frame_mxu<4,l4>"), and raises if the launch reported an error.
 
-The kernels hold L = 8 triangles per leaf row and trace shadow rays from
-the light: `leaf_size` other than 8 and `reverse_shadows=False` raise
-NotImplementedError, on every device. The fused frame exists at arity 4
-and 8 only (as in JAX); binary tables raise ValueError there. `sph`, the
-(S, 16) table of ops/pack.pack_spheres, takes the frame's sphere instance
-(key "frame_sph<4>"); None or S = 0 takes the sphere-free one.
+`leaf_size` is the triangles per leaf group of the tables (L, of the packed
+rows g * L + j): each kernel has instances at L = 8 and L = 4 (LEAF_SIZES),
+the sizes JAX's CLI offers; any other size raises NotImplementedError, on
+every device. An MXU table then has 4L rows per group. The fused frame
+traces shadow rays from the light (reverse_shadows=True) or from the hit
+point to the light (reverse_shadows=False), as JAX's frame kernel does;
+the pass-based path takes either direction in ops/shade. The fused frame
+exists at arity 4 and 8 only (as in JAX); binary tables raise ValueError
+there. `sph`, the (S, 16) table of ops/pack.pack_spheres, takes the
+frame's sphere instance (key "frame_sph<4>"); None or S = 0 takes the
+sphere-free one.
 
 Stack tiers: a tree whose traversal needs more stack entries per ray
 (`stack_depth`, ops/pack.stack_need) than the standard tier holds
@@ -99,7 +105,9 @@ from .vecmath import Vec3
 # in csrc/trace.cuh; a tree that needs more takes the DEEP tier.
 STACK_SIZE = {2: 48, 4: 64, 8: 96}
 SPHERE_COLS = 16         # floats per row of the sphere table (pack_spheres)
-LEAF_SIZE = 8            # triangles per leaf row, RT_LEAF in csrc/trace.cuh
+# Triangles per leaf group with kernel instances (the template parameter L
+# of csrc/trace.cuh).
+LEAF_SIZES = (4, 8)
 # What counters=True returns, in order (RT_C_* in csrc/trace.cuh): node
 # visits, box tests of valid children, leaf visits, triangle tests of live
 # slots, traversals.
@@ -113,9 +121,8 @@ STREAM_COUNTS = COUNTS + ("block_fills", "sync_fetches")
 # group's result; the same number as leaf_visits).
 MXU_COUNTS = COUNTS + ("mma_batches", "lanes_served")
 # C-matrix table widths in bf16 values: one group per row ([hi | lo],
-# ops/pack.split_cmat) or four (ops/pack.pack_cmi4); rows per group.
+# ops/pack.split_cmat) or four (ops/pack.pack_cmi4). A group has 4L rows.
 CMAT_WIDTHS = (32, 128)
-CMAT_GROUP_ROWS = 4 * LEAF_SIZE
 
 # The arities each kernel is instantiated for; every arity also has one
 # bf16 format (RT_PAIRS at 4 and 8, RT_BF16 at 2), and each instance a
@@ -128,11 +135,11 @@ BOX_F32, BOX_PAIRS, BOX_BF16 = 0, 1, 2
 STREAM_ARITIES = {"closest": (4, 8), "closest_full": (4, 8), "occluded": (4, 8)}
 # The MXU instances (f32 and bf16 pair rows at each arity, no streaming).
 MXU_ARITIES = {k: (4, 8) for k in ARITIES}
-LAUNCHES = {f"{k}{mode}<{a}{sfx}{tier}>": 0
+LAUNCHES = {f"{k}{mode}<{a}{sfx}{tier}{leaf}>": 0
             for mode, kernels in (("", ARITIES), ("_stream", STREAM_ARITIES),
                                   ("_mxu", MXU_ARITIES))
             for k, arities in kernels.items() for a in arities
-            for sfx in ("", ",bf16") for tier in ("", ",deep")}
+            for sfx in ("", ",bf16") for tier in ("", ",deep") for leaf in ("", ",l4")}
 
 
 def reset_launch_counts() -> None:
@@ -182,9 +189,10 @@ def _check_inputs(cbox, cmeta, tri, attr, lamb, planes, leaf_size, compressed):
     device = cbox.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
-    if leaf_size != LEAF_SIZE:
+    if leaf_size not in LEAF_SIZES:
         raise NotImplementedError(
-            f"leaf_size {leaf_size} is not ported: the kernels hold {LEAF_SIZE}")
+            f"leaf_size {leaf_size} is not ported: the kernels hold "
+            f"{' or '.join(map(str, LEAF_SIZES))}")
     arity, box = _box_format(cbox, compressed)
     _check("cbox", cbox, torch.bfloat16 if box == BOX_BF16 else torch.float32,
            (None, cbox.shape[1]), device)
@@ -214,10 +222,10 @@ def _check_stream(stream, arity, tri, attr):
                 f"{STREAM_BLK} rows (ops/pack.pad_stream_rows)")
 
 
-def _check_cmat(cmat, tri, device, mxu: bool) -> None:
+def _check_cmat(cmat, tri, device, mxu: bool, leaf_size: int) -> None:
     """A C-matrix table: torch.bfloat16, (rows, 32) or (rows, 128),
     contiguous, on the tables' device; where the MXU instance runs, with
-    the rows of tri's groups (32 per group, or per four groups)."""
+    the rows of tri's groups (4L per group, or per four groups)."""
     if cmat is None:
         return
     width = cmat.shape[1] if isinstance(cmat, torch.Tensor) and cmat.dim() == 2 else None
@@ -227,7 +235,7 @@ def _check_cmat(cmat, tri, device, mxu: bool) -> None:
             f"{tuple(getattr(cmat, 'shape', ()))}, expected torch.bfloat16 rows of 32 "
             "(ops/pack.split_cmat) or 128 values (ops/pack.pack_cmi4)")
     per_row = width // 32
-    rows = -(-tri.shape[0] // per_row) * CMAT_GROUP_ROWS
+    rows = -(-tri.shape[0] // per_row) * 4 * leaf_size
     if mxu and cmat.shape[0] != rows:
         raise ValueError(f"cmat: {cmat.shape[0]} rows, expected {rows} for "
                          f"{tri.shape[0]} leaf groups")
@@ -244,12 +252,13 @@ def _use_mxu(cmat, arity: int, stream: bool) -> bool:
 
 
 def _instance(kernel: str, arity: int, box: int, stream: bool = False,
-              deep: bool = False, mxu: bool = False) -> str:
+              deep: bool = False, mxu: bool = False, leaf_size: int = 8) -> str:
     """The LAUNCHES key of a launch, e.g. "closest<4,bf16>",
-    "occluded_stream<8>", "frame_sph<4,deep>" or "frame_mxu<4>"."""
+    "occluded_stream<8>", "frame_sph<4,deep>", "frame_mxu<4>" or, at leaf
+    size 4, "frame_mxu<4,l4>"."""
     mode = "_stream" if stream else "_mxu" if mxu else ""
     return (f"{kernel}{mode}<{arity}{'' if box == BOX_F32 else ',bf16'}"
-            f"{',deep' if deep else ''}>")
+            f"{',deep' if deep else ''}{',l4' if leaf_size == 4 else ''}>")
 
 
 def use_deep_tier(need: int, arity: int) -> bool:
@@ -311,7 +320,7 @@ def closest_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, leaf_size: int,
                                              (*o, *d), leaf_size, compressed)
     _check_stream(stream, arity, tri, None)
     mxu = _use_mxu(cmat, arity, stream)
-    _check_cmat(cmat, tri, device, mxu)
+    _check_cmat(cmat, tri, device, mxu, leaf_size)
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
         if mxu:
@@ -324,11 +333,11 @@ def closest_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, leaf_size: int,
     cptr, cpitch = _cmat_args(cmat, mxu)
     rc = ls.lib.rt_closest(
         *(_ptr(p) for p in (*o, *d)), _ptr(cbox), _ptr(cmeta), _ptr(tri),
-        _ptr(None), cptr, arity, box, int(stream), cpitch, rows * LANES,
+        _ptr(None), cptr, arity, box, int(stream), cpitch, leaf_size, rows * LANES,
         _ptr(ls.stk_ent), _ptr(ls.stk_dst), _ptr(t), _ptr(idx), _ptr(nd),
         _ptr(None), _ptr(ls.counts), _stream(device),
     )
-    key = _instance("closest", arity, box, stream, ls.deep, mxu)
+    key = _instance("closest", arity, box, stream, ls.deep, mxu, leaf_size)
     LAUNCHES[key] += 1
     _raise_on(rc, key)
     hit = Hit(t=t, idx=idx, norm_dir=nd.bool())
@@ -344,7 +353,7 @@ def closest_tiles_full(cbox, cmeta, tri, attr, o: Vec3, d: Vec3, leaf_size: int,
                                              (*o, *d), leaf_size, compressed)
     _check_stream(stream, arity, tri, attr)
     mxu = _use_mxu(cmat, arity, stream)
-    _check_cmat(cmat, tri, device, mxu)
+    _check_cmat(cmat, tri, device, mxu, leaf_size)
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
         if mxu:
@@ -358,11 +367,11 @@ def closest_tiles_full(cbox, cmeta, tri, attr, o: Vec3, d: Vec3, leaf_size: int,
     cptr, cpitch = _cmat_args(cmat, mxu)
     rc = ls.lib.rt_closest(
         *(_ptr(p) for p in (*o, *d)), _ptr(cbox), _ptr(cmeta), _ptr(tri),
-        _ptr(attr), cptr, arity, box, int(stream), cpitch, rows * LANES,
+        _ptr(attr), cptr, arity, box, int(stream), cpitch, leaf_size, rows * LANES,
         _ptr(ls.stk_ent), _ptr(ls.stk_dst), _ptr(t), _ptr(idx), _ptr(nd),
         _ptr(av), _ptr(ls.counts), _stream(device),
     )
-    key = _instance("closest_full", arity, box, stream, ls.deep, mxu)
+    key = _instance("closest_full", arity, box, stream, ls.deep, mxu, leaf_size)
     LAUNCHES[key] += 1
     _raise_on(rc, key)
     hit = HitFull(
@@ -382,7 +391,7 @@ def occluded_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, max_dist2, leaf_size: int
     )
     _check_stream(stream, arity, tri, None)
     mxu = _use_mxu(cmat, arity, stream)
-    _check_cmat(cmat, tri, device, mxu)
+    _check_cmat(cmat, tri, device, mxu, leaf_size)
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
         if mxu:
@@ -393,11 +402,11 @@ def occluded_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, max_dist2, leaf_size: int
     cptr, cpitch = _cmat_args(cmat, mxu)
     rc = ls.lib.rt_occluded(
         *(_ptr(p) for p in (*o, *d)), _ptr(max_dist2), _ptr(cbox), _ptr(cmeta),
-        _ptr(tri), cptr, arity, box, int(stream), cpitch, rows * LANES,
+        _ptr(tri), cptr, arity, box, int(stream), cpitch, leaf_size, rows * LANES,
         _ptr(ls.stk_ent), _ptr(ls.stk_dst), _ptr(blocked), _ptr(ls.counts),
         _stream(device),
     )
-    key = _instance("occluded", arity, box, stream, ls.deep, mxu)
+    key = _instance("occluded", arity, box, stream, ls.deep, mxu, leaf_size)
     LAUNCHES[key] += 1
     _raise_on(rc, key)
     return (blocked.bool(), ls.counts) if counters else blocked.bool()
@@ -412,9 +421,9 @@ def frame_tiles(cbox, cmeta, tri, attr, lamb, o: Vec3, d: Vec3, *, bounces: int,
     colour planes (Vec3). `lamb` is the (num_lights + 1, 8) light table of
     ops/pack.pack_lights; `sph`, when it has rows, the (S, 16) sphere table
     of ops/pack.pack_spheres, merged after each traversal; `cmat` takes
-    the MXU leaf in every traversal of the frame."""
-    if not reverse_shadows:
-        raise NotImplementedError("reverse_shadows=False is not ported")
+    the MXU leaf in every traversal of the frame. reverse_shadows=False
+    traces each shadow ray from the hit point to the light, with window
+    dist^2, instead of from the light with window (dist - EPS)^2."""
     device, rows, arity, box = _check_inputs(cbox, cmeta, tri, attr, lamb,
                                              (*o, *d), leaf_size, compressed)
     if arity not in ARITIES["frame"]:
@@ -423,22 +432,24 @@ def frame_tiles(cbox, cmeta, tri, attr, lamb, o: Vec3, d: Vec3, *, bounces: int,
         _check("sph", sph, torch.float32, (None, SPHERE_COLS), device)
     ns = 0 if sph is None else int(sph.shape[0])
     mxu = _use_mxu(cmat, arity, False)
-    _check_cmat(cmat, tri, device, mxu)
+    _check_cmat(cmat, tri, device, mxu, leaf_size)
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
         return frame_plain(tri, attr, lamb, o, d, bounces=bounces,
-                           leaf_size=leaf_size, sph=sph, cmat=cmat)
+                           leaf_size=leaf_size, sph=sph, cmat=cmat,
+                           reverse_shadows=reverse_shadows)
     ls = _launch_setup(cmeta, arity, stack_depth, counters, n_rays=rows * LANES, mxu=mxu)
     col = torch.empty((3, rows, LANES), dtype=torch.float32, device=device)
     cptr, cpitch = _cmat_args(cmat, mxu)
     rc = ls.lib.rt_frame(
         *(_ptr(p) for p in (*o, *d)), _ptr(cbox), _ptr(cmeta), _ptr(tri),
         _ptr(attr), cptr, _ptr(lamb), int(lamb.shape[0]) - 1,
-        _ptr(sph if ns else None), ns, arity, box, cpitch, rows * LANES,
-        int(bounces), _ptr(ls.stk_ent), _ptr(ls.stk_dst), _ptr(col),
-        _ptr(ls.counts), _stream(device),
+        _ptr(sph if ns else None), ns, arity, box, cpitch, leaf_size, rows * LANES,
+        int(bounces), int(not reverse_shadows), _ptr(ls.stk_ent), _ptr(ls.stk_dst),
+        _ptr(col), _ptr(ls.counts), _stream(device),
     )
-    key = _instance("frame_sph" if ns else "frame", arity, box, deep=ls.deep, mxu=mxu)
+    key = _instance("frame_sph" if ns else "frame", arity, box, deep=ls.deep, mxu=mxu,
+                    leaf_size=leaf_size)
     LAUNCHES[key] += 1
     _raise_on(rc, key)
     out = Vec3(col[0], col[1], col[2])
@@ -472,11 +483,13 @@ def _merge_spheres(sph: torch.Tensor, n_slots: int, o: Vec3, d: Vec3,
 
 def frame_plain(tri, attr, lamb, o: Vec3, d: Vec3, *, bounces: int,
                 leaf_size: int, sph: Optional[torch.Tensor] = None,
-                cmat: Optional[torch.Tensor] = None) -> Vec3:
+                cmat: Optional[torch.Tensor] = None,
+                reverse_shadows: bool = True) -> Vec3:
     """Plain version of frame_kernel: the pass-based bounce loop
     (ops/shade.trace_rays) over the plain traversals, on any device, with
     the sphere rows of `sph` merged after each traversal as the kernel
-    merges them; with `cmat` the MXU leaf's plain traversals."""
+    merges them; with `cmat` the MXU leaf's plain traversals; shadow rays
+    in the direction reverse_shadows gives."""
     ds = device_scene_from_lights(lamb)
     n_slots = tri.shape[0] * leaf_size
 
@@ -493,4 +506,4 @@ def frame_plain(tri, attr, lamb, o: Vec3, d: Vec3, *, bounces: int,
         ts, _, _ = nearest_sphere(Vec3(sph[:, 0], sph[:, 1], sph[:, 2]), sph[:, 3], o, d)
         return blocked | ((ts < T_MAX) & (ts * ts < m2))
 
-    return trace_rays(ds, closest, occluded, o, d, bounces)
+    return trace_rays(ds, closest, occluded, o, d, bounces, reverse_shadows=reverse_shadows)

@@ -19,7 +19,7 @@ import torch
 from ..models.camera import Camera, ray_basis
 from . import cuda_trace, trace_brute
 from .pack import LANES
-from .shade import trace_rays
+from .shade import occluded_from_closest, trace_rays
 from .spheres import wrap_tracer
 from .vecmath import Vec3
 
@@ -142,25 +142,28 @@ def _to_image(col: Vec3, width, height, tile_rows, tile_cols) -> torch.Tensor:
 
 def render_bvh_fused(ds, tables, cam: Camera, width: int, height: int,
                      bounces: int = 4, tile_rows: int = 32,
-                     tile_cols: int = 32) -> torch.Tensor:
+                     tile_cols: int = 32, reverse_shadows: bool = True) -> torch.Tensor:
     """Whole-frame render with one launch of the fused frame kernel
     (cuda_trace.frame_tiles) -> (H, W, 3) f32 in [0, 1]. The tables' box
-    format (f32, bf16 pairs) picks the kernel instance, their sphere
-    table (ops/pack.pack_spheres) its sphere instance, and their C-matrix
-    table (ops/pack.split_cmat) its MXU instance."""
+    format (f32, bf16 pairs) picks the kernel instance, their leaf size its
+    L, their sphere table (ops/pack.pack_spheres) its sphere instance, and
+    their C-matrix table (ops/pack.split_cmat) its MXU instance;
+    reverse_shadows=False traces shadow rays from the hit points."""
     o, d = _tiled_planes(cam, width, height, tile_rows, tile_cols, ds.device)
     col = cuda_trace.frame_tiles(
         tables.cbox, tables.cmeta, tables.tri, tables.attr, tables.lamb, o, d,
         bounces=bounces, leaf_size=tables.leaf_size,
         stack_depth=tables.stack_depth, compressed=tables.compressed,
-        sph=tables.sph, cmat=tables.cmat,
+        sph=tables.sph, cmat=tables.cmat, reverse_shadows=reverse_shadows,
     )
     return _to_image(col, width, height, tile_rows, tile_cols)
 
 
 def render_bvh_pallas(ds, tables, cam: Camera, width: int, height: int,
                       bounces: int = 4, tile_rows: int = 32,
-                      tile_cols: int = 32, stream: bool = False) -> torch.Tensor:
+                      tile_cols: int = 32, stream: bool = False,
+                      fast_light: bool = True,
+                      reverse_shadows: bool = True) -> torch.Tensor:
     """Pass-based render: per bounce one closest-hit launch and one any-hit
     launch per light (cuda_trace.closest_tiles_full / occluded_tiles), with
     the shading in torch (ops/shade.trace_rays). `stream` takes both
@@ -169,7 +172,10 @@ def render_bvh_pallas(ds, tables, cam: Camera, width: int, height: int,
     as pallas_trace.make_tracer wraps its tracers); with spheres the hits
     are plain and shading gathers their attributes from `ds`. The tables'
     C-matrix table takes both kernels' MXU instances, as JAX's make_tracer
-    passes packed_dev's cmat on (render.py:274)."""
+    passes packed_dev's cmat on (render.py:274). fast_light=False finds
+    shadows by the closest-hit kernel (shade.occluded_from_closest) with
+    forward shadow rays, and reverse_shadows=False traces forward ones with
+    the any-hit kernel, as JAX's _render_bvh_pallas (render.py:288-295)."""
     o, d = _tiled_planes(cam, width, height, tile_rows, tile_cols, ds.device)
     kw = dict(leaf_size=tables.leaf_size, stack_depth=tables.stack_depth,
               compressed=tables.compressed, stream=stream, cmat=tables.cmat)
@@ -185,5 +191,8 @@ def render_bvh_pallas(ds, tables, cam: Camera, width: int, height: int,
         )
 
     closest, occluded = wrap_tracer(ds, closest, occluded)
-    col = trace_rays(ds, closest, occluded, o, d, bounces)
+    if not fast_light:
+        occluded = occluded_from_closest(closest)
+    col = trace_rays(ds, closest, occluded, o, d, bounces,
+                     reverse_shadows=fast_light and reverse_shadows)
     return _to_image(col, width, height, tile_rows, tile_cols)

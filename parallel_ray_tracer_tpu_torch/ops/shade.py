@@ -12,9 +12,12 @@ Semantics, as in the reference GPU renderer (gpu/src/raytracer.cu:61-116):
     unnormalised view -d in the half vector;
   - kd*ambient on hit, ambient on miss; 1/r^2 falloff; backface test
     dot(L-P, n) < 0; shadows by any-hit, traced from the light toward the
-    hit point with the window (dist - EPSILON)^2 (the JAX package's
-    reverse_shadows=True; see its shade_hit docstring for why the window
-    maps exactly);
+    hit point with the window (dist - EPSILON)^2 (reverse_shadows=True, the
+    default of every render path here; see the JAX package's shade_hit
+    docstring for why the window maps exactly), or from the hit point
+    toward the light with the window dist^2 (reverse_shadows=False);
+    occluded_from_closest finds them by the closest-hit traversal
+    (USE_BVH_FAST_LIGHT=0);
   - reflection r = normalize(d + n*2|d.n|), multiplier *= kr, and the
     |multiplier|^2 < EPSILON^2 exit taken before the kr update.
 A tracer returns either attribute-bearing hits (HitFull: the winning
@@ -50,6 +53,19 @@ def mask_dead_rays(o: Vec3, d: Vec3, alive: torch.Tensor) -> Tuple[Vec3, Vec3]:
     return o.where(alive, far), d.where(alive, zero)
 
 
+def occluded_from_closest(closest_fn: ClosestFn) -> OccludedFn:
+    """Shadow visibility by the closest-hit traversal instead of the any-hit
+    one (USE_BVH_FAST_LIGHT=0; JAX shade.py:59-69): blocked where the
+    closest hit lies nearer than the light, t^2 < max_dist2 (t in units of
+    the unit shadow direction, cpu/src/raytracer.c:72-84)."""
+
+    def occluded(o: Vec3, d: Vec3, max_dist2: torch.Tensor) -> torch.Tensor:
+        h = closest_fn(o, d)
+        return (h.idx >= 0) & (h.t * h.t < max_dist2)
+
+    return occluded
+
+
 def _gather_vec(v: Vec3, idx: torch.Tensor) -> Vec3:
     return Vec3(v.x[idx], v.y[idx], v.z[idx])
 
@@ -73,10 +89,11 @@ def surface_attrs(ds, hit, p: Vec3):
 
 
 def shade_hit(ds, occluded_fn: OccludedFn, o: Vec3, d: Vec3, hit,
-              active=None) -> Vec3:
+              active=None, reverse_shadows: bool = True) -> Vec3:
     """Direct lighting at the hit points (no reflection term): the
-    reference's per-bounce kd*amb + sum over lights, with reversed shadow
-    rays. Miss lanes hold garbage; callers mask."""
+    reference's per-bounce kd*amb + sum over lights, with shadow rays from
+    the light (reverse_shadows) or from the hit point (JAX shade_hit :111,
+    its branches at :172). Miss lanes hold garbage; callers mask."""
     is_hit = hit.idx >= 0
     t_safe = torch.where(is_hit, hit.t, 1.0)
     if active is None:
@@ -103,9 +120,12 @@ def shade_hit(ds, occluded_fn: OccludedFn, o: Vec3, d: Vec3, hit,
         col_ray = kd * n_dot_l.clamp(min=0.0) + ks * coeff
         backface = lvec.dot(n) < 0.0
         need = active & ~backface
-        ro_m, rd_m = mask_dead_rays(lp, -l, need)
-        rng2 = (mag - EPSILON).clamp(min=0.0) ** 2
-        occ = occluded_fn(ro_m, rd_m, rng2)
+        if reverse_shadows:
+            ro_m, rd_m = mask_dead_rays(lp, -l, need)
+            occ = occluded_fn(ro_m, rd_m, (mag - EPSILON).clamp(min=0.0) ** 2)
+        else:
+            p_m, l_m = mask_dead_rays(p, l, need)
+            occ = occluded_fn(p_m, l_m, mag2)
         vis = (~backface).to(torch.float32) * (1.0 - occ.to(torch.float32))
         contrib = kl * col_ray / mag2.clamp(min=1e-30)
         col = col + contrib * vis
@@ -114,8 +134,9 @@ def shade_hit(ds, occluded_fn: OccludedFn, o: Vec3, d: Vec3, hit,
 
 
 def trace_rays(ds, closest_fn: ClosestFn, occluded_fn: OccludedFn, o: Vec3,
-               d: Vec3, bounces: int) -> Vec3:
-    """Full masked bounce loop; returns the unclamped colour per ray."""
+               d: Vec3, bounces: int, reverse_shadows: bool = True) -> Vec3:
+    """Full masked bounce loop; returns the unclamped colour per ray.
+    reverse_shadows: see shade_hit."""
     zero = Vec3(o.x * 0, o.y * 0, o.z * 0)
     final = zero
     mult = Vec3(o.x * 0 + 1, o.y * 0 + 1, o.z * 0 + 1)
@@ -132,7 +153,8 @@ def trace_rays(ds, closest_fn: ClosestFn, occluded_fn: OccludedFn, o: Vec3,
         final = final + (mult * amb).where(miss_now, zero)
         alive = alive & is_hit
 
-        col = shade_hit(ds, occluded_fn, o, d, hit, active=alive)
+        col = shade_hit(ds, occluded_fn, o, d, hit, active=alive,
+                        reverse_shadows=reverse_shadows)
         final = final + (mult * col).where(alive, zero)
 
         # Early exit check happens BEFORE the kr update (raytracer.cu:103-106).

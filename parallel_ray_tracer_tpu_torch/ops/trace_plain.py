@@ -14,8 +14,10 @@ and sentinels:
 
 Ties between slots go to the lowest slot (a kernel's tie goes to the
 first leaf it visits). Rays are processed against chunks of slots so the
-(rays x slots) temporaries stay bounded. The ray planes may have any shape;
-outputs take the same shape.
+(rays x slots) temporaries stay bounded. A dead ray (direction 0, as the
+renderers mask finished rays) misses every slot here as in the kernels
+(rt_dead), so it takes the miss outputs without being tested. The ray
+planes may have any shape; outputs take the same shape.
 
 The `*_mxu_plain` versions are those of the MXU leaf (pallas_trace.py
 :1002-1466): every ray against every slot's rows of the C-matrix table
@@ -80,11 +82,29 @@ def _flat(v: Vec3) -> Vec3:
     return Vec3(*(p.reshape(-1, 1) for p in v))
 
 
+def _live(d: Vec3) -> torch.Tensor:
+    """Indices of the rays with a direction (not dead) among flat planes."""
+    return torch.nonzero(((d.x != 0) | (d.y != 0) | (d.z != 0)).reshape(-1)).flatten()
+
+
+def _take(v: Vec3, rows: torch.Tensor) -> Vec3:
+    return Vec3(*(p[rows] for p in v))
+
+
+def _scatter(v: torch.Tensor, live: torch.Tensor, shape, miss) -> torch.Tensor:
+    """The live rays' values v in planes of `shape`, `miss` elsewhere."""
+    out = torch.full((int(np.prod(shape)),), miss, dtype=v.dtype, device=v.device)
+    out[live] = v
+    return out.reshape(shape)
+
+
 def closest_plain(tri: torch.Tensor, o: Vec3, d: Vec3, leaf_size: int) -> Hit:
     """Nearest hit per ray over every triangle slot."""
     shape = o.x.shape
     of, df = _flat(o), _flat(d)
-    n = of.x.shape[0]
+    live = _live(df)
+    of, df = _take(of, live), _take(df, live)
+    n = live.numel()
     ids, rows = _live_slots(tri, leaf_size)
     t = torch.full((n,), T_MAX, dtype=torch.float32, device=tri.device)
     idx = torch.full((n,), -1, dtype=torch.int32, device=tri.device)
@@ -96,7 +116,8 @@ def closest_plain(tri: torch.Tensor, o: Vec3, d: Vec3, leaf_size: int) -> Hit:
         t = torch.where(better, cmin, t)
         idx = torch.where(better, ids[s0:s1][carg].to(torch.int32), idx)
         nd = torch.where(better, ndc.gather(1, carg[:, None])[:, 0], nd)
-    return Hit(t=t.reshape(shape), idx=idx.reshape(shape), norm_dir=nd.reshape(shape))
+    return Hit(t=_scatter(t, live, shape, T_MAX), idx=_scatter(idx, live, shape, -1),
+               norm_dir=_scatter(nd, live, shape, False))
 
 
 def closest_full_plain(tri: torch.Tensor, attr: torch.Tensor, o: Vec3, d: Vec3,
@@ -130,15 +151,17 @@ def occluded_plain(tri: torch.Tensor, o: Vec3, d: Vec3, max_dist2: torch.Tensor,
     """Any hit with t*t < max_dist2 per ray, over every triangle slot."""
     shape = o.x.shape
     of, df = _flat(o), _flat(d)
-    m2 = max_dist2.reshape(-1, 1)
-    n = of.x.shape[0]
+    live = _live(df)
+    of, df = _take(of, live), _take(df, live)
+    m2 = max_dist2.reshape(-1, 1)[live]
+    n = live.numel()
     _, rows = _live_slots(tri, leaf_size)
     blocked = torch.zeros((n,), dtype=torch.bool, device=tri.device)
     for s0, s1 in _chunks(n, rows.shape[0], tri.device):
         tc, _ = mt_rows(of, df, rows[s0:s1])
         hit = (tc < T_MAX) & (tc * tc < m2)
         blocked = blocked | hit.any(dim=1)
-    return blocked.reshape(shape)
+    return _scatter(blocked, live, shape, False)
 
 
 # ---- the MXU leaf -----------------------------------------------------------
@@ -195,9 +218,12 @@ def _mxu_quants(rh, rl, hi, lo):
 
 
 def _mxu_rays(o: Vec3, d: Vec3, cmat, tri, leaf_size):
-    """The flat rays' (Rh, Rl) and the live slots' (ids, hi, lo)."""
-    rh_rl = _ray_halves(Vec3(*(p.reshape(-1) for p in o)), Vec3(*(p.reshape(-1) for p in d)))
-    return (rh_rl, *_slot_cmat(cmat, tri.shape[0], leaf_size))
+    """The flat rays' live indices (direction not 0) and their (Rh, Rl), and
+    the live slots' (ids, hi, lo)."""
+    of, df = Vec3(*(p.reshape(-1) for p in o)), Vec3(*(p.reshape(-1) for p in d))
+    live = _live(df)
+    return (live, _ray_halves(_take(of, live), _take(df, live)),
+            *_slot_cmat(cmat, tri.shape[0], leaf_size))
 
 
 def closest_mxu_plain(cmat: torch.Tensor, tri: torch.Tensor, o: Vec3, d: Vec3,
@@ -207,7 +233,7 @@ def closest_mxu_plain(cmat: torch.Tensor, tri: torch.Tensor, o: Vec3, d: Vec3,
     minimal slot wins; norm_dir is det < 0 of the winner."""
     shape = o.x.shape
     with _full_f32_matmul():
-        (rh, rl), ids, hi, lo = _mxu_rays(o, d, cmat, tri, leaf_size)
+        live, (rh, rl), ids, hi, lo = _mxu_rays(o, d, cmat, tri, leaf_size)
         n = rh.shape[0]
         t = torch.full((n,), T_MAX, dtype=torch.float32, device=tri.device)
         idx = torch.full((n,), -1, dtype=torch.int32, device=tri.device)
@@ -225,7 +251,8 @@ def closest_mxu_plain(cmat: torch.Tensor, tri: torch.Tensor, o: Vec3, d: Vec3,
             t = torch.where(better, cmin, t)
             idx = torch.where(better, ids[s0:s1][carg].to(torch.int32), idx)
             nd = torch.where(better, (det < 0.0).gather(1, carg[:, None])[:, 0], nd)
-    return Hit(t=t.reshape(shape), idx=idx.reshape(shape), norm_dir=nd.reshape(shape))
+    return Hit(t=_scatter(t, live, shape, T_MAX), idx=_scatter(idx, live, shape, -1),
+               norm_dir=_scatter(nd, live, shape, False))
 
 
 def closest_full_mxu_plain(cmat: torch.Tensor, tri: torch.Tensor, attr: torch.Tensor,
@@ -244,8 +271,8 @@ def occluded_mxu_plain(cmat: torch.Tensor, tri: torch.Tensor, o: Vec3, d: Vec3,
     eps = float(np.float32(EPSILON))
     eps2 = float(np.float32(EPSILON) * np.float32(EPSILON))
     with _full_f32_matmul():
-        (rh, rl), ids, hi, lo = _mxu_rays(o, d, cmat, tri, leaf_size)
-        m2 = max_dist2.reshape(-1, 1)
+        live, (rh, rl), ids, hi, lo = _mxu_rays(o, d, cmat, tri, leaf_size)
+        m2 = max_dist2.reshape(-1, 1)[live]
         n = rh.shape[0]
         blocked = torch.zeros((n,), dtype=torch.bool, device=tri.device)
         for s0, s1 in _chunks(4 * n, ids.shape[0], tri.device):
@@ -256,4 +283,4 @@ def occluded_mxu_plain(cmat: torch.Tensor, tri: torch.Tensor, o: Vec3, d: Vec3,
             hit = ((d2 >= eps2) & (tn * det > eps * d2) & (pu >= 0.0) & (pv >= 0.0)
                    & (pu + pv <= d2) & (tn * tn < m2 * d2))
             blocked = blocked | hit.any(dim=1)
-    return blocked.reshape(shape)
+    return _scatter(blocked, live, shape, False)

@@ -1,9 +1,10 @@
 """Port of parallel_ray_tracer_tpu/pipeline.py: config -> scene -> BVH ->
 device tables -> render.
 
-`prepare` loads the scene, builds, flattens and packs the BVH at the
-configured node arity (bvh_width 2, 4 or 8) and box format (f32, or bf16
-with bf16_bvh) with the port's C++ host runtime (native/, with use_native)
+`prepare` loads the scene (and pre-splits its large triangles with
+presplit > 0), builds, flattens and packs the BVH at the configured node
+arity (bvh_width 2, 4 or 8), box format (f32, or bf16 with bf16_bvh) and
+leaf size (8 or 4) with the port's C++ host runtime (native/, with use_native)
 or its own numpy modules, decides as JAX does
 whether leaf rows stream and whether the leaf test is the MXU leaf, and
 uploads the tables and the scene planes
@@ -25,15 +26,16 @@ from .config import DEFAULT_ASSET_ROOTS, RenderConfig
 from .convert import SceneTables, packed_from_numpy
 from .models.camera import Camera
 from .models.device_scene import DeviceScene, device_scene_from_host
+from .models.presplit import presplit_scene
 from .models.procgen import substitute_scene
 from .models.scene import Scene, load_scene, load_scene_npz, synthetic_scene
 from .ops import render as render_ops
 from .ops.bvh import build_bvh
 from .ops.bvh_flat import FlatBVH, flatten_bvh
-from .ops.cuda_trace import LEAF_SIZE
-from .ops.pack import (cbox_to_bf16, mxu_decision, pack_attr, pack_bvh, pack_bvh4,
-                       pack_bvh8, pack_spheres, pad_stream_rows, split_cmat,
-                       stream_decision)
+from .ops.cuda_trace import LEAF_SIZES
+from .ops.pack import (LANES, TRI_STRIDE, cbox_to_bf16, mxu_decision, pack_attr,
+                       pack_bvh, pack_bvh4, pack_bvh8, pack_spheres, pad_stream_rows,
+                       split_cmat, stream_decision)
 
 VARIANTS = ("auto", "fused", "pallas", "bruteforce")
 PACKERS = {2: pack_bvh, 4: pack_bvh4, 8: pack_bvh8}   # by bvh_width
@@ -54,6 +56,7 @@ class Pipeline:
     builder: Optional[str] = None       # "native" (C++) or "numpy"; None without a BVH
     stream: bool = False                # streamed leaf rows (pass-based path)
     mxu: bool = False                   # the MXU leaf (tables.cmat is set)
+    leaf_size: int = 8                  # triangles per leaf group (_pick_leaf_size)
 
     def bvh_metrics_banner(self) -> Optional[str]:
         """The reference's BVH_METRICS printout (cpu/src/bvh.c:381-387)."""
@@ -107,7 +110,10 @@ class Pipeline:
         per bounce), on the streamed instances when the leaf rows stream;
         with the MXU leaf both take the MXU instances;
         "bruteforce" tests every ray against every triangle in torch ops
-        (ops/trace_brute.py)."""
+        (ops/trace_brute.py). cfg.reverse_shadows picks the shadow rays'
+        direction in "fused" and "pallas", and cfg.fast_light=False finds
+        shadows by the closest-hit kernel in "pallas", as JAX's render
+        does."""
         cfg = self.cfg
         cam, width, height = cam or self.camera(), width or cfg.width, height or cfg.height
         variant = self.resolved_variant(variant)
@@ -115,12 +121,12 @@ class Pipeline:
             return render_ops.render_bruteforce(self.ds, cam, width, height,
                                                 bounces=cfg.bounces)
         kw = dict(bounces=cfg.bounces, tile_rows=cfg.tile_rows,
-                  tile_cols=cfg.tile_cols)
+                  tile_cols=cfg.tile_cols, reverse_shadows=cfg.reverse_shadows)
         if variant == "fused":
             fn = render_ops.render_bvh_fused
         else:
             fn = render_ops.render_bvh_pallas
-            kw["stream"] = self.stream
+            kw.update(stream=self.stream, fast_light=cfg.fast_light)
         return fn(self.ds, self.tables, cam, width, height, **kw)
 
 
@@ -128,16 +134,23 @@ def _check_ported(cfg: RenderConfig) -> None:
     if cfg.bvh_width not in PACKERS:
         raise ValueError(f"bvh_width must be 2, 4 or 8, got {cfg.bvh_width}")
     unported = {
-        "fast_light=False": not cfg.fast_light,
-        "presplit > 0": cfg.presplit > 0,
         "num_devices != 1": cfg.num_devices != 1,
-        f"leaf_size={cfg.leaf_size}": cfg.leaf_size not in (None, LEAF_SIZE),
-        "reverse_shadows=False": not cfg.reverse_shadows,
+        f"leaf_size={cfg.leaf_size}": cfg.leaf_size not in (None, *LEAF_SIZES),
         f"variant={cfg.variant!r}": cfg.variant not in VARIANTS,
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+
+
+def _pick_leaf_size(cfg: RenderConfig) -> int:
+    """Leaf group size, as JAX's prepare picks it (pipeline.py:479-489):
+    cfg.leaf_size (_check_ported has refused the sizes without kernels),
+    else the largest power of two whose triangles (12 floats each) fit one
+    128-lane row, 8."""
+    if cfg.leaf_size is not None:
+        return cfg.leaf_size
+    return next(c for c in (8, 4, 2, 1) if c * TRI_STRIDE <= LANES)
 
 
 def _load(cfg: RenderConfig, native=None) -> Scene:
@@ -184,6 +197,12 @@ def prepare(cfg: RenderConfig, scene: Optional[Scene] = None, device=None) -> Pi
     directly), and f32 rows at width 8, where JAX's prepare passes
     bf16=False to pack_bvh8.
 
+    leaf_size 8 (the default) or 4 packs that many triangles per leaf group
+    (_pick_leaf_size); the kernels have instances at both. presplit > 0
+    splits the scene's large triangles before the build
+    (models/presplit.presplit_scene), as JAX's prepare does
+    (pipeline.py:259-262).
+
     The device defaults to CUDA; with no card, pass device="cpu". With
     use_native (the default) the scene folder is parsed and the BVH built,
     flattened and packed by the C++ host runtime (native/builder.py), as
@@ -224,14 +243,14 @@ def prepare(cfg: RenderConfig, scene: Optional[Scene] = None, device=None) -> Pi
             native = None
     if scene is None:
         scene = _load(cfg, native)
+    if cfg.presplit > 0 and scene.num_triangles > 0:
+        scene, _ = presplit_scene(scene, ratio=cfg.presplit)
+    leaf_size = _pick_leaf_size(cfg)
     if not cfg.use_bvh:
         ds = device_scene_from_host(scene, ambient=cfg.ambient, device=device)
         return Pipeline(cfg=cfg, scene=scene, ds=ds, flat=None, tables=None,
-                        build_ms=0.0)
+                        build_ms=0.0, leaf_size=leaf_size)
 
-    # The largest power of two whose triangles fit one 128-lane row, and
-    # the only leaf size the kernels are built for.
-    leaf_size = LEAF_SIZE
     tv = scene.triangle_vertices()
     bf16 = cfg.bf16_bvh and cfg.bvh_width != 8
     t0 = time.perf_counter()
@@ -290,4 +309,4 @@ def prepare(cfg: RenderConfig, scene: Optional[Scene] = None, device=None) -> Pi
     )
     return Pipeline(cfg=cfg, scene=scene, ds=ds, flat=flat, tables=tables,
                     build_ms=build_ms, bvh_stats=bvh_stats, stream=stream, mxu=mxu,
-                    builder=builder)
+                    builder=builder, leaf_size=leaf_size)

@@ -1,9 +1,11 @@
 """The port's command line, `python -m parallel_ray_tracer_tpu_torch`, on the
 CPU (--device cpu): the JAX CLI's flags and defaults, the frame an
 in-process render() gives, the JAX CLI's metrics record and statistics,
---bf16-bvh, the car scenes' substitutes without a car_only folder, and a
-non-zero exit with NotImplementedError's message for each flag whose path
-is not ported."""
+--bf16-bvh, --leaf-size 4, --no-reverse-shadows, --no-fast-light and
+--presplit (each the frame an in-process render() of its config gives),
+the car scenes' substitutes without a car_only folder, and a non-zero exit
+with NotImplementedError's message for each flag whose path is not
+ported."""
 
 import dataclasses
 import json
@@ -72,8 +74,7 @@ def test_stats_as_jax(times):
 @pytest.mark.parametrize("flags", [
     ["--devices", "2"],
     ["--checkpoint", "ck"], ["--profile", "prof"], ["--interpret"],
-    ["--no-fast-light"], ["--presplit", "0.1"], ["--no-reverse-shadows"],
-    ["--leaf-size", "4"], ["--variant", "jax"],
+    ["--variant", "jax"],
 ], ids=" ".join)
 def test_unported_flag_exits_nonzero(flags, capsys, tmp_path):
     argv = ["--device", "cpu", "--width", "32", "--height", "32",
@@ -82,6 +83,27 @@ def test_unported_flag_exits_nonzero(flags, capsys, tmp_path):
         argv += ["--synthetic", "16"]
     assert cli.main(argv) != 0
     assert "NotImplementedError" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--no-fast-light"], ["--presplit", "0.1"], ["--no-reverse-shadows"],
+    ["--leaf-size", "4"],
+], ids=" ".join)
+def test_ported_flag_renders(flags, capsys, tmp_path):
+    """The knobs that exited 2 before their paths were ported render the
+    frame an in-process render() of the same config gives; the banner and
+    the metrics record carry the leaf size."""
+    argv = ["--device", "cpu", "--synthetic", "64", "--width", "32", "--height", "32",
+            "--bounces", "2", "--warmup", "0", "--iterations", "1", *flags]
+    bmp, rec_path = tmp_path / "f.bmp", tmp_path / "m.json"
+    assert cli.main(argv + ["--output", str(bmp), "--metrics-json", str(rec_path)]) == 0
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    pipe = pipeline.prepare(cfg, device="cpu")
+    img = pipe.render().numpy()
+    assert img.std() > 0.01 and bmp.read_bytes() == bmp_bytes(img)
+    leaf = 4 if "--leaf-size" in flags else 8
+    assert pipe.leaf_size == json.loads(rec_path.read_text())["leaf_size"] == leaf
+    assert f"leaf: {leaf}," in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("bvh_width", ["2", "4", "8"])

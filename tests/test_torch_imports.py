@@ -82,13 +82,27 @@ def test_prepare_without_device_raises_when_no_cuda():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(fast_light=False),
-    dict(presplit=0.1), dict(variant="jax"),
-    dict(num_devices=2), dict(leaf_size=4), dict(reverse_shadows=False),
+    dict(variant="jax"), dict(num_devices=2), dict(leaf_size=3), dict(leaf_size=16),
 ])
 def test_unported_knobs_raise(kw):
     with pytest.raises(NotImplementedError):
         pipeline.prepare(RenderConfig(width=32, height=32, **kw), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(fast_light=False), dict(presplit=0.1), dict(leaf_size=4),
+    dict(reverse_shadows=False),
+])
+def test_ported_knobs_render(kw):
+    """The knobs that raised before their paths were ported prepare and
+    render: a synthetic scene's fused or pass-based frame, in frame."""
+    cfg = RenderConfig(width=32, height=32, bounces=1, synthetic_triangles=64,
+                       use_native=False, **kw)
+    pipe = pipeline.prepare(cfg, device="cpu")
+    assert pipe.leaf_size == (4 if kw.get("leaf_size") == 4 else 8)
+    assert pipe.resolved_variant() == ("pallas" if "fast_light" in kw else "fused")
+    img = pipe.render()
+    assert img.shape == (32, 32, 3) and img.std() > 0.01
 
 
 def test_bvh_width_other_than_2_4_8_raises():
@@ -128,12 +142,15 @@ def test_wrappers_check_inputs():
         cuda_trace.closest_tiles(T.cbox, T.cmeta, T.tri,
                                  Vec3(*(p.t() for p in _rays(128)[0])),
                                  _rays(128)[1], leaf_size=8)
-    for leaf_size in (3, 4):
+    for leaf_size in (3, 16):
         with pytest.raises(NotImplementedError):
             cuda_trace.closest_tiles(T.cbox, T.cmeta, T.tri, o, d, leaf_size=leaf_size)
-    with pytest.raises(NotImplementedError):
-        cuda_trace.frame_tiles(T.cbox, T.cmeta, T.tri, T.attr, T.lamb, o, d,
-                               bounces=1, leaf_size=8, reverse_shadows=False)
+    # leaf size 4 and forward shadow rays are ported: a row of 4 triangles
+    h4 = cuda_trace.closest_tiles(T.cbox, T.cmeta, T.tri, o, d, leaf_size=4)
+    assert torch.equal(h4.t, h.t) and torch.equal(h4.idx, h.idx)
+    fwd = cuda_trace.frame_tiles(T.cbox, T.cmeta, T.tri, T.attr, T.lamb, o, d,
+                                 bounces=1, leaf_size=8, reverse_shadows=False)
+    assert all(torch.isfinite(c).all() for c in fwd)
     with pytest.raises(ValueError, match="counters"):
         cuda_trace.occluded_tiles(T.cbox, T.cmeta, T.tri, o, d, o.x, leaf_size=8,
                                   counters=True)

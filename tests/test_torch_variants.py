@@ -1,7 +1,8 @@
 """Both packages resolve the "auto" variant the same way: the fused frame
 kernel at bvh_width 4 or 8 with any-hit shadows and 1024-pixel tiles, the
-pass-based path otherwise (parallel_ray_tracer_tpu/pipeline.py:80-104).
-The port does not have fast_light=False yet, so there it must raise."""
+pass-based path otherwise (parallel_ray_tracer_tpu/pipeline.py:80-104);
+fast_light=False (shadows by the closest-hit kernel) always resolves to
+the pass-based path."""
 
 import pytest
 import torch
@@ -24,12 +25,10 @@ def test_auto_resolves_as_jax(bvh_width, tile, fast_light):
               mxu_leaf=False)
     sc = blocker_cloud_scene()
     want = j_pipeline.prepare(JConfig(**kw), scene=sc).resolved_variant()
-    if not fast_light:
-        with pytest.raises(NotImplementedError, match="fast_light"):
-            t_pipeline.prepare(TConfig(**kw), scene=sc, device="cpu")
-        return
     tp = t_pipeline.prepare(TConfig(**kw), scene=sc, device="cpu")
     assert tp.resolved_variant() == want
+    if not fast_light:
+        assert want == "pallas"
     assert tp.resolved_variant("auto") == want
     for explicit in ("fused", "pallas"):
         assert tp.resolved_variant(explicit) == explicit
