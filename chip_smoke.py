@@ -123,12 +123,17 @@ script's rays and on normal rays), and the inner-visit and branch probes
 of rows 15i, 15j and 15l (every instance of microbench_inner.cu,
 microbench_glue.cu and microbench_cond.cu on the full grid at K = 3 and
 16: e, top and acc bit for bit, the tensor-core leaf's acc within K 1e-6 +
-1e-5 |acc|), then the entry point (`python -m
-parallel_ray_tracer_tpu_torch.microbench`) runs each of its seven
-commands with the launch counts from 0 (every bf16, inner, glue and cond
-instance must be launched), and each probe's readings print as one JSON
-line; the inner record sets the cost of one packet-1 inner visit (body A)
-times the width-4 frame kernel's inner visits beside the frame's time.
+1e-5 |acc|), and the child-parallel and tensor-core visit probes of rows
+15k and 15m (every instance of microbench_tiled.cu and
+microbench_mxu_inner.cu on the full grid at K = 3 and 16, on the scripts'
+tables and on grown boxes where the sums are finite: e, top and acc bit
+for bit, the tensor-core bodies' acc within the same bound), then the
+entry point (`python -m parallel_ray_tracer_tpu_torch.microbench`) runs
+each of its nine commands with the launch counts from 0 (every bf16,
+inner, glue, cond, tiled and mxu_inner instance must be launched), and
+each probe's readings print as one JSON line; the inner record sets the
+cost of one packet-1 inner visit (body A) times the width-4 frame kernel's
+inner visits beside the frame's time.
 
 Every prepare must take the native host builder (native/, built with g++
 on the card's host): a prepare that fell back to the numpy builder fails,
@@ -136,8 +141,10 @@ and each record carries its builder and BVH build milliseconds
 (synthetic_600k's and the dragon's beside the numpy builder's seconds).
 
 The build phase records the build's seconds, the CPU seconds of its nvcc
-processes, its units and the host's cores, and ptxas's registers and spills
-of every kernel (by mangled name, so two runs' tables compare key by key).
+processes, each unit's CPU and wall seconds, its units, the host's cores,
+the CPUs the process may use and the nvcc processes run at once, and
+ptxas's registers and spills of every kernel (by mangled name, so two
+runs' tables compare key by key).
 
 Each phase prints one JSON line; all of them, and the rendered frames, also
 go to DIR (default: chip_smoke_out/ beside this script). Any failed check
@@ -367,7 +374,7 @@ MB_KERNELS = {
 }
 MB_COMMANDS = {"mxu_leaf": ("leaf",), "probes": ("stage", "gather"), "overlap": ("overlap",),
                "bf16": ("chain", "slab"), "inner": ("inner",), "glue": ("glue",),
-               "cond": ("cond",)}
+               "cond": ("cond",), "tiled": ("tiled",), "mxu_inner": ("mxu_inner",)}
 # The bf16 probes (rows 15e-15h): the iterations at which the kernels line
 # times each instance and its plain version (the plain chains loop in
 # Python), and the iterations of the slab's e check on the overlap
@@ -530,7 +537,8 @@ def main() -> int:
     ptxas_table = read_ptxas(_build.BUILD_INFO.get("log"))
     spills = [k for k, v in ptxas_table.items() if v.get("spill_stores") or v.get("spill_loads")]
     build = {k: _build.BUILD_INFO.get(k)
-             for k in ("units", "cores", "cpu_seconds", "unit_cpu_seconds", "cached")}
+             for k in ("units", "cores", "cpus", "jobs", "cpu_seconds", "unit_cpu_seconds",
+                       "unit_wall_seconds", "cached")}
     emit({"phase": "build", "seconds": build_s, "card": card, **build,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "ptxas": ptxas_table, "spilling_kernels": len(spills),
@@ -2579,21 +2587,23 @@ def main() -> int:
 
 
 def microbench_phase(card: str, out_dir: str, frame: dict) -> list:
-    """Phase `microbench`: kernels A-D, the bf16 probes and the inner-visit
-    and branch probes of parallel_ray_tracer_tpu_torch/microbench against
-    their plain versions, then the entry point's seven commands with the
-    launch counts from 0, and the inner visit's cost set beside the width-4
-    frame kernel's time (`frame`: its timing record); returns their
-    kernels-line rows."""
+    """Phase `microbench`: kernels A-D, the bf16 probes, the inner-visit and
+    branch probes and the child-parallel and tensor-core visit probes of
+    parallel_ray_tracer_tpu_torch/microbench against their plain versions,
+    then the entry point's nine commands with the launch counts from 0, and
+    the inner visit's cost set beside the width-4 frame kernel's time
+    (`frame`: its timing record); returns their kernels-line rows."""
     from parallel_ray_tracer_tpu_torch import microbench as mb
     from parallel_ray_tracer_tpu_torch.microbench import bf16 as mb16
     from parallel_ray_tracer_tpu_torch.microbench import cond as mc
     from parallel_ray_tracer_tpu_torch.microbench import glue as mg
     from parallel_ray_tracer_tpu_torch.microbench import inner as mi
     from parallel_ray_tracer_tpu_torch.microbench import fixtures
+    from parallel_ray_tracer_tpu_torch.microbench import mxu_inner as mm
     from parallel_ray_tracer_tpu_torch.microbench import mxu_leaf as ml
     from parallel_ray_tracer_tpu_torch.microbench import overlap as mo
     from parallel_ray_tracer_tpu_torch.microbench import probes as mp
+    from parallel_ray_tracer_tpu_torch.microbench import tiled as mt
     from parallel_ray_tracer_tpu_torch.microbench.__main__ import THREADS_PER_SM, WARPS_PER_SM
     from parallel_ray_tracer_tpu_torch.microbench.__main__ import main as mb_main
     from parallel_ray_tracer_tpu_torch.ops.intersect import T_MAX
@@ -2798,6 +2808,55 @@ def microbench_phase(card: str, out_dir: str, frame: dict) -> list:
           "iters": MB_INNER_CHECK_ITERS, "seconds": time.perf_counter() - t0,
           "compare": inner_cmp})
 
+    # rows 15k, 15m: every instance on the full grid against its plain
+    # version at K = MB_INNER_CHECK_ITERS, on the scripts' tables and on the
+    # grown ones (fixtures.GROW: the packets hit every child, so the sums
+    # are finite and e branches): e, acc and (15m) top bit for bit; the
+    # tensor-core bodies' acc (L) within the Lf bound, K 1e-6 + 1e-5 |acc|
+    # (their products sum in the tensor cores' order; acc_bits_equal says
+    # whether they matched to the bit all the same)
+    t0 = time.perf_counter()
+    visit_tabs = {"tiled": {"script": ptab, "grown": mt.grown_tables(dev)},
+                  "mxu_inner": {"script": mm.mxu_tables(dev),
+                                "grown": mm.mxu_tables(dev, grow=fixtures.GROW)}}
+    visit_cmp = {}
+    for row, mod in (("tiled", mt), ("mxu_inner", mm)):
+        for which, vtab in visit_tabs[row].items():
+            plain_of = {}
+            for body in mod.BODIES:
+                sem = mt.SEMANTICS.get(body, body) if row == "tiled" else body
+                for p in mod.PACKETS[body]:
+                    for k in MB_INNER_CHECK_ITERS:
+                        if (sem, p, k) not in plain_of:
+                            plain_of[sem, p, k] = (
+                                mt.tiled_plain(vtab, sem, k, p, n) if row == "tiled"
+                                else mm.mxu_inner_plain(vtab, sem, k, p, n))
+                        q = plain_of[sem, p, k]
+                        r = mod.probe(vtab, body, k, p, n)
+                        fin = torch.isfinite(q["acc"])
+                        err = (r["acc"] - q["acc"]).abs()[fin]
+                        res = {"e_equal": torch.equal(r["e"], q["e"]),
+                               "top_equal": "top" not in q or torch.equal(r["top"], q["top"]),
+                               "acc_bits_equal": torch.equal(r["acc"].view(torch.int32),
+                                                             q["acc"].view(torch.int32)),
+                               "e_distinct": int(q["e"].unique().numel()),
+                               "finite": float(fin.float().mean()),
+                               "max_abs_err": err.max().item() if err.numel() else 0.0}
+                        name = f"microbench/{mod.instance(body, p)}/{which}/K{k}"
+                        check(name, res["e_equal"] and res["top_equal"],
+                              "e or top differ from the plain version")
+                        if row == "mxu_inner" and body in mm.MXU_BODIES:
+                            res["acc_within"] = bool(
+                                torch.equal(fin, torch.isfinite(r["acc"]))
+                                and (err <= k * 1e-6 + 1e-5 * q["acc"].abs()[fin]).all())
+                            check(name, res["acc_within"], "acc beyond K 1e-6 + 1e-5 |acc|")
+                        else:
+                            check(name, res["acc_bits_equal"], "acc not its plain version's bits")
+                        visit_cmp[name] = res
+    emit({"phase": "microbench", "case": "visit_forms_vs_plain", "card": card, "n": n,
+          "iters": MB_INNER_CHECK_ITERS, "grow": fixtures.GROW,
+          "seconds": time.perf_counter() - t0, "compare": visit_cmp})
+
     # the entry point, each command with the counts from 0
     mb_out = os.path.join(out_dir, "microbench")
     launches, runs, instances = {}, {}, {}
@@ -2809,7 +2868,8 @@ def microbench_phase(card: str, out_dir: str, frame: dict) -> list:
         torch.cuda.synchronize()
         counts = dict(mb.LAUNCHES)
         want = {"bf16": mb16.INSTANCES | {mb16.slab_instance(f) for f in mb16.SLAB_CASES.values()},
-                "inner": mi.INSTANCES, "glue": mg.INSTANCES, "cond": mc.INSTANCES}.get(cmd)
+                "inner": mi.INSTANCES, "glue": mg.INSTANCES, "cond": mc.INSTANCES,
+                "tiled": mt.INSTANCES, "mxu_inner": mm.INSTANCES}.get(cmd)
         if want is not None:
             got = dict(mb.INSTANCE_LAUNCHES)
             instances.update(got)
@@ -2825,11 +2885,12 @@ def microbench_phase(card: str, out_dir: str, frame: dict) -> list:
         with open(os.path.join(mb_out, f"{cmd}.json")) as f:
             runs[cmd] = json.load(f)["records"]
 
-    # traps 1 and 2 (csrc/microbench_inner.cuh, csrc/microbench_cond.cu):
-    # every 15i, 15j and 15l instance has its SASS counts; each push body
-    # keeps a store per push and iteration (STL, or STS for a shared stack);
-    # the cond arms keep their branches
-    for cmd, want in (("inner", mi.INSTANCES), ("glue", mg.INSTANCES), ("cond", mc.INSTANCES)):
+    # traps 1 and 2 (csrc/microbench_inner.cuh, csrc/microbench_cond.cu,
+    # csrc/microbench_mxu_inner.cu): every 15i-15m instance has its SASS
+    # counts; each push body keeps a store per push and iteration (STL, or
+    # STS for a shared stack); the cond arms keep their branches
+    for cmd, want in (("inner", mi.INSTANCES), ("glue", mg.INSTANCES), ("cond", mc.INSTANCES),
+                      ("tiled", mt.INSTANCES), ("mxu_inner", mm.INSTANCES)):
         got = {r["instance"] for r in runs[cmd] if r.get("sass")}
         check(f"microbench/{cmd}/sass", got == want, f"no SASS counts for {sorted(want - got)}")
     for r in runs["inner"] + runs["glue"]:
@@ -2839,6 +2900,10 @@ def microbench_phase(card: str, out_dir: str, frame: dict) -> list:
             op = "STS" if r["stack"] == "shared" else "STL"
             check(f"microbench/{r['instance']}/sass", r["sass"][op] >= pushes,
                   f"{r['sass'][op]} {op} for {pushes} pushes an iteration")
+    for r in runs["mxu_inner"]:
+        if r.get("sass") and r["body"] in mm.PUSHES:
+            check(f"microbench/{r['instance']}/sass", r["sass"]["STL"] >= mm.PUSHES[r["body"]],
+                  f"{r['sass']['STL']} STL for {mm.PUSHES[r['body']]} pushes an iteration")
     bra = {r["instance"]: r["sass"]["BRA"] for r in runs["cond"] if r.get("sass")}
     for uniform in (False, True):
         b = {shape: bra.get(mc.instance(shape, uniform), 0) for shape in mc.SHAPES}
@@ -2929,6 +2994,17 @@ def microbench_phase(card: str, out_dir: str, frame: dict) -> list:
                         r["threads_per_sm"] for r in grecs if "threads_per_sm" in r},
           "sass": {r["instance"]: r["sass"] for r in grecs if r.get("sass")},
           "clocks_sm_mhz": sorted({r["marginal"]["clocks_sm_mhz"] for r in grecs if "marginal" in r})})
+    for cmd in ("tiled", "mxu_inner"):
+        recs = runs[cmd]
+        emit({"phase": "microbench", "case": cmd, "card": card, "n": n,
+              "ns_per_1024_rays": {r["instance"]: r["ns_per_1024_rays"] for r in recs
+                                   if "ns_per_1024_rays" in r},
+              "answers": next(r["answers"] for r in recs if "answers" in r),
+              "sass": {r["instance"]: r["sass"] for r in recs if r.get("sass")},
+              "spread": {r["instance"]: (r["marginal"]["ns_max"] - r["marginal"]["ns_min"])
+                         / r["marginal"]["ns"] for r in recs if "marginal" in r},
+              "clocks_sm_mhz": sorted({r["marginal"]["clocks_sm_mhz"] for r in recs
+                                       if "marginal" in r})})
     emit({"phase": "microbench", "case": "cond", "card": card, "n": n,
           "ns_per_1024_elements": {r["instance"]: r["ns_per_1024_elements"] for r in crecs
                                    if "instance" in r},
@@ -3107,6 +3183,37 @@ def microbench_phase(card: str, out_dir: str, frame: dict) -> list:
                 "plain_ms": time_ms(lambda: mc.cond_plain(ctile, uniform, kk, n), 1, 1)["median"],
                 **ops_bound(mc.OPS_PER_ELEMENT * mc.W * n * kk, 0, nbytes(ctile) + 8 * n),
                 "library_ms": None, "iters": kk, "threads": n})
+    # rows 15k, 15m: one row per instance, kernel and plain version at
+    # MB_INNER_ROW_ITERS iterations of the grid on the scripts' tables (the
+    # commands' inputs); the bound as 15i's: the FP32 operations (slab
+    # tests, min/max chains, sorts) and the tensor-core products over the
+    # peak rates, or the bytes of the tables this run visits and the
+    # outputs (e, acc; 15m also top) over the memory rate
+    for row, mod in (("tiled", mt), ("mxu_inner", mm)):
+        vtab = visit_tabs[row]["script"]
+        plain_fn = mt.tiled_plain if row == "tiled" else mm.mxu_inner_plain
+        out_bytes = (8 if row == "tiled" else 12) * n
+        for body in mod.BODIES:
+            for p in mod.PACKETS[body]:
+                name = mod.instance(body, p)
+                visited = []
+                plain_fn(vtab, body, 1, p, n)                   # the warm-up
+                plain_ms = time_ms(lambda: plain_fn(vtab, body, kk, p, n, visited), 0, 1)["median"]
+                moved = mod.read_bytes(vtab, body, visited) + out_bytes
+                ops = mod.iteration_ops(body)
+                rows.append({
+                    "name": f"{'mb_tiled_kernel' if row == 'tiled' else 'mb_mxu_inner_kernel'}"
+                            f" {name}", "route": "cuda",
+                    "source": f"parallel_ray_tracer_tpu_torch/csrc/microbench_{row}.cu",
+                    "replaces": ("scripts/microbench_tiled.py:103" if row == "tiled"
+                                 else "scripts/microbench_mxu_inner.py:141"),
+                    "body_line": mod.SCRIPT_LINES[body], "launches": instances[name],
+                    "max_abs_err": max(v["max_abs_err"] for k, v in visit_cmp.items()
+                                       if k.startswith(f"microbench/{name}/")),
+                    "ms": time_ms(lambda: mod.probe(vtab, body, kk, p, n), 2, 5)["median"],
+                    "plain_ms": plain_ms,
+                    **ops_bound(ops["fp32"] * n * kk, ops["tensor"] * n * kk, moved),
+                    "library_ms": None, "iters": kk, "threads": n, "bytes": moved})
     emit({"phase": "microbench", "case": "kernels", "card": card, "rows": rows})
     return rows
 

@@ -1,7 +1,7 @@
 """The microbench probes' command line.
 
     python -m parallel_ray_tracer_tpu_torch.microbench
-        {mxu_leaf,probes,overlap,bf16,inner,glue,cond}
+        {mxu_leaf,probes,overlap,bf16,inner,glue,cond,tiled,mxu_inner}
         [--stage v1..v6|all] [--probes-only] [--device cpu] [--out DIR]
 
 `mxu_leaf` times kernel A's leaf visit in each stage's configurations
@@ -16,7 +16,11 @@ per 1,024 rays, occupancy, SASS counts; the shared-memory units beside
 their twins); `glue` each body of row 15j at npop 4 and 8 and the script's
 components (--probes-only: full, full_xs and xb, as the script's flag);
 `cond` the four step shapes per thread and warp-uniform and the script's
-cond_cost_ns, nested_extra_ns and switch_vs_nested_ns. On the card (the
+cond_cost_ns, nested_extra_ns and switch_vs_nested_ns; `tiled` each body
+of row 15k (ns per iteration per 1,024 rays, SASS counts, each as the
+script's line) and the answer: the child-parallel forms B, H, F, G over A
+at packet 32, and A at packet 32 over packet 1; `mxu_inner` each body of
+row 15m the same way and the answers J / I, K / I and L / M. On the card (the
 default) every time is a marginal cost per loop
 iteration measured with CUDA events on that card (microbench/_timing.py),
 with the SM clock beside it; the card's name and power limit head the
@@ -37,9 +41,10 @@ from typing import List, Optional
 
 import torch
 
-from . import _timing, bf16, cond, glue, inner, mxu_leaf, overlap, probes
+from . import _timing, bf16, cond, glue, inner, mxu_inner, mxu_leaf, overlap, probes, tiled
 
-COMMANDS = ("mxu_leaf", "probes", "overlap", "bf16", "inner", "glue", "cond")
+COMMANDS = ("mxu_leaf", "probes", "overlap", "bf16", "inner", "glue", "cond", "tiled",
+            "mxu_inner")
 DEFAULT_OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "chiprun_out", "microbench")
 # Resident threads per SM: the grid of the timed kernels fills the card.
@@ -95,8 +100,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     elif args.command == "glue":
         records = glue.run(device, timing, sms=sms, card=head.get("card", ""),
                            probes_only=args.probes_only)
-    else:
+    elif args.command == "cond":
         records = cond.run(device, timing, sms=sms, card=head.get("card", ""))
+    elif args.command == "tiled":
+        records = tiled.run(device, timing, sms=sms, card=head.get("card", ""))
+    else:
+        records = mxu_inner.run(device, timing, sms=sms, card=head.get("card", ""))
     print(json.dumps(head), flush=True)
     for rec in records:
         print(json.dumps(rec), flush=True)

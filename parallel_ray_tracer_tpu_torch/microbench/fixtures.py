@@ -7,9 +7,11 @@ Copied from scripts/microbench_mxu_leaf.py (`split_bf16` :88, `build_cmat`
 (`_box_rows` :51, `_rand` :62), scripts/microbench_inner.py and
 scripts/microbench_glue.py (`_rays` :47 / :78 and `_boxes` :56 / :87: the
 overlap script's, same seeds and construction; inner's `meta_flat` :459,
-the Lf table `cmi`, `rmat` :420-429; glue's `meta_s` :662) and
-scripts/microbench_cond.py (the (8, 128) tile of `_bench` :62). Same seeds
-give the same numbers:
+the Lf table `cmi`, `rmat` :420-429; glue's `meta_s` :662),
+scripts/microbench_cond.py (the (8, 128) tile of `_bench` :62),
+scripts/microbench_tiled.py (`_rays` :72, `_boxes` :58: the overlap
+script's again) and scripts/microbench_mxu_inner.py (`_tables` :55, its
+`_rays` :102 the overlap script's). Same seeds give the same numbers:
 f32 arrays bit for bit, and bf16 arrays as their uint16 bits (rounded to
 nearest even, as JAX rounds).
 """
@@ -36,6 +38,9 @@ PACKET = (8, 128)
 BF16_NODES = 4096
 # microbench_inner.py's Lf bodies: leaf groups of the C table.
 LF_GROUPS = 512
+# microbench_mxu_inner.py: node rows of its tables (small so the script's
+# lane-padded W tables fit VMEM).
+MXU_INNER_NODES = 512
 
 
 def split_bf16(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -231,3 +236,77 @@ def cond_tile() -> np.ndarray:
     """microbench_cond.py's (8, 128) f32 tile of standard normals
     (default_rng(0))."""
     return np.random.default_rng(0).normal(size=PACKET).astype(np.float32)
+
+
+# The checks' grown boxes: with the script's boxes (0.1-1 wide in a box of
+# 7) a packet misses some child in nearly every iteration, so its sum of
+# child minima is infinite and e only counts; 2 more on each side makes most
+# warp packets hit all 32 children (finite sums, negative where the origins
+# sit inside the boxes), so e branches.
+GROW = 2.0
+
+
+def grown_boxes(qbox: np.ndarray, by: float = GROW) -> np.ndarray:
+    """BVH4 node rows (N, 32) with each child's box widened by `by` on each
+    side."""
+    out = np.array(qbox, np.float32)
+    b = out[:, :24].reshape(-1, 4, 6)
+    b[..., :3] -= np.float32(by)
+    b[..., 3:] += np.float32(by)
+    out[:, :24] = b.reshape(-1, 24)
+    return out
+
+
+class MxuInnerTables(NamedTuple):
+    qbox: np.ndarray    # (512, 32) f32 BVH4 rows, child k's [min, max] at [6k, 6k + 6)
+    meta4: np.ndarray   # (512, 8) i32: 4 encodings in [-64, 64), 4 flags of 1
+    w8: np.ndarray      # (512 * 48, 32) bf16 bits: W rows of the BVH8 nodes, [h | l]
+    meta8: np.ndarray   # (512, 16) i32: 8 encodings, 8 flags of 1
+    w4: np.ndarray      # (512 * 24, 32) bf16 bits: W rows of other BVH4 nodes, [h | l]
+
+
+def mxu_inner_w(mn: np.ndarray, mx: np.ndarray) -> np.ndarray:
+    """`w_table`'s rows of (N, A, 3) boxes: row n (6A) + q A + k holds
+    quantity q of child k against the features [inv (3), oi (3), 0 x 10]: a
+    lo row (q = 2c) `lo` at feature c and -1 at 3 + c, a hi row (q = 2c +
+    1) `hi` there; split into bf16 halves [h | l] (bits, rounded to nearest
+    even, as the script's kernel rounds l)."""
+    n, a = mn.shape[:2]
+    w = np.zeros((n, 6, a, 16), np.float32)
+    for c in range(3):
+        w[:, 2 * c, :, c] = mn[:, :, c]
+        w[:, 2 * c + 1, :, c] = mx[:, :, c]
+        w[:, 2 * c : 2 * c + 2, :, 3 + c] = -1.0
+    h, l = split_bf16(w.reshape(n * 6 * a, 16))
+    return np.concatenate([h, l], axis=1)
+
+
+def mxu_inner_tables(grow: float = 0.0) -> MxuInnerTables:
+    """microbench_mxu_inner.py's `_tables`: one default_rng(1) drawn in its
+    order: the BVH4 boxes and meta4 encodings, w_table(8)'s boxes,
+    w_table(4)'s boxes, then the meta8 encodings. `grow` > 0 widens every
+    box by that much on each side (the checks' second fixture, where the
+    packets hit every child; see grown_boxes)."""
+    rng = np.random.default_rng(1)
+    n = MXU_INNER_NODES
+    g = np.float32(grow)
+
+    def boxes(a):
+        mn = rng.uniform(-4, 3, size=(n, a, 3)).astype(np.float32)
+        mx = mn + rng.uniform(0.1, 1.0, size=(n, a, 3)).astype(np.float32)
+        return mn - g, mx + g
+
+    mn4, mx4 = boxes(4)
+    qbox = np.zeros((n, 32), np.float32)
+    for k in range(4):
+        qbox[:, 6 * k : 6 * k + 3] = mn4[:, k]
+        qbox[:, 6 * k + 3 : 6 * k + 6] = mx4[:, k]
+    meta4 = np.zeros((n, 8), np.int32)
+    meta4[:, :4] = rng.integers(-64, 64, size=(n, 4))
+    meta4[:, 4:] = 1
+    w8 = mxu_inner_w(*boxes(8))
+    w4 = mxu_inner_w(*boxes(4))
+    meta8 = np.zeros((n, 16), np.int32)
+    meta8[:, :8] = rng.integers(-64, 64, size=(n, 8))
+    meta8[:, 8:] = 1
+    return MxuInnerTables(qbox, meta4, w8, meta8, w4)

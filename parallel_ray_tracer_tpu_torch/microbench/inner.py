@@ -269,7 +269,7 @@ class Packets:
         o, d = Vec3(*tab.planes[:3]), Vec3(*tab.planes[3:])
         self.inv = clip_inv_dir(d)
         self.oi = Vec3(o.x * self.inv.x, o.y * self.inv.y, o.z * self.inv.z)
-        self.boxes = tab.cbox[:, :24].reshape(N_NODES, 4, 6)
+        self.boxes = tab.cbox[:, :24].reshape(-1, 4, 6)      # (nodes, child, [lo, hi])
         self.tmax = torch.tensor(T_MAX, dtype=torch.float32, device=dev)
 
     def slab(self, boxes: torch.Tensor) -> torch.Tensor:

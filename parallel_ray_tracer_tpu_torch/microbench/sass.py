@@ -5,11 +5,11 @@ loads and branches of one iteration are those of the kernel function, bar
 the stores of the outputs (STG) and the loads before the loop. `cuobjdump
 -sass` of a unit's object (kept by _build.py beside the library) gives
 each kernel's instructions; `instance_counts` names each kernel by its
-instance (inner.py, glue.py, cond.py) and counts, per kernel, the
-local-memory stores and loads (STL, LDL: a stack in local memory), the
-shared-memory stores and loads (STS, LDS), the branches (BRA, BRX) and all
-instructions. Where the toolkit has no cuobjdump, the counts are {}
-(chip_smoke.py's microbench phase then fails: it requires them).
+instance (inner.py, glue.py, cond.py, tiled.py, mxu_inner.py) and counts,
+per kernel, the local-memory stores and loads (STL, LDL: a stack in local
+memory), the shared-memory stores and loads (STS, LDS), the branches (BRA,
+BRX) and all instructions. Where the toolkit has no cuobjdump, the counts
+are {} (chip_smoke.py's microbench phase then fails: it requires them).
 """
 
 from __future__ import annotations
@@ -65,8 +65,8 @@ def summary(c: Counter) -> Dict[str, int]:
 
 def instance_counts(unit: str) -> Dict[str, Dict[str, int]]:
     """{instance name: the OPS counts and the instruction count} of the
-    kernels of csrc/microbench_{inner,glue,cond}.cu."""
-    from . import cond, glue, inner
+    kernels of csrc/microbench_{inner,glue,cond,tiled,mxu_inner}.cu."""
+    from . import cond, glue, inner, mxu_inner, tiled
 
     names: Dict[Tuple, str] = {}
     insts: List = inner.inner_instances() + glue.glue_instances()
@@ -77,6 +77,12 @@ def instance_counts(unit: str) -> Dict[str, Dict[str, int]]:
     for shape, code in cond.SHAPES.items():
         for uniform in (False, True):
             names[("mb_cond_kernel", code, int(uniform))] = cond.instance(shape, uniform)
+    for body, (code, ch) in tiled.BODIES.items():
+        for p in tiled.PACKETS[body]:
+            names[("mb_tiled_kernel", code, ch, p)] = tiled.instance(body, p)
+    for body, (code, arity, npop) in mxu_inner.BODIES.items():
+        for p in mxu_inner.PACKETS[body]:
+            names[("mb_mxu_inner_kernel", code, arity, npop, p)] = mxu_inner.instance(body, p)
     out = {}
     for mangled, c in kernel_counts(unit).items():
         m = re.match(r"_Z\d+(mb_\w+?_kernel)I", mangled)

@@ -60,6 +60,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import parallel_ray_tracer_tpu_torch.utils.stats\n"
         "import parallel_ray_tracer_tpu_torch.models.procgen\n"
         "import parallel_ray_tracer_tpu_torch.microbench.__main__\n"
+        "import parallel_ray_tracer_tpu_torch.microbench.tiled\n"
+        "import parallel_ray_tracer_tpu_torch.microbench.mxu_inner\n"
         "import parallel_ray_tracer_tpu_torch.native.builder\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'parallel_ray_tracer_tpu')]\n"
