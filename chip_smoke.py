@@ -8,7 +8,8 @@ Drives parallel_ray_tracer_tpu_torch's main path on the card: car_boxed at
 kernels from csrc/, holds each kernel against its plain PyTorch version,
 renders the frame and holds it against the reference binary's BMP, compares
 the fused frame with the pass-based one, times every kernel with CUDA
-events, runs each plain version once at the frame's shapes, and shows
+events, runs each plain version once at the frame's shapes (the frame's
+on every 7th 32x32 tile), and shows
 through the launch counters that each path ran exactly its kernels: the
 fused render() one frame kernel, the pass-based render one closest-hit and
 one any-hit launch per bounce and light, the primary pass one closest-hit
@@ -85,15 +86,15 @@ against the reference BMP; the four-group table (pack_cmi4) must give the
 with their FP32 twins, with the lanes served per mma batch and ptxas's
 registers and spills.
 
-Its `leaf4` phase runs every traversal kernel at leaf size 4
-(csrc/trace_*_l4.cu): prepare(leaf_size=4) on car_boxed with the defaults
+Its `leaf4` phase runs every traversal kernel at leaf size 4 (each tier
+unit compiled with -DRT_UNIT_LEAF=4): prepare(leaf_size=4) on car_boxed with the defaults
 (the L = 4 MXU frame kernel, frame_mxu<4,l4>, as JAX's prepare takes it),
 with the FP32 leaf, at widths 2, 4 and 8, on bf16 boxes, and with the MXU
 leaf on each width-4 and width-8 table; each L = 4 kernel against its plain
 version on one band (the plain L = 4 hits, themselves the plain L = 8 hits
 through the slot maps; the frames against the band's L = 8 plain frames),
-its paths with the counts from 0, its 1080p frame against the full-frame
-plain frame of phase 7, its L = 8 twin's frame and the reference BMP, its
+its paths with the counts from 0, its 1080p frame against phase 7's plain
+frame on its tile spread, its L = 8 twin's frame and the reference BMP, its
 time and work per ray (the two main frames in turns with their L = 8
 twins); the streamed instances on the padded L = 4 tables, the sphere
 frames on car_boxed_spheres and the DEEP instances on the chain scene.
@@ -108,6 +109,25 @@ presplit=0.125 against the reference BMP; and the command line with
 --leaf-size 4 (with and without --no-mxu-leaf), --no-reverse-shadows,
 --no-fast-light and --presplit 0.125, all at once, each BMP the in-process
 frame of its configuration.
+
+Its `leaf12` phase runs every FP32 traversal kernel at leaf sizes 2 and 1
+(the tier units compiled with -DRT_UNIT_LEAF=2 and 1; the MXU units exist
+at L = 8 and 4 only, where JAX takes its MXU leaf): prepare(leaf_size=L)
+on car_boxed with the defaults, which takes the FP32 leaf at L = 2 and 1
+as JAX's prepare does, at widths 4, 8 and 2 with f32 and bf16 boxes at the
+command line's leaf threshold 8 (the L = 8 tree, its leaves cut into
+groups), and at width 4 at RenderConfig's own threshold (leaves of at most
+2 triangles); each kernel against its plain version on one band, its paths
+with the counts from 0, its 1080p frame against phase 7's plain frame on
+the tile spread, its L = 8 twin's frame and the reference BMP, its time and
+work per ray; the streamed instances on the padded tables, the sphere
+frames on car_boxed_spheres, the forward-shadow frames on the width-4
+tables, the DEEP instances on the chain scene; make_tracer (the port's
+pallas_trace.make_tracer) on the 160 stacked triangles of
+tests/test_advice_fixes.py at widths 2 and 4, and on car_boxed's width-4
+tables at L = 8 (FP32 and MXU), 4, 2 and 1, where a C-matrix table passed
+at L = 2 or 1 must launch the FP32 instances; and frame<4>, frame<8> and
+the width-2 pass-based render() at L = 8, 4, 2 and 1 timed in turns.
 
 Its `microbench` phase runs the probes of rows 15a-15h
 (parallel_ray_tracer_tpu_torch/microbench/, csrc/microbench_*.cu): each
@@ -144,7 +164,11 @@ The build phase records the build's seconds, the CPU seconds of its nvcc
 processes, each unit's CPU and wall seconds, its units, the host's cores,
 the CPUs the process may use and the nvcc processes run at once, and
 ptxas's registers and spills of every kernel (by mangled name, so two
-runs' tables compare key by key).
+runs' tables compare key by key). Every kernel of
+tests/goldens/ptxas_kernels.tsv must keep its registers, stack frame and
+spills, or the phase fails; the run's own table goes to
+DIR/ptxas_kernels.tsv, which renews the file when a change means to alter
+a kernel.
 
 Each phase prints one JSON line; all of them, and the rendered frames, also
 go to DIR (default: chip_smoke_out/ beside this script). Any failed check
@@ -197,6 +221,9 @@ OPS_TRI_TEST = 47
 # frame tests every sphere after every traversal, so the tests are
 # S x the counted traversals.
 OPS_SPHERE_TEST = 34
+# Floats of one triangle slot in a tri row (v0, e1, e2, normal) and in an
+# attr row (kd, ks, kr): ops/pack's TRI_STRIDE and ATTR_STRIDE.
+TRI_FLOATS, ATTR_FLOATS = 12, 9
 # An MXU instance's triangle test is the tensor-core product (below) and
 # an epilogue on the FP32 pipe (csrc/trace.cuh). rt_mxu_closest_tile:
 # 1 (1/det) + 3 (t, u, v) + 1 (abs) + 1 (u + v) + 5 (compares) + 1 (select)
@@ -213,6 +240,11 @@ WARMUP, TIMED = 10, 50
 ARITY_WARMUP, ARITY_TIMED = 5, 20
 BANDS = (384, 704)          # 64-row bands: sky + geometry, car body
 BAND_ROWS = 64
+# Phase 7's plain frame, which the 1080p frames of the arity, leaf4 and
+# leaf12 phases are held against too: every FRAME_TILE_STRIDE-th 32x32 tile
+# of the frame in tile-major order (7 does not divide the 60 tiles of a
+# tile row, so the spread moves across the columns: 292 of 2,040 tiles).
+FRAME_TILE_STRIDE = 7
 # The main path with the defaults (MXU_CFG: prepare takes the MXU leaf, as
 # JAX's prepare does for car_boxed) and with mxu_leaf=False (CFG: the FP32
 # leaf), which the phases before `mxu` drive.
@@ -295,6 +327,31 @@ L4_CASES = {"w4_mxu": (True, {}), "w4": (False, {}), "w8": (False, dict(bvh_widt
             "w2_bf16": (False, dict(bvh_width=2, bf16_bvh=True)),
             "w8_mxu": (True, dict(bvh_width=8)), "w4_bf16_mxu": (True, dict(bf16_bvh=True)),
             "w8_bf16_mxu": (True, dict(bvh_width=8, bf16_bvh=True))}
+
+# The leaf12 phase: car_boxed's tables at leaf sizes 2 and 1 with the
+# defaults (prepare takes the FP32 leaf there, as JAX's does), at the
+# command line's leaf threshold (L4_LEAF_THRESHOLD: the L = 8 tree, its
+# leaves cut into groups of L) at each width and box format, and at width 4
+# at RenderConfig's own threshold (2: another tree, leaves of at most 2
+# triangles, held against the plain hits through the slot maps); the
+# tables of its streamed instances, sphere frames and forward-shadow frames;
+# the stacked triangles of tests/test_advice_fixes.py (make_tracer).
+L12_SIZES = (2, 1)
+L12_CASES = {"w4": {}, "w8": dict(bvh_width=8), "w2": dict(bvh_width=2),
+             "w4_bf16": dict(bf16_bvh=True), "w8_bf16": dict(bvh_width=8, bf16_bvh=True),
+             "w2_bf16": dict(bvh_width=2, bf16_bvh=True), "w4_own_threshold": {}}
+L12_STREAM = ("w4", "w8", "w4_bf16", "w8_bf16")
+L12_FORWARD = ("w4", "w4_bf16")
+STACKED_TRIANGLES = 160
+
+
+def stacked_triangles(n: int = STACKED_TRIANGLES) -> np.ndarray:
+    """tests/test_advice_fixes.py's deep, skinny scene: n unit right
+    triangles stacked along z, (n, 3, 3) vertices."""
+    z = np.arange(n, dtype=np.float32)[:, None]
+    base = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
+    return base[None, :, :] + np.concatenate([np.zeros((n, 1, 2), np.float32),
+                                              z[:, :, None]], axis=2)
 
 
 def mma_ops_per_lane(leaf: int) -> int:
@@ -440,12 +497,23 @@ def nbytes(*ts) -> int:
     return int(sum(t.numel() * t.element_size() for t in ts))
 
 
+def leaf_bytes(T, tri=True, attr=False) -> int:
+    """The bytes of tables T's f32 leaf rows that a kernel can read: of each
+    128-lane row, the TRI_FLOATS of tri (with `tri`) and the ATTR_FLOATS
+    of attr (with `attr`) of each of its T.leaf_size slots, not the padding
+    lanes past them (at L = 1 a tri row holds 12 used floats of 128)."""
+    L = T.leaf_size
+    return 4 * ((T.tri.shape[0] * min(TRI_FLOATS * L, T.tri.shape[1]) if tri else 0)
+                + (T.attr.shape[0] * min(ATTR_FLOATS * L, T.attr.shape[1]) if attr else 0))
+
+
 def bound(counts, names, in_bytes, out_bytes, spheres=0, leaf=8):
     """Least time for the work the function needs on these inputs: the
     counted box tests and triangle tests, and with `spheres` rows the
     sphere tests of the frame (spheres x traversals), over the FP32 rate;
     or each input read once and each output written once over the memory
-    rate, the larger. An MXU instance (counts with mma_batches) does a
+    rate, the larger (a leaf table's bytes are the lanes its slots use:
+    leaf_bytes). An MXU instance (counts with mma_batches) does a
     triangle test as a product on the tensor cores and an epilogue on the
     FP32 pipe: its FP32 work charges each counted triangle test
     OPS_MXU_EPILOGUE, and its tensor-core work is the products its served
@@ -492,8 +560,11 @@ def main() -> int:
         from parallel_ray_tracer_tpu_torch.models.procgen import chain_scene, with_spheres
         from parallel_ray_tracer_tpu_torch.models.scene import Scene, load_scene_npz
         from parallel_ray_tracer_tpu_torch.native import builder as native
-        from parallel_ray_tracer_tpu_torch.ops.pack import (pack_bvh4, pack_bvh8, pack_cmi4,
-                                                            pad_stream_rows, split_cmat)
+        from parallel_ray_tracer_tpu_torch.ops.bvh import build_bvh
+        from parallel_ray_tracer_tpu_torch.ops.bvh_flat import flatten_bvh
+        from parallel_ray_tracer_tpu_torch.ops.pack import (pack_bvh, pack_bvh4, pack_bvh8,
+                                                            pack_cmi4, pad_stream_rows,
+                                                            split_cmat, stack_need)
         from parallel_ray_tracer_tpu_torch.ops import cuda_trace as ct
         from parallel_ray_tracer_tpu_torch.ops import render as R
         from parallel_ray_tracer_tpu_torch.ops import trace_brute
@@ -534,16 +605,30 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load_library()
     build_s = time.perf_counter() - t0
-    ptxas_table = read_ptxas(_build.BUILD_INFO.get("log"))
+    log = os.path.join(os.path.dirname(_build.library_path()), "build.log")
+    ptxas_table = read_ptxas(log if os.path.exists(log) else None)
     spills = [k for k, v in ptxas_table.items() if v.get("spill_stores") or v.get("spill_loads")]
+    # every kernel of the committed table keeps its registers, stack frame
+    # and spills; the run's own table goes beside the records
+    kept = load_ptxas(PTXAS_BASELINE)
+    changed = sorted(k for k, v in kept.items() if ptxas_table.get(k) != v)
+    write_ptxas(ptxas_table, os.path.join(out_dir, os.path.basename(PTXAS_BASELINE)))
+    check("build", bool(kept), f"no kernels in {os.path.relpath(PTXAS_BASELINE, HERE)}")
+    check("build", not changed,
+          f"{len(changed)} of the {len(kept)} kernels of "
+          f"{os.path.relpath(PTXAS_BASELINE, HERE)} changed their ptxas registers, stack "
+          f"or spills, or are gone: {changed[:3]}")
     build = {k: _build.BUILD_INFO.get(k)
              for k in ("units", "cores", "cpus", "jobs", "cpu_seconds", "unit_cpu_seconds",
                        "unit_wall_seconds", "cached")}
     emit({"phase": "build", "seconds": build_s, "card": card, **build,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "ptxas": ptxas_table, "spilling_kernels": len(spills),
+          "ptxas_kept": {"kernels": len(kept), "unchanged": len(kept) - len(changed),
+                         "changed": {k: [kept[k], ptxas_table.get(k)] for k in changed[:20]},
+                         "not_in_table": len(set(ptxas_table) - set(kept))},
           "instances_by_leaf": {leaf: sum(entry_leaf(k) == leaf for k in ptxas_table)
-                                for leaf in (4, 8)}})
+                                for leaf in (1, 2, 4, 8)}})
 
     # ---- 2. prepare -----------------------------------------------------
     t0 = time.perf_counter()
@@ -567,6 +652,13 @@ def main() -> int:
         r0 = (y0 // TR) * rows_per_tile_row
         r1 = r0 + (rows // TR) * rows_per_tile_row
         return Vec3(*(p[r0:r1] for p in planes))
+
+    tile_rows_of = torch.arange(o.x.shape[0], device=pipe.device).reshape(-1, TR * TC // 128)
+    spread_rows = tile_rows_of[::FRAME_TILE_STRIDE].reshape(-1)
+
+    def spread(planes):
+        """The rows of every FRAME_TILE_STRIDE-th tile of the frame's planes."""
+        return Vec3(*(p[spread_rows] for p in planes))
 
     def shadow_rays(o, d, hit, lamb=None):
         """Reversed shadow rays to light 0 (of lamb, by default the main
@@ -784,7 +876,7 @@ def main() -> int:
         bytes. With `cmat`, the MXU instances."""
         akw = dict(leaf_size=A.leaf_size, stack_depth=A.stack_depth,
                    compressed=A.compressed, cmat=cmat)
-        scene_b = nbytes(A.cbox, A.cmeta, A.tri, *(() if cmat is None else (cmat,)))
+        scene_b = nbytes(A.cbox, A.cmeta, *(() if cmat is None else (cmat,))) + leaf_bytes(A)
         runs = {
             "closest": (lambda: ct.closest_tiles(A.cbox, A.cmeta, A.tri, o, d, **akw),
                         lambda: ct.closest_tiles(A.cbox, A.cmeta, A.tri, o, d,
@@ -794,7 +886,7 @@ def main() -> int:
                 lambda: ct.closest_tiles_full(A.cbox, A.cmeta, A.tri, A.attr, o, d, **akw),
                 lambda: ct.closest_tiles_full(A.cbox, A.cmeta, A.tri, A.attr, o, d,
                                               counters=True, **akw)[1],
-                ray_b + scene_b + nbytes(A.attr), 15 * out_plane),
+                ray_b + scene_b + leaf_bytes(A, False, True), 15 * out_plane),
             "occluded": (
                 lambda: ct.occluded_tiles(A.cbox, A.cmeta, A.tri, so, sd, m2, **akw),
                 lambda: ct.occluded_tiles(A.cbox, A.cmeta, A.tri, so, sd, m2,
@@ -807,7 +899,7 @@ def main() -> int:
                                        bounces=bounces, **akw),
                 lambda: ct.frame_tiles(A.cbox, A.cmeta, A.tri, A.attr, A.lamb, o, d,
                                        bounces=bounces, counters=True, **akw)[1],
-                ray_b + scene_b + nbytes(A.attr, A.lamb), 3 * out_plane)
+                ray_b + scene_b + leaf_bytes(A, False, True) + nbytes(A.lamb), 3 * out_plane)
             if A.sph is not None:
                 runs["frame_sph"] = (
                     lambda: ct.frame_tiles(A.cbox, A.cmeta, A.tri, A.attr, A.lamb, o, d,
@@ -815,7 +907,8 @@ def main() -> int:
                     lambda: ct.frame_tiles(A.cbox, A.cmeta, A.tri, A.attr, A.lamb, o, d,
                                            bounces=bounces, sph=A.sph, counters=True,
                                            **akw)[1],
-                    ray_b + scene_b + nbytes(A.attr, A.lamb, A.sph), 3 * out_plane)
+                    ray_b + scene_b + leaf_bytes(A, False, True) + nbytes(A.lamb, A.sph),
+                    3 * out_plane)
         return runs
 
     def time_kernels(A, warmup=WARMUP, timed=TIMED, **rays):
@@ -859,12 +952,16 @@ def main() -> int:
     plain["occluded"], pms = timed_once(lambda: tp.occluded_plain(T.tri, so, sd, m2, L))
     full["occluded"] = dict(cmp_blocked("occluded/frame", bk, plain["occluded"]),
                             plain_ms=pms)
+    # the frame's plain version on the spread of tiles, and the kernel's
+    # frame on the same rays
     fk = ct.frame_tiles(T.cbox, T.cmeta, T.tri, T.attr, T.lamb, o, d,
                         bounces=cfg.bounces, **kw)
+    so_s, sd_s = spread(o), spread(d)
     plain["frame"], pms = timed_once(lambda: ct.frame_plain(
-        T.tri, T.attr, T.lamb, o, d, bounces=cfg.bounces, leaf_size=L))
-    full["frame"] = dict(cmp_frame("frame/frame", fk, plain["frame"]), plain_ms=pms)
-    del bk, fk
+        T.tri, T.attr, T.lamb, so_s, sd_s, bounces=cfg.bounces, leaf_size=L))
+    full["frame"] = dict(cmp_frame("frame/frame", spread(fk), plain["frame"]), plain_ms=pms,
+                         rays=so_s.x.numel(), tile_stride=FRAME_TILE_STRIDE)
+    del bk, fk, so_s, sd_s
     emit({"phase": "plain_at_frame_shapes", "rays": n_rays, "kernels": full})
     max_err = {"w4": {k: max(cmp[k]["max_abs_err"], full[k]["max_abs_err"])
                       for k in full}}
@@ -983,8 +1080,8 @@ def main() -> int:
         if "frame" in errs:
             keep("frame", cmp_frame(
                 f"{key}/frame/frame",
-                ct.frame_tiles(A.cbox, A.cmeta, A.tri, A.attr, A.lamb, o, d,
-                               bounces=cfg.bounces, **akw),
+                spread(ct.frame_tiles(A.cbox, A.cmeta, A.tri, A.attr, A.lamb, o, d,
+                                      bounces=cfg.bounces, **akw)),
                 plain["frame"]))
         max_err[key] = errs
 
@@ -1124,7 +1221,7 @@ def main() -> int:
                       ARITY_WARMUP, ARITY_TIMED)
         counts = ct.closest_tiles(D.cbox, D.cmeta, D.tri, do, dd, counters=True,
                                   **dkw)[1].cpu().tolist()
-        b = bound(counts, ct.COUNTS, nbytes(*do, *dd, D.cbox, D.cmeta, D.tri),
+        b = bound(counts, ct.COUNTS, nbytes(*do, *dd, D.cbox, D.cmeta) + leaf_bytes(D),
                   3 * dn * 4)
         box_b, meta_b = VISIT_BYTES[4, bf16]
         rec["primary_pass"] = dict(
@@ -1206,8 +1303,7 @@ def main() -> int:
             del h
             t_res = time_ms(lambda: call(k, False, *rays), ARITY_WARMUP, ARITY_TIMED)
             t_str = time_ms(lambda: call(k, True, *rays), ARITY_WARMUP, ARITY_TIMED)
-            in_b = (ray_b + nbytes(A.cbox, A.cmeta, A.tri)
-                    + (nbytes(A.attr) if k == "closest_full" else 0)
+            in_b = (ray_b + nbytes(A.cbox, A.cmeta) + leaf_bytes(A, attr=k == "closest_full")
                     + (out_plane if k == "occluded" else 0))
             b = bound(call(k, True, *rays, counters=True)[1].cpu().tolist(),
                       ct.STREAM_COUNTS, in_b, out_planes[k] * out_plane)
@@ -1281,7 +1377,7 @@ def main() -> int:
     # in turns: resident, streamed, streamed, resident
     turns = [time_ms(lambda: primary(s), ARITY_WARMUP, ARITY_TIMED)
              for s in (False, True, True, False)]
-    n6, in_b = o6.x.numel(), nbytes(*o6, *d6, S.cbox, S.cmeta, S.tri)
+    n6, in_b = o6.x.numel(), nbytes(*o6, *d6, S.cbox, S.cmeta) + leaf_bytes(S)
     for s, label, names, ts in ((False, "resident", ct.COUNTS, (turns[0], turns[3])),
                                 (True, "streamed", ct.STREAM_COUNTS, (turns[1], turns[2]))):
         b = bound(primary(s, True)[1].cpu().tolist(), names, in_b, 3 * n6 * 4)
@@ -1544,7 +1640,8 @@ def main() -> int:
         cases of DEEP_CASES): against its plain version at the frame's
         shapes, through its paths with the counts from 0, timed; its
         kernels-line rows go to extra_rows."""
-        tag, lname, ltab = (",l4", ", L=4", "_l4") if leaf == 4 else ("", "", "")
+        tag = ct._leaf_tag(leaf)
+        lname, ltab = (f", L={leaf}", f"_l{leaf}") if tag else ("", "")
         dref = {}
         for key, extra in DEEP_CASES.items():
             t0 = time.perf_counter()
@@ -1667,8 +1764,8 @@ def main() -> int:
                 st_out = {"closest": 3, "closest_full": 15, "occluded": 1}
                 for k, fn in st_calls.items():
                     tt = time_ms(fn, ARITY_WARMUP, ARITY_TIMED)
-                    in_b = (ray_b + nbytes(S_.cbox, S_.cmeta, S_.tri)
-                            + (nbytes(S_.attr) if k == "closest_full" else 0)
+                    in_b = (ray_b + nbytes(S_.cbox, S_.cmeta)
+                            + leaf_bytes(S_, attr=k == "closest_full")
                             + (out_plane if k == "occluded" else 0))
                     tt.update(bound(fn(True)[1].cpu().tolist(), ct.STREAM_COUNTS, in_b,
                                     st_out[k] * out_plane))
@@ -1936,7 +2033,8 @@ def main() -> int:
                                           counters=c, **skw)
     ts = time_ms(fn_s, ARITY_WARMUP, ARITY_TIMED)
     ts.update(bound(fn_s(True)[1].cpu().tolist(), ct.MXU_COUNTS,
-                    ray_b + nbytes(S_.cbox, S_.cmeta, S_.tri, S_.attr, S_.lamb, S_.sph, S_.cmat),
+                    ray_b + nbytes(S_.cbox, S_.cmeta, S_.lamb, S_.sph, S_.cmat)
+                    + leaf_bytes(S_, attr=True),
                     3 * out_plane, spheres=S_.sph.shape[0]))
     emit({"phase": "mxu", "case": "car_boxed_spheres", "card": card,
           "plain_ms": sph_mxu_plain_ms,
@@ -2023,8 +2121,9 @@ def main() -> int:
             bn = box_name(D)
             for k, fn in calls.items():
                 tt = time_ms(fn, ARITY_WARMUP, ARITY_TIMED)
-                in_b = (ray_b + nbytes(D.cbox, D.cmeta, D.tri, D.cmat)
-                        + (nbytes(D.attr, D.lamb) if k.startswith("frame") or k == "closest_full" else 0)
+                with_attr = k.startswith("frame") or k == "closest_full"
+                in_b = (ray_b + nbytes(D.cbox, D.cmeta, D.cmat) + leaf_bytes(D, attr=with_attr)
+                        + (nbytes(D.lamb) if k.startswith("frame") else 0)
                         + (out_plane if k == "occluded" else 0))
                 out_n = {"closest": 3, "closest_full": 15, "occluded": 1, "frame": 3, "frame_sph": 3}[k]
                 tt.update(bound(fn(True)[1].cpu().tolist(), ct.MXU_COUNTS, in_b, out_n * out_plane,
@@ -2076,9 +2175,10 @@ def main() -> int:
     # the plain versions test every slot whatever L is). The plain L = 4
     # hits are also the plain L = 8 hits, triangle for triangle through the
     # slot maps. Each table's paths run with the counts from 0; its 1080p
-    # frame is held against phase 7's full-frame plain frame (the FP32 leaf
-    # to cmp_frame's bound, the MXU leaf to the 99% of tests/test_fused.py,
-    # JAX's L = 4 against L = 8 bound), its L = 8 twin's frame and the
+    # frame is held against phase 7's plain frame on the tile spread (the
+    # FP32 leaf to cmp_frame's bound, the MXU leaf to the 99% of
+    # tests/test_fused.py, JAX's L = 4 against L = 8 bound), its L = 8
+    # twin's frame and the
     # reference BMP; its kernels are timed (the main path's frames in turns
     # with their L = 8 twins), with leaf visits and triangle tests per ray.
     # Then the streamed instances on the padded L = 4 tables, the sphere
@@ -2089,78 +2189,119 @@ def main() -> int:
     bref4 = band_ref[y4]
     b4o, b4d = bref4["rays"]["primary"]
     b4so, b4sd, b4m2 = bref4["shadow_rays"]
-    mode_of = {False: "", True: "_mxu"}
-    l4_t, l4_launch, l4_err, l4_plain_ms = {}, {}, {}, {}
-    l4_tables = {}
+    l4_t, l4_tables = {}, {}
 
     def tri_ids(h, flat):
         """A hit's triangle ids (slot_map of its slots), -1 on a miss."""
         sm = torch.as_tensor(flat.slot_map, device=h.idx.device).long()
         return torch.where(h.idx >= 0, sm[h.idx.long().clamp(min=0)], -1)
 
-    p4 = {}      # the plain L = 4 hits on the band, FP32 and MXU
-    for key, (mxu, extra) in L4_CASES.items():
-        p = prepare_native(RenderConfig(**(MXU_CFG if mxu else CFG), leaf_size=L4,
-                                        leaf_threshold=L4_LEAF_THRESHOLD, **extra))
-        if extra.get("bvh_width") == 8 and extra.get("bf16_bvh"):
-            p = pair_rows_w8(p)
-        A = p.tables
-        a = A.arity
-        bf = A.compressed or A.cbox.dtype == torch.bfloat16
-        sfx, mode = ",bf16" if bf else "", mode_of[mxu]
-        name = f"leaf4/{key}"
-        check(name, p.leaf_size == A.leaf_size == L4 and p.mxu == mxu
-              and (A.cmat is not None) == mxu and a == extra.get("bvh_width", 4)
-              and bf == bool(extra.get("bf16_bvh")), "not this case's L = 4 tables")
-        check(name, not bool(A.tri[:, 12 * L4:].any()), "tri rows hold more than 4 triangles")
-        if "fp32" not in p4:
-            # the plain L = 4 hits on the band (the first table's rows; every
-            # table of the phase has the same slots and rows, checked below)
-            first = p
-            p4["fp32"] = {
-                "closest": timed_once(lambda: tp.closest_plain(A.tri, b4o, b4d, L4)),
-                "closest_full": timed_once(lambda: tp.closest_full_plain(
-                    A.tri, A.attr, b4o, b4d, L4)),
-                "shadow": (tp.closest_plain(A.tri, *bref4["rays"]["shadow"], L4), None),
-                "occluded": timed_once(lambda: tp.occluded_plain(A.tri, b4so, b4sd, b4m2, L4)),
-                "frame": (bref4["frame"], cmp["frame"]["band_plain_ms"])}
-            h4, h8 = p4["fp32"]["closest"][0], bref4["closest", "primary"]
-            same_tri = (tri_ids(h4, p.flat) == tri_ids(h8, pipe.flat)).float().mean().item()
-            check("leaf4/plain", torch.equal(h4.t, h8.t) and same_tri >= 0.999,
-                  f"the plain L = 4 hits are not the L = 8 hits (triangles {same_tri})")
-            p4["vs_l8_same_triangle"] = same_tri
-        # the same slots and rows as the first table (width 2 keeps the native
-        # builder's own rows, whose normals round otherwise: held on the
-        # first table's rows, as the arity phase holds width 2)
-        F = first.tables
-        normals = (torch.arange(A.tri.shape[1], device=A.tri.device) % 12) >= 9
-        check(name, np.array_equal(p.flat.slot_map, first.flat.slot_map)
-              and torch.equal(A.attr, F.attr)
-              and not bool((A.tri - F.tri).abs()[:, ~normals].any()),
-              "slots, attr or tri beyond the normals differ from the first L = 4 table")
-        A = A._replace(tri=F.tri)
-        if mxu and "mxu" not in p4:
-            p4["mxu"] = {
-                "closest": timed_once(lambda: tp.closest_mxu_plain(A.cmat, A.tri, b4o, b4d, L4)),
-                "closest_full": timed_once(lambda: tp.closest_full_mxu_plain(
-                    A.cmat, A.tri, A.attr, b4o, b4d, L4)),
-                "shadow": (tp.closest_mxu_plain(A.cmat, A.tri, *bref4["rays"]["shadow"], L4),
-                           None),
-                "occluded": timed_once(lambda: tp.occluded_mxu_plain(
-                    A.cmat, A.tri, b4so, b4sd, b4m2, L4)),
-                "frame": (mplain["frame"], mplain["frame_ms"])}
-            mcmat4 = A.cmat
-        if mxu:
-            check(name, torch.equal(A.cmat.view(torch.int16), mcmat4.view(torch.int16)),
-                  "its C-matrix table is not the first MXU table's")
-        l4_tables[key] = (p, A)
-        refs = p4["mxu" if mxu else "fp32"]
-        akw = dict(leaf_size=L4, stack_depth=A.stack_depth, compressed=A.compressed, cmat=A.cmat)
+    def leaf_streamed(phase, name, key, p, A, leaf, refs):
+        """The streamed instances of tables A (the FP32 leaf, arity 4 or 8)
+        at leaf size `leaf`: bit for bit against the resident twin and
+        against the plain hits `refs` on the band of y4, through a streamed
+        pipeline's paths with the counts from 0, timed with their work;
+        emits the record, returns the kernels-line rows."""
+        lt, lname = ct._leaf_tag(leaf), f", L={leaf}"
+        a, sfx, bn = A.arity, ",bf16" if A.compressed else "", box_name(A)
+        sp = streamed(dataclasses.replace(p, tables=A))
+        S = sp.tables
+        skw = dict(leaf_size=leaf, stack_depth=S.stack_depth, compressed=S.compressed)
+        scalls = {"closest": lambda s_, ro=b4o, rd=b4d, **x: ct.closest_tiles(
+                      S.cbox, S.cmeta, S.tri, ro, rd, stream=s_, **skw, **x),
+                  "closest_full": lambda s_, ro=b4o, rd=b4d, **x: ct.closest_tiles_full(
+                      S.cbox, S.cmeta, S.tri, S.attr, ro, rd, stream=s_, **skw, **x),
+                  "occluded": lambda s_, ro=b4so, rd=b4sd, m=b4m2, **x: ct.occluded_tiles(
+                      S.cbox, S.cmeta, S.tri, ro, rd, m, stream=s_, **skw, **x)}
+        serr = {}
+        for k, fn in scalls.items():
+            hs = fn(True)
+            outs = ((lambda h: [h]) if k == "occluded"
+                    else (lambda h: planes(h, k == "closest_full")))
+            check(f"{name}/{k}_stream", same_bits(outs(hs), outs(fn(False))),
+                  "differs from the resident twin")
+            serr[k] = (cmp_blocked(f"{name}/{k}_stream@{y4}", hs, refs["occluded"][0])
+                       if k == "occluded" else
+                       cmp_hits(f"{name}/{k}_stream@{y4}", hs, refs[k][0],
+                                k == "closest_full"))["max_abs_err"]
+        _, on_s = on_path(f"{name}/stream_render_auto", sp.render,
+                          {f"closest_full_stream<{a}{sfx}{lt}>": cfg.bounces,
+                           f"occluded_stream<{a}{sfx}{lt}>": cfg.bounces * nl})
+        _, on_sc = on_path(f"{name}/stream_primary_closest_pass",
+                           lambda: scalls["closest"](True, o, d),
+                           {f"closest_stream<{a}{sfx}{lt}>": 1})
+        slaunch = {"closest": on_sc[f"closest_stream<{a}{sfx}{lt}>"],
+                   "closest_full": on_s[f"closest_full_stream<{a}{sfx}{lt}>"],
+                   "occluded": on_s[f"occluded_stream<{a}{sfx}{lt}>"]}
+        st, rows = {}, []
+        for k, rays in (("closest", (o, d)), ("closest_full", (o, d)),
+                        ("occluded", (so, sd, m2))):
+            fn = scalls[k]
+            t = time_ms(lambda: fn(True, *rays), 2, 5)
+            in_b = (ray_b + nbytes(S.cbox, S.cmeta) + leaf_bytes(S, attr=k == "closest_full")
+                    + (out_plane if k == "occluded" else 0))
+            t.update(bound(fn(True, *rays, counters=True)[1].cpu().tolist(),
+                           ct.STREAM_COUNTS, in_b,
+                           {"closest": 3, "closest_full": 15, "occluded": 1}[k] * out_plane))
+            t["fills_per_leaf"] = t["block_fills"] / max(t["leaf_visits"], 1)
+            st[k] = t
+            kname = {"closest": f"closest_kernel<{a}{bn}, false, STREAM{lname}>",
+                     "closest_full": f"closest_kernel<{a}{bn}, true, STREAM{lname}>",
+                     "occluded": f"occluded_kernel<{a}{bn}, STREAM{lname}>"}[k]
+            rows.append(row(kname, f"{key}{lname}, streamed", slaunch[k], serr[k], t,
+                            refs[k][1], f"one {BAND_ROWS}-row band (y {y4}), the same rays",
+                            2253 if k == "occluded" else 2070))
+        emit({"phase": phase, "leaf_size": leaf, "case": f"{key}_stream", "card": card,
+              "tri_rows": [A.tri.shape[0], S.tri.shape[0]], "max_abs_err": serr,
+              "launches": slaunch, "timing": st})
+        return rows
 
-        def hits(nm, hk, hp, full):
-            return (cmp_hits_mxu(nm, hk, hp, full) if mxu else cmp_hits(nm, hk, hp, full))
+    def leaf_spheres(phase, name, key, p, A, leaf, mxu=False):
+        """The sphere frame of tables A at leaf size `leaf` with
+        car_boxed_spheres' sphere table (car_boxed's triangles, so the
+        tables take it as it is) against the spheres phase's plain sphere
+        frame on its band (MXU: the mxu phase's, on the band of y4), its
+        fused render() with the counts from 0, timed; emits the record,
+        returns the kernels-line row."""
+        a, bn = A.arity, box_name(A)
+        sfx, mode = ",bf16" if A.compressed else "", "_mxu" if mxu else ""
+        y_s = y4 if mxu else SPHERE_BAND
+        ref_s, ms_s = (sph_mxu_plain, sph_mxu_plain_ms) if mxu else (sph_fp, sph_plain_ms)
+        As = A._replace(sph=sph)
+        akw = dict(leaf_size=leaf, stack_depth=A.stack_depth, compressed=A.compressed,
+                   cmat=A.cmat)
+        es = cmp_frame(f"{name}/frame_sph", ct.frame_tiles(
+            As.cbox, As.cmeta, As.tri, As.attr, As.lamb, band(o, y_s), band(d, y_s),
+            bounces=cfg.bounces, sph=sph, **akw), ref_s, 0.99)
+        ks = f"frame_sph{mode}<{a}{sfx}{ct._leaf_tag(leaf)}>"
+        _, on_f = on_path(f"{name}/render_fused_spheres",
+                          dataclasses.replace(p, tables=As).render, {ks: 1})
+        ts = time_one(As, "frame_sph", cmat=A.cmat)
+        emit({"phase": phase, "leaf_size": leaf, "case": f"{key}_spheres", "card": card,
+              "max_abs_err": es["max_abs_err"], "compare": es, "launches": on_f[ks],
+              "timing": ts})
+        return [row(f"frame_kernel<{a}{bn}, SPH{', MXU' if mxu else ''}, L={leaf}>",
+                    f"{key}+spheres, L={leaf}", on_f[ks], es["max_abs_err"], ts, ms_s,
+                    f"one {BAND_ROWS}-row band (y {y_s}), the same rays", 2536)]
 
-        errs = {}
+    def leaf_case(phase, name, key, p, A, refs, twins, mxu=False, hits=None, l8=None,
+                  save=False, note=""):
+        """Tables A of pipeline p at leaf size A.leaf_size, against the plain
+        results `refs` (hits, blocked and frame on the band of y4, each with
+        its plain ms): each kernel on the band (hits by `hits`, by default
+        cmp_hits, MXU cmp_hits_mxu), the paths with the counts from 0, the
+        1080p frame against phase 7's plain frame on its tile spread, the
+        pass-based frame, each of `twins` ((tag, L = 8 frame) pairs) and the
+        reference BMP (saved with `save`), and each kernel timed at the
+        main path's shapes with its work per ray (the frame in turns with
+        the frame of tables `l8`: 8, L, L, 8). Emits the record; returns the
+        frame, the timings and the kernels-line rows."""
+        L, a = A.leaf_size, A.arity
+        lt = ct._leaf_tag(L)
+        sfx = ",bf16" if A.compressed or A.cbox.dtype == torch.bfloat16 else ""
+        mode = "_mxu" if mxu else ""
+        akw = dict(leaf_size=L, stack_depth=A.stack_depth, compressed=A.compressed, cmat=A.cmat)
+        hits = hits or (cmp_hits_mxu if mxu else cmp_hits)
         res = {}
         for kind, (ro, rd) in bref4["rays"].items():
             res[f"closest_{kind}"] = hits(
@@ -2185,11 +2326,11 @@ def main() -> int:
             errs["frame"] = res["frame"]["max_abs_err"]
 
         # the paths, each with its counts from 0
-        pass_counts = {f"closest_full{mode}<{a}{sfx},l4>": cfg.bounces,
-                       f"occluded{mode}<{a}{sfx},l4>": cfg.bounces * nl}
+        pass_counts = {f"closest_full{mode}<{a}{sfx}{lt}>": cfg.bounces,
+                       f"occluded{mode}<{a}{sfx}{lt}>": cfg.bounces * nl}
         auto = p.resolved_variant()
         check(name, auto == ("fused" if a >= 4 else "pallas"), f"auto -> {auto}")
-        frame_key = f"frame{mode}<{a}{sfx},l4>"
+        frame_key = f"frame{mode}<{a}{sfx}{lt}>"
         pimg, on_a = on_path(f"{name}/render_auto", p.render,
                              {frame_key: 1} if a >= 4 else pass_counts)
         if a >= 4:
@@ -2199,153 +2340,140 @@ def main() -> int:
             pimg_pass, on_p = pimg, on_a
         _, on_c = on_path(f"{name}/primary_closest_pass",
                           lambda: ct.closest_tiles(A.cbox, A.cmeta, A.tri, o, d, **akw),
-                          {f"closest{mode}<{a}{sfx},l4>": 1})
-        l4_launch[key] = {"closest": on_c[f"closest{mode}<{a}{sfx},l4>"],
-                          "closest_full": on_p[f"closest_full{mode}<{a}{sfx},l4>"],
-                          "occluded": on_p[f"occluded{mode}<{a}{sfx},l4>"]}
-        # the whole frame: phase 7's plain frame, the L = 8 twin, the reference
-        twin = key.replace("_mxu", "")
-        twin_img = img if twin == "w4" else frames[twin]
+                          {f"closest{mode}<{a}{sfx}{lt}>": 1})
+        launch = {"closest": on_c[f"closest{mode}<{a}{sfx}{lt}>"],
+                  "closest_full": on_p[f"closest_full{mode}<{a}{sfx}{lt}>"],
+                  "occluded": on_p[f"occluded{mode}<{a}{sfx}{lt}>"]}
+        # the whole frame: phase 7's plain frame, the L = 8 twins, the reference
         if a >= 4:
-            l4_launch[key]["frame"] = on_a[frame_key]
+            launch["frame"] = on_a[frame_key]
             fk = ct.frame_tiles(A.cbox, A.cmeta, A.tri, A.attr, A.lamb, o, d,
                                 bounces=cfg.bounces, **akw)
-            res["frame_vs_plain_frame"] = cmp_frame(f"{name}/frame/frame", fk, plain["frame"],
-                                                    0.99 if mxu else 0.9999)
+            res["frame_vs_plain_frame"] = cmp_frame(f"{name}/frame/frame", spread(fk),
+                                                    plain["frame"], 0.99 if mxu else 0.9999)
             errs["frame"] = max(errs["frame"], res["frame_vs_plain_frame"]["max_abs_err"])
             del fk
             res["pass_based_vs_fused"] = hold_frames(f"{name}/fused_vs_pass", pimg, pimg_pass,
                                                      0.99 if mxu else 0.9999)
-        res["vs_l8_fp32_frame"] = hold_frames(f"{name}/vs_l8_{twin}", pimg, twin_img, 0.99)
-        if key == "w4_mxu":
-            res["vs_l8_mxu_frame"] = hold_frames(f"{name}/vs_l8_mxu", pimg, mimg, 0.99)
-        res["reference_image"] = hold_reference(f"car_boxed_1080p_l4_{key}", pimg,
-                                                save=key == "w4_mxu")
-        if key in ("w4", "w4_mxu"):
-            l4_tables[key] = (p, A, pimg)
-        del pimg, pimg_pass
+        del pimg_pass
+        for tag, twin_img in twins:
+            res[f"vs_l8_{tag}"] = hold_frames(f"{name}/vs_l8_{tag}", pimg, twin_img, 0.99)
+        res["reference_image"] = hold_reference(f"car_boxed_1080p_l{L}_{key}", pimg, save=save)
 
-        # timing: each kernel at the main path's shapes, with its work per
-        # ray; the main path's frames in turns with their L = 8 twins
+        # timing: each kernel at the main path's shapes, with its work per ray
         names = ct.MXU_COUNTS if mxu else ct.COUNTS
         tm = {}
-        runs = kernel_runs(A, cmat=A.cmat)
-        for k, (fn, counted, in_b, out_b) in runs.items():
-            b = bound(counted().cpu().tolist(), names, in_b, out_b, leaf=A.leaf_size)
-            if key in ("w4", "w4_mxu") and k == "frame":
-                fn8 = kernel_runs(M if mxu else T, cmat=M.cmat if mxu else None)[k][0]
+        for k, (fn, counted, in_b, out_b) in kernel_runs(A, cmat=A.cmat).items():
+            b = bound(counted().cpu().tolist(), names, in_b, out_b, leaf=L)
+            if k == "frame" and l8 is not None:
+                fn8, counted8, _, _ = kernel_runs(l8, cmat=l8.cmat)[k]
                 turns = [time_ms(fn if i in (1, 2) else fn8) for i in range(4)]
                 t = dict(turns[1], median=statistics.median([turns[1]["median"],
                                                              turns[2]["median"]]))
-                c8 = dict(zip(names, kernel_runs(M if mxu else T, cmat=M.cmat if mxu else None)[k][1]()
-                              .cpu().tolist()))
+                c8 = dict(zip(names, counted8().cpu().tolist()))
                 l8_ms = statistics.median([turns[0]["median"], turns[3]["median"]])
                 t.update(turns=turns, l8_ms=l8_ms, vs_l8=t["median"] / l8_ms,
                          l8_leaf_visits_per_ray=c8["leaf_visits"] / n_rays,
                          l8_tri_tests_per_ray=c8["tri_tests"] / n_rays,
                          l8_inner_visits_per_ray=c8["inner_visits"] / n_rays)
             else:
-                t = time_ms(fn, 2, 5)
+                t = time_ms(fn) if k == "frame" else time_ms(fn, 2, 5)
             tm[k] = dict(t, rays=n_rays, leaf_visits_per_ray=b["leaf_visits"] / n_rays,
                          tri_tests_per_ray=b["tri_tests"] / n_rays,
                          inner_visits_per_ray=b["inner_visits"] / n_rays, **b)
-        l4_t[key], l4_err[key] = tm, errs
-        l4_plain_ms[key] = {k: refs[k][1] for k in errs}
-        emit({"phase": "leaf4", "case": key, "card": card, "mxu": mxu, "cbox": list(A.cbox.shape),
-              "tri": list(A.tri.shape), "cmat": None if A.cmat is None else list(A.cmat.shape),
-              "stack_need": A.stack_depth, "builder": p.builder, "compare": res,
-              "max_abs_err": errs, "launches": l4_launch[key], "timing": tm,
-              "plain_vs_l8_same_triangle": p4["vs_l8_same_triangle"]})
-        bn = box_name(A)
-        mname = ", MXU" if mxu else ""
+        emit({"phase": phase, "leaf_size": L, "case": key, "card": card, "mxu": mxu,
+              "cbox": list(A.cbox.shape), "tri": list(A.tri.shape),
+              "cmat": None if A.cmat is None else list(A.cmat.shape),
+              "stack_need": A.stack_depth, "builder": p.builder,
+              "leaf_threshold": p.cfg.leaf_threshold, "compare": res, "max_abs_err": errs,
+              "launches": launch, "timing": tm,
+              "plain_vs_l8_same_triangle": refs["vs_l8_same_triangle"]})
+        bn, mname = box_name(A), ", MXU" if mxu else ""
+        rows = []
         for k, t in tm.items():
-            kname = {"closest": f"closest_kernel<{a}{bn}, false{mname}, L=4>",
-                     "closest_full": f"closest_kernel<{a}{bn}, true{mname}, L=4>",
-                     "occluded": f"occluded_kernel<{a}{bn}{mname}, L=4>",
-                     "frame": f"frame_kernel<{a}{bn}{mname}, L=4>"}[k]
+            kname = {"closest": f"closest_kernel<{a}{bn}, false{mname}, L={L}>",
+                     "closest_full": f"closest_kernel<{a}{bn}, true{mname}, L={L}>",
+                     "occluded": f"occluded_kernel<{a}{bn}{mname}, L={L}>",
+                     "frame": f"frame_kernel<{a}{bn}{mname}, L={L}>"}[k]
             line = (MXU_LINES[k] if mxu else
                     {"closest": 610 if a == 2 else 1774, "closest_full": 2437 if a == 2 else 1774,
                      "occluded": 676 if a == 2 else 1835, "frame": 2536}[k])
-            extra_rows.append(row(kname, f"{key}, L=4", l4_launch[key][k], errs[k], t,
-                                  l4_plain_ms[key][k],
-                                  f"one {BAND_ROWS}-row band (y {y4}), the same rays", line))
+            rows.append(row(kname, f"{key}, L={L}", launch[k], errs[k], t, refs[k][1],
+                            f"one {BAND_ROWS}-row band (y {y4}), the same rays{note}", line))
+        return pimg, tm, rows
 
-        # streamed leaf rows at L = 4: bit for bit against the resident
-        # twin, against the plain hits, through a streamed pipeline's paths
+    p4 = {}      # the plain L = 4 hits on the band, FP32 and MXU
+    for key, (mxu, extra) in L4_CASES.items():
+        p = prepare_native(RenderConfig(**(MXU_CFG if mxu else CFG), leaf_size=L4,
+                                        leaf_threshold=L4_LEAF_THRESHOLD, **extra))
+        if extra.get("bvh_width") == 8 and extra.get("bf16_bvh"):
+            p = pair_rows_w8(p)
+        A = p.tables
+        a = A.arity
+        bf = A.compressed or A.cbox.dtype == torch.bfloat16
+        name = f"leaf4/{key}"
+        check(name, p.leaf_size == A.leaf_size == L4 and p.mxu == mxu
+              and (A.cmat is not None) == mxu and a == extra.get("bvh_width", 4)
+              and bf == bool(extra.get("bf16_bvh")), "not this case's L = 4 tables")
+        check(name, not bool(A.tri[:, 12 * L4:].any()), "tri rows hold more than 4 triangles")
+        if "fp32" not in p4:
+            # the plain L = 4 hits on the band (the first table's rows; every
+            # table of the phase has the same slots and rows, checked below)
+            first = p
+            p4["fp32"] = {
+                "closest": timed_once(lambda: tp.closest_plain(A.tri, b4o, b4d, L4)),
+                "closest_full": timed_once(lambda: tp.closest_full_plain(
+                    A.tri, A.attr, b4o, b4d, L4)),
+                "shadow": (tp.closest_plain(A.tri, *bref4["rays"]["shadow"], L4), None),
+                "occluded": timed_once(lambda: tp.occluded_plain(A.tri, b4so, b4sd, b4m2, L4)),
+                "frame": (bref4["frame"], cmp["frame"]["band_plain_ms"])}
+            h4, h8 = p4["fp32"]["closest"][0], bref4["closest", "primary"]
+            same_tri = (tri_ids(h4, p.flat) == tri_ids(h8, pipe.flat)).float().mean().item()
+            check("leaf4/plain", torch.equal(h4.t, h8.t) and same_tri >= 0.999,
+                  f"the plain L = 4 hits are not the L = 8 hits (triangles {same_tri})")
+            p4["fp32"]["vs_l8_same_triangle"] = same_tri
+        # the same slots and rows as the first table (width 2 keeps the native
+        # builder's own rows, whose normals round otherwise: held on the
+        # first table's rows, as the arity phase holds width 2)
+        F = first.tables
+        normals = (torch.arange(A.tri.shape[1], device=A.tri.device) % 12) >= 9
+        check(name, np.array_equal(p.flat.slot_map, first.flat.slot_map)
+              and torch.equal(A.attr, F.attr)
+              and not bool((A.tri - F.tri).abs()[:, ~normals].any()),
+              "slots, attr or tri beyond the normals differ from the first L = 4 table")
+        A = A._replace(tri=F.tri)
+        if mxu and "mxu" not in p4:
+            p4["mxu"] = {
+                "closest": timed_once(lambda: tp.closest_mxu_plain(A.cmat, A.tri, b4o, b4d, L4)),
+                "closest_full": timed_once(lambda: tp.closest_full_mxu_plain(
+                    A.cmat, A.tri, A.attr, b4o, b4d, L4)),
+                "shadow": (tp.closest_mxu_plain(A.cmat, A.tri, *bref4["rays"]["shadow"], L4),
+                           None),
+                "occluded": timed_once(lambda: tp.occluded_mxu_plain(
+                    A.cmat, A.tri, b4so, b4sd, b4m2, L4)),
+                "frame": (mplain["frame"], mplain["frame_ms"]),
+                "vs_l8_same_triangle": p4["fp32"]["vs_l8_same_triangle"]}
+            mcmat4 = A.cmat
+        if mxu:
+            check(name, torch.equal(A.cmat.view(torch.int16), mcmat4.view(torch.int16)),
+                  "its C-matrix table is not the first MXU table's")
+        refs = p4["mxu" if mxu else "fp32"]
+        twin = key.replace("_mxu", "")
+        twins = [(twin, img if twin == "w4" else frames[twin])]
+        if key == "w4_mxu":
+            twins.append(("mxu", mimg))
+        pimg, l4_t[key], rows = leaf_case(
+            "leaf4", name, key, p, A, refs, twins, mxu=mxu,
+            l8=(M if mxu else T) if key in ("w4", "w4_mxu") else None, save=key == "w4_mxu")
+        extra_rows += rows
+        if key in ("w4", "w4_mxu"):
+            l4_tables[key] = (p, A, pimg)
+        del pimg
+
         if not mxu and a >= 4:
-            sp = streamed(dataclasses.replace(p, tables=A))
-            S = sp.tables
-            skw = dict(leaf_size=L4, stack_depth=S.stack_depth, compressed=S.compressed)
-            scalls = {"closest": lambda s_, ro=b4o, rd=b4d, **x: ct.closest_tiles(
-                          S.cbox, S.cmeta, S.tri, ro, rd, stream=s_, **skw, **x),
-                      "closest_full": lambda s_, ro=b4o, rd=b4d, **x: ct.closest_tiles_full(
-                          S.cbox, S.cmeta, S.tri, S.attr, ro, rd, stream=s_, **skw, **x),
-                      "occluded": lambda s_, ro=b4so, rd=b4sd, m=b4m2, **x: ct.occluded_tiles(
-                          S.cbox, S.cmeta, S.tri, ro, rd, m, stream=s_, **skw, **x)}
-            serr = {}
-            for k, fn in scalls.items():
-                hs = fn(True)
-                outs = ((lambda h: [h]) if k == "occluded"
-                        else (lambda h: planes(h, k == "closest_full")))
-                check(f"{name}/{k}_stream", same_bits(outs(hs), outs(fn(False))),
-                      "differs from the resident twin")
-                serr[k] = (cmp_blocked(f"{name}/{k}_stream@{y4}", hs, refs["occluded"][0])
-                           if k == "occluded" else
-                           cmp_hits(f"{name}/{k}_stream@{y4}", hs, refs[k][0],
-                                    k == "closest_full"))["max_abs_err"]
-            _, on_s = on_path(f"{name}/stream_render_auto", sp.render,
-                              {f"closest_full_stream<{a}{sfx},l4>": cfg.bounces,
-                               f"occluded_stream<{a}{sfx},l4>": cfg.bounces * nl})
-            _, on_sc = on_path(f"{name}/stream_primary_closest_pass",
-                               lambda: scalls["closest"](True, o, d),
-                               {f"closest_stream<{a}{sfx},l4>": 1})
-            slaunch = {"closest": on_sc[f"closest_stream<{a}{sfx},l4>"],
-                       "closest_full": on_s[f"closest_full_stream<{a}{sfx},l4>"],
-                       "occluded": on_s[f"occluded_stream<{a}{sfx},l4>"]}
-            st = {}
-            for k, rays in (("closest", (o, d)), ("closest_full", (o, d)),
-                            ("occluded", (so, sd, m2))):
-                fn = scalls[k]
-                t = time_ms(lambda: fn(True, *rays), 2, 5)
-                in_b = (ray_b + nbytes(S.cbox, S.cmeta, S.tri)
-                        + (nbytes(S.attr) if k == "closest_full" else 0)
-                        + (out_plane if k == "occluded" else 0))
-                t.update(bound(fn(True, *rays, counters=True)[1].cpu().tolist(),
-                               ct.STREAM_COUNTS, in_b,
-                               {"closest": 3, "closest_full": 15, "occluded": 1}[k] * out_plane))
-                st[k] = t
-                kname = {"closest": f"closest_kernel<{a}{bn}, false, STREAM, L=4>",
-                         "closest_full": f"closest_kernel<{a}{bn}, true, STREAM, L=4>",
-                         "occluded": f"occluded_kernel<{a}{bn}, STREAM, L=4>"}[k]
-                extra_rows.append(row(kname, f"{key}, L=4, streamed", slaunch[k], serr[k], t,
-                                      refs[k][1], f"one {BAND_ROWS}-row band (y {y4}), the same "
-                                      "rays", 2253 if k == "occluded" else 2070))
-            emit({"phase": "leaf4", "case": f"{key}_stream", "card": card,
-                  "tri_rows": [A.tri.shape[0], S.tri.shape[0]], "max_abs_err": serr,
-                  "launches": slaunch, "timing": st})
-            del sp, S
-
-        # the sphere frame (car_boxed_spheres: car_boxed's triangles, so the
-        # L = 4 tables take its sphere table as it is) against the plain
-        # sphere frame of the spheres phase's band
+            extra_rows += leaf_streamed("leaf4", name, key, p, A, L4, refs)
         if a >= 4 and (not mxu or key == "w4_mxu"):
-            As = A._replace(sph=sph)
-            ref_s, ms_s = (sph_mxu_plain, sph_mxu_plain_ms) if mxu else (sph_fp, sph_plain_ms)
-            so_b, sd_b = band(o, SPHERE_BAND if not mxu else y4), band(d, SPHERE_BAND if not mxu else y4)
-            es = cmp_frame(f"{name}/frame_sph", ct.frame_tiles(
-                As.cbox, As.cmeta, As.tri, As.attr, As.lamb, so_b, sd_b, bounces=cfg.bounces,
-                sph=sph, **akw), ref_s, 0.99)
-            ks = f"frame_sph{mode}<{a}{sfx},l4>"
-            _, on_f = on_path(f"{name}/render_fused_spheres",
-                              dataclasses.replace(p, tables=As).render, {ks: 1})
-            ts = time_one(As, "frame_sph", cmat=A.cmat)
-            emit({"phase": "leaf4", "case": f"{key}_spheres", "card": card,
-                  "max_abs_err": es["max_abs_err"], "compare": es, "launches": on_f[ks],
-                  "timing": ts})
-            extra_rows.append(row(f"frame_kernel<{a}{bn}, SPH{mname}, L=4>",
-                                  f"{key}+spheres, L=4", on_f[ks], es["max_abs_err"], ts, ms_s,
-                                  f"one {BAND_ROWS}-row band (y {SPHERE_BAND if not mxu else y4}), "
-                                  "the same rays", 2536))
+            extra_rows += leaf_spheres("leaf4", name, key, p, A, L4, mxu)
         del p, A
     emit({"phase": "leaf4", "case": "summary", "seconds": time.perf_counter() - t0,
           "frame_l4_vs_l8": {k: {kk: l4_t[k]["frame"].get(kk) for kk in (
@@ -2454,7 +2582,7 @@ def main() -> int:
     mkw = dict(leaf_size=L, stack_depth=M.stack_depth, cmat=M.cmat)
     rec["band_mxu"] = cmp_frame(f"shadows/frame_mxu@{BANDS[0]}", ct.frame_tiles(
         M.cbox, M.cmeta, M.tri, M.attr, M.lamb, fo, fd, **mkw, **fkw), mfp_f)
-    del fp_f, mfp_f
+    del mfp_f           # fp_f: kept for the leaf12 phase's forward frames
     mfpipe = dataclasses.replace(mpipe, cfg=RenderConfig(**MXU_CFG, reverse_shadows=False))
     mfimg, on_mf = on_path("shadows/mxu/render_fused", mfpipe.render, {"frame_mxu<4>": 1})
     mfimg_pass, _ = on_path("shadows/mxu/render_pass_based",
@@ -2485,8 +2613,8 @@ def main() -> int:
 
         turns = [time_ms(lambda: frame_call(i in (0, 3))) for i in range(4)]
         names = ct.MXU_COUNTS if ckw else ct.COUNTS
-        in_b = ray_b + nbytes(tabs.cbox, tabs.cmeta, tabs.tri, tabs.attr, tabs.lamb,
-                              *((tabs.cmat,) if ckw else ()))
+        in_b = ray_b + nbytes(tabs.cbox, tabs.cmeta, tabs.lamb,
+                              *((tabs.cmat,) if ckw else ())) + leaf_bytes(tabs, attr=True)
         b_f = bound(frame_call(False, True)[1].cpu().tolist(), names, in_b, 3 * out_plane,
                     leaf=tabs.leaf_size)
         b_r = bound(frame_call(True, True)[1].cpu().tolist(), names, in_b, 3 * out_plane,
@@ -2543,19 +2671,290 @@ def main() -> int:
                           {k: v[1] for k, v in want.items()}, warmup=1, iterations=3)
     rec["seconds"] = time.perf_counter() - t0
     emit(rec)
-    del fimg, mfimg, want, l4_tables, fpipe, mfpipe, spf, sph_pipe
-    del mpipe, M
+    del fimg, mfimg, want, fpipe, mfpipe, spf, sph_pipe
 
-    # ---- 17. the microbench probes (rows 15a-15h) ---------------------------
+    # ---- 17. leaf sizes 2 and 1: every FP32 traversal kernel ----------------
+    # prepare(leaf_size=L) for L = 2 and 1 takes the FP32 leaf (JAX takes
+    # its MXU leaf at L = 4 and 8 only) and every launch the L = 2 or 1
+    # instances (keys "...,l2>", "...,l1>"). Per table of L12_CASES each
+    # kernel is held against its plain version on the band of the leaf4
+    # phase (the plain L hits, themselves the plain L = 8 hits through the
+    # slot maps; the frames against the band's L = 8 plain frame), its paths
+    # run with the counts from 0, its 1080p frame is held against phase 7's
+    # plain frame on the tile spread, its L = 8 twin's frame and the
+    # reference BMP, and its kernels are timed with their work per ray. Then
+    # the streamed instances on the padded tables, the sphere frames, the
+    # forward-shadow frames against the shadows phase's plain band, the DEEP
+    # instances on the chain scene, and make_tracer; at the end frame<4>,
+    # frame<8> and the width-2 pass-based render() at L = 8, 4, 2 and 1 in
+    # turns (8, 4, 2, 1, 1, 2, 4, 8).
+    def leaf12_phase():
+        rows_out = []
+        t_phase = time.perf_counter()
+        kept = {}          # (L, key) -> the pipeline, for the sweep
+        tv = pipe.scene.triangle_vertices()
+        flat_rays = (Vec3(*(p_.reshape(-1) for p_ in o)), Vec3(*(p_.reshape(-1) for p_ in d)))
+        flat_shadow = (Vec3(*(p_.reshape(-1) for p_ in so)), Vec3(*(p_.reshape(-1) for p_ in sd)),
+                       m2.reshape(-1))
+        def cmp_hits_tri(name, hk, flat_k, hp, flat_p, full):
+            """Hits of another tree against the plain hits through both
+            slot maps: miss masks equal, t within the bounds, the same
+            triangle for >= 99.9% of rays, and where it is, t, norm_dir and
+            the attributes equal."""
+            mk, mp = hk.t >= T_MAX, hp.t >= T_MAX
+            check(name, torch.equal(mk, mp), "miss masks differ")
+            both = ~mk & ~mp
+            err = (hk.t[both] - hp.t[both]).abs()
+            check(name, bool((err <= 1e-4 + 1e-5 * hp.t[both].abs()).all()),
+                  "t beyond atol 1e-4, rtol 1e-5")
+            same = tri_ids(hk, flat_k) == tri_ids(hp, flat_p)
+            agree = same.float().mean().item()
+            check(name, agree >= 0.999, f"triangle agreement {agree}")
+            check(name, torch.equal(hk.t[same], hp.t[same])
+                  and torch.equal(hk.norm_dir[same], hp.norm_dir[same]),
+                  "t or norm_dir differs where the triangle agrees")
+            if full:
+                check(name, all(torch.equal(vk[same], vp[same]) for vk, vp in zip(
+                    (*hk.n, *hk.kd, *hk.ks, *hk.kr), (*hp.n, *hp.kd, *hp.ks, *hp.kr))),
+                    "attributes differ where the triangle agrees")
+            return {"max_abs_err": err.max().item() if err.numel() else 0.0,
+                    "triangle_agree": agree, "hit_frac": both.float().mean().item()}
+
+        for Lx in L12_SIZES:
+            lt, lname, ph = ct._leaf_tag(Lx), f", L={Lx}", f"leaf12/l{Lx}"
+            first, refs = None, None
+            for key, extra in L12_CASES.items():
+                own = key == "w4_own_threshold"
+                thr = {} if own else dict(leaf_threshold=L4_LEAF_THRESHOLD)
+                p = prepare_native(RenderConfig(**MXU_CFG, leaf_size=Lx, **thr, **extra))
+                if key == "w8_bf16":
+                    p = pair_rows_w8(p)
+                A = p.tables
+                a = A.arity
+                bf = A.compressed or A.cbox.dtype == torch.bfloat16
+                sfx = ",bf16" if bf else ""
+                name = f"{ph}/{key}"
+                check(name, p.leaf_size == A.leaf_size == Lx and not p.mxu and A.cmat is None
+                      and a == extra.get("bvh_width", 4) and bf == bool(extra.get("bf16_bvh")),
+                      "not this case's tables with the FP32 leaf")
+                check(name, not bool(A.tri[:, 12 * Lx:].any()),
+                      f"tri rows hold more than {Lx} triangles")
+                if first is None:
+                    first = p
+                    refs = {
+                        "closest": timed_once(lambda: tp.closest_plain(A.tri, b4o, b4d, Lx)),
+                        "closest_full": timed_once(lambda: tp.closest_full_plain(
+                            A.tri, A.attr, b4o, b4d, Lx)),
+                        "shadow": (tp.closest_plain(A.tri, *bref4["rays"]["shadow"], Lx), None),
+                        "occluded": timed_once(lambda: tp.occluded_plain(
+                            A.tri, b4so, b4sd, b4m2, Lx)),
+                        "frame": (bref4["frame"], cmp["frame"]["band_plain_ms"])}
+                    h_l, h8 = refs["closest"][0], bref4["closest", "primary"]
+                    same_tri = (tri_ids(h_l, p.flat) == tri_ids(h8, pipe.flat)).float().mean().item()
+                    check(f"{ph}/plain", torch.equal(h_l.t, h8.t) and same_tri >= 0.999,
+                          f"the plain L = {Lx} hits are not the L = 8 hits (triangles {same_tri})")
+                    refs["vs_l8_same_triangle"] = same_tri
+                F = first.tables
+                if not own:
+                    # the first table's slots and rows (width 2: the native
+                    # builder's rows, whose normals round otherwise, as in leaf4)
+                    normals = (torch.arange(A.tri.shape[1], device=A.tri.device) % 12) >= 9
+                    check(name, np.array_equal(p.flat.slot_map, first.flat.slot_map)
+                          and torch.equal(A.attr, F.attr)
+                          and not bool((A.tri - F.tri).abs()[:, ~normals].any()),
+                          "slots, attr or tri beyond the normals differ from the first table")
+                    A = A._replace(tri=F.tri)
+                twin = "w4" if own else key
+                pimg, _, rows = leaf_case(
+                    "leaf12", name, key, p, A, refs, [(twin, img if twin == "w4" else frames[twin])],
+                    hits=(lambda nm, hk, hp, full, p=p: cmp_hits_tri(nm, hk, p.flat, hp,
+                                                                   first.flat, full))
+                    if own else None, save=key == "w4", note=", the L = 8 tree" if own else "")
+                rows_out += rows
+                del pimg
+                if key in ("w4", "w8", "w2"):
+                    kept[Lx, key] = p
+
+                if key in L12_STREAM:
+                    rows_out += leaf_streamed("leaf12", name, key, p, A, Lx, refs)
+                if a >= 4 and not own:
+                    rows_out += leaf_spheres("leaf12", name, key, p, A, Lx)
+
+                # forward shadow rays: against the shadows phase's plain band
+                if key in L12_FORWARD:
+                    akw = dict(leaf_size=Lx, stack_depth=A.stack_depth, compressed=A.compressed)
+                    frame_key, bn = f"frame<{a}{sfx}{lt}>", box_name(A)
+                    fres = cmp_frame(f"{name}/frame_forward@{BANDS[0]}", ct.frame_tiles(
+                        A.cbox, A.cmeta, A.tri, A.attr, A.lamb, b4o, b4d, bounces=cfg.bounces,
+                        reverse_shadows=False, **akw), fp_f)
+                    fwd_p = dataclasses.replace(
+                        p, cfg=dataclasses.replace(p.cfg, reverse_shadows=False))
+                    fimg_l, on_fw = on_path(f"{name}/render_fused_forward", fwd_p.render,
+                                            {frame_key: 1})
+                    fres["reference_image"] = hold_reference(
+                        f"car_boxed_1080p_l{Lx}_{key}_forward", fimg_l, save=False)
+                    del fimg_l
+
+                    def fwd_call(counters=False):
+                        return ct.frame_tiles(A.cbox, A.cmeta, A.tri, A.attr, A.lamb, o, d,
+                                              bounces=cfg.bounces, reverse_shadows=False,
+                                              counters=counters, **akw)
+
+                    tf = time_ms(fwd_call, 2, 5)
+                    tf.update(bound(fwd_call(True)[1].cpu().tolist(), ct.COUNTS,
+                                    ray_b + nbytes(A.cbox, A.cmeta, A.lamb)
+                                    + leaf_bytes(A, attr=True),
+                                    3 * out_plane, leaf=Lx))
+                    emit({"phase": "leaf12", "leaf_size": Lx, "case": f"{key}_forward",
+                          "card": card, "compare": fres, "launches": on_fw[frame_key],
+                          "timing": tf})
+                    rows_out.append(row(f"frame_kernel<{a}{bn}{lname}>, forward shadows",
+                                        f"{key}{lname}, reverse_shadows=False", on_fw[frame_key],
+                                        fres["max_abs_err"], tf, fwd_plain_ms,
+                                        f"one {BAND_ROWS}-row band (y {BANDS[0]}), the same rays",
+                                        2756))
+                del p, A
+
+            # make_tracer at this L: the stacked triangles at widths 2 and 4
+            # (t = 1 for every ray, the plain version's hits), and car_boxed's
+            # width-4 tables with a C-matrix table passed (dual=True): the
+            # FP32 instances run and give the FP32 outputs bit for bit
+            stv = stacked_triangles()
+            sflat = flatten_bvh(build_bvh(stv, heuristic=1, max_depth=64, leaf_threshold=1), stv,
+                                leaf_size=Lx)
+            R_ = pipeline.PACKET
+            mo = Vec3(*(torch.full((R_,), v, device=pipe.device) for v in (0.3, 0.3, -1.0)))
+            md = Vec3(*(torch.full((R_,), v, device=pipe.device) for v in (0.0, 0.0, 1.0)))
+            mt = {"leaf_size": Lx}
+            for w, packer in ((2, pack_bvh), (4, pack_bvh4)):
+                pk = packer(sflat, stv)
+                tabs = tuple(torch.as_tensor(x_, device=pipe.device)
+                             for x_ in (pk.cbox, pk.cmeta, pk.tri))
+                need = stack_need(pk.cmeta, w)
+                closest_m, _ = ct.make_tracer(tabs, Lx)
+                kname = ct._instance("closest", w, ct.BOX_F32, deep=ct.use_deep_tier(need, w),
+                                     leaf_size=Lx)
+                hm, _ = on_path(f"{ph}/make_tracer/stacked_w{w}", lambda: closest_m(mo, md),
+                                {kname: 1})
+                hp_ = tp.closest_plain(tabs[2], mo.reshape(8, 128), md.reshape(8, 128), Lx)
+                ok = (bool(((hm.t - 1.0).abs() <= 1e-5).all())
+                      and torch.equal(hm.t, hp_.t.reshape(-1))
+                      and torch.equal(hm.idx, hp_.idx.reshape(-1)))
+                check(f"{ph}/make_tracer/stacked_w{w}", ok,
+                      "t is not 1 everywhere, or not the plain version's hits")
+                mt[f"stacked_w{w}"] = {"instance": kname, "stack_need": need, "ok": ok,
+                                       "t_max_err": (hm.t - 1.0).abs().max().item()}
+            A = first.tables
+            cm = torch.as_tensor(split_cmat(pack_bvh4(first.flat, tv).cmat).view(np.int16),
+                                 device=pipe.device).view(torch.bfloat16)
+            check(f"{ph}/make_tracer", cm.shape[0] == A.tri.shape[0] * 4 * Lx,
+                  f"C-matrix rows {cm.shape[0]}")
+            mkw = dict(stack_depth=A.stack_depth, compressed=A.compressed)
+            with_c = ct.make_tracer((A.cbox, A.cmeta, A.tri, A.attr, cm), Lx, dual=True, **mkw)
+            hm, _ = on_path(f"{ph}/make_tracer/car_boxed_cmat", lambda: with_c[0](*flat_rays),
+                            {f"closest_full<4{lt}>": 1})
+            hw = ct.closest_tiles_full(A.cbox, A.cmeta, A.tri, A.attr, o, d, leaf_size=Lx, **mkw)
+            bm, _ = on_path(f"{ph}/make_tracer/car_boxed_cmat_occluded",
+                            lambda: with_c[1](*flat_shadow), {f"occluded<4{lt}>": 1})
+            bw = ct.occluded_tiles(A.cbox, A.cmeta, A.tri, so, sd, m2, leaf_size=Lx, **mkw)
+            fc, _ = on_path(f"{ph}/frame_tiles_cmat", lambda: ct.frame_tiles(
+                A.cbox, A.cmeta, A.tri, A.attr, A.lamb, o, d, bounces=cfg.bounces, leaf_size=Lx,
+                cmat=cm, **mkw), {f"frame<4{lt}>": 1})
+            ff = ct.frame_tiles(A.cbox, A.cmeta, A.tri, A.attr, A.lamb, o, d, bounces=cfg.bounces,
+                                leaf_size=Lx, **mkw)
+            mt["car_boxed_cmat"] = {
+                "closest_full": same_bits([x_.reshape(-1) for x_ in planes(hw, True)],
+                                          planes(hm, True)),
+                "occluded": torch.equal(bm, bw.reshape(-1)),
+                "frame": same_bits(list(fc), list(ff)), "cmat": list(cm.shape)}
+            check(f"{ph}/make_tracer/car_boxed_cmat", all(
+                v for k_, v in mt["car_boxed_cmat"].items() if k_ != "cmat"),
+                "a C-matrix table changed the FP32 outputs")
+            emit({"phase": "leaf12", "leaf_size": Lx, "case": "make_tracer", "card": card, **mt})
+            del hm, hw, bm, bw, fc, ff, cm, first, refs, A
+
+            # the DEEP instances at this L on the chain scene
+            deep_cases(Lx)
+
+        # make_tracer at L = 8 (FP32, MXU) and 4 on car_boxed's width-4
+        # tables: the wrappers' outputs bit for bit, their instances
+        mt = {}
+        for tag_, A, cm in (("l8", T, None), ("l8_mxu", M, M.cmat),
+                            ("l4", l4_tables["w4"][1], None)):
+            Lt = A.leaf_size
+            mode = "_mxu" if cm is not None else ""
+            lt = ct._leaf_tag(Lt)
+            mkw = dict(stack_depth=A.stack_depth, compressed=A.compressed)
+            closest_m, occluded_m = ct.make_tracer(
+                (A.cbox, A.cmeta, A.tri, A.attr) + (() if cm is None else (cm,)), Lt,
+                dual=True, **mkw)
+            hm, _ = on_path(f"leaf12/make_tracer/{tag_}", lambda: closest_m(*flat_rays),
+                            {f"closest_full{mode}<4{lt}>": 1})
+            bm, _ = on_path(f"leaf12/make_tracer/{tag_}_occluded",
+                            lambda: occluded_m(*flat_shadow), {f"occluded{mode}<4{lt}>": 1})
+            hw = ct.closest_tiles_full(A.cbox, A.cmeta, A.tri, A.attr, o, d, leaf_size=Lt,
+                                       cmat=cm, **mkw)
+            bw = ct.occluded_tiles(A.cbox, A.cmeta, A.tri, so, sd, m2, leaf_size=Lt, cmat=cm, **mkw)
+            mt[tag_] = {"closest_full": same_bits([x_.reshape(-1) for x_ in planes(hw, True)],
+                                                  planes(hm, True)),
+                        "occluded": torch.equal(bm, bw.reshape(-1))}
+            check(f"leaf12/make_tracer/{tag_}", all(mt[tag_].values()),
+                  "make_tracer's outputs are not the wrappers'")
+            del hm, bm, hw, bw
+        emit({"phase": "leaf12", "case": "make_tracer_l8_l4", "card": card, **mt})
+
+        # frame<4>, frame<8> and the width-2 pass-based render() at
+        # L = 8, 4, 2 and 1, in turns (8, 4, 2, 1, 1, 2, 4, 8)
+        sweep = {}
+        w8_8 = prepare_native(RenderConfig(**CFG, bvh_width=8))
+        w2_8 = prepare_native(RenderConfig(**CFG, bvh_width=2))
+        w8_4 = prepare_native(RenderConfig(**CFG, bvh_width=8, leaf_size=4,
+                                           leaf_threshold=L4_LEAF_THRESHOLD))
+        w2_4 = prepare_native(RenderConfig(**CFG, bvh_width=2, leaf_size=4,
+                                           leaf_threshold=L4_LEAF_THRESHOLD))
+        by_leaf = {"w4": {8: pipe, 4: l4_tables["w4"][0]}, "w8": {8: w8_8, 4: w8_4},
+                   "w2": {8: w2_8, 4: w2_4}}
+        for key in by_leaf:
+            by_leaf[key].update({Lx: kept[Lx, key] for Lx in L12_SIZES})
+        order = (8, 4, 2, 1, 1, 2, 4, 8)
+        for key, pipes in by_leaf.items():
+            if key == "w2":
+                fns = {Lx: (lambda p_=pq: p_.render()) for Lx, pq in pipes.items()}
+                turns = [(Lx, time_ms(fns[Lx], ARITY_WARMUP, ARITY_TIMED)) for Lx in order]
+            else:
+                fns, counted = {}, {}
+                for Lx, pq in pipes.items():
+                    fn, cnt_fn, _, _ = kernel_runs(pq.tables)["frame"]
+                    fns[Lx], counted[Lx] = fn, cnt_fn
+                turns = [(Lx, time_ms(fns[Lx])) for Lx in order]
+            rec = {}
+            for Lx in (8, 4, 2, 1):
+                ts = [t["median"] for l_, t in turns if l_ == Lx]
+                rec[Lx] = {"median": statistics.median(ts), "turns": ts}
+                if key != "w2":
+                    c = dict(zip(ct.COUNTS, counted[Lx]().cpu().tolist()))
+                    rec[Lx].update({f"{k}_per_ray": c[k] / n_rays for k in
+                                    ("inner_visits", "box_tests", "leaf_visits", "tri_tests")})
+                rec[Lx]["vs_l8"] = rec[Lx]["median"] / rec[8]["median"] if Lx != 8 else 1.0
+            sweep["frame<4>" if key == "w4" else "frame<8>" if key == "w8"
+                  else "render_pass_based_w2"] = rec
+        emit({"phase": "leaf12", "case": "sweep", "card": card, "order": list(order),
+              "sweep": sweep, "seconds": time.perf_counter() - t_phase})
+        return rows_out
+
+    extra_rows += leaf12_phase()
+    del fp_f, l4_tables, mpipe, M
+
+    # ---- 18. the microbench probes (rows 15a-15m) ---------------------------
     extra_rows += microbench_phase(card, out_dir, timing["w4"]["frame"])
 
-    # ---- 18. the command line: the width-8 frame, the --bf16-bvh frame -----
+    # ---- 19. the command line: the width-8 frame, the --bf16-bvh frame -----
     emit({"phase": "builds", "native_build": dict(native.BUILD_INFO), "builds": builds})
     run_clis({"cli_w8": ["--bvh-width", "8", "--no-mxu-leaf"]}, {"cli_w8": frames["w8"]})
     run_clis({"cli_bf16": ["--bf16-bvh", "--no-mxu-leaf"]}, {"cli_bf16": frames["w4_bf16"]})
     del frames
 
-    # ---- 19. the kernels line --------------------------------------------
+    # ---- 20. the kernels line --------------------------------------------
     kernels = []
     for name, key, kernel, line in KERNEL_ROWS:
         t = timing[key][kernel]
@@ -2566,8 +2965,10 @@ def main() -> int:
             "tables": key, "launches": launches[key][kernel],
             "max_abs_err": max_err[key][kernel],
             "ms": t["median"], "plain_ms": full[kernel.replace("_stream", "")]["plain_ms"],
-            "plain_of": "width-4 tables, the same rays (the plain version "
-                        "reads no node table)",
+            "plain_of": (f"width-4 tables, every {FRAME_TILE_STRIDE}th tile of the same rays "
+                         f"({full['frame']['rays']} rays)" if kernel == "frame" else
+                         "width-4 tables, the same rays") + " (the plain version reads no node "
+                        "table)",
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "rays": n_rays,
         })
@@ -3233,6 +3634,35 @@ def entry_leaf(k: str) -> int:
 def entry_mxu(k: str) -> bool:
     m = TEMPLATE_TAIL.search(k) if TRAVERSAL_ENTRY.match(k) else None
     return bool(m) and m.group("mxu") == "1"
+
+
+# ptxas's registers, stack frame and spill bytes of kernels that are meant
+# to stay as they are: the build phase fails if one of them changed or is
+# gone. A change that means to alter a kernel's registers renews the file
+# with the run's own table (written beside the records, same name).
+PTXAS_BASELINE = os.path.join(HERE, "tests", "goldens", "ptxas_kernels.tsv")
+PTXAS_FIELDS = ("registers", "stack", "spill_stores", "spill_loads")
+
+
+def write_ptxas(table: dict, path: str) -> None:
+    """A read_ptxas table as text: a kernel a line, tab-separated."""
+    with open(path, "w") as f:
+        f.write("# mangled kernel\t" + "\t".join(PTXAS_FIELDS) + "   (nvcc -Xptxas -v, sm_90a)\n")
+        for k in sorted(table):
+            f.write("\t".join([k, *(str(table[k].get(c, "")) for c in PTXAS_FIELDS)]) + "\n")
+
+
+def load_ptxas(path: str) -> dict:
+    """The table write_ptxas wrote ({} without the file)."""
+    table = {}
+    if not os.path.exists(path):
+        return table
+    with open(path) as f:
+        for ln in f:
+            if not ln.startswith("#"):
+                k, *vals = ln.rstrip("\n").split("\t")
+                table[k] = {c: int(v) for c, v in zip(PTXAS_FIELDS, vals) if v}
+    return table
 
 
 def read_ptxas(log) -> dict:

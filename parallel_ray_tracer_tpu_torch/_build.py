@@ -3,7 +3,7 @@
 nvcc compiles each unit of csrc/ for sm_90a, as many at once as the
 process has CPUs (one process per object: the C entry points, one unit per
 node arity, box format, leaf mode (resident FP32, streamed, MXU) and stack
-tier, compiled once for each leaf size, and the nine units of the
+tier, compiled once for each leaf size it holds, and the nine units of the
 microbench probes), and links them into `_build/<hash>/libtrace.so`, where
 the hash covers the sources and the flags, so a changed source builds anew
 and an unchanged one is reused. The build happens at first use, inside the
@@ -29,10 +29,13 @@ CSRC = os.path.join(_PKG, "csrc")
 # One unit per node arity, box format and leaf mode (`s` streamed leaf
 # rows, `m` the MXU leaf), each again with a `d` suffix for the DEEP stack
 # tier (csrc/trace.cuh). Each is compiled once per leaf size (RT_UNIT_LEAF,
-# csrc/trace_launch.cuh).
-_TIER_UNITS = ("a2", "a4", "a8", "a4p", "a8p", "a2h", "a4s", "a8s", "a4ps", "a8ps",
-               "a4m", "a8m", "a4pm", "a8pm")
-LEAF_SIZES = (8, 4)
+# csrc/trace_launch.cuh): the FP32 units at every size of LEAF_SIZES, the
+# MXU units at MXU_LEAF_SIZES only (JAX takes its MXU leaf at L = 4 and 8
+# only, and rt_mxu_quants holds no other size).
+_FP32_UNITS = ("a2", "a4", "a8", "a4p", "a8p", "a2h", "a4s", "a8s", "a4ps", "a8ps")
+_MXU_UNITS = ("a4m", "a8m", "a4pm", "a8pm")
+LEAF_SIZES = (8, 4, 2, 1)
+MXU_LEAF_SIZES = (8, 4)
 # The probes of microbench/ (kernels A, B and C, D; the bf16 chains and slab
 # pairs; the inner-visit probes of rows 15i and 15j, whose kernel is
 # microbench_inner.cuh; the branch probe of row 15l; the child-parallel and
@@ -41,7 +44,9 @@ LEAF_SIZES = (8, 4)
 MICROBENCH_UNITS = ("microbench_leaf.cu", "microbench_probes.cu", "microbench_overlap.cu",
                     "microbench_bf16.cu", "microbench_inner.cu", "microbench_glue.cu",
                     "microbench_cond.cu", "microbench_tiled.cu", "microbench_mxu_inner.cu")
-TIER_SOURCES = tuple(f"trace_{u}{tier}.cu" for tier in ("", "d") for u in _TIER_UNITS)
+FP32_SOURCES = tuple(f"trace_{u}{tier}.cu" for tier in ("", "d") for u in _FP32_UNITS)
+MXU_SOURCES = tuple(f"trace_{u}{tier}.cu" for tier in ("", "d") for u in _MXU_UNITS)
+TIER_SOURCES = FP32_SOURCES + MXU_SOURCES
 SOURCES = ("trace.cuh", "trace_launch.cuh", "microbench_inner.cuh", "trace_kernels.cu") \
     + TIER_SOURCES + MICROBENCH_UNITS
 # The objects, each {name: (source, extra nvcc flags)}: a tier unit at leaf
@@ -49,7 +54,8 @@ SOURCES = ("trace.cuh", "trace_launch.cuh", "microbench_inner.cuh", "trace_kerne
 # `.l<L>`.
 UNITS = {"trace_kernels.cu": ("trace_kernels.cu", ()),
          **{src if leaf == 8 else f"{src}.l{leaf}": (src, (f"-DRT_UNIT_LEAF={leaf}",))
-            for leaf in LEAF_SIZES for src in TIER_SOURCES},
+            for leaf in LEAF_SIZES for src in TIER_SOURCES
+            if leaf in MXU_LEAF_SIZES or src in FP32_SOURCES},
          **{src: (src, ()) for src in MICROBENCH_UNITS}}
 BUILD_ROOT = os.path.join(_PKG, "_build")
 

@@ -30,9 +30,9 @@
 //                                <- the same kernels' mxu=True instances:
 //                                   the MXU leaf _mxu_* :1002-1466 on the
 //                                   C-matrices of _build_cmat :227
-// each at leaf size L = 8 and L = 4 (the kernels' last template parameter;
-// the JAX factories' L), the frame with shadow rays in either direction,
-// with F = RT_F32 for f32 tables, RT_PAIRS for those kernels' compressed=True
+// each at leaf size L = 8, 4, 2 and 1 (the kernels' last template parameter;
+// the JAX factories' L; the MXU instances at L = 8 and 4 only), the frame
+// with shadow rays in either direction, with F = RT_F32 for f32 tables, RT_PAIRS for those kernels' compressed=True
 // instances at A 4 and 8 (_load_node_row :740-758, _child_extract :761-764,
 // rows of pack_box_bf16_pairs :438), and RT_BF16 for _closest_kernel,
 // _closest_attr_kernel and _occluded_kernel on a bf16 binary table
@@ -96,10 +96,13 @@
 // instances, so the hits are theirs to the bit.
 //
 // Leaf size: every traversal takes the leaf size L as a template parameter,
-// instantiated at L = 8 and L = 4 (the sizes JAX's CLI offers). A leaf group
-// is one 128-float tri row either way: L triangles of 12 floats, the rest of
-// the row zero (at L = 4 only its first 48 floats hold triangles, as JAX's
-// packers leave them); slot g * L + j is triangle j of group g.
+// instantiated at L = 8, 4, 2 and 1 (every power of two whose triangles fit
+// a 128-lane row, as JAX's _pick_leaf_size accepts them); the MXU instances
+// at L = 8 and 4 only, the sizes at which JAX takes its MXU leaf. A leaf
+// group is one 128-float tri row at every L: L triangles of 12 floats, the
+// rest of the row zero (at L = 1 only its first 12 floats hold a triangle,
+// as JAX's packers leave them); slot g * L + j is triangle j of group g.
+// A streamed block of RT_STREAM_BLK rows then holds 4L triangles.
 //
 // Shadow rays: the frame traces them from the light to the hit point, window
 // (dist - EPS)^2 (the reference's reverse_shadows=True), or, in the frame
@@ -1342,7 +1345,7 @@ RT_FN bool rt_load_lane(const RtRays& p, int i, int n, float3& o, float3& d) {
 // STREAM: the streamed leaf rows (arity 4 and 8, f32 or pair rows; tri and
 // attr padded to whole blocks). DEEP: the stack tier with the global stack
 // g (need * n entries). MXU: the MXU leaf on s.cmat. L: triangles per leaf
-// group (8 or 4).
+// group (8, 4, 2 or 1; MXU 8 or 4).
 template <int A, RtBox F, bool FULL, bool COUNT, bool STREAM, bool DEEP, bool MXU = false,
           int L = RT_LEAF>
 __global__ void __launch_bounds__(RT_BLOCK)
@@ -1465,8 +1468,9 @@ frame_kernel(RtRays rays, RtScene s, const float* lamb, int nl,
 // streamed ones (STREAM = true) in trace_a{4,8}s.cu and trace_a{4,8}ps.cu,
 // the MXU ones (MXU = true) in trace_a{4,8}m.cu and trace_a{4,8}pm.cu, the
 // DEEP tier of each in the unit of the same name with a `d` suffix
-// (trace_a4d.cu, ...), each unit at L = 8 and again at L = 4
-// (RT_UNIT_LEAF), all of which nvcc compiles in parallel. Each launches one kernel on stream st
+// (trace_a4d.cu, ...), each unit at L = 8 and again at L = 4, 2 and 1 (the
+// MXU units at L = 8 and 4 only; RT_UNIT_LEAF), all of which nvcc compiles
+// in parallel. Each launches one kernel on stream st
 // (the counting instance when counts is non-null), does not synchronise,
 // and returns cudaGetLastError() after the launch. The frame launcher takes
 // the SPH instance when ns > 0, and the FWD instance when fwd != 0.

@@ -13,8 +13,9 @@
 // of cmat_pitch values (32: [hi | lo] of one group's row; 128: four
 // groups' rows, pack_cmi4). A non-null stk_ent picks the DEEP stack tier: stk_ent
 // and stk_dst then hold need * n entries each (entry k of ray i at
-// k * n + i), need >= the tree's ops/pack.stack_need. `leaf` (8 or 4) picks
-// the instances of that many triangles per leaf group. The frame takes the
+// k * n + i), need >= the tree's ops/pack.stack_need. `leaf` (8, 4, 2 or 1;
+// the MXU instances 8 or 4) picks the instances of that many triangles per
+// leaf group. The frame takes the
 // sphere instance when ns > 0 (sph: ns rows of 16 floats), and traces
 // shadow rays from the hit point to the light when fwd != 0 (else from the
 // light). It returns
@@ -61,9 +62,9 @@ constexpr int key(int arity, int box, int stream = 0, int deep = 0, int mxu = 0)
 
 }  // namespace
 
-// The cases of one launcher over the instances of both stack tiers and both
-// leaf tests (FP32 and MXU), at leaf size L.
-#define RT_CASES(X, L)                                                           \
+// The cases of one launcher over the FP32 leaf's instances of both stack
+// tiers, at leaf size L (every size of _build.LEAF_SIZES).
+#define RT_CASES_FP32(X, L)                                                      \
   case key(2, RT_F32): return X(2, RT_F32, false, false, false, L);              \
   case key(4, RT_F32): return X(4, RT_F32, false, false, false, L);              \
   case key(8, RT_F32): return X(8, RT_F32, false, false, false, L);              \
@@ -83,7 +84,11 @@ constexpr int key(int arity, int box, int stream = 0, int deep = 0, int mxu = 0)
   case key(4, RT_F32, 1, 1): return X(4, RT_F32, true, true, false, L);          \
   case key(8, RT_F32, 1, 1): return X(8, RT_F32, true, true, false, L);          \
   case key(4, RT_PAIRS, 1, 1): return X(4, RT_PAIRS, true, true, false, L);      \
-  case key(8, RT_PAIRS, 1, 1): return X(8, RT_PAIRS, true, true, false, L);      \
+  case key(8, RT_PAIRS, 1, 1): return X(8, RT_PAIRS, true, true, false, L);
+
+// The MXU leaf's instances of both stack tiers, at leaf size L = 8 or 4
+// only (_build.MXU_LEAF_SIZES): at L = 1 and 2 no MXU symbol is referenced.
+#define RT_CASES_MXU(X, L)                                                       \
   case key(4, RT_F32, 0, 0, 1): return X(4, RT_F32, false, false, true, L);      \
   case key(4, RT_PAIRS, 0, 0, 1): return X(4, RT_PAIRS, false, false, true, L);  \
   case key(8, RT_F32, 0, 0, 1): return X(8, RT_F32, false, false, true, L);      \
@@ -92,6 +97,16 @@ constexpr int key(int arity, int box, int stream = 0, int deep = 0, int mxu = 0)
   case key(4, RT_PAIRS, 0, 1, 1): return X(4, RT_PAIRS, false, true, true, L);   \
   case key(8, RT_F32, 0, 1, 1): return X(8, RT_F32, false, true, true, L);       \
   case key(8, RT_PAIRS, 0, 1, 1): return X(8, RT_PAIRS, false, true, true, L);
+
+// One launcher's switch over the leaf sizes: every instance at L = 8 and 4,
+// the FP32 ones at L = 2 and 1.
+#define RT_DISPATCH(X, FP32, MXU)                      \
+  switch (leaf) {                                      \
+    case 8: switch (k) { FP32(X, 8) MXU(X, 8) } break; \
+    case 4: switch (k) { FP32(X, 4) MXU(X, 4) } break; \
+    case 2: switch (k) { FP32(X, 2) } break;           \
+    case 1: switch (k) { FP32(X, 1) } break;           \
+  }
 
 extern "C" {
 
@@ -109,11 +124,7 @@ int rt_closest(const float* ox, const float* oy, const float* oz,
 #define RT_CLOSEST(A, F, S, D, M, L) \
   RtLaunch<A, F, S, D, M, L>::closest(rays, s, n, g, t, idx, nd, attr_out, counts, st)
   const int k = key(arity, box, stream != 0, stk_ent != nullptr, cmat != nullptr);
-  if (leaf == 8) {
-    switch (k) { RT_CASES(RT_CLOSEST, 8) }
-  } else if (leaf == 4) {
-    switch (k) { RT_CASES(RT_CLOSEST, 4) }
-  }
+  RT_DISPATCH(RT_CLOSEST, RT_CASES_FP32, RT_CASES_MXU)
 #undef RT_CLOSEST
   return kNoInstance;
 }
@@ -132,11 +143,7 @@ int rt_occluded(const float* ox, const float* oy, const float* oz,
 #define RT_OCCLUDED(A, F, S, D, M, L) \
   RtLaunch<A, F, S, D, M, L>::occluded(rays, max_dist2, s, n, g, blocked, counts, st)
   const int k = key(arity, box, stream != 0, stk_ent != nullptr, cmat != nullptr);
-  if (leaf == 8) {
-    switch (k) { RT_CASES(RT_OCCLUDED, 8) }
-  } else if (leaf == 4) {
-    switch (k) { RT_CASES(RT_OCCLUDED, 4) }
-  }
+  RT_DISPATCH(RT_OCCLUDED, RT_CASES_FP32, RT_CASES_MXU)
 #undef RT_OCCLUDED
   return kNoInstance;
 }
@@ -155,30 +162,28 @@ int rt_frame(const float* ox, const float* oy, const float* oz,
 #define RT_FRAME(A, F, D, M, L)                                                    \
   RtFrameLaunch<A, F, D, M, L>::frame(rays, s, lamb, num_lights, sph, ns, n,       \
                                       bounces, fwd, g, col, counts, st)
-#define RT_FRAME_CASES(L)                                                          \
-  case key(4, RT_F32): return RT_FRAME(4, RT_F32, false, false, L);                \
-  case key(8, RT_F32): return RT_FRAME(8, RT_F32, false, false, L);                \
-  case key(4, RT_PAIRS): return RT_FRAME(4, RT_PAIRS, false, false, L);            \
-  case key(8, RT_PAIRS): return RT_FRAME(8, RT_PAIRS, false, false, L);            \
-  case key(4, RT_F32, 0, 1): return RT_FRAME(4, RT_F32, true, false, L);           \
-  case key(8, RT_F32, 0, 1): return RT_FRAME(8, RT_F32, true, false, L);           \
-  case key(4, RT_PAIRS, 0, 1): return RT_FRAME(4, RT_PAIRS, true, false, L);       \
-  case key(8, RT_PAIRS, 0, 1): return RT_FRAME(8, RT_PAIRS, true, false, L);       \
-  case key(4, RT_F32, 0, 0, 1): return RT_FRAME(4, RT_F32, false, true, L);        \
-  case key(8, RT_F32, 0, 0, 1): return RT_FRAME(8, RT_F32, false, true, L);        \
-  case key(4, RT_PAIRS, 0, 0, 1): return RT_FRAME(4, RT_PAIRS, false, true, L);    \
-  case key(8, RT_PAIRS, 0, 0, 1): return RT_FRAME(8, RT_PAIRS, false, true, L);    \
-  case key(4, RT_F32, 0, 1, 1): return RT_FRAME(4, RT_F32, true, true, L);         \
-  case key(8, RT_F32, 0, 1, 1): return RT_FRAME(8, RT_F32, true, true, L);         \
-  case key(4, RT_PAIRS, 0, 1, 1): return RT_FRAME(4, RT_PAIRS, true, true, L);     \
-  case key(8, RT_PAIRS, 0, 1, 1): return RT_FRAME(8, RT_PAIRS, true, true, L);
+#define RT_FRAME_FP32(X, L)                                                      \
+  case key(4, RT_F32): return X(4, RT_F32, false, false, L);                     \
+  case key(8, RT_F32): return X(8, RT_F32, false, false, L);                     \
+  case key(4, RT_PAIRS): return X(4, RT_PAIRS, false, false, L);                 \
+  case key(8, RT_PAIRS): return X(8, RT_PAIRS, false, false, L);                 \
+  case key(4, RT_F32, 0, 1): return X(4, RT_F32, true, false, L);                \
+  case key(8, RT_F32, 0, 1): return X(8, RT_F32, true, false, L);                \
+  case key(4, RT_PAIRS, 0, 1): return X(4, RT_PAIRS, true, false, L);            \
+  case key(8, RT_PAIRS, 0, 1): return X(8, RT_PAIRS, true, false, L);
+#define RT_FRAME_MXU(X, L)                                                       \
+  case key(4, RT_F32, 0, 0, 1): return X(4, RT_F32, false, true, L);             \
+  case key(8, RT_F32, 0, 0, 1): return X(8, RT_F32, false, true, L);             \
+  case key(4, RT_PAIRS, 0, 0, 1): return X(4, RT_PAIRS, false, true, L);         \
+  case key(8, RT_PAIRS, 0, 0, 1): return X(8, RT_PAIRS, false, true, L);         \
+  case key(4, RT_F32, 0, 1, 1): return X(4, RT_F32, true, true, L);              \
+  case key(8, RT_F32, 0, 1, 1): return X(8, RT_F32, true, true, L);              \
+  case key(4, RT_PAIRS, 0, 1, 1): return X(4, RT_PAIRS, true, true, L);          \
+  case key(8, RT_PAIRS, 0, 1, 1): return X(8, RT_PAIRS, true, true, L);
   const int k = key(arity, box, 0, stk_ent != nullptr, cmat != nullptr);
-  if (leaf == 8) {
-    switch (k) { RT_FRAME_CASES(8) }
-  } else if (leaf == 4) {
-    switch (k) { RT_FRAME_CASES(4) }
-  }
-#undef RT_FRAME_CASES
+  RT_DISPATCH(RT_FRAME, RT_FRAME_FP32, RT_FRAME_MXU)
+#undef RT_FRAME_MXU
+#undef RT_FRAME_FP32
 #undef RT_FRAME
   return kNoInstance;
 }

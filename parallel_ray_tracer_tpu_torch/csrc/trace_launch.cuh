@@ -5,7 +5,8 @@
 // same names with a `d` suffix) include this file, each instantiating the
 // launchers, and with them the kernels, of its own arity, box format, leaf
 // mode and stack tier, at the leaf size RT_UNIT_LEAF: _build.py compiles
-// each unit once as it is (8) and once with -DRT_UNIT_LEAF=4.
+// each unit once as it is (8) and once each with -DRT_UNIT_LEAF=4, 2 and 1,
+// the MXU units with -DRT_UNIT_LEAF=4 only.
 
 #pragma once
 

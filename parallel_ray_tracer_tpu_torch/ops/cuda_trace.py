@@ -1,7 +1,8 @@
 """Port of the device half of parallel_ray_tracer_tpu/ops/pallas_trace.py: the
 wrappers of the CUDA traversal kernels (csrc/trace.cuh), at node arity 2, 4
 and 8, on f32 or bf16 node boxes, with the FP32 or the MXU leaf test, at
-leaf size 8 or 4.
+leaf size 8, 4, 2 or 1, and `make_tracer`, the (closest, occluded) pair
+over flat ray planes built on them.
 
 | wrapper              | kernel                        | replaces (pallas_trace.py)                                                  |
 | -------------------- | ----------------------------- | --------------------------------------------------------------------------- |
@@ -13,6 +14,7 @@ leaf size 8 or 4.
 | `closest_tiles`, `closest_tiles_full`, `stream=True` | `closest_kernel<A, F, FULL, COUNT, true>`, A 4, 8 | `_closest_stream_kernel(n_attr=0, 12)` :2070 |
 | `occluded_tiles`, `stream=True` | `occluded_kernel<A, F, COUNT, true>`, A 4, 8 | `_occluded_stream_kernel` :2253 |
 | each, with `cmat`    | the same kernels with `MXU = true`, A 4, 8 | their `mxu=True` instances: the MXU leaf `_mxu_*` :1002-1466 |
+| `make_tracer`        | closest_tiles(_full), occluded_tiles | `make_tracer` :3361 |
 
 The arity A comes from the node table (cbox row width 16, 32 or 64, as
 pallas_trace.py:3068), the box format F from its dtype and `compressed`:
@@ -32,12 +34,12 @@ single-pop and dual-pop kernels of one arity map to the same instance.
 rows of [hi(16) | lo(16)], ops/pack.split_cmat; or the four-group
 (ceil((G+1)/4)*32, 128) layout of ops/pack.pack_cmi4, whose hits are the
 same bit for bit), takes the MXU instances under JAX's own condition
-(pallas_trace.py:3084, :2896): arity 4 or 8 and leaf rows not streamed. At
-arity 2 and with stream=True the FP32 instances run, as JAX's wrappers
-fall back to the VPU leaf. The MXU instances test each leaf group as a
-tensor-core product of the rays' features with the group's C-matrix
-(bf16x3, csrc/trace.cuh); their hits are held to the repo's hit bounds
-against the FP32 ones, never bit for bit. A cmat of another dtype, width
+(pallas_trace.py:3084, :2896): arity 4 or 8, leaf size 4 or 8, and leaf
+rows not streamed. At arity 2, at leaf size 1 or 2 and with stream=True
+the FP32 instances run, as JAX's wrappers fall back to the VPU leaf. The
+MXU instances test each leaf group as a tensor-core product of the rays'
+features with the group's C-matrix (bf16x3, csrc/trace.cuh); their hits
+are held to the repo's hit bounds against the FP32 ones, never bit for bit. A cmat of another dtype, width
 or row count raises ValueError.
 
 `stream=True` takes the instances with streamed leaf rows, which prefetch
@@ -55,16 +57,20 @@ fallback. Each wrapper checks device, dtype, shape and contiguity, counts
 its launches in `LAUNCHES` by kernel, arity and format (keys such as
 "closest_full<8>", or "frame<8,bf16>" and "occluded<2,bf16>" for the bf16
 instances, "closest_full_stream<4>" for a streamed one, "frame_mxu<4>" or
-"occluded_mxu<8,bf16,deep>" for an MXU one; ",l4" at leaf size 4, as
-"frame_mxu<4,l4>"), and raises if the launch reported an error.
+"occluded_mxu<8,bf16,deep>" for an MXU one; ",l4", ",l2" or ",l1" at leaf
+sizes 4, 2 and 1, as "frame_mxu<4,l4>" or "closest_stream<8,bf16,l1>"),
+and raises if the launch reported an error.
 
 `leaf_size` is the triangles per leaf group of the tables (L, of the packed
-rows g * L + j): each kernel has instances at L = 8 and L = 4 (LEAF_SIZES),
-the sizes JAX's CLI offers; any other size raises NotImplementedError, on
-every device. An MXU table then has 4L rows per group. The fused frame
-traces shadow rays from the light (reverse_shadows=True) or from the hit
-point to the light (reverse_shadows=False), as JAX's frame kernel does;
-the pass-based path takes either direction in ops/shade. The fused frame
+rows g * L + j): each kernel has instances at L = 8, 4, 2 and 1
+(LEAF_SIZES), every power of two whose triangles fit one 128-lane row, as
+JAX's _pick_leaf_size accepts them (pipeline.py:479-489); the MXU instances
+at L = 8 and 4 only (MXU_LEAF_SIZES), where JAX takes its MXU leaf. Any
+other size raises NotImplementedError, on every device. An MXU table has
+4L rows per group. The fused frame traces shadow rays from the light
+(reverse_shadows=True) or from the hit point to the light
+(reverse_shadows=False), as JAX's frame kernel does; the pass-based path
+takes either direction in ops/shade. The fused frame
 exists at arity 4 and 8 only (as in JAX); binary tables raise ValueError
 there. `sph`, the (S, 16) table of ops/pack.pack_spheres, takes the
 frame's sphere instance (key "frame_sph<4>"); None or S = 0 takes the
@@ -95,7 +101,7 @@ from ..models.device_scene import device_scene_from_lights
 from .intersect import T_MAX
 from .pack import ARITY_OF_WIDTH, LANES, META_WIDTH, STREAM_BLK, stack_need
 from .shade import trace_rays
-from .spheres import nearest_sphere
+from .spheres import nearest_sphere, wrap_tracer
 from .trace_plain import (Hit, HitFull, closest_full_mxu_plain, closest_full_plain,
                           closest_mxu_plain, closest_plain, occluded_mxu_plain,
                           occluded_plain)
@@ -106,8 +112,9 @@ from .vecmath import Vec3
 STACK_SIZE = {2: 48, 4: 64, 8: 96}
 SPHERE_COLS = 16         # floats per row of the sphere table (pack_spheres)
 # Triangles per leaf group with kernel instances (the template parameter L
-# of csrc/trace.cuh).
-LEAF_SIZES = (4, 8)
+# of csrc/trace.cuh), and those with MXU instances.
+LEAF_SIZES = (1, 2, 4, 8)
+MXU_LEAF_SIZES = (4, 8)
 # What counters=True returns, in order (RT_C_* in csrc/trace.cuh): node
 # visits, box tests of valid children, leaf visits, triangle tests of live
 # slots, traversals.
@@ -135,11 +142,18 @@ BOX_F32, BOX_PAIRS, BOX_BF16 = 0, 1, 2
 STREAM_ARITIES = {"closest": (4, 8), "closest_full": (4, 8), "occluded": (4, 8)}
 # The MXU instances (f32 and bf16 pair rows at each arity, no streaming).
 MXU_ARITIES = {k: (4, 8) for k in ARITIES}
-LAUNCHES = {f"{k}{mode}<{a}{sfx}{tier}{leaf}>": 0
-            for mode, kernels in (("", ARITIES), ("_stream", STREAM_ARITIES),
-                                  ("_mxu", MXU_ARITIES))
+
+
+def _leaf_tag(leaf_size: int) -> str:
+    return "" if leaf_size == 8 else f",l{leaf_size}"
+
+
+LAUNCHES = {f"{k}{mode}<{a}{sfx}{tier}{_leaf_tag(leaf)}>": 0
+            for mode, kernels, leaves in (("", ARITIES, LEAF_SIZES),
+                                          ("_stream", STREAM_ARITIES, LEAF_SIZES),
+                                          ("_mxu", MXU_ARITIES, MXU_LEAF_SIZES))
             for k, arities in kernels.items() for a in arities
-            for sfx in ("", ",bf16") for tier in ("", ",deep") for leaf in ("", ",l4")}
+            for sfx in ("", ",bf16") for tier in ("", ",deep") for leaf in leaves}
 
 
 def reset_launch_counts() -> None:
@@ -245,20 +259,23 @@ def _check_cmat(cmat, tri, device, mxu: bool, leaf_size: int) -> None:
         raise ValueError("cmat: must be contiguous")
 
 
-def _use_mxu(cmat, arity: int, stream: bool) -> bool:
+def _use_mxu(cmat, arity: int, stream: bool, leaf_size: int) -> bool:
     """JAX's condition for the MXU leaf (pallas_trace.py:3084, :2896): a
-    C-matrix table, arity 4 or 8, leaf rows not streamed."""
-    return cmat is not None and arity >= 4 and not stream
+    C-matrix table, arity 4 or 8, leaf size 4 or 8, leaf rows not
+    streamed. Otherwise the C-matrix table is ignored and the FP32 leaf
+    runs, as in JAX."""
+    return cmat is not None and arity >= 4 and leaf_size in MXU_LEAF_SIZES and not stream
 
 
 def _instance(kernel: str, arity: int, box: int, stream: bool = False,
               deep: bool = False, mxu: bool = False, leaf_size: int = 8) -> str:
     """The LAUNCHES key of a launch, e.g. "closest<4,bf16>",
     "occluded_stream<8>", "frame_sph<4,deep>", "frame_mxu<4>" or, at leaf
-    size 4, "frame_mxu<4,l4>"."""
+    sizes 4, 2 and 1, "frame_mxu<4,l4>", "frame<4,l2>",
+    "closest_stream<8,bf16,l1>"."""
     mode = "_stream" if stream else "_mxu" if mxu else ""
     return (f"{kernel}{mode}<{arity}{'' if box == BOX_F32 else ',bf16'}"
-            f"{',deep' if deep else ''}{',l4' if leaf_size == 4 else ''}>")
+            f"{',deep' if deep else ''}{_leaf_tag(leaf_size)}>")
 
 
 def use_deep_tier(need: int, arity: int) -> bool:
@@ -319,7 +336,7 @@ def closest_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, leaf_size: int,
     device, rows, arity, box = _check_inputs(cbox, cmeta, tri, None, None,
                                              (*o, *d), leaf_size, compressed)
     _check_stream(stream, arity, tri, None)
-    mxu = _use_mxu(cmat, arity, stream)
+    mxu = _use_mxu(cmat, arity, stream, leaf_size)
     _check_cmat(cmat, tri, device, mxu, leaf_size)
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
@@ -352,7 +369,7 @@ def closest_tiles_full(cbox, cmeta, tri, attr, o: Vec3, d: Vec3, leaf_size: int,
     device, rows, arity, box = _check_inputs(cbox, cmeta, tri, attr, None,
                                              (*o, *d), leaf_size, compressed)
     _check_stream(stream, arity, tri, attr)
-    mxu = _use_mxu(cmat, arity, stream)
+    mxu = _use_mxu(cmat, arity, stream, leaf_size)
     _check_cmat(cmat, tri, device, mxu, leaf_size)
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
@@ -390,7 +407,7 @@ def occluded_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, max_dist2, leaf_size: int
         cbox, cmeta, tri, None, None, (*o, *d, max_dist2), leaf_size, compressed
     )
     _check_stream(stream, arity, tri, None)
-    mxu = _use_mxu(cmat, arity, stream)
+    mxu = _use_mxu(cmat, arity, stream, leaf_size)
     _check_cmat(cmat, tri, device, mxu, leaf_size)
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
@@ -431,12 +448,12 @@ def frame_tiles(cbox, cmeta, tri, attr, lamb, o: Vec3, d: Vec3, *, bounces: int,
     if sph is not None:
         _check("sph", sph, torch.float32, (None, SPHERE_COLS), device)
     ns = 0 if sph is None else int(sph.shape[0])
-    mxu = _use_mxu(cmat, arity, False)
+    mxu = _use_mxu(cmat, arity, False, leaf_size)
     _check_cmat(cmat, tri, device, mxu, leaf_size)
     if device.type == "cpu":
         _no_counters_on_cpu(counters)
         return frame_plain(tri, attr, lamb, o, d, bounces=bounces,
-                           leaf_size=leaf_size, sph=sph, cmat=cmat,
+                           leaf_size=leaf_size, sph=sph, cmat=cmat if mxu else None,
                            reverse_shadows=reverse_shadows)
     ls = _launch_setup(cmeta, arity, stack_depth, counters, n_rays=rows * LANES, mxu=mxu)
     col = torch.empty((3, rows, LANES), dtype=torch.float32, device=device)
@@ -507,3 +524,77 @@ def frame_plain(tri, attr, lamb, o: Vec3, d: Vec3, *, bounces: int,
         return blocked | ((ts < T_MAX) & (ts * ts < m2))
 
     return trace_rays(ds, closest, occluded, o, d, bounces, reverse_shadows=reverse_shadows)
+
+
+def make_tracer(packed_dev, leaf_size: int, ds=None, stack_depth: Optional[int] = None,
+                dual: bool = False, compressed: bool = False, stream: bool = False,
+                npop: int = 2, adaptive: bool = False):
+    """(closest, occluded) over flat (R,) ray planes, R % LANES == 0: the
+    port of pallas_trace.make_tracer (:3361), on the wrappers above. JAX
+    asserts whole 1,024-ray packets; the wrappers here need whole 128-lane
+    rows only, so a frame of tiles such as 8x16 traces as it did before
+    make_tracer.
+
+    packed_dev: (cbox, cmeta, tri[, attr][, cmat]) tensors on one device.
+    With `attr`, closest returns HitFull (closest_tiles_full: the winner's
+    attributes resolved in the kernel), else Hit (closest_tiles); occluded
+    returns the blocked mask (occluded_tiles). A trailing C-matrix table
+    (torch.bfloat16, ops/pack.split_cmat) takes the MXU instances wherever
+    the wrappers take them (_use_mxu: arity 4 or 8, leaf size 4 or 8, not
+    streamed), and only with dual=True: JAX's closest_tiles,
+    closest_tiles_full and occluded_tiles take their MXU leaf on the
+    dual-pop kernels only (:3084, :3180, :3302), so with dual=False the
+    C-matrix table is ignored and the FP32 leaf runs, as in JAX. `ds` (a
+    DeviceScene) extends the pair with the scene's spheres
+    (ops/spheres.wrap_tracer), after each pass. stack_depth is the stack
+    entries a ray needs (ops/pack.stack_need, taken from cmeta once when
+    None), not JAX's SMEM words.
+
+    Beyond that choice of leaf test, dual, npop and adaptive pick the TPU
+    kernels' pop schedule, which changes the visit order, not the hits
+    (tests/test_kernel_variants.py:55-67): one thread traces one ray here,
+    so they are accepted, checked as JAX asserts them (npop 2, 4, 8 or 16;
+    wide pops on the dual-pop kernels at arity 4 or 8), and change nothing
+    else. JAX's `interpret` has no counterpart: tensors on the CPU run the
+    kernels' plain versions."""
+    tables = tuple(packed_dev)
+    cmat = None
+    if len(tables) >= 5:
+        cmat, tables = tables[-1], tables[:-1]
+    cbox, cmeta, tri, *rest = tables
+    attr = rest[0] if rest else None
+    arity, _ = _box_format(cbox, compressed)
+    if npop not in (2, 4, 8, 16) or (npop != 2 and not (dual and arity >= 4)):
+        raise ValueError(f"npop {npop}: 2, 4, 8 or 16, and wide pops need the "
+                         "dual-pop kernels (dual=True) at arity 4 or 8")
+    if stack_depth is None:
+        stack_depth = stack_need(cmeta.cpu().numpy(), arity)
+    kw = dict(leaf_size=leaf_size, stack_depth=stack_depth, compressed=compressed,
+              stream=stream, cmat=cmat if dual else None)
+
+    def rows_of(o: Vec3) -> int:
+        n = o.x.shape[0] if o.x.dim() == 1 else -1
+        if n < 0 or n % LANES:
+            raise ValueError(f"ray planes of shape {tuple(o.x.shape)}: make_tracer "
+                             f"traces flat (R,) planes, R a multiple of {LANES}")
+        return n // LANES
+
+    def closest(o: Vec3, d: Vec3):
+        rows = rows_of(o)
+        o2, d2 = o.reshape(rows, LANES), d.reshape(rows, LANES)
+        if attr is not None:
+            h = closest_tiles_full(cbox, cmeta, tri, attr, o2, d2, **kw)
+            return HitFull(h.t.reshape(-1), h.idx.reshape(-1), h.norm_dir.reshape(-1),
+                           *(v.reshape(-1) for v in (h.n, h.kd, h.ks, h.kr)))
+        h = closest_tiles(cbox, cmeta, tri, o2, d2, **kw)
+        return Hit(*(p.reshape(-1) for p in h))
+
+    def occluded(o: Vec3, d: Vec3, max_dist2: torch.Tensor) -> torch.Tensor:
+        rows = rows_of(o)
+        return occluded_tiles(cbox, cmeta, tri, o.reshape(rows, LANES),
+                              d.reshape(rows, LANES), max_dist2.reshape(rows, LANES),
+                              **kw).reshape(-1)
+
+    if ds is not None:
+        return wrap_tracer(ds, closest, occluded)
+    return closest, occluded

@@ -20,7 +20,6 @@ from ..models.camera import Camera, ray_basis
 from . import cuda_trace, trace_brute
 from .pack import LANES
 from .shade import occluded_from_closest, trace_rays
-from .spheres import wrap_tracer
 from .vecmath import Vec3
 
 
@@ -166,33 +165,27 @@ def render_bvh_pallas(ds, tables, cam: Camera, width: int, height: int,
                       reverse_shadows: bool = True) -> torch.Tensor:
     """Pass-based render: per bounce one closest-hit launch and one any-hit
     launch per light (cuda_trace.closest_tiles_full / occluded_tiles), with
-    the shading in torch (ops/shade.trace_rays). `stream` takes both
-    kernels' streamed instances, as JAX's _render_bvh_pallas threads it.
-    The scene's spheres are tested after each pass (ops/spheres.wrap_tracer,
-    as pallas_trace.make_tracer wraps its tracers); with spheres the hits
+    the shading in torch (ops/shade.trace_rays), on the tracer pair of
+    cuda_trace.make_tracer over the frame's flat ray planes, as JAX's
+    _render_bvh_pallas builds it (render.py:267-274). `stream` takes both
+    kernels' streamed instances. The scene's spheres are tested after each
+    pass (make_tracer's `ds`, ops/spheres.wrap_tracer); with spheres the hits
     are plain and shading gathers their attributes from `ds`. The tables'
-    C-matrix table takes both kernels' MXU instances, as JAX's make_tracer
-    passes packed_dev's cmat on (render.py:274). fast_light=False finds
-    shadows by the closest-hit kernel (shade.occluded_from_closest) with
-    forward shadow rays, and reverse_shadows=False traces forward ones with
-    the any-hit kernel, as JAX's _render_bvh_pallas (render.py:288-295)."""
+    C-matrix table takes both kernels' MXU instances where make_tracer takes
+    them (dual=True: prepare uploads one only with dual_pop, as JAX's
+    prepare does, and JAX's render passes dual=cfg.dual_pop).
+    fast_light=False finds shadows by the closest-hit kernel
+    (shade.occluded_from_closest) with forward shadow rays, and
+    reverse_shadows=False traces forward ones with the any-hit kernel, as
+    JAX's _render_bvh_pallas (render.py:288-295)."""
     o, d = _tiled_planes(cam, width, height, tile_rows, tile_cols, ds.device)
-    kw = dict(leaf_size=tables.leaf_size, stack_depth=tables.stack_depth,
-              compressed=tables.compressed, stream=stream, cmat=tables.cmat)
-
-    def closest(o, d):
-        return cuda_trace.closest_tiles_full(
-            tables.cbox, tables.cmeta, tables.tri, tables.attr, o, d, **kw,
-        )
-
-    def occluded(o, d, max_dist2):
-        return cuda_trace.occluded_tiles(
-            tables.cbox, tables.cmeta, tables.tri, o, d, max_dist2, **kw,
-        )
-
-    closest, occluded = wrap_tracer(ds, closest, occluded)
+    packed = (tables.cbox, tables.cmeta, tables.tri, tables.attr) + (
+        () if tables.cmat is None else (tables.cmat,))
+    closest, occluded = cuda_trace.make_tracer(
+        packed, tables.leaf_size, ds=ds, stack_depth=tables.stack_depth,
+        dual=True, compressed=tables.compressed, stream=stream)
     if not fast_light:
         occluded = occluded_from_closest(closest)
-    col = trace_rays(ds, closest, occluded, o, d, bounces,
+    col = trace_rays(ds, closest, occluded, o.reshape(-1), d.reshape(-1), bounces,
                      reverse_shadows=fast_light and reverse_shadows)
     return _to_image(col, width, height, tile_rows, tile_cols)

@@ -214,7 +214,7 @@ def _mxu_quants(rh, rl, hi, lo):
     slots' C rows (hi, lo: (S, 4, 16)), summed in JAX's order."""
     h = hi.reshape(-1, CMAT_K).T
     q = (rh @ h + rl @ h) + rh @ lo.reshape(-1, CMAT_K).T
-    return q.reshape(rh.shape[0], -1, 4)
+    return q.reshape(rh.shape[0], hi.shape[0], 4)     # n may be 0: no live ray
 
 
 def _mxu_rays(o: Vec3, d: Vec3, cmat, tri, leaf_size):

@@ -4,8 +4,8 @@ device tables -> render.
 `prepare` loads the scene (and pre-splits its large triangles with
 presplit > 0), builds, flattens and packs the BVH at the configured node
 arity (bvh_width 2, 4 or 8), box format (f32, or bf16 with bf16_bvh) and
-leaf size (8 or 4) with the port's C++ host runtime (native/, with use_native)
-or its own numpy modules, decides as JAX does
+leaf size (8, 4, 2 or 1) with the port's C++ host runtime (native/, with
+use_native) or its own numpy modules, decides as JAX does
 whether leaf rows stream and whether the leaf test is the MXU leaf, and
 uploads the tables and the scene planes
 (DeviceScene, in the BVH's slot order) once; `Pipeline.render` then renders
@@ -197,8 +197,11 @@ def prepare(cfg: RenderConfig, scene: Optional[Scene] = None, device=None) -> Pi
     directly), and f32 rows at width 8, where JAX's prepare passes
     bf16=False to pack_bvh8.
 
-    leaf_size 8 (the default) or 4 packs that many triangles per leaf group
-    (_pick_leaf_size); the kernels have instances at both. presplit > 0
+    leaf_size 8 (the default), 4, 2 or 1 packs that many triangles per leaf
+    group (_pick_leaf_size), with leaves built of at least that many
+    (leaf_threshold = max(cfg.leaf_threshold, leaf_size)), as JAX's prepare
+    does; the kernels have instances at each, and at 2 and 1 the leaf test
+    is the FP32 one (mxu_decision, as JAX's rule). presplit > 0
     splits the scene's large triangles before the build
     (models/presplit.presplit_scene), as JAX's prepare does
     (pipeline.py:259-262).

@@ -249,23 +249,44 @@ def test_frame_tiles_match_jax(scene):
 
 @pytest.mark.parametrize("leaf_size", [1, 2, 3, 16])
 def test_other_leaf_sizes_refused(leaf_size):
-    """The kernels hold 4 or 8 triangles a group: another leaf size is
-    refused by prepare and by the wrappers, on every device."""
+    """The kernels hold 1, 2, 4 or 8 triangles a group (every power of two
+    whose triangles fit a 128-lane row, as JAX's _pick_leaf_size): leaf
+    sizes 1 and 2 are accepted by prepare and by the wrappers, 3 and 16
+    refused, on every device."""
+    o = cuda_trace.Vec3(*(torch.zeros((8, 128)) for _ in range(3)))
+    tables = (torch.zeros((2, 32)), torch.zeros((2, 8), dtype=torch.int32),
+              torch.zeros((2, 128)))
+    if leaf_size in (1, 2):
+        p = t_pipeline.prepare(TConfig(width=32, height=32, leaf_size=leaf_size,
+                                       synthetic_triangles=64, use_native=False),
+                               device="cpu")
+        assert p.leaf_size == p.tables.leaf_size == leaf_size
+        assert not bool(p.tables.tri[:, 12 * leaf_size:].any())
+        h = cuda_trace.closest_tiles(*tables, o, o, leaf_size=leaf_size)
+        assert bool((h.idx == -1).all())
+        return
     with pytest.raises(NotImplementedError, match="leaf_size"):
         t_pipeline.prepare(TConfig(width=32, height=32, leaf_size=leaf_size), device="cpu")
-    o = cuda_trace.Vec3(*(torch.zeros((1, 128)) for _ in range(3)))
     with pytest.raises(NotImplementedError, match="leaf_size"):
-        cuda_trace.closest_tiles(torch.zeros((2, 32)), torch.zeros((2, 8), dtype=torch.int32),
-                                 torch.zeros((2, 128)), o, o, leaf_size=leaf_size)
+        cuda_trace.closest_tiles(*tables, o, o, leaf_size=leaf_size)
 
 
 def test_launch_keys_name_the_leaf_size():
-    """A launch at L = 4 is counted under its own key ("frame_mxu<4,l4>"),
-    and the L = 8 keys keep their names."""
+    """A launch at L = 4, 2 or 1 is counted under its own key
+    ("frame_mxu<4,l4>", "frame<4,l2>", "closest_stream<8,bf16,l1>"), the
+    L = 8 keys keep their names, and the MXU instances have keys at L = 8
+    and 4 only."""
     assert cuda_trace._instance("frame", 4, cuda_trace.BOX_F32, mxu=True,
                                 leaf_size=4) == "frame_mxu<4,l4>"
     assert cuda_trace._instance("closest", 8, cuda_trace.BOX_PAIRS, deep=True,
                                 leaf_size=4) == "closest<8,bf16,deep,l4>"
     assert cuda_trace._instance("frame", 4, cuda_trace.BOX_F32, mxu=True) == "frame_mxu<4>"
-    n = len(cuda_trace.LAUNCHES)
-    assert sum(k.endswith(",l4>") for k in cuda_trace.LAUNCHES) == n // 2
+    assert cuda_trace._instance("frame", 4, cuda_trace.BOX_F32, leaf_size=2) == "frame<4,l2>"
+    assert cuda_trace._instance("closest", 8, cuda_trace.BOX_PAIRS, stream=True,
+                                leaf_size=1) == "closest_stream<8,bf16,l1>"
+    keys = list(cuda_trace.LAUNCHES)
+    l8 = [k for k in keys if not k.endswith((",l4>", ",l2>", ",l1>"))]
+    assert sum(k.endswith(",l4>") for k in keys) == len(l8)
+    fp32 = [k for k in l8 if "_mxu<" not in k]
+    for tag in (",l2>", ",l1>"):
+        assert sorted(k for k in keys if k.endswith(tag)) == sorted(k[:-1] + tag for k in fp32)

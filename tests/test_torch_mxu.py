@@ -49,6 +49,7 @@ from parallel_ray_tracer_tpu_torch.config import RenderConfig as TConfig
 from parallel_ray_tracer_tpu_torch.convert import packed_from_numpy
 from parallel_ray_tracer_tpu_torch.ops import cuda_trace
 from parallel_ray_tracer_tpu_torch.ops import pack as t_pack
+from parallel_ray_tracer_tpu_torch.ops import trace_plain
 from parallel_ray_tracer_tpu_torch.ops.bvh import build_bvh as t_build
 from parallel_ray_tracer_tpu_torch.ops.bvh_flat import flatten_bvh as t_flatten
 
@@ -184,6 +185,20 @@ def test_closest_full_and_occluded_mxu_match_jax(scene):
                                    cmat=T.cmat).numpy()
     assert 0.05 < tb.mean() < 0.95                     # non-vacuous
     assert (jb == tb).mean() >= 0.999
+
+
+def test_mxu_plain_without_live_rays(scene):
+    """The plain MXU versions on a batch whose rays are all dead (d = 0):
+    every ray misses and none is blocked."""
+    _, tv, _, tflat, _, o, d = scene
+    packed = t_pack.pack_bvh4(tflat, tv)
+    cmat = torch.from_numpy(t_pack.split_cmat(packed.cmat).view(np.int16)).view(torch.bfloat16)
+    tri = torch.from_numpy(packed.tri)
+    dead = _tvec([np.zeros((8, 128), np.float32)] * 3)
+    h = trace_plain.closest_mxu_plain(cmat, tri, _tvec(o), dead, L)
+    assert bool((h.idx == -1).all()) and bool((h.t >= 1e30).all())
+    assert not trace_plain.occluded_mxu_plain(cmat, tri, _tvec(o), dead,
+                                              torch.full((8, 128), 25.0), L).any()
 
 
 # ---- (c) layouts, and the refusals ---------------------------------------------
