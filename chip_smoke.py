@@ -164,7 +164,9 @@ The build phase records the build's seconds, the CPU seconds of its nvcc
 processes, each unit's CPU and wall seconds, its units, the host's cores,
 the CPUs the process may use and the nvcc processes run at once, and
 ptxas's registers and spills of every kernel (by mangled name, so two
-runs' tables compare key by key). Every kernel of
+runs' tables compare key by key), and of every timed frame instance
+(ops/cuda_trace.frame_info) its blocks per SM, registers, local bytes and
+shared bytes per block at car_boxed's one light. Every kernel of
 tests/goldens/ptxas_kernels.tsv must keep its registers, stack frame and
 spills, or the phase fails; the run's own table goes to
 DIR/ptxas_kernels.tsv, which renews the file when a change means to alter
@@ -186,6 +188,7 @@ import contextlib
 import dataclasses
 import gzip
 import io
+import itertools
 import json
 import os
 import re
@@ -618,6 +621,18 @@ def main() -> int:
           f"{len(changed)} of the {len(kept)} kernels of "
           f"{os.path.relpath(PTXAS_BASELINE, HERE)} changed their ptxas registers, stack "
           f"or spills, or are gone: {changed[:3]}")
+    # every timed frame instance's occupancy and resources at car_boxed's
+    # one light (spheres: 8 rows), by key
+    frame_res = {}
+    for mxu, leaves in ((False, ct.LEAF_SIZES), (True, ct.MXU_LEAF_SIZES)):
+        for a in ct.ARITIES["frame"]:
+            for bf, deep, leaf, fwd, sph in itertools.product(
+                    (False, True), (False, True), leaves, (False, True), (0, 8)):
+                key = ct._instance("frame_sph" if sph else "frame", a,
+                                   ct.BOX_PAIRS if bf else ct.BOX_F32, deep=deep, mxu=mxu,
+                                   leaf_size=leaf) + (",fwd" if fwd else "")
+                frame_res[key] = ct.frame_info(a, leaf_size=leaf, bf16=bf, deep=deep, mxu=mxu,
+                                               reverse_shadows=not fwd, spheres=sph)
     build = {k: _build.BUILD_INFO.get(k)
              for k in ("units", "cores", "cpus", "jobs", "cpu_seconds", "unit_cpu_seconds",
                        "unit_wall_seconds", "cached")}
@@ -628,7 +643,8 @@ def main() -> int:
                          "changed": {k: [kept[k], ptxas_table.get(k)] for k in changed[:20]},
                          "not_in_table": len(set(ptxas_table) - set(kept))},
           "instances_by_leaf": {leaf: sum(entry_leaf(k) == leaf for k in ptxas_table)
-                                for leaf in (1, 2, 4, 8)}})
+                                for leaf in (1, 2, 4, 8)},
+          "frame_instances": frame_res})
 
     # ---- 2. prepare -----------------------------------------------------
     t0 = time.perf_counter()

@@ -213,7 +213,8 @@ def load_library() -> ctypes.CDLL:
     lib.rt_closest.argtypes = [P] * 11 + [I] * 6 + [P] * 8
     lib.rt_occluded.argtypes = [P] * 11 + [I] * 6 + [P] * 5
     lib.rt_frame.argtypes = [P] * 12 + [I, P] + [I] * 8 + [P] * 5
-    for fn in (lib.rt_closest, lib.rt_occluded, lib.rt_frame):
+    lib.rt_frame_info.argtypes = [I] * 8 + [P]
+    for fn in (lib.rt_closest, lib.rt_occluded, lib.rt_frame, lib.rt_frame_info):
         fn.restype = I
     lib.mb_leaf.argtypes = [P] * 6 + [I] + [P] * 4 + [I] * 9 + [P] * 3
     lib.mb_stage.argtypes = [P, I, P, P, P]

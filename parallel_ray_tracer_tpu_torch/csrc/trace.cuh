@@ -1491,4 +1491,7 @@ struct RtFrameLaunch {
                    int num_lights, const float* sph, int ns, int n,
                    int bounces, int fwd, const RtDeep& g, float* col,
                    unsigned long long* counts, cudaStream_t st);
+  // the timed instance's occupancy, registers, stack frame and shared
+  // memory (rt_detail::frame_info)
+  static int info(int num_lights, int ns, int fwd, int* out);
 };

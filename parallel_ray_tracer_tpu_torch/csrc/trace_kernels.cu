@@ -22,6 +22,11 @@
 // cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for an arity, format, mode and leaf size without
 // instances.
+// rt_frame_info writes the occupancy and resources of the timed frame
+// instance of (arity, box, leaf, deep, mxu, fwd, ns > 0), at the dynamic
+// shared memory of num_lights lights and ns
+// spheres: blocks per SM, registers, local bytes per thread, dynamic and
+// static shared bytes per block (RtFrameLaunch::info).
 // Ray planes are n floats each; attr_out / col_out hold 12 / 3 planes of n.
 // With counts non-null the counting instance runs and adds its sums into
 // counts (RT_NCOUNTS with stream or cmat, the first RT_C_FILLS without;
@@ -108,6 +113,26 @@ constexpr int key(int arity, int box, int stream = 0, int deep = 0, int mxu = 0)
     case 1: switch (k) { FP32(X, 1) } break;           \
   }
 
+// The frame kernel's instances of both stack tiers, FP32 and MXU leaf.
+#define RT_FRAME_FP32(X, L)                                                      \
+  case key(4, RT_F32): return X(4, RT_F32, false, false, L);                     \
+  case key(8, RT_F32): return X(8, RT_F32, false, false, L);                     \
+  case key(4, RT_PAIRS): return X(4, RT_PAIRS, false, false, L);                 \
+  case key(8, RT_PAIRS): return X(8, RT_PAIRS, false, false, L);                 \
+  case key(4, RT_F32, 0, 1): return X(4, RT_F32, true, false, L);                \
+  case key(8, RT_F32, 0, 1): return X(8, RT_F32, true, false, L);                \
+  case key(4, RT_PAIRS, 0, 1): return X(4, RT_PAIRS, true, false, L);            \
+  case key(8, RT_PAIRS, 0, 1): return X(8, RT_PAIRS, true, false, L);
+#define RT_FRAME_MXU(X, L)                                                       \
+  case key(4, RT_F32, 0, 0, 1): return X(4, RT_F32, false, true, L);             \
+  case key(8, RT_F32, 0, 0, 1): return X(8, RT_F32, false, true, L);             \
+  case key(4, RT_PAIRS, 0, 0, 1): return X(4, RT_PAIRS, false, true, L);         \
+  case key(8, RT_PAIRS, 0, 0, 1): return X(8, RT_PAIRS, false, true, L);         \
+  case key(4, RT_F32, 0, 1, 1): return X(4, RT_F32, true, true, L);              \
+  case key(8, RT_F32, 0, 1, 1): return X(8, RT_F32, true, true, L);              \
+  case key(4, RT_PAIRS, 0, 1, 1): return X(4, RT_PAIRS, true, true, L);          \
+  case key(8, RT_PAIRS, 0, 1, 1): return X(8, RT_PAIRS, true, true, L);
+
 extern "C" {
 
 int rt_closest(const float* ox, const float* oy, const float* oz,
@@ -162,29 +187,18 @@ int rt_frame(const float* ox, const float* oy, const float* oz,
 #define RT_FRAME(A, F, D, M, L)                                                    \
   RtFrameLaunch<A, F, D, M, L>::frame(rays, s, lamb, num_lights, sph, ns, n,       \
                                       bounces, fwd, g, col, counts, st)
-#define RT_FRAME_FP32(X, L)                                                      \
-  case key(4, RT_F32): return X(4, RT_F32, false, false, L);                     \
-  case key(8, RT_F32): return X(8, RT_F32, false, false, L);                     \
-  case key(4, RT_PAIRS): return X(4, RT_PAIRS, false, false, L);                 \
-  case key(8, RT_PAIRS): return X(8, RT_PAIRS, false, false, L);                 \
-  case key(4, RT_F32, 0, 1): return X(4, RT_F32, true, false, L);                \
-  case key(8, RT_F32, 0, 1): return X(8, RT_F32, true, false, L);                \
-  case key(4, RT_PAIRS, 0, 1): return X(4, RT_PAIRS, true, false, L);            \
-  case key(8, RT_PAIRS, 0, 1): return X(8, RT_PAIRS, true, false, L);
-#define RT_FRAME_MXU(X, L)                                                       \
-  case key(4, RT_F32, 0, 0, 1): return X(4, RT_F32, false, true, L);             \
-  case key(8, RT_F32, 0, 0, 1): return X(8, RT_F32, false, true, L);             \
-  case key(4, RT_PAIRS, 0, 0, 1): return X(4, RT_PAIRS, false, true, L);         \
-  case key(8, RT_PAIRS, 0, 0, 1): return X(8, RT_PAIRS, false, true, L);         \
-  case key(4, RT_F32, 0, 1, 1): return X(4, RT_F32, true, true, L);              \
-  case key(8, RT_F32, 0, 1, 1): return X(8, RT_F32, true, true, L);              \
-  case key(4, RT_PAIRS, 0, 1, 1): return X(4, RT_PAIRS, true, true, L);          \
-  case key(8, RT_PAIRS, 0, 1, 1): return X(8, RT_PAIRS, true, true, L);
   const int k = key(arity, box, 0, stk_ent != nullptr, cmat != nullptr);
   RT_DISPATCH(RT_FRAME, RT_FRAME_FP32, RT_FRAME_MXU)
-#undef RT_FRAME_MXU
-#undef RT_FRAME_FP32
 #undef RT_FRAME
+  return kNoInstance;
+}
+
+int rt_frame_info(int arity, int box, int leaf, int deep, int mxu, int num_lights, int ns,
+                  int fwd, int* out) {
+#define RT_INFO(A, F, D, M, L) RtFrameLaunch<A, F, D, M, L>::info(num_lights, ns, fwd, out)
+  const int k = key(arity, box, 0, deep != 0, mxu != 0);
+  RT_DISPATCH(RT_INFO, RT_FRAME_FP32, RT_FRAME_MXU)
+#undef RT_INFO
   return kNoInstance;
 }
 

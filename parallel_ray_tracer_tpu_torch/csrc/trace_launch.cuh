@@ -61,6 +61,12 @@ int RtLaunch<A, F, S, D, M, L>::occluded(const RtRays& rays, const float* max_di
 }
 
 namespace rt_detail {
+// The frame kernel's dynamic shared memory: the light table and, with
+// spheres, the sphere table.
+inline size_t frame_smem(int nl, int ns) {
+  return sizeof(float) * (8 * (size_t)(nl + 1) + 16 * (size_t)ns);
+}
+
 // One frame instance: above the default 48 KB of dynamic shared memory (a
 // table of more than about 700 spheres) the kernel is allowed the bytes it
 // asks for first; past the card's limit the launch is refused and the
@@ -70,7 +76,7 @@ int frame_launch(const RtRays& rays, const RtScene& s, const float* lamb,
                  int nl, const float* sph, int ns, int n, int bounces,
                  const RtDeep& g, float* col, unsigned long long* counts,
                  cudaStream_t st) {
-  const size_t smem = sizeof(float) * (8 * (size_t)(nl + 1) + (SPH ? 16 * (size_t)ns : 0));
+  const size_t smem = frame_smem(nl, SPH ? ns : 0);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(frame_kernel<A, F, C, SPH, D, M, L, FWD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -80,6 +86,31 @@ int frame_launch(const RtRays& rays, const RtScene& s, const float* lamb,
   frame_kernel<A, F, C, SPH, D, M, L, FWD><<<blocks_for(n), RT_BLOCK, smem, st>>>(
       rays, s, lamb, nl, sph, ns, n, bounces, g, col, counts);
   return (int)cudaGetLastError();
+}
+
+// One frame instance's resources: out[0] blocks per SM at its dynamic
+// shared memory for nl lights and ns spheres
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] registers, out[2]
+// local bytes per thread (the stack frame), out[3] dynamic shared bytes per
+// block, out[4] static shared bytes.
+template <int A, RtBox F, bool C, bool SPH, bool D, bool M, int L, bool FWD>
+int frame_info(int nl, int ns, int* out) {
+  auto k = frame_kernel<A, F, C, SPH, D, M, L, FWD>;
+  const size_t smem = frame_smem(nl, SPH ? ns : 0);
+  cudaError_t e = cudaSuccess;
+  if (smem > 48 * 1024)
+    e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaFuncAttributes at;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&at, k);
+  int blocks = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, RT_BLOCK, smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = blocks;
+  out[1] = at.numRegs;
+  out[2] = (int)at.localSizeBytes;
+  out[3] = (int)smem;
+  out[4] = (int)at.sharedSizeBytes;
+  return 0;
 }
 
 // The counting or timed instance, with spheres or without.
@@ -101,6 +132,16 @@ int frame_pick(const RtRays& rays, const RtScene& s, const float* lamb, int nl,
                                                       bounces, g, col, counts, st);
 }
 }  // namespace rt_detail
+
+template <int A, RtBox F, bool D, bool M, int L>
+int RtFrameLaunch<A, F, D, M, L>::info(int nl, int ns, int fwd, int* out) {
+  using namespace rt_detail;
+  if (ns > 0)
+    return fwd != 0 ? frame_info<A, F, false, true, D, M, L, true>(nl, ns, out)
+                    : frame_info<A, F, false, true, D, M, L, false>(nl, ns, out);
+  return fwd != 0 ? frame_info<A, F, false, false, D, M, L, true>(nl, ns, out)
+                  : frame_info<A, F, false, false, D, M, L, false>(nl, ns, out);
+}
 
 template <int A, RtBox F, bool D, bool M, int L>
 int RtFrameLaunch<A, F, D, M, L>::frame(const RtRays& rays, const RtScene& s,

@@ -87,6 +87,8 @@ stack.
 `counters=True` (CUDA only) launches the kernel's counting instance and also
 returns an int64 tensor of the `COUNTS` sums over the rays (`STREAM_COUNTS`
 for a streamed launch, `MXU_COUNTS` for an MXU one).
+`frame_info` reads a frame instance's occupancy, registers, stack frame
+and shared memory (CUDA only).
 """
 
 from __future__ import annotations
@@ -471,6 +473,30 @@ def frame_tiles(cbox, cmeta, tri, attr, lamb, o: Vec3, d: Vec3, *, bounces: int,
     _raise_on(rc, key)
     out = Vec3(col[0], col[1], col[2])
     return (out, ls.counts) if counters else out
+
+
+FRAME_INFO = ("blocks_per_sm", "registers", "local_bytes", "dynamic_smem_bytes",
+              "static_smem_bytes")
+
+
+def frame_info(arity: int, *, leaf_size: int = 8, bf16: bool = False, deep: bool = False,
+               mxu: bool = False, reverse_shadows: bool = True, num_lights: int = 1,
+               spheres: int = 0) -> dict:
+    """The resources of one frame instance on the current card (CUDA only):
+    blocks per SM at the dynamic shared memory it launches with for
+    num_lights lights and `spheres` sphere rows
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers, local
+    bytes per thread (its stack frame), dynamic and static shared bytes per
+    block, of the timed instance."""
+    out = (ctypes.c_int * len(FRAME_INFO))()
+    box = BOX_PAIRS if bf16 else BOX_F32
+    rc = load_library().rt_frame_info(arity, box, leaf_size, int(deep), int(mxu),
+                                      num_lights, spheres, int(not reverse_shadows), out)
+    key = _instance("frame_sph" if spheres else "frame", arity, box, deep=deep, mxu=mxu,
+                    leaf_size=leaf_size)
+    if rc != 0:
+        raise RuntimeError(f"{key}: rt_frame_info failed: {error_string(rc)} ({rc})")
+    return dict(zip(FRAME_INFO, out))
 
 
 def _merge_spheres(sph: torch.Tensor, n_slots: int, o: Vec3, d: Vec3,
