@@ -8,8 +8,8 @@ Drives parallel_ray_tracer_tpu_torch's main path on the card: car_boxed at
 kernels from csrc/, holds each kernel against its plain PyTorch version,
 renders the frame and holds it against the reference binary's BMP, compares
 the fused frame with the pass-based one, times every kernel with CUDA
-events, runs each plain version once at the frame's shapes (the frame's
-on every 7th 32x32 tile), and shows
+events, runs each plain version once on every 7th 32x32 tile of the
+frame's rays (against the kernel's output on those rows), and shows
 through the launch counters that each path ran exactly its kernels: the
 fused render() one frame kernel, the pass-based render one closest-hit and
 one any-hit launch per bounce and light, the primary pass one closest-hit
@@ -277,6 +277,11 @@ DRAGON_BAND = 320
 # The stream phase: the tables whose streamed instances it runs, and the
 # scene past the L2, with its band for the plain version.
 STREAM_CASES = ("w4", "w8", "w4_bf16", "w8_bf16")
+# What a streamed instance's two extra counts mean (csrc/trace.cuh), in
+# every record of its timings.
+STREAM_COUNT_MEANING = {
+    "block_fills": "prefetches sent: none, since a streamed instance asks for nothing ahead",
+    "sync_fetches": "leaf visits whose row no prefetch asked for: every leaf visit"}
 SYNTHETIC_600K = dict(synthetic_triangles=600000, width=1920, height=1080,
                       bvh_heuristic=6, tile_rows=32, tile_cols=32)
 SYNTHETIC_BAND, SYNTHETIC_BAND_ROWS = 512, 32
@@ -676,6 +681,14 @@ def main() -> int:
         """The rows of every FRAME_TILE_STRIDE-th tile of the frame's planes."""
         return Vec3(*(p[spread_rows] for p in planes))
 
+    def spread_out(out):
+        """spread() of a kernel's output: a plane, a Vec3, or a hit of them."""
+        if isinstance(out, torch.Tensor):
+            return out[spread_rows]
+        if isinstance(out, Vec3):
+            return spread(out)
+        return type(out)(*(spread_out(x) for x in out))
+
     def shadow_rays(o, d, hit, lamb=None):
         """Reversed shadow rays to light 0 (of lamb, by default the main
         path's), as the renderer traces them."""
@@ -951,33 +964,38 @@ def main() -> int:
           "pallas": profile(lambda: pipe.render(variant="pallas"))})
 
     # ---- 7. plain versions at the main path's shapes, one run each -------
-    # The kernel and its plain version on the same full-frame inputs: the
-    # plain time beside the kernel's, and one more comparison. The plain
-    # results are kept for the arity phase.
+    # Each kernel on the full frame's inputs, and its plain version on the
+    # rows of every FRAME_TILE_STRIDE-th tile of them (on the whole frame
+    # the four plain versions took about 170 s): the plain time beside the
+    # kernel's, and one more comparison, of the kernel's output on those
+    # rows. The plain results are kept for the arity and stream phases.
+    o_s, d_s = spread(o), spread(d)
+    so_s, sd_s, m2_s = spread(so), spread(sd), m2[spread_rows]
+    n_spread = o_s.x.numel()
     plain = {}
     hk = ct.closest_tiles(T.cbox, T.cmeta, T.tri, o, d, **kw)
-    plain["closest"], pms = timed_once(lambda: tp.closest_plain(T.tri, o, d, L))
-    full = {"closest": dict(cmp_hits("closest/frame", hk, plain["closest"], False),
-                            plain_ms=pms)}
+    plain["closest"], pms = timed_once(lambda: tp.closest_plain(T.tri, o_s, d_s, L))
+    full = {"closest": dict(cmp_hits("closest/frame", spread_out(hk), plain["closest"],
+                                     False), plain_ms=pms)}
     del hk
     plain["closest_full"], pms = timed_once(
-        lambda: tp.closest_full_plain(T.tri, T.attr, o, d, L))
+        lambda: tp.closest_full_plain(T.tri, T.attr, o_s, d_s, L))
     full["closest_full"] = dict(
-        cmp_hits("closest_full/frame", hf, plain["closest_full"], True), plain_ms=pms)
+        cmp_hits("closest_full/frame", spread_out(hf), plain["closest_full"], True),
+        plain_ms=pms)
     bk = ct.occluded_tiles(T.cbox, T.cmeta, T.tri, so, sd, m2, **kw)
-    plain["occluded"], pms = timed_once(lambda: tp.occluded_plain(T.tri, so, sd, m2, L))
-    full["occluded"] = dict(cmp_blocked("occluded/frame", bk, plain["occluded"]),
+    plain["occluded"], pms = timed_once(
+        lambda: tp.occluded_plain(T.tri, so_s, sd_s, m2_s, L))
+    full["occluded"] = dict(cmp_blocked("occluded/frame", spread_out(bk), plain["occluded"]),
                             plain_ms=pms)
-    # the frame's plain version on the spread of tiles, and the kernel's
-    # frame on the same rays
     fk = ct.frame_tiles(T.cbox, T.cmeta, T.tri, T.attr, T.lamb, o, d,
                         bounces=cfg.bounces, **kw)
-    so_s, sd_s = spread(o), spread(d)
     plain["frame"], pms = timed_once(lambda: ct.frame_plain(
-        T.tri, T.attr, T.lamb, so_s, sd_s, bounces=cfg.bounces, leaf_size=L))
-    full["frame"] = dict(cmp_frame("frame/frame", spread(fk), plain["frame"]), plain_ms=pms,
-                         rays=so_s.x.numel(), tile_stride=FRAME_TILE_STRIDE)
-    del bk, fk, so_s, sd_s
+        T.tri, T.attr, T.lamb, o_s, d_s, bounces=cfg.bounces, leaf_size=L))
+    full["frame"] = dict(cmp_frame("frame/frame", spread(fk), plain["frame"]), plain_ms=pms)
+    for k in full:
+        full[k].update(rays=n_spread, tile_stride=FRAME_TILE_STRIDE)
+    del bk, fk, o_s, d_s, so_s, sd_s, m2_s
     emit({"phase": "plain_at_frame_shapes", "rays": n_rays, "kernels": full})
     max_err = {"w4": {k: max(cmp[k]["max_abs_err"], full[k]["max_abs_err"])
                       for k in full}}
@@ -1083,15 +1101,15 @@ def main() -> int:
                     ref["frame"]))
         keep("closest", cmp_hits(
             f"{key}/closest/frame",
-            ct.closest_tiles(A.cbox, A.cmeta, A.tri, o, d, **akw),
+            spread_out(ct.closest_tiles(A.cbox, A.cmeta, A.tri, o, d, **akw)),
             plain["closest"], False))
         keep("closest_full", cmp_hits(
             f"{key}/closest_full/frame",
-            ct.closest_tiles_full(A.cbox, A.cmeta, A.tri, A.attr, o, d, **akw),
+            spread_out(ct.closest_tiles_full(A.cbox, A.cmeta, A.tri, A.attr, o, d, **akw)),
             plain["closest_full"], True))
         keep("occluded", cmp_blocked(
             f"{key}/occluded/frame",
-            ct.occluded_tiles(A.cbox, A.cmeta, A.tri, so, sd, m2, **akw),
+            spread_out(ct.occluded_tiles(A.cbox, A.cmeta, A.tri, so, sd, m2, **akw)),
             plain["occluded"]))
         if "frame" in errs:
             keep("frame", cmp_frame(
@@ -1315,7 +1333,7 @@ def main() -> int:
             h = call(k, True, *rays)
             check(name, same_bits(outputs(k, h), outputs(k, call(k, False, *rays))),
                   "differs from the resident twin")
-            errs[k] = max(errs[k], against_plain(name, k, h, plain[k]))
+            errs[k] = max(errs[k], against_plain(name, k, spread_out(h), plain[k]))
             del h
             t_res = time_ms(lambda: call(k, False, *rays), ARITY_WARMUP, ARITY_TIMED)
             t_str = time_ms(lambda: call(k, True, *rays), ARITY_WARMUP, ARITY_TIMED)
@@ -1350,7 +1368,8 @@ def main() -> int:
         emit({"phase": "stream", "case": key, "card": card,
               "tri_rows": [src.tables.tri.shape[0], A.tri.shape[0]], "max_abs_err": errs,
               "launches": {k: n for k, n in launches[key].items() if "stream" in k},
-              "frame_equal_resident_pass_based": frame_equal, "timing": res})
+              "frame_equal_resident_pass_based": frame_equal, "timing": res,
+              "count_meaning": STREAM_COUNT_MEANING})
         del src, sp, A, simg, rimg
 
     # synthetic_600k: the smallest scene of scripts/bench_stream.py that JAX
@@ -1377,7 +1396,8 @@ def main() -> int:
                            "tri": nbytes(S.tri), "attr": nbytes(S.attr)},
            "row_model_bytes": row_model, "row_model_mib": row_model / 2 ** 20,
            "stream": spipe.stream, "auto_variant": spipe.resolved_variant(),
-           "stack_need": S.stack_depth, "stack_size": ct.STACK_SIZE[S.arity]}
+           "stack_need": S.stack_depth, "stack_size": ct.STACK_SIZE[S.arity],
+           "count_meaning": STREAM_COUNT_MEANING}
     o6, d6 = R._tiled_planes(spipe.camera(), W, H, TR, TC, spipe.device)
     skw = dict(leaf_size=S.leaf_size, stack_depth=S.stack_depth)
 
@@ -2269,7 +2289,7 @@ def main() -> int:
                             2253 if k == "occluded" else 2070))
         emit({"phase": phase, "leaf_size": leaf, "case": f"{key}_stream", "card": card,
               "tri_rows": [A.tri.shape[0], S.tri.shape[0]], "max_abs_err": serr,
-              "launches": slaunch, "timing": st})
+              "launches": slaunch, "timing": st, "count_meaning": STREAM_COUNT_MEANING})
         return rows
 
     def leaf_spheres(phase, name, key, p, A, leaf, mxu=False):
@@ -2982,9 +3002,8 @@ def main() -> int:
             "max_abs_err": max_err[key][kernel],
             "ms": t["median"], "plain_ms": full[kernel.replace("_stream", "")]["plain_ms"],
             "plain_of": (f"width-4 tables, every {FRAME_TILE_STRIDE}th tile of the same rays "
-                         f"({full['frame']['rays']} rays)" if kernel == "frame" else
-                         "width-4 tables, the same rays") + " (the plain version reads no node "
-                        "table)",
+                         f"({full['frame']['rays']} rays; the plain version reads no node "
+                         "table)"),
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "rays": n_rays,
         })

@@ -2,7 +2,7 @@
 """Time the frame kernels of this tree against those of other trees, in turns.
 
     python3 compare_frames.py --other parent=DIR [--other NAME=DIR ...]
-                              [--out FILE]
+                              [--passes frame|stream] [--out FILE]
 
 Each DIR is a checkout of this repository (another commit, or a copy with
 a variant of csrc/); its kernel library is built there by its own
@@ -26,6 +26,31 @@ its ptxas log: registers allocated 8 at a time, 65,536 a multiprocessor,
 4 warps a block, at most 32 blocks). The last line is the card's name
 and power limit as nvidia-smi reports them.
 
+--passes stream times the streamed traversal kernels instead, through the
+C entries rt_closest and rt_occluded of every library (this tree's
+ops/cuda_trace wrappers, the tables padded as prepare pads streamed ones),
+on the passes of STREAM_TABLES: synthetic_600k's primary closest pass and
+its "auto" render() (closest_full_stream<4> for each bounce), the primary
+pass of the same scene at 2,000,000 triangles (tri rows of 128 MB, well
+past the 50 MB L2; synthetic_600k's 38 MB nearly fit it); car_boxed
+1080p at L = 8 (closest, closest_full and occluded at width 4, f32 boxes;
+closest_full at width 8 on bf16 pair rows), at L = 2 (closest, width 4)
+and at L = 1 (occluded, width 8, bf16 pair rows), both at leaf threshold
+8; and the DEEP stack tier's closest_full and occluded at width 4 on
+models/procgen.chain_scene (chip_smoke.py's DEEP_CFG), whose 48-level
+tree passes the standard stack. Primary rays are the frame's; shadow rays
+go from light 0 to each primary hit of the resident pass. A round of
+turns is the others, this tree, this tree's resident twin (stream=False)
+twice, this tree, the others in reverse; a table takes rounds until they
+have run STREAM_ROUND_S seconds, at most STREAM_ROUNDS of them, so that
+a pass of a tenth of a millisecond, whose turns differ by 10-20% on one
+card, gets as many turns as its time allows. Each line holds every library's median and ratio to this tree's,
+the resident twin's median and this tree's ratio to it, whether each
+library's outputs equal this tree's bit for bit (and the twin's), each
+library's stream counts (fills, sync fetches, leaf visits) from its
+counting instance, and the registers, stack frame and spills of each
+library's timed instance and of the twin.
+
 It needs a CUDA device and exits non-zero without one.
 """
 
@@ -47,6 +72,25 @@ WARMUP, TIMED = 10, 50
 # (name, leaf size, MXU leaf): the width-4 tables
 CASES = (("frame<4>", 8, False), ("frame_mxu<4>", 8, True),
          ("frame<4,l2>", 2, False), ("frame_mxu<4,l4>", 4, True))
+# --passes stream: (table, pipeline, kernel, rays); a pipeline is
+# (bvh_width, leaf size, bf16 pair rows) of car_boxed 1080p, a number of
+# triangles of the synthetic scene (chip_smoke.py's SYNTHETIC_600K at that
+# count), or "chain" (chip_smoke.py's DEEP_CFG on the chain scene, width 4).
+# "render" is the pipeline's "auto" render().
+STREAM_TABLES = (
+    ("closest_stream<4> synthetic_600k primary", 600_000, "closest", "primary"),
+    ("render() auto synthetic_600k (closest_full_stream<4> x 4)", 600_000, "render", None),
+    ("closest_stream<4> synthetic_2m primary", 2_000_000, "closest", "primary"),
+    ("closest_stream<4>", (4, 8, False), "closest", "primary"),
+    ("closest_full_stream<4>", (4, 8, False), "closest_full", "primary"),
+    ("occluded_stream<4>", (4, 8, False), "occluded", "shadow"),
+    ("closest_full_stream<8,bf16>", (8, 8, True), "closest_full", "primary"),
+    ("closest_stream<4,l2>", (4, 2, False), "closest", "primary"),
+    ("occluded_stream<8,bf16,l1>", (8, 1, True), "occluded", "shadow"),
+    ("closest_full_stream<4,deep>", "chain", "closest_full", "primary"),
+    ("occluded_stream<4,deep>", "chain", "occluded", "shadow"),
+)
+STREAM_ROUND_S, STREAM_ROUNDS = 2.0, 10
 BUILD_SNIPPET = ("import sys; sys.path.insert(0, '.'); "
                  "from parallel_ray_tracer_tpu_torch import _build; print(_build.build())")
 
@@ -71,20 +115,222 @@ def blocks_per_sm(registers: int, block: int = 128) -> int:
     return min(warps // (block // 32), 32)
 
 
+class Libs:
+    """The kernel libraries by name; call(name, fn) runs fn with this tree's
+    ops/cuda_trace wrappers launching library `name`'s kernels."""
+
+    def __init__(self, ct, libs):
+        self.ct, self.libs, self.default = ct, libs, ct.load_library
+
+    def call(self, name, fn):
+        self.ct.load_library = lambda: self.libs[name]
+        try:
+            return fn()
+        finally:
+            self.ct.load_library = self.default
+
+
+def ptxas_row(ptxas, prefix):
+    """Registers, stack and spills of the one kernel whose mangled name
+    starts with prefix, or {}."""
+    names = [k for k in ptxas if k.startswith(prefix)]
+    return ptxas[names[0]] if names else {}
+
+
+def frame_passes(L, ptxas, order, card, emit):
+    from parallel_ray_tracer_tpu_torch import pipeline
+    from parallel_ray_tracer_tpu_torch.config import RenderConfig
+    from parallel_ray_tracer_tpu_torch.ops import render as R
+
+    ct = L.ct
+    for case, leaf, mxu in CASES:
+        cut = {} if leaf == 8 else dict(leaf_size=leaf, leaf_threshold=8)
+        cfg = RenderConfig(scene="car_boxed", width=1920, height=1080, bounces=4,
+                           bvh_heuristic=6, tile_rows=32, tile_cols=32, mxu_leaf=mxu, **cut)
+        p = pipeline.prepare(cfg)
+        T = p.tables
+        assert (T.cmat is not None) == mxu, case
+        o, d = R._tiled_planes(p.camera(), 1920, 1080, 32, 32, p.device)
+        kw = dict(bounces=4, leaf_size=T.leaf_size, stack_depth=T.stack_depth,
+                  compressed=T.compressed, cmat=T.cmat)
+
+        def frame(name, counters=False):
+            return L.call(name, lambda: ct.frame_tiles(T.cbox, T.cmeta, T.tri, T.attr, T.lamb,
+                                                       o, d, counters=counters, **kw))
+
+        turns = [(name, time_ms(lambda: frame(name))) for name in order]
+        ref = torch.stack(list(frame("this")))
+        rec = {"case": case, "card": card, "rays": o.x.numel(), "turns": turns, "libs": {}}
+        this_ms = statistics.median([t for n, t in turns if n == "this"])
+        for name in L.libs:
+            img = torch.stack(list(frame(name)))
+            _, counts = frame(name, counters=True)
+            ms = statistics.median([t for n, t in turns if n == name])
+            row = ptxas_row(ptxas[name], "_Z12frame_kernelILi4EL5RtBox0ELb0ELb0ELb0ELb"
+                            f"{int(mxu)}ELi{leaf}ELb0E")
+            lr = {"ms": ms, "vs_this": ms / this_ms, "bitwise_equal": bool(torch.equal(img, ref)),
+                  "max_abs_diff": float((img - ref).abs().max()),
+                  "counts": counts.cpu().tolist(), "ptxas": row,
+                  "blocks_per_sm_by_registers": blocks_per_sm(row.get("registers", 0))}
+            if name == "this":
+                lr["count_names"] = list(ct.MXU_COUNTS if mxu else ct.COUNTS)
+                lr["frame_info"] = ct.frame_info(4, leaf_size=leaf, mxu=mxu)
+            rec["libs"][name] = lr
+        emit(rec)
+        del p, T
+
+
+def stream_passes(L, ptxas, others, card, emit):
+    import dataclasses
+
+    from chip_smoke import DEEP_CFG, SYNTHETIC_600K
+    from parallel_ray_tracer_tpu_torch import pipeline
+    from parallel_ray_tracer_tpu_torch.config import RenderConfig
+    from parallel_ray_tracer_tpu_torch.convert import packed_from_numpy
+    from parallel_ray_tracer_tpu_torch.models.procgen import chain_scene
+    from parallel_ray_tracer_tpu_torch.ops import render as R
+    from parallel_ray_tracer_tpu_torch.ops.intersect import EPSILON
+    from parallel_ray_tracer_tpu_torch.ops.pack import pack_bvh8, pad_stream_rows
+    from parallel_ray_tracer_tpu_torch.ops.vecmath import Vec3
+
+    ct = L.ct
+    order = others + ["this", "resident", "resident", "this"] + others[::-1]
+
+    def prepared(spec):
+        """The streamed pipeline of a STREAM_TABLES pipeline spec, its tri
+        and attr padded to whole blocks (ops/pack.pad_stream_rows)."""
+        if isinstance(spec, int):
+            p = pipeline.prepare(RenderConfig(**dict(SYNTHETIC_600K, synthetic_triangles=spec)))
+            assert p.stream, f"{spec} synthetic triangles do not stream under auto"
+            return p
+        if spec == "chain":
+            p, pairs = pipeline.prepare(RenderConfig(**DEEP_CFG), scene=chain_scene()), False
+        else:
+            width, leaf, pairs = spec
+            cut = {} if leaf == 8 else dict(leaf_size=leaf, leaf_threshold=8)
+            p = pipeline.prepare(RenderConfig(scene="car_boxed", width=1920, height=1080,
+                                              bounces=4, bvh_heuristic=6, tile_rows=32,
+                                              tile_cols=32, mxu_leaf=False, bvh_width=width,
+                                              **cut))
+        t = p.tables
+        if pairs:  # pair rows at width 8: prepare packs width 8 in f32, as JAX's does
+            packed = pack_bvh8(p.flat, p.scene.triangle_vertices(), bf16=True)
+            t = packed_from_numpy(packed.cbox, packed.cmeta, packed.tri, t.attr.cpu().numpy(),
+                                  t.lamb.cpu().numpy(), device=p.device,
+                                  leaf_size=t.leaf_size, compressed=True)
+
+        def pad(a):
+            return torch.as_tensor(pad_stream_rows(a.cpu().numpy()), device=a.device)
+
+        return dataclasses.replace(p, tables=t._replace(tri=pad(t.tri), attr=pad(t.attr)),
+                                   stream=True)
+
+    def shadow_rays(T, o, d, hit):
+        """Reversed shadow rays from light 0 to each hit, as the renderer
+        traces them."""
+        lp = T.lamb[0, :3]
+        ok = hit.idx >= 0
+        p = o + d * torch.where(ok, hit.t, 1.0)
+        lv = Vec3(lp[0] - p.x, lp[1] - p.y, lp[2] - p.z)
+        mag = torch.sqrt(lv.mag2())
+        so = Vec3(*(torch.where(ok, c.expand_as(mag), 1e30) for c in lp))
+        sd = Vec3(*(torch.where(ok, -c / mag, 0.0) for c in lv))
+        m2 = (mag - EPSILON).clamp(min=0.0) ** 2
+        return so.contiguous(), sd.contiguous(), m2.contiguous()
+
+    def outputs(out):
+        """A pass's or a frame's output planes, for comparisons bit for bit."""
+        if isinstance(out, torch.Tensor):
+            return [out]
+        return [x for x in out if isinstance(x, torch.Tensor)] + [
+            c for x in out if isinstance(x, Vec3) for c in x]
+
+    cache = {}
+    for table, spec, kernel, rays in STREAM_TABLES:
+        if spec not in cache:
+            cache.clear()
+            torch.cuda.empty_cache()
+            cache[spec] = prepared(spec)
+        p = cache[spec]
+        T = p.tables
+        o, d = R._tiled_planes(p.camera(), p.cfg.width, p.cfg.height, p.cfg.tile_rows,
+                               p.cfg.tile_cols, p.device)
+        kw = dict(leaf_size=T.leaf_size, stack_depth=T.stack_depth, compressed=T.compressed)
+        if rays == "shadow":
+            ray_args = shadow_rays(T, o, d, ct.closest_tiles(T.cbox, T.cmeta, T.tri, o, d, **kw))
+        else:
+            ray_args = (o, d)
+
+        def run(name, counters=False):
+            s = name != "resident"
+            lib = "this" if name == "resident" else name
+            if kernel == "render":  # "auto" on a streamed pipeline is pass-based
+                q = dataclasses.replace(p, stream=s)
+                return L.call(lib, lambda: q.render(variant="pallas"))
+            fn = {"closest": lambda: ct.closest_tiles(T.cbox, T.cmeta, T.tri, *ray_args,
+                                                      stream=s, counters=counters, **kw),
+                  "closest_full": lambda: ct.closest_tiles_full(
+                      T.cbox, T.cmeta, T.tri, T.attr, *ray_args, stream=s, counters=counters,
+                      **kw),
+                  "occluded": lambda: ct.occluded_tiles(T.cbox, T.cmeta, T.tri, *ray_args,
+                                                        stream=s, counters=counters, **kw)}
+            return L.call(lib, fn[kernel])
+
+        turns, t0 = [], time.perf_counter()
+        for _ in range(STREAM_ROUNDS):
+            turns += [(name, time_ms(lambda: run(name))) for name in order]
+            if time.perf_counter() - t0 >= STREAM_ROUND_S:
+                break
+        ref = outputs(run("this"))
+        med = {n: statistics.median([t for m, t in turns if m == n]) for n in set(order)}
+        rec = {"table": table, "card": card, "rays": o.x.numel(),
+               "rounds": len(turns) // len(order), "turns": turns,
+               "resident_ms": med["resident"],
+               "this_vs_resident": med["this"] / med["resident"], "libs": {}}
+        a = T.arity
+        box = 1 if T.compressed else 0
+        deep = int(ct.use_deep_tier(T.stack_depth, a))
+        full = kernel in ("closest_full", "render")
+        for name in list(L.libs) + ["resident"]:
+            out = outputs(run(name))
+            lr = {"ms": med[name], "vs_this": med[name] / med["this"],
+                  "bitwise_equal": len(out) == len(ref) and all(
+                      torch.equal(x, y) for x, y in zip(out, ref))}
+            s = name != "resident"
+            if kernel == "occluded":
+                prefix = (f"_Z15occluded_kernelILi{a}EL5RtBox{box}ELb0ELb{int(s)}ELb{deep}ELb0"
+                          f"ELi{T.leaf_size}E")
+            else:
+                prefix = (f"_Z14closest_kernelILi{a}EL5RtBox{box}ELb{int(full)}ELb0ELb{int(s)}"
+                          f"ELb{deep}ELb0ELi{T.leaf_size}E")
+            lr["ptxas"] = ptxas_row(ptxas["this" if name == "resident" else name], prefix)
+            if kernel != "render":
+                counts = run(name, counters=True)[1].cpu().tolist()
+                lr["counts"] = dict(zip(ct.STREAM_COUNTS if s else ct.COUNTS, counts))
+                if s:
+                    c = lr["counts"]
+                    lr["fills_per_leaf"] = c["block_fills"] / max(c["leaf_visits"], 1)
+                    lr["syncs_per_leaf"] = c["sync_fetches"] / max(c["leaf_visits"], 1)
+            rec["libs"][name] = lr
+        emit(rec)
+        del T, o, d, ray_args, ref
+    cache.clear()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", action="append", default=[], metavar="NAME=DIR",
-                    help="another checkout whose frame kernels are timed in turns")
+                    help="another checkout whose kernels are timed in turns")
+    ap.add_argument("--passes", choices=("frame", "stream"), default="frame",
+                    help="time the fused frames, or the streamed traversal passes")
     ap.add_argument("--out", default=None, help="also write the JSON lines here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("compare_frames: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from parallel_ray_tracer_tpu_torch import _build, pipeline
-    from parallel_ray_tracer_tpu_torch.config import RenderConfig
+    from parallel_ray_tracer_tpu_torch import _build
     from parallel_ray_tracer_tpu_torch.ops import cuda_trace as ct
-    from parallel_ray_tracer_tpu_torch.ops import render as R
     from chip_smoke import read_ptxas
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -107,56 +353,21 @@ def main() -> int:
         builds[name] = time.perf_counter() - t0
         lib = ctypes.CDLL(so)
         P, I = ctypes.c_void_p, ctypes.c_int
+        lib.rt_closest.argtypes = [P] * 11 + [I] * 6 + [P] * 8
+        lib.rt_occluded.argtypes = [P] * 11 + [I] * 6 + [P] * 5
         lib.rt_frame.argtypes = [P] * 12 + [I, P] + [I] * 8 + [P] * 5
-        lib.rt_frame.restype = I
+        for fn in (lib.rt_closest, lib.rt_occluded, lib.rt_frame):
+            fn.restype = I
         libs[name] = lib
         logs[name] = os.path.join(os.path.dirname(so), "build.log")
     ptxas = {k: read_ptxas(v if os.path.exists(v) else None) for k, v in logs.items()}
     emit({"builds_s": builds})
     others = [k for k in libs if k != "this"]
-    order = others + ["this", "this"] + others[::-1]
-    default_lib = ct.load_library
-
-    for case, leaf, mxu in CASES:
-        cut = {} if leaf == 8 else dict(leaf_size=leaf, leaf_threshold=8)
-        cfg = RenderConfig(scene="car_boxed", width=1920, height=1080, bounces=4,
-                           bvh_heuristic=6, tile_rows=32, tile_cols=32, mxu_leaf=mxu, **cut)
-        p = pipeline.prepare(cfg)
-        T = p.tables
-        assert (T.cmat is not None) == mxu, case
-        o, d = R._tiled_planes(p.camera(), 1920, 1080, 32, 32, p.device)
-        kw = dict(bounces=4, leaf_size=T.leaf_size, stack_depth=T.stack_depth,
-                  compressed=T.compressed, cmat=T.cmat)
-
-        def frame(name, counters=False):
-            ct.load_library = lambda: libs[name]
-            try:
-                return ct.frame_tiles(T.cbox, T.cmeta, T.tri, T.attr, T.lamb, o, d,
-                                      counters=counters, **kw)
-            finally:
-                ct.load_library = default_lib
-
-        turns = [(name, time_ms(lambda: frame(name))) for name in order]
-        ref = torch.stack(list(frame("this")))
-        rec = {"case": case, "card": card, "rays": o.x.numel(), "turns": turns, "libs": {}}
-        this_ms = statistics.median([t for n, t in turns if n == "this"])
-        for name in libs:
-            img = torch.stack(list(frame(name)))
-            _, counts = frame(name, counters=True)
-            ms = statistics.median([t for n, t in turns if n == name])
-            mangled = [k for k in ptxas[name] if "frame_kernel" in k
-                       and k.startswith(f"_Z12frame_kernelILi4EL5RtBox0ELb0ELb0ELb0ELb{int(mxu)}ELi{leaf}ELb0E")]
-            row = ptxas[name].get(mangled[0], {}) if mangled else {}
-            lr = {"ms": ms, "vs_this": ms / this_ms, "bitwise_equal": bool(torch.equal(img, ref)),
-                  "max_abs_diff": float((img - ref).abs().max()),
-                  "counts": counts.cpu().tolist(), "ptxas": row,
-                  "blocks_per_sm_by_registers": blocks_per_sm(row.get("registers", 0))}
-            if name == "this":
-                lr["count_names"] = list(ct.MXU_COUNTS if mxu else ct.COUNTS)
-                lr["frame_info"] = ct.frame_info(4, leaf_size=leaf, mxu=mxu)
-            rec["libs"][name] = lr
-        emit(rec)
-        del p, T
+    L = Libs(ct, libs)
+    if args.passes == "stream":
+        stream_passes(L, ptxas, others, card, emit)
+    else:
+        frame_passes(L, ptxas, others + ["this", "this"] + others[::-1], card, emit)
     emit({"card": card})
     if args.out:
         with open(args.out, "w") as f:

@@ -102,8 +102,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="single-pop traversal schedule; the same kernels "
                         "as dual-pop here (one thread traces one ray)")
     p.add_argument("--stream", default="auto", choices=("auto", "on", "off"),
-                   help="streamed leaf rows, prefetched into L2 ahead of use "
-                        "(auto: where the JAX package streams, past its "
+                   help="the streamed kernels, on leaf rows padded to whole "
+                        "blocks (auto: where the JAX package streams, past its "
                         "126 MiB row model, about 450k triangles)")
     p.add_argument("--presplit", type=float, default=0.0, metavar="RATIO",
                    help="pre-split triangles whose box diagonal passes RATIO "

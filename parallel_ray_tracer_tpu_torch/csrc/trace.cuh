@@ -69,31 +69,30 @@
 // which equal-t triangles are met.
 //
 // Streamed leaf rows (STREAM): the instances for scenes whose leaf rows
-// (tri, and attr for FULL) do not fit the 50 MB L2. The node tables still
-// do, and are re-read by every ray; each leaf row is a dependent load that
-// misses L2 and waits out device-memory latency behind a chain of node
-// loads, so latency, not bytes, bounds them. The TPU kernels keep a ring
-// of VMEM slots and DMA blocks of STREAM_BLK leaf groups into it ahead of
-// use; here one thread traces one ray, and a ring of data per thread in
-// shared memory would cost kilobytes a thread and most of the occupancy.
-// So the rows stay in device memory and the thread asks the L2 for them
-// ahead of use: at each leaf visit (before its test) and after each node
-// visit it takes the blocks of the top RT_STREAM_KPRE leaf entries still
-// on its stack (a closest-hit ray skips entries it will drop) and sends
-// one `cp.async.bulk.prefetch.L2` per block: 2 KB in one instruction
-// where `prefetch.global.L2` would need 16, and nothing waits for it. The
-// ring is only the ids of the RT_STREAM_RING blocks last filled, in
-// registers (the TPU's ring_b), so a block already asked for is not asked
-// for again; a leaf visit whose block is in no slot is a sync fetch (its
-// row is loaded with no prefetch ahead of it; the block is filled then, so
-// its sibling groups find it). FULL also prefetches the attribute span of
-// each new closest hit, since attr is read once per ray, for the winner.
-// Leaf rows are read with __ldg, as in the resident instances: a row is
-// re-read by the neighbouring rays of its warp and of nearby warps within
-// microseconds, which an evict-first hint would throw away, and the node
-// tables, touched by every ray, stay in L2 without one. Visit order, the
-// drop of pops beyond t and the leaf test are those of the resident
-// instances, so the hits are theirs to the bit.
+// (tri, and attr for FULL) JAX's row model would not keep resident
+// (ops/pack.stream_decision). The TPU kernels keep a ring of VMEM slots and
+// DMA blocks of STREAM_BLK leaf groups into it ahead of use, because a TPU
+// core cannot address the rows any other way. Here every thread addresses
+// device memory and reads the rows with __ldg; the 50 MB L2 holds the node
+// tables and, on every scene measured, most of the leaf rows, and a row
+// that misses it waits out device-memory latency while the SM's other
+// warps run. So a streamed instance is the resident traversal on the
+// padded rows (whole blocks of STREAM_BLK rows, ops/pack.pad_stream_rows):
+// the same visit order, drop of pops beyond t and leaf test, so the same
+// hits to the bit, and nothing asked for ahead. Every way of asking the L2
+// for rows ahead that was built here lost to asking for nothing, in turns
+// on the H100, a scene with 128 MB of tri rows included (PERF.md, the
+// streamed rows): a walk of the stack for the top leaf entries with a
+// register ring of the blocks asked for (the TPU ring's ring_b);
+// `cp.async.bulk.prefetch.L2` of 2 KB blocks, whose address must sit in a
+// uniform register, so a lane-varying one compiles to a loop over the
+// warp's distinct addresses; a __match_any_sync vote to send one per
+// distinct block; `prefetch.global.L2` of the lines the leaf test reads,
+// for the nearest leaf child each inner visit pushes; and a prefetch of
+// the winner's attributes. A per-warp shared-memory ring filled by
+// cp.async.bulk (the TPU ring's literal counterpart) would need
+// warp-synchronous leaf steps before a slot could be reused, the kind of
+// step the frame kernel measured losing on this card; it is not built.
 //
 // Leaf size: every traversal takes the leaf size L as a template parameter,
 // instantiated at L = 8, 4, 2 and 1 (every power of two whose triangles fit
@@ -185,8 +184,9 @@
 // also sums, per launch, the node visits, the box tests of valid children,
 // the leaf visits, the triangle tests of live slots (n != 0; padding slots
 // can never hit) and the traversals; a STREAM instance also the block
-// fills (prefetches sent, the TPU ring's final clock) and the sync
-// fetches. The timed instance (COUNT = false) compiles the counting out.
+// fills (prefetches sent: none, since nothing is asked for ahead) and the
+// sync fetches (leaf visits whose row no prefetch asked for: every leaf
+// visit). The timed instance (COUNT = false) compiles the counting out.
 //
 // Numerics: built with -fmad=false and without fast math, so each product
 // and division rounds as in the JAX kernels and the plain PyTorch versions,
@@ -207,11 +207,8 @@
 #define RT_LEAF 8              // triangles per leaf row of the default
                                // instances and of the microbench probes
 #define RT_BLOCK 128           // threads per block
-// The TPU streamed kernels' constants (pallas_trace.py:1909-1916), with the
-// same meaning here: ring slots, pending leaves prefetched per step, leaf
-// groups per block.
-#define RT_STREAM_RING 2       // STREAM_RING
-#define RT_STREAM_KPRE 2       // STREAM_KPRE
+// Leaf groups per block of the TPU streamed kernels (STREAM_BLK,
+// pallas_trace.py:1916): streamed tables are padded to whole blocks.
 #define RT_STREAM_BLK 4        // STREAM_BLK
 
 #define RT_FN __device__ __forceinline__
@@ -496,112 +493,10 @@ RT_FN void rt_visit(const RtScene& s, int e, const RtRay& r, float t_cut,
   }
 }
 
-// ---- streamed leaf rows: the block ring (STREAM instances) ----
-// The TPU ring (pallas_trace.py:1903-2067) with the data left in device
-// memory: a fill prefetches the block into L2, and the ring keeps only the
-// ids of the blocks filled last (ring_b) and the count of fills (clock);
-// slot clock % RT_STREAM_RING is the next to be refilled.
-struct RtRing {
-  int b[RT_STREAM_RING];  // block id of each slot, -1 empty
-  unsigned clock;
-};
-
-RT_FN void rt_ring_init(RtRing& q) {
-#pragma unroll
-  for (int i = 0; i < RT_STREAM_RING; ++i) q.b[i] = -1;
-  q.clock = 0u;
-}
-
-// The slot holding block blk, or -1.
-RT_FN int rt_ring_find(const RtRing& q, int blk) {
-  int slot = -1;
-#pragma unroll
-  for (int i = 0; i < RT_STREAM_RING; ++i) slot = q.b[i] == blk ? i : slot;
-  return slot;
-}
-
-// One bulk prefetch into L2: p 16-byte aligned, bytes a multiple of 16.
-RT_FN void rt_prefetch_l2(const void* p, unsigned bytes) {
-  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;"
-               :: "l"(p), "r"(bytes) : "memory");
-}
-
-// Fill slot v with block blk: its RT_STREAM_BLK tri rows (2 KB) to L2.
-template <class C>
-RT_FN void rt_ring_fill(const RtScene& s, RtRing& q, int v, int blk, C& cnt) {
-  rt_prefetch_l2(s.tri + (size_t)blk * RT_STREAM_BLK * (RT_LANES / 4),
-                 RT_STREAM_BLK * RT_LANES * sizeof(float));
-#pragma unroll
-  for (int i = 0; i < RT_STREAM_RING; ++i) q.b[i] = i == v ? blk : q.b[i];
-  ++q.clock;
-  cnt.add(RT_C_FILLS);
-}
-
-// _ring_use (:1957): leaf group g is about to be tested; returns the slot
-// of its block. A block in no slot is a sync fetch: the row is loaded with
-// no prefetch ahead of it, and the block is filled now for its siblings.
-template <class C>
-RT_FN int rt_ring_use(const RtScene& s, RtRing& q, int g, C& cnt) {
-  const int blk = g / RT_STREAM_BLK;
-  int slot = rt_ring_find(q, blk);
-  if (slot < 0) {
-    cnt.add(RT_C_SYNCS);
-    slot = (int)(q.clock % RT_STREAM_RING);
-    rt_ring_fill(s, q, slot, blk, cnt);
-  }
-  return slot;
-}
-
-// _ring_prefetch (:2003): fill the blocks of the top RT_STREAM_KPRE leaf
-// entries on the stack whose entry distance is below t (the others will be
-// dropped at their pop). A block already in a slot is skipped; the victim
-// slot is not refilled when it is `keep` (the block in use) or holds one
-// of those top blocks.
-template <class C, class SI, class SF>
-RT_FN void rt_ring_ahead(const RtScene& s, RtRing& q, const SI& stk,
-                         const SF& dst, int sp, float t, int keep, C& cnt) {
-  int tops[RT_STREAM_KPRE];
-  int k = sp - 1;
-#pragma unroll
-  for (int i = 0; i < RT_STREAM_KPRE; ++i) {
-    while (k >= 0 && (stk[k] >= 0 || dst[k] >= t)) --k;
-    tops[i] = k >= 0 ? (-stk[k] - 1) / RT_STREAM_BLK : -1;
-    --k;
-  }
-#pragma unroll
-  for (int i = 0; i < RT_STREAM_KPRE; ++i) {
-    const int bi = tops[i];
-    bool skip = bi < 0 || rt_ring_find(q, bi) >= 0;
-    const int v = (int)(q.clock % RT_STREAM_RING);
-    int bv = -1;  // the victim's block
-#pragma unroll
-    for (int j = 0; j < RT_STREAM_RING; ++j) bv = j == v ? q.b[j] : bv;
-    bool held = v == keep;
-#pragma unroll
-    for (int j = 0; j < RT_STREAM_KPRE; ++j) {
-      if (j < i) skip = skip || tops[j] == bi;
-      held = held || (tops[j] >= 0 && tops[j] == bv);
-    }
-    if (!skip && !held) rt_ring_fill(s, q, v, bi, cnt);
-  }
-}
-
-// The 9 attribute floats of slot idx (rt_slot_attrs' attr loads), as one
-// bulk prefetch of the 16-byte aligned span that holds them.
-template <int L>
-RT_FN void rt_prefetch_slot_attrs(const RtScene& s, int idx) {
-  const int g = idx / L, j = idx - g * L;
-  const unsigned lo = (unsigned)(RT_ATTR_STRIDE * j * sizeof(float)) & ~15u;
-  const unsigned hi =
-      ((unsigned)(RT_ATTR_STRIDE * (j + 1) * sizeof(float)) + 15u) & ~15u;
-  rt_prefetch_l2(reinterpret_cast<const char*>(s.attr + (size_t)g * RT_LANES) + lo,
-                 hi - lo);
-}
-
 // Closest hit of one ray: returns the slot g*L + j (or -1) and sets
 // t and neg (det < 0 of the winner). Strict < keeps the first of equal hits.
-// STREAM adds the block ring's prefetches; the traversal is unchanged.
-// stk / dst: the ray's stack (a private array, or RtSlots of the DEEP tier).
+// STREAM only counts its sync fetches; the traversal is unchanged. stk /
+// dst: the ray's stack (a private array, or RtSlots of the DEEP tier).
 template <int A, RtBox F, bool STREAM, int L, class C, class SI, class SF>
 RT_FN int rt_closest_on(const RtScene& s, const RtRay& r, float& t, bool& neg,
                         C& cnt, SI& stk, SF& dst) {
@@ -610,8 +505,6 @@ RT_FN int rt_closest_on(const RtScene& s, const RtRay& r, float& t, bool& neg,
   dst[0] = -RT_TMAX;
   t = RT_TMAX;
   neg = false;
-  RtRing q;
-  if constexpr (STREAM) rt_ring_init(q);
   cnt.add(RT_C_RAYS);
   while (sp > 0) {
     --sp;
@@ -620,11 +513,7 @@ RT_FN int rt_closest_on(const RtScene& s, const RtRay& r, float& t, bool& neg,
     if (e < 0) {
       int g = -e - 1;
       cnt.add(RT_C_LEAF);
-      [[maybe_unused]] const int best = idx;
-      if constexpr (STREAM) {
-        const int slot = rt_ring_use(s, q, g, cnt);
-        rt_ring_ahead(s, q, stk, dst, sp, t, slot, cnt);
-      }
+      if constexpr (STREAM) cnt.add(RT_C_SYNCS);
       const float4* row = s.tri + (size_t)g * (RT_LANES / 4);
 #pragma unroll
       for (int j = 0; j < L; ++j) {
@@ -638,12 +527,8 @@ RT_FN int rt_closest_on(const RtScene& s, const RtRay& r, float& t, bool& neg,
           neg = nj;
         }
       }
-      if constexpr (STREAM) {
-        if (s.attr != nullptr && idx != best) rt_prefetch_slot_attrs<L>(s, idx);
-      }
     } else {
       rt_visit<A, F>(s, e, r, t, stk, dst, sp, cnt);
-      if constexpr (STREAM) rt_ring_ahead(s, q, stk, dst, sp, t, -1, cnt);
     }
   }
   return idx;
@@ -651,15 +536,13 @@ RT_FN int rt_closest_on(const RtScene& s, const RtRay& r, float& t, bool& neg,
 
 // Any hit of one ray with t*t < max_dist2 (pallas_trace._run_occluded_dual);
 // boxes are cut at sqrt(max_dist2), the ray stops at its first blocker.
-// Every pushed entry lies within the cut, so the ring takes any leaf entry.
+// Nothing reads dst here, so the standard tier keeps no distance stack.
 template <int A, RtBox F, bool STREAM, int L, class C, class SI, class SF>
 RT_FN bool rt_occluded_on(const RtScene& s, const RtRay& r, float max_dist2,
                           C& cnt, SI& stk, SF& dst) {
   int sp = 1;
   stk[0] = 0;
   const float t_limit = sqrtf(max_dist2);
-  RtRing q;
-  if constexpr (STREAM) rt_ring_init(q);
   cnt.add(RT_C_RAYS);
   while (sp > 0) {
     --sp;
@@ -667,10 +550,7 @@ RT_FN bool rt_occluded_on(const RtScene& s, const RtRay& r, float max_dist2,
     if (e < 0) {
       int g = -e - 1;
       cnt.add(RT_C_LEAF);
-      if constexpr (STREAM) {
-        const int slot = rt_ring_use(s, q, g, cnt);
-        rt_ring_ahead(s, q, stk, dst, sp, RT_TMAX, slot, cnt);
-      }
+      if constexpr (STREAM) cnt.add(RT_C_SYNCS);
       const float4* row = s.tri + (size_t)g * (RT_LANES / 4);
 #pragma unroll
       for (int j = 0; j < L; ++j) {
@@ -682,7 +562,6 @@ RT_FN bool rt_occluded_on(const RtScene& s, const RtRay& r, float max_dist2,
       }
     } else {
       rt_visit<A, F>(s, e, r, t_limit, stk, dst, sp, cnt);
-      if constexpr (STREAM) rt_ring_ahead(s, q, stk, dst, sp, RT_TMAX, -1, cnt);
     }
   }
   return false;

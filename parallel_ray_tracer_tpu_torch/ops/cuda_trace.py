@@ -42,10 +42,10 @@ features with the group's C-matrix (bf16x3, csrc/trace.cuh); their hits
 are held to the repo's hit bounds against the FP32 ones, never bit for bit. A cmat of another dtype, width
 or row count raises ValueError.
 
-`stream=True` takes the instances with streamed leaf rows, which prefetch
-leaf blocks into L2 ahead of use (csrc/trace.cuh); their hits are those of
-the resident instances. As in JAX they exist at arity 4 and 8 only: a
-binary table raises ValueError, and so does a `tri` or `attr` that is not
+`stream=True` takes the instances with streamed leaf rows: the resident
+traversal on tables padded to whole blocks, with nothing asked for ahead
+(csrc/trace.cuh); their hits are those of the resident instances. As in
+JAX they exist at arity 4 and 8 only: a binary table raises ValueError, and so does a `tri` or `attr` that is not
 padded to whole blocks of STREAM_BLK rows (ops/pack.pad_stream_rows), on
 every device.
 
@@ -121,9 +121,9 @@ MXU_LEAF_SIZES = (4, 8)
 # visits, box tests of valid children, leaf visits, triangle tests of live
 # slots, traversals.
 COUNTS = ("inner_visits", "box_tests", "leaf_visits", "tri_tests", "traversals")
-# A streamed launch also counts the block fills (prefetches sent: the TPU
-# ring's final clock) and the sync fetches (leaf visits whose block was in
-# no ring slot).
+# A streamed launch also counts the block fills (prefetches sent: none) and
+# the sync fetches (leaf visits whose row no prefetch asked for: every leaf
+# visit; csrc/trace.cuh).
 STREAM_COUNTS = COUNTS + ("block_fills", "sync_fetches")
 # An MXU launch also counts its mma batches (one per leaf group a warp
 # serves: 24 mma.sync each) and the lanes served (rays that took a

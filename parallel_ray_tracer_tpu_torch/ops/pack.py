@@ -64,8 +64,8 @@ META_WIDTH = {2: 8, 4: 8, 8: 16}
 
 # Leaf-row streaming, copied from pallas_trace.py:1909-1916 (the streamed
 # kernels' ring: slots, pending leaves prefetched per step, leaf groups per
-# block). The CUDA kernels use the same three values (RT_STREAM_* in
-# csrc/trace.cuh).
+# block). The CUDA kernels keep only STREAM_BLK (RT_STREAM_BLK in
+# csrc/trace.cuh), the padding of streamed tables: they prefetch nothing.
 STREAM_RING = 2
 STREAM_KPRE = 2
 STREAM_BLK = 4
@@ -86,8 +86,9 @@ CMAT_K = 16                          # features per ray in the MXU leaf
 
 def pad_stream_rows(a: np.ndarray) -> np.ndarray:
     """Pad a (G, 128) row table with zero rows to a multiple of STREAM_BLK
-    rows (pallas_trace._pad_stream_rows :3023), so a block prefetch never
-    reaches past the table. Padding rows are never addressed by a leaf."""
+    rows (pallas_trace._pad_stream_rows :3023), so a block DMA of the JAX
+    kernels never reaches past the table; the streamed CUDA kernels take the
+    same tables. Padding rows are never addressed by a leaf."""
     extra = (-a.shape[0]) % STREAM_BLK
     return np.pad(a, ((0, extra), (0, 0))) if extra else a
 
