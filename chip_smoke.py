@@ -545,6 +545,10 @@ def bound(counts, names, in_bytes, out_bytes, spheres=0, leaf=8):
         c["fp32_pipe_ms"] = t_ops
         c["tensor_pipe_ms"] = c["mma_ops"] / PEAK_BF16_OPS * 1e3
         t_ops = max(t_ops, c["tensor_pipe_ms"])
+    if c.get("inner_steps"):  # a pass's warp steps (ops/cuda_trace.STEP_COUNTS)
+        c["lanes_per_inner_step"] = c["inner_visits"] / c["inner_steps"]
+        c["lanes_per_leaf_step"] = c["leaf_visits"] / max(c["leaf_steps"], 1)
+        c["rows_per_leaf_step"] = c["leaf_rows"] / max(c["leaf_steps"], 1)
     t_bytes = (in_bytes + out_bytes) / PEAK_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -947,7 +951,8 @@ def main() -> int:
         timing = {}
         for name, (fn, counted, in_b, out_b) in kernel_runs(A, **rays).items():
             t = time_ms(fn, warmup, timed)
-            b = bound(counted().cpu().tolist(), ct.COUNTS, in_b, out_b,
+            b = bound(counted().cpu().tolist(),
+                      ct.COUNTS if name.startswith("frame") else ct.count_names(), in_b, out_b,
                       spheres=A.sph.shape[0] if name == "frame_sph" else 0)
             timing[name] = dict(t, rays=n_rays, rays_per_s=n_rays / (t["median"] * 1e-3),
                                 node_bytes_per_ray=b["inner_visits"] * visit_b / n_rays, **b)
@@ -1414,8 +1419,8 @@ def main() -> int:
     turns = [time_ms(lambda: primary(s), ARITY_WARMUP, ARITY_TIMED)
              for s in (False, True, True, False)]
     n6, in_b = o6.x.numel(), nbytes(*o6, *d6, S.cbox, S.cmeta) + leaf_bytes(S)
-    for s, label, names, ts in ((False, "resident", ct.COUNTS, (turns[0], turns[3])),
-                                (True, "streamed", ct.STREAM_COUNTS, (turns[1], turns[2]))):
+    for s, label, names, ts in ((False, "resident", ct.count_names(False), (turns[0], turns[3])),
+                                (True, "streamed", ct.count_names(True), (turns[1], turns[2]))):
         b = bound(primary(s, True)[1].cpu().tolist(), names, in_b, 3 * n6 * 4)
         med = statistics.median([ts[0]["median"], ts[1]["median"]])
         rec[f"primary_{label}"] = dict(

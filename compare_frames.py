@@ -2,7 +2,7 @@
 """Time the frame kernels of this tree against those of other trees, in turns.
 
     python3 compare_frames.py --other parent=DIR [--other NAME=DIR ...]
-                              [--passes frame|stream] [--out FILE]
+                              [--passes frame|stream|resident] [--out FILE]
 
 Each DIR is a checkout of this repository (another commit, or a copy with
 a variant of csrc/); its kernel library is built there by its own
@@ -51,6 +51,22 @@ library's stream counts (fills, sync fetches, leaf visits) from its
 counting instance, and the registers, stack frame and spills of each
 library's timed instance and of the twin.
 
+--passes resident times the resident instances (stream=False) the same
+way, through the same C entries, on RESIDENT_TABLES: synthetic_600k's
+primary closest<4> pass and its render() with stream=False; car_boxed
+1080p closest<4>, closest_full<4>, occluded<4>, closest_full<2>,
+occluded<2>, closest_full<8,bf16>, closest<4,l4>, closest<4,l2> and
+occluded<8,bf16,l1>;
+and the chain scene's DEEP closest_full<4> and occluded<4>. A round is the
+others, this tree twice, the others in reverse. Each line holds every
+library's median and ratio to this tree's; its agreement with this tree's
+outputs (t and the miss mask bit for bit, the rays whose idx differs and
+how many of them are exact-t ties, the other planes where idx agrees; a
+mask or a frame bit for bit); its work and warp-step counts (lanes a
+step of the inner and the leaf branch, distinct rows a leaf step; a
+library that keeps no step counts reads 0 there); and the registers,
+stack frame and spills of its timed instance.
+
 It needs a CUDA device and exits non-zero without one.
 """
 
@@ -89,6 +105,26 @@ STREAM_TABLES = (
     ("occluded_stream<8,bf16,l1>", (8, 1, True), "occluded", "shadow"),
     ("closest_full_stream<4,deep>", "chain", "closest_full", "primary"),
     ("occluded_stream<4,deep>", "chain", "occluded", "shadow"),
+)
+# --passes resident: the resident (stream=False) instances, on the same
+# pipelines: synthetic_600k's primary pass and its render() with
+# stream=False (closest_full<4> for each bounce), car_boxed 1080p at widths
+# 4, 2 and 8 (bf16 pair rows) and leaf sizes 8, 4, 2 and 1, and the
+# chain's DEEP tier.
+RESIDENT_TABLES = (
+    ("closest<4> synthetic_600k primary", 600_000, "closest", "primary"),
+    ("render() synthetic_600k stream=False (closest_full<4> x 4)", 600_000, "render", None),
+    ("closest<4>", (4, 8, False), "closest", "primary"),
+    ("closest_full<4>", (4, 8, False), "closest_full", "primary"),
+    ("occluded<4>", (4, 8, False), "occluded", "shadow"),
+    ("closest_full<2>", (2, 8, False), "closest_full", "primary"),
+    ("occluded<2>", (2, 8, False), "occluded", "shadow"),
+    ("closest_full<8,bf16>", (8, 8, True), "closest_full", "primary"),
+    ("closest<4,l4>", (4, 4, False), "closest", "primary"),
+    ("closest<4,l2>", (4, 2, False), "closest", "primary"),
+    ("occluded<8,bf16,l1>", (8, 1, True), "occluded", "shadow"),
+    ("closest_full<4,deep>", "chain", "closest_full", "primary"),
+    ("occluded<4,deep>", "chain", "occluded", "shadow"),
 )
 STREAM_ROUND_S, STREAM_ROUNDS = 2.0, 10
 BUILD_SNIPPET = ("import sys; sys.path.insert(0, '.'); "
@@ -180,7 +216,45 @@ def frame_passes(L, ptxas, order, card, emit):
         del p, T
 
 
-def stream_passes(L, ptxas, others, card, emit):
+def hit_agreement(out, ref) -> dict:
+    """How a pass's outputs agree with this tree's: bit for bit overall;
+    for hits, t and the miss mask bit for bit, the rays whose idx differs
+    and of those the ties (t equal bit for bit, so both libraries' triangles
+    gave that t and the first one visited was kept), and the other planes
+    where idx agrees; for a mask or a frame, the differing elements."""
+    if isinstance(out, torch.Tensor):
+        return {"bitwise_equal": bool(torch.equal(out, ref)),
+                "differ": int((out != ref).sum()),
+                "max_abs_diff": float((out.float() - ref.float()).abs().max())}
+    def planes(x):
+        return (x,) if isinstance(x, torch.Tensor) else tuple(x)
+
+    same = out.idx == ref.idx
+    rest = [(a, b) for f in out._fields[2:]
+            for a, b in zip(planes(getattr(out, f)), planes(getattr(ref, f)))]
+    rec = {"t_equal": bool(torch.equal(out.t, ref.t)),
+           "miss_equal": bool(torch.equal(out.idx < 0, ref.idx < 0)),
+           "idx_differ": int((~same).sum()),
+           "idx_ties": int(((~same) & (out.t == ref.t)).sum()),
+           "rest_equal_where_idx_agrees": all(torch.equal(a[same], b[same]) for a, b in rest)}
+    rec["bitwise_equal"] = (rec["t_equal"] and rec["idx_differ"] == 0
+                            and all(torch.equal(a, b) for a, b in rest))
+    return rec
+
+
+def step_shares(c: dict) -> dict:
+    """Lanes a warp step of each branch, and rows a leaf step, from a pass's
+    counts (ops/cuda_trace.STEP_COUNTS; null where a library kept none)."""
+    def ratio(a, b):
+        return c[a] / c[b] if c.get(b) else None
+    return {"lanes_per_inner_step": ratio("inner_visits", "inner_steps"),
+            "lanes_per_leaf_step": ratio("leaf_visits", "leaf_steps"),
+            "rows_per_leaf_step": ratio("leaf_rows", "leaf_steps")}
+
+
+def pass_tables(L, ptxas, others, card, emit, resident):
+    """The STREAM_TABLES passes (--passes stream) or the RESIDENT_TABLES
+    passes (--passes resident), in turns."""
     import dataclasses
 
     from chip_smoke import DEEP_CFG, SYNTHETIC_600K
@@ -194,14 +268,21 @@ def stream_passes(L, ptxas, others, card, emit):
     from parallel_ray_tracer_tpu_torch.ops.vecmath import Vec3
 
     ct = L.ct
-    order = others + ["this", "resident", "resident", "this"] + others[::-1]
+    if resident:
+        tables = RESIDENT_TABLES
+        order = others + ["this", "this"] + others[::-1]
+    else:
+        tables = STREAM_TABLES
+        order = others + ["this", "resident", "resident", "this"] + others[::-1]
 
     def prepared(spec):
-        """The streamed pipeline of a STREAM_TABLES pipeline spec, its tri
-        and attr padded to whole blocks (ops/pack.pad_stream_rows)."""
+        """The pipeline of a table's spec; for --passes stream its tri and
+        attr padded to whole blocks (ops/pack.pad_stream_rows), as prepare
+        pads streamed ones (the synthetic scenes stream under auto, and
+        are padded so in both modes)."""
         if isinstance(spec, int):
             p = pipeline.prepare(RenderConfig(**dict(SYNTHETIC_600K, synthetic_triangles=spec)))
-            assert p.stream, f"{spec} synthetic triangles do not stream under auto"
+            assert resident or p.stream, f"{spec} synthetic triangles do not stream under auto"
             return p
         if spec == "chain":
             p, pairs = pipeline.prepare(RenderConfig(**DEEP_CFG), scene=chain_scene()), False
@@ -218,6 +299,8 @@ def stream_passes(L, ptxas, others, card, emit):
             t = packed_from_numpy(packed.cbox, packed.cmeta, packed.tri, t.attr.cpu().numpy(),
                                   t.lamb.cpu().numpy(), device=p.device,
                                   leaf_size=t.leaf_size, compressed=True)
+        if resident:
+            return dataclasses.replace(p, tables=t)
 
         def pad(a):
             return torch.as_tensor(pad_stream_rows(a.cpu().numpy()), device=a.device)
@@ -246,7 +329,7 @@ def stream_passes(L, ptxas, others, card, emit):
             c for x in out if isinstance(x, Vec3) for c in x]
 
     cache = {}
-    for table, spec, kernel, rays in STREAM_TABLES:
+    for table, spec, kernel, rays in tables:
         if spec not in cache:
             cache.clear()
             torch.cuda.empty_cache()
@@ -262,7 +345,7 @@ def stream_passes(L, ptxas, others, card, emit):
             ray_args = (o, d)
 
         def run(name, counters=False):
-            s = name != "resident"
+            s = not resident and name != "resident"
             lib = "this" if name == "resident" else name
             if kernel == "render":  # "auto" on a streamed pipeline is pass-based
                 q = dataclasses.replace(p, stream=s)
@@ -281,22 +364,27 @@ def stream_passes(L, ptxas, others, card, emit):
             turns += [(name, time_ms(lambda: run(name))) for name in order]
             if time.perf_counter() - t0 >= STREAM_ROUND_S:
                 break
-        ref = outputs(run("this"))
+        ref_out = run("this")
+        ref = outputs(ref_out)
         med = {n: statistics.median([t for m, t in turns if m == n]) for n in set(order)}
         rec = {"table": table, "card": card, "rays": o.x.numel(),
-               "rounds": len(turns) // len(order), "turns": turns,
-               "resident_ms": med["resident"],
-               "this_vs_resident": med["this"] / med["resident"], "libs": {}}
+               "rounds": len(turns) // len(order), "turns": turns, "libs": {}}
+        if not resident:
+            rec.update(resident_ms=med["resident"],
+                       this_vs_resident=med["this"] / med["resident"])
         a = T.arity
-        box = 1 if T.compressed else 0
+        box = 2 if T.cbox.dtype == torch.bfloat16 else 1 if T.compressed else 0
         deep = int(ct.use_deep_tier(T.stack_depth, a))
         full = kernel in ("closest_full", "render")
-        for name in list(L.libs) + ["resident"]:
-            out = outputs(run(name))
+        for name in list(L.libs) + ([] if resident else ["resident"]):
+            raw = run(name)
+            out = outputs(raw)
             lr = {"ms": med[name], "vs_this": med[name] / med["this"],
                   "bitwise_equal": len(out) == len(ref) and all(
                       torch.equal(x, y) for x, y in zip(out, ref))}
-            s = name != "resident"
+            if resident:
+                lr["agreement"] = hit_agreement(raw, ref_out)
+            s = not resident and name != "resident"
             if kernel == "occluded":
                 prefix = (f"_Z15occluded_kernelILi{a}EL5RtBox{box}ELb0ELb{int(s)}ELb{deep}ELb0"
                           f"ELi{T.leaf_size}E")
@@ -306,14 +394,15 @@ def stream_passes(L, ptxas, others, card, emit):
             lr["ptxas"] = ptxas_row(ptxas["this" if name == "resident" else name], prefix)
             if kernel != "render":
                 counts = run(name, counters=True)[1].cpu().tolist()
-                lr["counts"] = dict(zip(ct.STREAM_COUNTS if s else ct.COUNTS, counts))
+                lr["counts"] = dict(zip(ct.count_names(s), counts))
+                lr.update(step_shares(lr["counts"]))
                 if s:
                     c = lr["counts"]
                     lr["fills_per_leaf"] = c["block_fills"] / max(c["leaf_visits"], 1)
                     lr["syncs_per_leaf"] = c["sync_fetches"] / max(c["leaf_visits"], 1)
             rec["libs"][name] = lr
         emit(rec)
-        del T, o, d, ray_args, ref
+        del T, o, d, ray_args, ref, ref_out
     cache.clear()
 
 
@@ -321,8 +410,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", action="append", default=[], metavar="NAME=DIR",
                     help="another checkout whose kernels are timed in turns")
-    ap.add_argument("--passes", choices=("frame", "stream"), default="frame",
-                    help="time the fused frames, or the streamed traversal passes")
+    ap.add_argument("--passes", choices=("frame", "stream", "resident"), default="frame",
+                    help="time the fused frames, the streamed traversal passes, or the "
+                         "resident ones")
     ap.add_argument("--out", default=None, help="also write the JSON lines here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -351,21 +441,14 @@ def main() -> int:
         so = subprocess.run([sys.executable, "-c", BUILD_SNIPPET], cwd=root, check=True,
                             capture_output=True, text=True).stdout.strip().splitlines()[-1]
         builds[name] = time.perf_counter() - t0
-        lib = ctypes.CDLL(so)
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.rt_closest.argtypes = [P] * 11 + [I] * 6 + [P] * 8
-        lib.rt_occluded.argtypes = [P] * 11 + [I] * 6 + [P] * 5
-        lib.rt_frame.argtypes = [P] * 12 + [I, P] + [I] * 8 + [P] * 5
-        for fn in (lib.rt_closest, lib.rt_occluded, lib.rt_frame):
-            fn.restype = I
-        libs[name] = lib
+        libs[name] = _build.bind_entries(ctypes.CDLL(so))
         logs[name] = os.path.join(os.path.dirname(so), "build.log")
     ptxas = {k: read_ptxas(v if os.path.exists(v) else None) for k, v in logs.items()}
     emit({"builds_s": builds})
     others = [k for k in libs if k != "this"]
     L = Libs(ct, libs)
-    if args.passes == "stream":
-        stream_passes(L, ptxas, others, card, emit)
+    if args.passes in ("stream", "resident"):
+        pass_tables(L, ptxas, others, card, emit, args.passes == "resident")
     else:
         frame_passes(L, ptxas, others + ["this", "this"] + others[::-1], card, emit)
     emit({"card": card})

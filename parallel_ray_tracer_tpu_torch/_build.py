@@ -69,6 +69,23 @@ NVCC_FLAGS = ARCH_FLAGS + (
 
 _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: dict = {}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The traversal kernels' C entries (csrc/trace_kernels.cu) and their
+# argument types, set on every library loaded here or by compare_frames.py
+# (which loads other commits' libraries beside this one's).
+ENTRY_ARGTYPES = {
+    "rt_closest": [_P] * 11 + [_I] * 6 + [_P] * 8,
+    "rt_occluded": [_P] * 11 + [_I] * 6 + [_P] * 5,
+    "rt_frame": [_P] * 12 + [_I, _P] + [_I] * 8 + [_P] * 5,
+}
+
+
+def bind_entries(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set ENTRY_ARGTYPES, returning int, on a kernel library."""
+    for name, argtypes in ENTRY_ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, _I
+    return lib
 
 
 def _nvcc() -> str:
@@ -208,14 +225,10 @@ def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    lib = ctypes.CDLL(build())
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.rt_closest.argtypes = [P] * 11 + [I] * 6 + [P] * 8
-    lib.rt_occluded.argtypes = [P] * 11 + [I] * 6 + [P] * 5
-    lib.rt_frame.argtypes = [P] * 12 + [I, P] + [I] * 8 + [P] * 5
+    lib = bind_entries(ctypes.CDLL(build()))
+    P, I = _P, _I
     lib.rt_frame_info.argtypes = [I] * 8 + [P]
-    for fn in (lib.rt_closest, lib.rt_occluded, lib.rt_frame, lib.rt_frame_info):
-        fn.restype = I
+    lib.rt_frame_info.restype = I
     lib.mb_leaf.argtypes = [P] * 6 + [I] + [P] * 4 + [I] * 9 + [P] * 3
     lib.mb_stage.argtypes = [P, I, P, P, P]
     lib.mb_smem_optin.argtypes = [P]

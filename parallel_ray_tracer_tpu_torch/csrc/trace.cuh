@@ -41,7 +41,9 @@
 // node (single pop) or two (dual pop) per step; the schedule changes the
 // visit order, not the result. Here one thread traces one ray with a
 // private stack, the design of the reference CUDA renderer, so single-pop
-// and dual-pop callers reach the same instance.
+// and dual-pop callers reach the same instance; at L = 8 the closest-hit
+// and any-hit passes without MXU walk their warp's rays together ("the pass
+// kernels" below: a while-while loop with a postponed leaf).
 //
 // What bounds them on this card: the traversal is a data-dependent loop of
 // dependent loads (node row -> child boxes -> pushed entry -> next row), so
@@ -186,7 +188,8 @@
 // can never hit) and the traversals; a STREAM instance also the block
 // fills (prefetches sent: none, since nothing is asked for ahead) and the
 // sync fetches (leaf visits whose row no prefetch asked for: every leaf
-// visit). The timed instance (COUNT = false) compiles the counting out.
+// visit); a pass kernel without MXU also its warp steps (RT_S_*). The
+// timed instance (COUNT = false) compiles the counting out.
 //
 // Numerics: built with -fmad=false and without fast math, so each product
 // and division rounds as in the JAX kernels and the plain PyTorch versions,
@@ -285,10 +288,19 @@ __host__ __device__ constexpr int rt_ncounts(bool extra) {
   return extra ? RT_NCOUNTS : RT_C_FILLS;
 }
 
-template <bool ON>
+// The pass kernels' counting instances (closest_kernel and occluded_kernel
+// without MXU) also count warp steps, after their mode's counts (from
+// rt_ncounts(STREAM)): the warp steps in which some lane visited an inner
+// node, those in which some lane tested a leaf group, and the distinct leaf
+// groups of each leaf step (__match_any_sync on g), summed. Each lane's
+// visit still counts in RT_C_INNER / RT_C_LEAF, so inner visits / inner
+// steps is the active lanes a step of that branch.
+enum { RT_S_INNER, RT_S_LEAF, RT_S_ROWS, RT_NSTEPS };
+
+template <bool ON, int N = RT_NCOUNTS>
 struct RtCounts {
   static constexpr bool on = ON;
-  unsigned v[RT_NCOUNTS] = {0u, 0u, 0u, 0u, 0u, 0u, 0u};
+  unsigned v[N] = {};
   RT_FN void add(int k, unsigned n = 1u) {
     if (ON) v[k] += n;
   }
@@ -297,6 +309,21 @@ struct RtCounts {
     if (ON) v[RT_C_TRI] += (c.y != 0.f || c.z != 0.f || c.w != 0.f) ? 1u : 0u;
   }
 };
+
+// One lane's warp-step counts as it takes one branch (B = the first step
+// count, rt_ncounts(STREAM)): the step counts once, by the lowest lane in
+// the branch; a leaf step also counts its distinct groups g, once each by
+// its lowest lane. Only the pass kernels' counting instances keep room for
+// them: elsewhere (the frame kernel) it compiles to nothing.
+template <int B, bool ON, int N>
+RT_FN void rt_step(RtCounts<ON, N>& c, bool leaf, int g) {
+  if constexpr (ON && N >= B + RT_NSTEPS) {
+    const unsigned m = __activemask();
+    const unsigned lt = (1u << (threadIdx.x & 31)) - 1u;
+    if ((m & lt) == 0u) c.add(B + (leaf ? RT_S_LEAF : RT_S_INNER));
+    if (leaf && (__match_any_sync(m, g) & lt) == 0u) c.add(B + RT_S_ROWS);
+  }
+}
 
 RT_FN float rt_clip_inv(float d) {
   return fminf(fmaxf(1.0f / d, -RT_INV_DIR_MAX), RT_INV_DIR_MAX);
@@ -512,6 +539,7 @@ RT_FN int rt_closest_on(const RtScene& s, const RtRay& r, float& t, bool& neg,
     if (dst[sp] >= t) continue;  // box starts beyond the current hit
     if (e < 0) {
       int g = -e - 1;
+      rt_step<rt_ncounts(STREAM)>(cnt, true, g);
       cnt.add(RT_C_LEAF);
       if constexpr (STREAM) cnt.add(RT_C_SYNCS);
       const float4* row = s.tri + (size_t)g * (RT_LANES / 4);
@@ -528,6 +556,7 @@ RT_FN int rt_closest_on(const RtScene& s, const RtRay& r, float& t, bool& neg,
         }
       }
     } else {
+      rt_step<rt_ncounts(STREAM)>(cnt, false, 0);
       rt_visit<A, F>(s, e, r, t, stk, dst, sp, cnt);
     }
   }
@@ -549,6 +578,7 @@ RT_FN bool rt_occluded_on(const RtScene& s, const RtRay& r, float max_dist2,
     int e = stk[sp];
     if (e < 0) {
       int g = -e - 1;
+      rt_step<rt_ncounts(STREAM)>(cnt, true, g);
       cnt.add(RT_C_LEAF);
       if constexpr (STREAM) cnt.add(RT_C_SYNCS);
       const float4* row = s.tri + (size_t)g * (RT_LANES / 4);
@@ -561,6 +591,7 @@ RT_FN bool rt_occluded_on(const RtScene& s, const RtRay& r, float max_dist2,
         if (tj < RT_TMAX && tj * tj < max_dist2) return true;
       }
     } else {
+      rt_step<rt_ncounts(STREAM)>(cnt, false, 0);
       rt_visit<A, F>(s, e, r, t_limit, stk, dst, sp, cnt);
     }
   }
@@ -1191,8 +1222,8 @@ RT_FN float3 rt_frame_ray(const RtScene& s, const float* lamb, int nl,
 }
 
 // Per-warp sums of the first N work counts, one atomic per count and warp.
-template <int N, bool ON>
-RT_FN void rt_count(unsigned long long* counts, const RtCounts<ON>& c) {
+template <int N, bool ON, int M>
+RT_FN void rt_count(unsigned long long* counts, const RtCounts<ON, M>& c) {
   if (!ON) return;
 #pragma unroll
   for (int k = 0; k < N; ++k) {
@@ -1219,12 +1250,149 @@ RT_FN bool rt_load_lane(const RtRays& p, int i, int n, float3& o, float3& d) {
   return true;
 }
 
+// ---- the pass kernels: closest_kernel and occluded_kernel without MXU ----
+//
+// At L = 8 on the standard stack tier, one thread still traces one ray with
+// its own stack, but the warp walks the rays of its lanes together in the
+// "while-while" loop of Aila & Laine, "Understanding the Efficiency of Ray
+// Traversal on GPUs" (HPG 2009), with a postponed leaf: each pop step,
+// every lane pops one entry; a lane that pops a leaf group keeps it and goes
+// on with its inner nodes (a lane that pops a second leaf puts it back and
+// waits); the warp takes its leaf step once no lane is still looking for a
+// leaf or RT_LEAF_SHARE lanes hold one, and every lane holding a leaf tests
+// it then, so lanes that hold the same row load it in the same step. In
+// rt_closest_on's loop a warp step runs its inner-node lanes and then its
+// leaf lanes: on synthetic_600k 14.8 lanes of 32 took an inner step and 13.5
+// a leaf step; here 13.1 and 20.4 (share 16; PERF.md §6). The warp stays
+// converged: every lane runs every step, with its own predicate. Each ray
+// tests the leaves rt_closest_on tests, in its order: an inner node visited
+// while a leaf waits is cut at the t before that leaf's test, so it can only
+// push entries that the pop then cuts (a child's box lies inside its
+// parent's, in f32 or rounded outward), hence the same t, idx, det sign and
+// blocked, to the bit.
+//
+// Where it lost in turns on the H100 the instances keep rt_closest_on's
+// loop (rt_while_while): at L = 4, 2 and 1 a leaf step tests too few
+// triangles to pay for the extra pop steps (1.01-1.11x at share 16), and
+// on the DEEP tier's chain scene a warp's rays walk inner nodes almost
+// only (1.05x). Persistent warps that fetch rays from a counter of the
+// launch whenever fewer than 16 lanes still trace were built too, alone
+// and with this loop, and lost everywhere (1.13-1.58x; PERF.md §6).
+static constexpr int RT_LEAF_SHARE = 16;
+
+template <int L, bool DEEP>
+__host__ __device__ constexpr bool rt_while_while() {
+  return L == RT_LEAF && !DEEP;
+}
+
+// Any hit reads no entry distance: its dst takes the pushes and keeps none.
+struct RtSink {
+  float v;
+  RT_FN float& operator[](int) { return v; }
+};
+
+// The while-while traversal of the lane's ray, called by every lane of the
+// warp, `active` false where the lane has no ray to trace. Closest hit
+// (OCC = false): returns the slot (or -1) and sets t and neg, as
+// rt_closest_on. Any hit (OCC): sets blocked, as rt_occluded_on, with
+// lim = max_dist2; the ray stops at its first blocker.
+template <int A, RtBox F, bool OCC, bool STREAM, int L, class C, class SI, class SF>
+RT_FN int rt_ww_on(const RtScene& s, const RtRay& r, bool active, float lim, float& t,
+                   bool& neg, bool& blocked, C& cnt, SI& stk, SF& dst) {
+  constexpr int B = rt_ncounts(STREAM);
+  int sp = 0, lf = -1, idx = -1;  // lf: the postponed leaf group, or -1
+  bool parked = false;            // a second leaf is back on the stack
+  const float cut = OCC ? sqrtf(lim) : 0.f;
+  t = RT_TMAX;
+  neg = blocked = false;
+  if (active) {
+    stk[0] = 0;
+    dst[0] = -RT_TMAX;
+    sp = 1;
+    cnt.add(RT_C_RAYS);
+  }
+  while (__any_sync(RT_WARP, sp > 0)) {
+    // pop steps, until no lane is still looking for a leaf or enough hold one
+    for (;;) {
+      const unsigned seek = __ballot_sync(RT_WARP, lf < 0 && sp > 0);
+      const unsigned hold = __ballot_sync(RT_WARP, lf >= 0);
+      if (seek == 0u || __popc(hold) >= RT_LEAF_SHARE) break;
+      if (sp > 0 && !parked) {
+        --sp;
+        const int e = stk[sp];
+        if (!OCC && dst[sp] >= t) {
+          // the box starts beyond the current hit
+        } else if (e < 0) {
+          if (lf < 0) {
+            lf = -e - 1;
+          } else {  // a second leaf: back on the stack until the leaf step
+            ++sp;
+            parked = true;
+          }
+        } else {
+          rt_step<B>(cnt, false, 0);
+          rt_visit<A, F>(s, e, r, OCC ? cut : t, stk, dst, sp, cnt);
+        }
+      }
+    }
+    // the leaf step: every lane holding a leaf group tests it
+    if (lf >= 0) {
+      rt_step<B>(cnt, true, lf);
+      cnt.add(RT_C_LEAF);
+      if constexpr (STREAM) cnt.add(RT_C_SYNCS);
+      const float4* row = s.tri + (size_t)lf * (RT_LANES / 4);
+#pragma unroll
+      for (int j = 0; j < L; ++j) {
+        if (OCC && blocked) break;
+        bool nj;
+        float4 c = __ldg(row + 3 * j + 2);
+        cnt.tri(c);
+        float tj = rt_mt(r, __ldg(row + 3 * j), __ldg(row + 3 * j + 1), c, nj);
+        if constexpr (OCC) {
+          blocked = tj < RT_TMAX && tj * tj < lim;
+        } else if (tj < t) {
+          t = tj;
+          idx = lf * L + j;
+          neg = nj;
+        }
+      }
+      if (OCC && blocked) sp = 0;  // the ray stops at its first blocker
+      lf = -1;
+      parked = false;
+    }
+  }
+  return idx;
+}
+
+// The two while-while traversals on the standard tier's private stack.
+template <int A, RtBox F, bool STREAM, int L, class C>
+RT_FN int rt_closest_ww(const RtScene& s, const RtRay& r, bool active, float& t, bool& neg,
+                        C& cnt) {
+  int stk[RtArity<A>::STACK];
+  float dst[RtArity<A>::STACK];
+  bool blocked;
+  return rt_ww_on<A, F, false, STREAM, L>(s, r, active, 0.f, t, neg, blocked, cnt, stk, dst);
+}
+
+template <int A, RtBox F, bool STREAM, int L, class C>
+RT_FN bool rt_occluded_ww(const RtScene& s, const RtRay& r, bool active, float max_dist2,
+                          C& cnt) {
+  int stk[RtArity<A>::STACK];
+  RtSink dst;
+  float t;
+  bool neg, blocked;
+  rt_ww_on<A, F, true, STREAM, L>(s, r, active, max_dist2, t, neg, blocked, cnt, stk, dst);
+  return blocked;
+}
+
 // One thread per ray; the grid covers n rays exactly once. Threads past n
-// stay for the warp-wide count reduction (and, MXU, the warp's leaf steps).
-// STREAM: the streamed leaf rows (arity 4 and 8, f32 or pair rows; tri and
-// attr padded to whole blocks). DEEP: the stack tier with the global stack
-// g (need * n entries). MXU: the MXU leaf on s.cmat. L: triangles per leaf
-// group (8, 4, 2 or 1; MXU 8 or 4).
+// stay for the warp-wide count reduction (and, MXU or while-while, the
+// warp's steps). STREAM: the streamed leaf rows (arity 4 and 8, f32 or pair
+// rows; tri and attr padded to whole blocks). DEEP: the stack tier with the
+// global stack g (need * n entries). MXU: the MXU leaf on s.cmat. L:
+// triangles per leaf group (8, 4, 2 or 1; MXU 8 or 4). Without MXU, the
+// while-while traversal where rt_while_while takes it, else rt_closest_on's
+// loop; their counting instances also count warp steps.
 template <int A, RtBox F, bool FULL, bool COUNT, bool STREAM, bool DEEP, bool MXU = false,
           int L = RT_LEAF>
 __global__ void __launch_bounds__(RT_BLOCK)
@@ -1235,8 +1403,10 @@ closest_kernel(RtRays rays, RtScene s, int n, RtDeep g, float* t_out,
                 "leaf rows stream at arity 4 and 8 only, as in JAX");
   static_assert(!MXU || (A >= 4 && !STREAM && F != RT_BF16),
                 "the MXU leaf is resident, at arity 4 and 8, as in JAX");
+  constexpr bool WW = !MXU && rt_while_while<L, DEEP>();
+  constexpr int NC = MXU ? rt_ncounts(true) : rt_ncounts(STREAM) + RT_NSTEPS;
   int i = blockIdx.x * blockDim.x + threadIdx.x;
-  RtCounts<COUNT> cnt;
+  RtCounts<COUNT, NC> cnt;
   float t = RT_TMAX;
   bool neg = false;
   int idx = -1;
@@ -1245,6 +1415,10 @@ closest_kernel(RtRays rays, RtScene s, int n, RtDeep g, float* t_out,
     const bool in = rt_load_lane(rays, i, n, o, d);
     idx = rt_closest_mxu<A, F, DEEP, L>(s, rt_ray(o, d), in && !rt_dead(d), t, neg,
                                         cnt, rt_deep_at(g, in ? i : 0));
+  } else if constexpr (WW) {
+    float3 o, d;
+    const bool in = rt_load_lane(rays, i, n, o, d);
+    idx = rt_closest_ww<A, F, STREAM, L>(s, rt_ray(o, d), in && !rt_dead(d), t, neg, cnt);
   } else if (i < n) {
     float3 o, d;
     rt_load(rays, i, o, d);
@@ -1268,7 +1442,7 @@ closest_kernel(RtRays rays, RtScene s, int n, RtDeep g, float* t_out,
       for (int k = 0; k < 12; ++k) attr_out[(size_t)k * n + i] = av[k];
     }
   }
-  rt_count<rt_ncounts(STREAM || MXU)>(counts, cnt);
+  rt_count<NC>(counts, cnt);
 }
 
 template <int A, RtBox F, bool COUNT, bool STREAM, bool DEEP, bool MXU = false,
@@ -1280,8 +1454,10 @@ occluded_kernel(RtRays rays, const float* max_dist2, RtScene s, int n,
                 "leaf rows stream at arity 4 and 8 only, as in JAX");
   static_assert(!MXU || (A >= 4 && !STREAM && F != RT_BF16),
                 "the MXU leaf is resident, at arity 4 and 8, as in JAX");
+  constexpr bool WW = !MXU && rt_while_while<L, DEEP>();
+  constexpr int NC = MXU ? rt_ncounts(true) : rt_ncounts(STREAM) + RT_NSTEPS;
   int i = blockIdx.x * blockDim.x + threadIdx.x;
-  RtCounts<COUNT> cnt;
+  RtCounts<COUNT, NC> cnt;
   bool blocked = false;
   if constexpr (MXU) {
     float3 o, d;
@@ -1289,6 +1465,11 @@ occluded_kernel(RtRays rays, const float* max_dist2, RtScene s, int n,
     blocked = rt_occluded_mxu<A, F, DEEP, L>(s, rt_ray(o, d), in && !rt_dead(d),
                                              in ? max_dist2[i] : 0.f, cnt,
                                              rt_deep_at(g, in ? i : 0));
+  } else if constexpr (WW) {
+    float3 o, d;
+    const bool in = rt_load_lane(rays, i, n, o, d);
+    blocked = rt_occluded_ww<A, F, STREAM, L>(s, rt_ray(o, d), in && !rt_dead(d),
+                                              in ? max_dist2[i] : 0.f, cnt);
   } else if (i < n) {
     float3 o, d;
     rt_load(rays, i, o, d);
@@ -1297,7 +1478,7 @@ occluded_kernel(RtRays rays, const float* max_dist2, RtScene s, int n,
                                                    cnt, rt_deep_at(g, i));
   }
   if (i < n) blocked_out[i] = blocked ? 1 : 0;
-  rt_count<rt_ncounts(STREAM || MXU)>(counts, cnt);
+  rt_count<NC>(counts, cnt);
 }
 
 // The light table, and with SPH the ns sphere rows after it, are copied to

@@ -86,7 +86,8 @@ stack.
 
 `counters=True` (CUDA only) launches the kernel's counting instance and also
 returns an int64 tensor of the `COUNTS` sums over the rays (`STREAM_COUNTS`
-for a streamed launch, `MXU_COUNTS` for an MXU one).
+for a streamed launch, `MXU_COUNTS` for an MXU one); the closest-hit and
+any-hit passes without the MXU leaf follow them with `STEP_COUNTS`.
 `frame_info` reads a frame instance's occupancy, registers, stack frame
 and shared memory (CUDA only).
 """
@@ -129,6 +130,13 @@ STREAM_COUNTS = COUNTS + ("block_fills", "sync_fetches")
 # serves: 24 mma.sync each) and the lanes served (rays that took a
 # group's result; the same number as leaf_visits).
 MXU_COUNTS = COUNTS + ("mma_batches", "lanes_served")
+# A closest-hit or any-hit pass without the MXU leaf also counts its warp
+# steps: those in which some lane visited an inner node, those in which some
+# lane tested a leaf group, and the distinct leaf groups of each leaf step,
+# summed (RT_S_* in csrc/trace.cuh). inner_visits / inner_steps is the
+# lanes active a step of the inner branch, leaf_visits / leaf_steps those
+# of the leaf branch, leaf_rows / leaf_steps the rows a leaf step loads.
+STEP_COUNTS = ("inner_steps", "leaf_steps", "leaf_rows")
 # C-matrix table widths in bf16 values: one group per row ([hi | lo],
 # ops/pack.split_cmat) or four (ops/pack.pack_cmi4). A group has 4L rows.
 CMAT_WIDTHS = (32, 128)
@@ -295,13 +303,20 @@ class _Launch(NamedTuple):
     stk_dst: Optional[torch.Tensor]
 
 
+def count_names(stream: bool = False, mxu: bool = False, steps: bool = True) -> tuple:
+    """The names of what counters=True returns for a launch: a pass
+    (closest, closest_full, occluded) with steps, a frame without."""
+    names = STREAM_COUNTS if stream else MXU_COUNTS if mxu else COUNTS
+    return names + STEP_COUNTS if steps and not mxu else names
+
+
 def _launch_setup(cmeta, arity, stack_depth, counters, stream=False,
-                  n_rays=0, mxu=False) -> _Launch:
+                  n_rays=0, mxu=False, steps=True) -> _Launch:
     """The library, a counts buffer, and the stack tier for the tree: the
     DEEP tier's stack of `need` entries for each of n_rays rays."""
     need = (stack_need(cmeta.cpu().numpy(), arity) if stack_depth is None
             else int(stack_depth))
-    names = STREAM_COUNTS if stream else MXU_COUNTS if mxu else COUNTS
+    names = count_names(stream, mxu, steps)
     counts = (torch.zeros(len(names), dtype=torch.int64, device=cmeta.device)
               if counters else None)
     if not use_deep_tier(need, arity):
@@ -457,7 +472,8 @@ def frame_tiles(cbox, cmeta, tri, attr, lamb, o: Vec3, d: Vec3, *, bounces: int,
         return frame_plain(tri, attr, lamb, o, d, bounces=bounces,
                            leaf_size=leaf_size, sph=sph, cmat=cmat if mxu else None,
                            reverse_shadows=reverse_shadows)
-    ls = _launch_setup(cmeta, arity, stack_depth, counters, n_rays=rows * LANES, mxu=mxu)
+    ls = _launch_setup(cmeta, arity, stack_depth, counters, n_rays=rows * LANES, mxu=mxu,
+                       steps=False)
     col = torch.empty((3, rows, LANES), dtype=torch.float32, device=device)
     cptr, cpitch = _cmat_args(cmat, mxu)
     rc = ls.lib.rt_frame(
