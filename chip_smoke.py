@@ -542,6 +542,9 @@ def bound(counts, names, in_bytes, out_bytes, spheres=0, leaf=8):
         c["mma_ops"] = c["lanes_served"] * mma_ops_per_lane(leaf)
         c["mma_ops_issued"] = c["mma_batches"] * mma_ops_per_batch(leaf)
         c["lanes_per_batch"] = c["lanes_served"] / max(c["mma_batches"], 1)
+        c["batches_per_ray"] = c["mma_batches"] / max(c["traversals"], 1)
+        if c.get("leaf_steps"):  # an MXU pass's warp leaf steps over its rays
+            c["leaf_steps_per_ray"] = c["leaf_steps"] / max(c["traversals"], 1)
         c["fp32_pipe_ms"] = t_ops
         c["tensor_pipe_ms"] = c["mma_ops"] / PEAK_BF16_OPS * 1e3
         t_ops = max(t_ops, c["tensor_pipe_ms"])
@@ -553,6 +556,18 @@ def bound(counts, names, in_bytes, out_bytes, spheres=0, leaf=8):
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "ops": ops, "bytes": in_bytes + out_bytes, **c}
+
+
+def count_names(kernel: str, mxu: bool) -> tuple:
+    """The names of a kernel's counts (ops/cuda_trace.count_names): a pass
+    (closest, closest_full, occluded) keeps its warp steps, a frame none."""
+    from parallel_ray_tracer_tpu_torch.ops.cuda_trace import count_names as names
+    return names(mxu=mxu, steps=not kernel.startswith("frame"))
+
+
+# What the mxu phase records of each MXU pass instance (bound()).
+MXU_STEP_SHARES = ("lanes_per_batch", "batches_per_ray", "leaf_steps_per_ray",
+                   "lanes_per_leaf_step", "rows_per_leaf_step")
 
 
 def main() -> int:
@@ -1477,7 +1492,7 @@ def main() -> int:
         fn, counted, in_b, out_b = kernel_runs(A, cmat=cmat, **rays)[kernel]
         t = time_ms(fn, ARITY_WARMUP, ARITY_TIMED)
         return dict(t, rays=n_rays, **bound(
-            counted().cpu().tolist(), ct.COUNTS if cmat is None else ct.MXU_COUNTS, in_b, out_b,
+            counted().cpu().tolist(), count_names(kernel, cmat is not None), in_b, out_b,
             spheres=A.sph.shape[0] if kernel == "frame_sph" else 0, leaf=A.leaf_size))
 
     def box_name(A):
@@ -2007,9 +2022,13 @@ def main() -> int:
                 fp32_ms = statistics.median([turns[0]["median"], turns[3]["median"]])
             else:
                 t_m, fp32_ms, turns = time_ms(fn_m, ARITY_WARMUP, ARITY_TIMED), None, None
-            b = bound(counted().cpu().tolist(), ct.MXU_COUNTS, in_b, out_b)
+            b = bound(counted().cpu().tolist(), count_names(k, True), in_b, out_b)
             tm[k] = dict(t_m, rays=n_rays, fp32_ms=fp32_ms, turns=turns,
                          vs_fp32=t_m["median"] / fp32_ms if fp32_ms else None, **b)
+        # each MXU pass instance's lanes served an mma batch, batches a ray
+        # and warp leaf steps a ray (the while-while loop's leaf steps)
+        res["mxu_pass_steps"] = {k: {x: tm[k].get(x) for x in MXU_STEP_SHARES}
+                                 for k in MXU_TURNS if k != "frame"}
         # lanes served per mma batch at bounce 0 (a 1-bounce frame) and
         # over the whole frame
         c1 = dict(zip(ct.MXU_COUNTS, ct.frame_tiles(
@@ -2167,7 +2186,8 @@ def main() -> int:
                         + (nbytes(D.lamb) if k.startswith("frame") else 0)
                         + (out_plane if k == "occluded" else 0))
                 out_n = {"closest": 3, "closest_full": 15, "occluded": 1, "frame": 3, "frame_sph": 3}[k]
-                tt.update(bound(fn(True)[1].cpu().tolist(), ct.MXU_COUNTS, in_b, out_n * out_plane,
+                tt.update(bound(fn(True)[1].cpu().tolist(), count_names(k, True), in_b,
+                                out_n * out_plane,
                                 spheres=dsph.shape[0] if k == "frame_sph" else 0,
                                 leaf=D.leaf_size))
                 dt[k] = tt
@@ -2402,10 +2422,9 @@ def main() -> int:
         res["reference_image"] = hold_reference(f"car_boxed_1080p_l{L}_{key}", pimg, save=save)
 
         # timing: each kernel at the main path's shapes, with its work per ray
-        names = ct.MXU_COUNTS if mxu else ct.COUNTS
         tm = {}
         for k, (fn, counted, in_b, out_b) in kernel_runs(A, cmat=A.cmat).items():
-            b = bound(counted().cpu().tolist(), names, in_b, out_b, leaf=L)
+            b = bound(counted().cpu().tolist(), count_names(k, mxu), in_b, out_b, leaf=L)
             if k == "frame" and l8 is not None:
                 fn8, counted8, _, _ = kernel_runs(l8, cmat=l8.cmat)[k]
                 turns = [time_ms(fn if i in (1, 2) else fn8) for i in range(4)]

@@ -2,7 +2,7 @@
 """Time the frame kernels of this tree against those of other trees, in turns.
 
     python3 compare_frames.py --other parent=DIR [--other NAME=DIR ...]
-                              [--passes frame|stream|resident] [--out FILE]
+                              [--passes frame|stream|resident|mxu] [--out FILE]
 
 Each DIR is a checkout of this repository (another commit, or a copy with
 a variant of csrc/); its kernel library is built there by its own
@@ -42,7 +42,8 @@ tree passes the standard stack. Primary rays are the frame's; shadow rays
 go from light 0 to each primary hit of the resident pass. A round of
 turns is the others, this tree, this tree's resident twin (stream=False)
 twice, this tree, the others in reverse; a table takes rounds until they
-have run STREAM_ROUND_S seconds, at most STREAM_ROUNDS of them, so that
+have run STREAM_ROUND_S seconds, at least MIN_ROUNDS and at most
+STREAM_ROUNDS of them, so that
 a pass of a tenth of a millisecond, whose turns differ by 10-20% on one
 card, gets as many turns as its time allows. Each line holds every library's median and ratio to this tree's,
 the resident twin's median and this tree's ratio to it, whether each
@@ -66,6 +67,21 @@ mask or a frame bit for bit); its work and warp-step counts (lanes a
 step of the inner and the leaf branch, distinct rows a leaf step; a
 library that keeps no step counts reads 0 there); and the registers,
 stack frame and spills of its timed instance.
+
+--passes mxu times the MXU pass instances (the C-matrix table passed, the
+tables of prepare with the MXU leaf) the same way, on MXU_TABLES: car_boxed
+1080p closest_mxu<4>, closest_full_mxu<4>, occluded_mxu<4>,
+closest_full_mxu<8>, occluded_mxu<8,bf16>, closest_full_mxu<4,l4> and
+occluded_mxu<4,l4>; the chain scene's DEEP closest_full_mxu<4> and
+occluded_mxu<4>; and car_boxed's pass-based render(variant="pallas") with
+the MXU leaf (4 closest_full_mxu<4> and 4 occluded_mxu<4> launches and
+their glue). A round is the others, this tree, this tree's FP32 twin (the
+same call without the C-matrix table) twice, this tree, the others in
+reverse. Each line holds what --passes resident's lines hold, the twin's
+median and this tree's ratio to it, and from each library's counting
+instance the lanes served an mma batch, the batches a ray and the leaf
+steps a ray (warp steps over traversals; null for a library that keeps
+no step counts).
 
 It needs a CUDA device and exits non-zero without one.
 """
@@ -126,7 +142,27 @@ RESIDENT_TABLES = (
     ("closest_full<4,deep>", "chain", "closest_full", "primary"),
     ("occluded<4,deep>", "chain", "occluded", "shadow"),
 )
-STREAM_ROUND_S, STREAM_ROUNDS = 2.0, 10
+# --passes mxu: the MXU pass instances, on car_boxed's tables of prepare
+# with the MXU leaf (the default) at widths 4 and 8 (bf16 pair rows at 8)
+# and leaf sizes 8 and 4, and on the chain's DEEP tier with the MXU leaf;
+# "render" is car_boxed's pass-based render(variant="pallas").
+MXU_TABLES = (
+    ("closest_mxu<4>", (4, 8, False), "closest", "primary"),
+    ("closest_full_mxu<4>", (4, 8, False), "closest_full", "primary"),
+    ("occluded_mxu<4>", (4, 8, False), "occluded", "shadow"),
+    ("closest_full_mxu<8>", (8, 8, False), "closest_full", "primary"),
+    ("occluded_mxu<8,bf16>", (8, 8, True), "occluded", "shadow"),
+    ("closest_full_mxu<4,l4>", (4, 4, False), "closest_full", "primary"),
+    ("occluded_mxu<4,l4>", (4, 4, False), "occluded", "shadow"),
+    ("closest_full_mxu<4,deep>", "chain", "closest_full", "primary"),
+    ("occluded_mxu<4,deep>", "chain", "occluded", "shadow"),
+    ("render() pallas (closest_full_mxu<4> x 4, occluded_mxu<4> x 4)", (4, 8, False),
+     "render", None),
+)
+# A table takes rounds until they have run STREAM_ROUND_S seconds, at least
+# MIN_ROUNDS (a pass-based render, host-bound, swings by 5-30% a turn) and at most
+# STREAM_ROUNDS.
+STREAM_ROUND_S, MIN_ROUNDS, STREAM_ROUNDS = 2.0, 5, 10
 BUILD_SNIPPET = ("import sys; sys.path.insert(0, '.'); "
                  "from parallel_ray_tracer_tpu_torch import _build; print(_build.build())")
 
@@ -252,9 +288,21 @@ def step_shares(c: dict) -> dict:
             "rows_per_leaf_step": ratio("leaf_rows", "leaf_steps")}
 
 
-def pass_tables(L, ptxas, others, card, emit, resident):
-    """The STREAM_TABLES passes (--passes stream) or the RESIDENT_TABLES
-    passes (--passes resident), in turns."""
+def mxu_shares(c: dict) -> dict:
+    """Lanes served an mma batch, batches a ray and leaf steps a ray, from
+    an MXU pass's counts (ops/cuda_trace.MXU_COUNTS and STEP_COUNTS; a leaf
+    step is a warp's, divided by the rays traced; null where a library kept
+    no step counts)."""
+    def ratio(a, b):
+        return c[a] / c[b] if c.get(a) and c.get(b) else None
+    return {"lanes_per_batch": ratio("lanes_served", "mma_batches"),
+            "batches_per_ray": ratio("mma_batches", "traversals"),
+            "leaf_steps_per_ray": ratio("leaf_steps", "traversals")}
+
+
+def pass_tables(L, ptxas, others, card, emit, mode):
+    """The STREAM_TABLES passes (mode "stream"), the RESIDENT_TABLES passes
+    ("resident") or the MXU_TABLES passes ("mxu"), in turns."""
     import dataclasses
 
     from chip_smoke import DEEP_CFG, SYNTHETIC_600K
@@ -268,38 +316,44 @@ def pass_tables(L, ptxas, others, card, emit, resident):
     from parallel_ray_tracer_tpu_torch.ops.vecmath import Vec3
 
     ct = L.ct
-    if resident:
-        tables = RESIDENT_TABLES
-        order = others + ["this", "this"] + others[::-1]
+    mxu = mode == "mxu"
+    # the twin: this tree's resident instance of a streamed pass, or its
+    # FP32 instance of an MXU pass
+    twin = {"stream": "resident", "mxu": "fp32"}.get(mode)
+    tables = {"stream": STREAM_TABLES, "resident": RESIDENT_TABLES, "mxu": MXU_TABLES}[mode]
+    if twin:
+        order = others + ["this", twin, twin, "this"] + others[::-1]
     else:
-        tables = STREAM_TABLES
-        order = others + ["this", "resident", "resident", "this"] + others[::-1]
+        order = others + ["this", "this"] + others[::-1]
 
     def prepared(spec):
         """The pipeline of a table's spec; for --passes stream its tri and
         attr padded to whole blocks (ops/pack.pad_stream_rows), as prepare
         pads streamed ones (the synthetic scenes stream under auto, and
-        are padded so in both modes)."""
+        are padded so in both modes); for --passes mxu with the MXU leaf."""
         if isinstance(spec, int):
             p = pipeline.prepare(RenderConfig(**dict(SYNTHETIC_600K, synthetic_triangles=spec)))
-            assert resident or p.stream, f"{spec} synthetic triangles do not stream under auto"
+            assert mode == "resident" or p.stream, \
+                f"{spec} synthetic triangles do not stream under auto"
             return p
         if spec == "chain":
-            p, pairs = pipeline.prepare(RenderConfig(**DEEP_CFG), scene=chain_scene()), False
+            p = pipeline.prepare(RenderConfig(**dict(DEEP_CFG, mxu_leaf=mxu)), scene=chain_scene())
+            pairs = False
         else:
             width, leaf, pairs = spec
             cut = {} if leaf == 8 else dict(leaf_size=leaf, leaf_threshold=8)
             p = pipeline.prepare(RenderConfig(scene="car_boxed", width=1920, height=1080,
                                               bounces=4, bvh_heuristic=6, tile_rows=32,
-                                              tile_cols=32, mxu_leaf=False, bvh_width=width,
+                                              tile_cols=32, mxu_leaf=mxu, bvh_width=width,
                                               **cut))
+        assert p.mxu == mxu, (spec, p.mxu)
         t = p.tables
         if pairs:  # pair rows at width 8: prepare packs width 8 in f32, as JAX's does
             packed = pack_bvh8(p.flat, p.scene.triangle_vertices(), bf16=True)
             t = packed_from_numpy(packed.cbox, packed.cmeta, packed.tri, t.attr.cpu().numpy(),
                                   t.lamb.cpu().numpy(), device=p.device,
-                                  leaf_size=t.leaf_size, compressed=True)
-        if resident:
+                                  leaf_size=t.leaf_size, compressed=True)._replace(cmat=t.cmat)
+        if mode != "stream":
             return dataclasses.replace(p, tables=t)
 
         def pad(a):
@@ -345,57 +399,63 @@ def pass_tables(L, ptxas, others, card, emit, resident):
             ray_args = (o, d)
 
         def run(name, counters=False):
-            s = not resident and name != "resident"
-            lib = "this" if name == "resident" else name
+            s = mode == "stream" and name != twin
+            lib = "this" if name == twin else name
+            cmat = T.cmat if mxu and name != twin else None
             if kernel == "render":  # "auto" on a streamed pipeline is pass-based
-                q = dataclasses.replace(p, stream=s)
+                q = dataclasses.replace(p, stream=s, mxu=cmat is not None,
+                                        tables=T._replace(cmat=cmat))
                 return L.call(lib, lambda: q.render(variant="pallas"))
             fn = {"closest": lambda: ct.closest_tiles(T.cbox, T.cmeta, T.tri, *ray_args,
-                                                      stream=s, counters=counters, **kw),
+                                                      stream=s, counters=counters, cmat=cmat,
+                                                      **kw),
                   "closest_full": lambda: ct.closest_tiles_full(
                       T.cbox, T.cmeta, T.tri, T.attr, *ray_args, stream=s, counters=counters,
-                      **kw),
+                      cmat=cmat, **kw),
                   "occluded": lambda: ct.occluded_tiles(T.cbox, T.cmeta, T.tri, *ray_args,
-                                                        stream=s, counters=counters, **kw)}
+                                                        stream=s, counters=counters, cmat=cmat,
+                                                        **kw)}
             return L.call(lib, fn[kernel])
 
         turns, t0 = [], time.perf_counter()
-        for _ in range(STREAM_ROUNDS):
+        for i in range(STREAM_ROUNDS):
             turns += [(name, time_ms(lambda: run(name))) for name in order]
-            if time.perf_counter() - t0 >= STREAM_ROUND_S:
+            if i + 1 >= MIN_ROUNDS and time.perf_counter() - t0 >= STREAM_ROUND_S:
                 break
         ref_out = run("this")
         ref = outputs(ref_out)
         med = {n: statistics.median([t for m, t in turns if m == n]) for n in set(order)}
         rec = {"table": table, "card": card, "rays": o.x.numel(),
                "rounds": len(turns) // len(order), "turns": turns, "libs": {}}
-        if not resident:
-            rec.update(resident_ms=med["resident"],
-                       this_vs_resident=med["this"] / med["resident"])
+        if twin:
+            rec.update({f"{twin}_ms": med[twin], f"this_vs_{twin}": med["this"] / med[twin]})
         a = T.arity
         box = 2 if T.cbox.dtype == torch.bfloat16 else 1 if T.compressed else 0
         deep = int(ct.use_deep_tier(T.stack_depth, a))
         full = kernel in ("closest_full", "render")
-        for name in list(L.libs) + ([] if resident else ["resident"]):
+        for name in list(L.libs) + ([twin] if twin else []):
             raw = run(name)
             out = outputs(raw)
             lr = {"ms": med[name], "vs_this": med[name] / med["this"],
                   "bitwise_equal": len(out) == len(ref) and all(
                       torch.equal(x, y) for x, y in zip(out, ref))}
-            if resident:
+            if mode != "stream":
                 lr["agreement"] = hit_agreement(raw, ref_out)
-            s = not resident and name != "resident"
+            s = mode == "stream" and name != twin
+            m = int(mxu and name != twin)
             if kernel == "occluded":
-                prefix = (f"_Z15occluded_kernelILi{a}EL5RtBox{box}ELb0ELb{int(s)}ELb{deep}ELb0"
-                          f"ELi{T.leaf_size}E")
+                prefix = (f"_Z15occluded_kernelILi{a}EL5RtBox{box}ELb0ELb{int(s)}ELb{deep}"
+                          f"ELb{m}ELi{T.leaf_size}E")
             else:
                 prefix = (f"_Z14closest_kernelILi{a}EL5RtBox{box}ELb{int(full)}ELb0ELb{int(s)}"
-                          f"ELb{deep}ELb0ELi{T.leaf_size}E")
-            lr["ptxas"] = ptxas_row(ptxas["this" if name == "resident" else name], prefix)
+                          f"ELb{deep}ELb{m}ELi{T.leaf_size}E")
+            lr["ptxas"] = ptxas_row(ptxas["this" if name == twin else name], prefix)
             if kernel != "render":
                 counts = run(name, counters=True)[1].cpu().tolist()
-                lr["counts"] = dict(zip(ct.count_names(s), counts))
+                lr["counts"] = dict(zip(ct.count_names(s, bool(m)), counts))
                 lr.update(step_shares(lr["counts"]))
+                if m:
+                    lr.update(mxu_shares(lr["counts"]))
                 if s:
                     c = lr["counts"]
                     lr["fills_per_leaf"] = c["block_fills"] / max(c["leaf_visits"], 1)
@@ -410,9 +470,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", action="append", default=[], metavar="NAME=DIR",
                     help="another checkout whose kernels are timed in turns")
-    ap.add_argument("--passes", choices=("frame", "stream", "resident"), default="frame",
-                    help="time the fused frames, the streamed traversal passes, or the "
-                         "resident ones")
+    ap.add_argument("--passes", choices=("frame", "stream", "resident", "mxu"), default="frame",
+                    help="time the fused frames, the streamed traversal passes, the "
+                         "resident ones, or the MXU ones")
     ap.add_argument("--out", default=None, help="also write the JSON lines here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -447,8 +507,8 @@ def main() -> int:
     emit({"builds_s": builds})
     others = [k for k in libs if k != "this"]
     L = Libs(ct, libs)
-    if args.passes in ("stream", "resident"):
-        pass_tables(L, ptxas, others, card, emit, args.passes == "resident")
+    if args.passes != "frame":
+        pass_tables(L, ptxas, others, card, emit, args.passes)
     else:
         frame_passes(L, ptxas, others + ["this", "this"] + others[::-1], card, emit)
     emit({"card": card})

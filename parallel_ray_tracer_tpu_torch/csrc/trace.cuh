@@ -41,9 +41,10 @@
 // node (single pop) or two (dual pop) per step; the schedule changes the
 // visit order, not the result. Here one thread traces one ray with a
 // private stack, the design of the reference CUDA renderer, so single-pop
-// and dual-pop callers reach the same instance; at L = 8 the closest-hit
-// and any-hit passes without MXU walk their warp's rays together ("the pass
-// kernels" below: a while-while loop with a postponed leaf).
+// and dual-pop callers reach the same instance; at L = 8 (the MXU any-hit
+// pass at L = 4 too) the closest-hit and any-hit passes walk their warp's
+// rays together ("the pass kernels" below: a while-while loop with a
+// postponed leaf).
 //
 // What bounds them on this card: the traversal is a data-dependent loop of
 // dependent loads (node row -> child boxes -> pushed entry -> next row), so
@@ -127,7 +128,10 @@
 // unchanged) until its next entry is a leaf group that survives the cut at
 // t, or its stack is empty; then the converged warp serves the pending
 // groups one at a time (the lowest pending lane's group, broadcast), and
-// every lane whose group it is takes its result. A is R: m-tile m holds
+// every lane whose group it is takes its result. That is the frame kernel's
+// loop (rt_closest_mxu_on); the pass kernels walk the while-while loop with
+// a postponed leaf and serve every distinct held group in one leaf step
+// (rt_ww_mxu_on, below). A is R: m-tile m holds
 // the rays of lanes 16m..16m+15, built once per traversal with shuffles and
 // split into hi and lo in registers. B is the C-matrix transposed: n-tile q
 // is C rows 8q..8q+7 of the group, 32-bit loads of the table's [hi | lo]
@@ -188,7 +192,7 @@
 // can never hit) and the traversals; a STREAM instance also the block
 // fills (prefetches sent: none, since nothing is asked for ahead) and the
 // sync fetches (leaf visits whose row no prefetch asked for: every leaf
-// visit); a pass kernel without MXU also its warp steps (RT_S_*). The
+// visit); a pass kernel also its warp steps (RT_S_*). The
 // timed instance (COUNT = false) compiles the counting out.
 //
 // Numerics: built with -fmad=false and without fast math, so each product
@@ -1291,6 +1295,39 @@ struct RtSink {
   RT_FN float& operator[](int) { return v; }
 };
 
+// The while-while loop's pop steps, until no lane is still looking for a
+// leaf or `share` lanes hold one: each step every lane pops one entry (a
+// closest-hit pop whose box starts at or beyond the lane's t is dropped;
+// cut is its t, or an any-hit ray's window); a lane that pops a leaf group
+// keeps it in lf, a lane that pops a second one puts it back and waits
+// (parked), and an inner node is visited. Returns the lanes holding a leaf.
+template <int A, RtBox F, bool OCC, int B, class C, class SI, class SF>
+RT_FN unsigned rt_ww_pops(const RtScene& s, const RtRay& r, float cut, int share, int& sp,
+                          int& lf, bool& parked, C& cnt, SI& stk, SF& dst) {
+  for (;;) {
+    const unsigned seek = __ballot_sync(RT_WARP, lf < 0 && sp > 0);
+    const unsigned hold = __ballot_sync(RT_WARP, lf >= 0);
+    if (seek == 0u || __popc(hold) >= share) return hold;
+    if (sp > 0 && !parked) {
+      --sp;
+      const int e = stk[sp];
+      if (!OCC && dst[sp] >= cut) {
+        // the box starts beyond the current hit
+      } else if (e < 0) {
+        if (lf < 0) {
+          lf = -e - 1;
+        } else {  // a second leaf: back on the stack until the leaf step
+          ++sp;
+          parked = true;
+        }
+      } else {
+        rt_step<B>(cnt, false, 0);
+        rt_visit<A, F>(s, e, r, cut, stk, dst, sp, cnt);
+      }
+    }
+  }
+}
+
 // The while-while traversal of the lane's ray, called by every lane of the
 // warp, `active` false where the lane has no ray to trace. Closest hit
 // (OCC = false): returns the slot (or -1) and sets t and neg, as
@@ -1312,29 +1349,8 @@ RT_FN int rt_ww_on(const RtScene& s, const RtRay& r, bool active, float lim, flo
     cnt.add(RT_C_RAYS);
   }
   while (__any_sync(RT_WARP, sp > 0)) {
-    // pop steps, until no lane is still looking for a leaf or enough hold one
-    for (;;) {
-      const unsigned seek = __ballot_sync(RT_WARP, lf < 0 && sp > 0);
-      const unsigned hold = __ballot_sync(RT_WARP, lf >= 0);
-      if (seek == 0u || __popc(hold) >= RT_LEAF_SHARE) break;
-      if (sp > 0 && !parked) {
-        --sp;
-        const int e = stk[sp];
-        if (!OCC && dst[sp] >= t) {
-          // the box starts beyond the current hit
-        } else if (e < 0) {
-          if (lf < 0) {
-            lf = -e - 1;
-          } else {  // a second leaf: back on the stack until the leaf step
-            ++sp;
-            parked = true;
-          }
-        } else {
-          rt_step<B>(cnt, false, 0);
-          rt_visit<A, F>(s, e, r, OCC ? cut : t, stk, dst, sp, cnt);
-        }
-      }
-    }
+    rt_ww_pops<A, F, OCC, B>(s, r, OCC ? cut : t, RT_LEAF_SHARE, sp, lf, parked, cnt, stk,
+                             dst);
     // the leaf step: every lane holding a leaf group tests it
     if (lf >= 0) {
       rt_step<B>(cnt, true, lf);
@@ -1385,6 +1401,195 @@ RT_FN bool rt_occluded_ww(const RtScene& s, const RtRay& r, bool active, float m
   return blocked;
 }
 
+// ---- the MXU pass kernels: closest_kernel and occluded_kernel with MXU ----
+//
+// rt_ww_on's loop with the MXU leaf: the same pop steps (each lane pops one
+// entry a step, keeps the first leaf group it pops, parks a second one back
+// on the stack), and once no lane still seeks a leaf or rt_mxu_share lanes
+// hold one, a leaf step that serves every held group on the tensor cores.
+// __match_any_sync on the held groups finds the distinct ones at once (a
+// group's leader is the lowest lane of its peers), and each holding lane
+// packs its group with the m-tiles its peers occupy, so the warp serves the
+// leaders in turn, lowest first, with one shuffle a group. The leaf test is
+// rt_closest_mxu_on's and rt_occluded_mxu_on's: the A fragments built once
+// a traversal, rt_mxu_quants' bf16x3 order, JAX's divided closest epilogue
+// and its division-free any-hit epilogue, an m-tile that serves no lane
+// skipped, and no lane falls back to the FP32 leaf. Each ray tests the same
+// groups in the same order at the same t as in that loop (the argument above
+// rt_ww_on), and an output element of an mma is the product of one ray's
+// row with one triangle's column, whatever the other lanes of the batch; so
+// t, idx, the det sign and blocked are that loop's, to the bit.
+//
+// Closest hit keeps the warp's A fragments in shared memory (RtMxuStash)
+// and reads a tile's back for each batch: 16 registers fewer through the
+// traversal, 64 instead of 77 at A = 4, 32 warps an SM instead of 24. Any
+// hit (72 registers) keeps them in registers: there the reads cost more than
+// the warps gained. What lost in turns on the H100 (PERF.md §6): loading
+// the next group's fragments into a second register set before the current
+// group's mma chains (91-98 registers, 20 warps an SM: 1.08-1.13x the
+// parent's loop), that set capped at 80 registers (spills, 1.11x), a
+// prefetch.global.L1 of its rows (no gain), and shares of 8, 12, 24 and 32
+// for closest hit (16 is best); any hit gains from 12. Where the loop lost
+// to rt_closest_mxu_on's (closest hit at L = 4, 1.00x; the DEEP tier's
+// chain, 1.04-1.07x for closest hit, any hit within its noise), the
+// instances keep that loop (rt_mxu_while_while).
+template <int L, bool DEEP, bool OCC>
+__host__ __device__ constexpr bool rt_mxu_while_while() {
+  return !DEEP && (L == RT_LEAF || OCC);
+}
+
+// Lanes holding a leaf group at which the pop steps stop.
+__host__ __device__ constexpr int rt_mxu_share(bool occ) { return occ ? 12 : 16; }
+
+// One warp-step count k (RT_S_*) of the MXU pass kernels' counting instances,
+// after their mode's counts B; nothing where the counts keep no room for it.
+template <int B, bool ON, int N>
+RT_FN void rt_step_add(RtCounts<ON, N>& c, int k) {
+  if constexpr (ON && N >= B + RT_NSTEPS) c.add(B + k);
+}
+
+// The block's A fragments in shared memory, word-major (word k of thread i at
+// w[k][i]): each lane writes and reads its own column only, so no barrier
+// is needed. ON = false keeps nothing.
+template <bool ON>
+struct RtMxuStash {
+  unsigned (*w)[RT_BLOCK];
+  RT_FN void put(const RtMxuA& a) const {
+    if constexpr (ON) {
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          w[4 * m + k][threadIdx.x] = a.h[m][k];
+          w[8 + 4 * m + k][threadIdx.x] = a.l[m][k];
+        }
+      }
+    }
+  }
+  // m-tile m's fragments back into a (volatile: read at each batch, not
+  // held in registers between them)
+  RT_FN void get(int m, RtMxuA& a) const {
+    if constexpr (ON) {
+      const volatile unsigned* c = &w[0][threadIdx.x];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        a.h[m][k] = c[(4 * m + k) * RT_BLOCK];
+        a.l[m][k] = c[(8 + 4 * m + k) * RT_BLOCK];
+      }
+    }
+  }
+};
+
+// The while-while traversal with the MXU leaf (rt_ww_on's arguments and
+// results), called by every lane of the warp.
+template <int A, RtBox F, bool OCC, int L, class C, class SI, class SF>
+RT_FN int rt_ww_mxu_on(const RtScene& s, const RtRay& r, bool active, float lim, float& t,
+                       bool& neg, bool& blocked, C& cnt, SI& stk, SF& dst) {
+  constexpr int B = rt_ncounts(true);
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  int sp = 0, lf = -1, idx = -1;  // lf: the postponed leaf group, or -1
+  bool parked = false;            // a second leaf is back on the stack
+  const float cut = OCC ? sqrtf(lim) : 0.f;
+  t = RT_TMAX;
+  neg = blocked = false;
+  if (active) {
+    stk[0] = 0;
+    dst[0] = -RT_TMAX;
+    sp = 1;
+    cnt.add(RT_C_RAYS);
+  }
+  if (!__any_sync(RT_WARP, active)) return idx;
+  __shared__ unsigned a_s[OCC ? 1 : 16][RT_BLOCK];
+  const RtMxuStash<!OCC> stash = {a_s};
+  RtMxuA a;
+  rt_mxu_rays(r, a);
+  stash.put(a);
+  float m2[2][2];  // any hit: the windows of rays row and row + 8 of each m-tile
+  if constexpr (OCC) {
+    const int row = lane >> 2;
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      m2[m][0] = __shfl_sync(RT_WARP, lim, 16 * m + row);
+      m2[m][1] = __shfl_sync(RT_WARP, lim, 16 * m + row + 8);
+    }
+  }
+  for (;;) {
+    const unsigned hold = rt_ww_pops<A, F, OCC, B>(s, r, OCC ? cut : t, rt_mxu_share(OCC), sp,
+                                                   lf, parked, cnt, stk, dst);
+    if (hold == 0u) break;  // no lane seeks or holds a leaf: every stack is empty
+    // the leaf step: one tensor-core batch per distinct held group
+    const unsigned peers = __match_any_sync(RT_WARP, lf);
+    const bool leads = lf >= 0 && (peers & below) == 0u;
+    const int key = (lf << 2) | ((peers & 0xFFFFu) != 0u ? 1 : 0) | ((peers >> 16) != 0u ? 2 : 0);
+    unsigned lead = __ballot_sync(RT_WARP, leads);
+    if (lane == __ffs(hold) - 1) rt_step_add<B>(cnt, RT_S_LEAF);
+    if (leads) {
+      cnt.add(RT_C_BATCHES);
+      rt_step_add<B>(cnt, RT_S_ROWS);
+    }
+    if (lf >= 0) rt_mxu_served<L>(s, lf, cnt);
+    while (lead != 0u) {  // the same for every lane
+      const int kc = __shfl_sync(RT_WARP, key, __ffs(lead) - 1);
+      lead &= lead - 1u;
+      const int gl = kc >> 2;
+      RtMxuBL<L> b;
+      rt_mxu_load(s, gl, b);
+      float tn = RT_TMAX;
+      int code = 0;
+      bool hit = false;
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        if (kc & (1 << m)) {  // some lane of m-tile m holds the group
+          float acc[4][4];
+          stash.get(m, a);
+          rt_mxu_quants(a, m, b, acc);
+          if constexpr (OCC) {
+            hit = rt_mxu_occluded_tile(acc, m, m2[m]) || hit;
+          } else {
+            rt_mxu_closest_tile<L>(acc, m, tn, code);
+          }
+        }
+      }
+      if (lf == gl) {
+        if constexpr (OCC) {
+          blocked = blocked || hit;
+        } else if (tn < t) {
+          t = tn;
+          idx = gl * L + (code & 7);
+          neg = (code >> 3) != 0;
+        }
+      }
+    }
+    if (OCC && blocked) sp = 0;  // the ray stops at its first blocker
+    lf = -1;
+    parked = false;
+  }
+  return idx;
+}
+
+// The two MXU while-while traversals on the standard tier's private stack
+// (rt_mxu_while_while leaves the DEEP tier on rt_closest_mxu_on's loop).
+template <int A, RtBox F, int L, class C>
+RT_FN int rt_closest_ww_mxu(const RtScene& s, const RtRay& r, bool active, float& t,
+                            bool& neg, C& cnt) {
+  int stk[RtArity<A>::STACK];
+  float dst[RtArity<A>::STACK];
+  bool blocked;
+  return rt_ww_mxu_on<A, F, false, L>(s, r, active, 0.f, t, neg, blocked, cnt, stk, dst);
+}
+
+template <int A, RtBox F, int L, class C>
+RT_FN bool rt_occluded_ww_mxu(const RtScene& s, const RtRay& r, bool active,
+                              float max_dist2, C& cnt) {
+  int stk[RtArity<A>::STACK];
+  RtSink dst;
+  float t;
+  bool neg, blocked;
+  rt_ww_mxu_on<A, F, true, L>(s, r, active, max_dist2, t, neg, blocked, cnt, stk, dst);
+  return blocked;
+}
+
 // One thread per ray; the grid covers n rays exactly once. Threads past n
 // stay for the warp-wide count reduction (and, MXU or while-while, the
 // warp's steps). STREAM: the streamed leaf rows (arity 4 and 8, f32 or pair
@@ -1392,7 +1597,10 @@ RT_FN bool rt_occluded_ww(const RtScene& s, const RtRay& r, bool active, float m
 // global stack g (need * n entries). MXU: the MXU leaf on s.cmat. L:
 // triangles per leaf group (8, 4, 2 or 1; MXU 8 or 4). Without MXU, the
 // while-while traversal where rt_while_while takes it, else rt_closest_on's
-// loop; their counting instances also count warp steps.
+// loop; with MXU, rt_ww_mxu_on where rt_mxu_while_while takes it, else
+// rt_closest_mxu_on's loop. Their counting instances also count warp steps,
+// but on rt_closest_mxu_on's loop, which counts none (its step counts read
+// 0: the wrappers' buffer has room for them).
 template <int A, RtBox F, bool FULL, bool COUNT, bool STREAM, bool DEEP, bool MXU = false,
           int L = RT_LEAF>
 __global__ void __launch_bounds__(RT_BLOCK)
@@ -1403,8 +1611,8 @@ closest_kernel(RtRays rays, RtScene s, int n, RtDeep g, float* t_out,
                 "leaf rows stream at arity 4 and 8 only, as in JAX");
   static_assert(!MXU || (A >= 4 && !STREAM && F != RT_BF16),
                 "the MXU leaf is resident, at arity 4 and 8, as in JAX");
-  constexpr bool WW = !MXU && rt_while_while<L, DEEP>();
-  constexpr int NC = MXU ? rt_ncounts(true) : rt_ncounts(STREAM) + RT_NSTEPS;
+  constexpr bool WW = MXU ? rt_mxu_while_while<L, DEEP, false>() : rt_while_while<L, DEEP>();
+  constexpr int NC = rt_ncounts(MXU || STREAM) + (MXU && !WW ? 0 : RT_NSTEPS);
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   RtCounts<COUNT, NC> cnt;
   float t = RT_TMAX;
@@ -1413,8 +1621,13 @@ closest_kernel(RtRays rays, RtScene s, int n, RtDeep g, float* t_out,
   if constexpr (MXU) {
     float3 o, d;
     const bool in = rt_load_lane(rays, i, n, o, d);
-    idx = rt_closest_mxu<A, F, DEEP, L>(s, rt_ray(o, d), in && !rt_dead(d), t, neg,
-                                        cnt, rt_deep_at(g, in ? i : 0));
+    const bool tr = in && !rt_dead(d);
+    if constexpr (WW) {
+      idx = rt_closest_ww_mxu<A, F, L>(s, rt_ray(o, d), tr, t, neg, cnt);
+    } else {
+      idx = rt_closest_mxu<A, F, DEEP, L>(s, rt_ray(o, d), tr, t, neg, cnt,
+                                          rt_deep_at(g, in ? i : 0));
+    }
   } else if constexpr (WW) {
     float3 o, d;
     const bool in = rt_load_lane(rays, i, n, o, d);
@@ -1454,17 +1667,22 @@ occluded_kernel(RtRays rays, const float* max_dist2, RtScene s, int n,
                 "leaf rows stream at arity 4 and 8 only, as in JAX");
   static_assert(!MXU || (A >= 4 && !STREAM && F != RT_BF16),
                 "the MXU leaf is resident, at arity 4 and 8, as in JAX");
-  constexpr bool WW = !MXU && rt_while_while<L, DEEP>();
-  constexpr int NC = MXU ? rt_ncounts(true) : rt_ncounts(STREAM) + RT_NSTEPS;
+  constexpr bool WW = MXU ? rt_mxu_while_while<L, DEEP, true>() : rt_while_while<L, DEEP>();
+  constexpr int NC = rt_ncounts(MXU || STREAM) + (MXU && !WW ? 0 : RT_NSTEPS);
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   RtCounts<COUNT, NC> cnt;
   bool blocked = false;
   if constexpr (MXU) {
     float3 o, d;
     const bool in = rt_load_lane(rays, i, n, o, d);
-    blocked = rt_occluded_mxu<A, F, DEEP, L>(s, rt_ray(o, d), in && !rt_dead(d),
-                                             in ? max_dist2[i] : 0.f, cnt,
-                                             rt_deep_at(g, in ? i : 0));
+    const bool tr = in && !rt_dead(d);
+    const float m2 = in ? max_dist2[i] : 0.f;
+    if constexpr (WW) {
+      blocked = rt_occluded_ww_mxu<A, F, L>(s, rt_ray(o, d), tr, m2, cnt);
+    } else {
+      blocked = rt_occluded_mxu<A, F, DEEP, L>(s, rt_ray(o, d), tr, m2, cnt,
+                                               rt_deep_at(g, in ? i : 0));
+    }
   } else if constexpr (WW) {
     float3 o, d;
     const bool in = rt_load_lane(rays, i, n, o, d);

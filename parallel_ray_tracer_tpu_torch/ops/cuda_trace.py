@@ -87,7 +87,7 @@ stack.
 `counters=True` (CUDA only) launches the kernel's counting instance and also
 returns an int64 tensor of the `COUNTS` sums over the rays (`STREAM_COUNTS`
 for a streamed launch, `MXU_COUNTS` for an MXU one); the closest-hit and
-any-hit passes without the MXU leaf follow them with `STEP_COUNTS`.
+any-hit passes follow them with `STEP_COUNTS`.
 `frame_info` reads a frame instance's occupancy, registers, stack frame
 and shared memory (CUDA only).
 """
@@ -130,12 +130,14 @@ STREAM_COUNTS = COUNTS + ("block_fills", "sync_fetches")
 # serves: 24 mma.sync each) and the lanes served (rays that took a
 # group's result; the same number as leaf_visits).
 MXU_COUNTS = COUNTS + ("mma_batches", "lanes_served")
-# A closest-hit or any-hit pass without the MXU leaf also counts its warp
-# steps: those in which some lane visited an inner node, those in which some
-# lane tested a leaf group, and the distinct leaf groups of each leaf step,
-# summed (RT_S_* in csrc/trace.cuh). inner_visits / inner_steps is the
-# lanes active a step of the inner branch, leaf_visits / leaf_steps those
-# of the leaf branch, leaf_rows / leaf_steps the rows a leaf step loads.
+# A closest-hit or any-hit pass also counts its warp steps: those in which
+# some lane visited an inner node, those in which some lane tested a leaf
+# group, and the distinct leaf groups of each leaf step, summed (RT_S_* in
+# csrc/trace.cuh). inner_visits / inner_steps is the lanes active a step of
+# the inner branch, leaf_visits / leaf_steps those of the leaf branch,
+# leaf_rows / leaf_steps the rows a leaf step loads (with the MXU leaf, its
+# mma batches). An MXU instance on the loop that its while-while gate leaves
+# out (rt_mxu_while_while) reads 0 there.
 STEP_COUNTS = ("inner_steps", "leaf_steps", "leaf_rows")
 # C-matrix table widths in bf16 values: one group per row ([hi | lo],
 # ops/pack.split_cmat) or four (ops/pack.pack_cmi4). A group has 4L rows.
@@ -307,7 +309,7 @@ def count_names(stream: bool = False, mxu: bool = False, steps: bool = True) -> 
     """The names of what counters=True returns for a launch: a pass
     (closest, closest_full, occluded) with steps, a frame without."""
     names = STREAM_COUNTS if stream else MXU_COUNTS if mxu else COUNTS
-    return names + STEP_COUNTS if steps and not mxu else names
+    return names + STEP_COUNTS if steps else names
 
 
 def _launch_setup(cmeta, arity, stack_depth, counters, stream=False,

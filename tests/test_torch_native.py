@@ -18,9 +18,17 @@ against the JAX package's and against the port's numpy builder, on the CPU.
   versions, which read no node table, so the tables' equality is what ties
   each width to JAX; the frame ties the slot order and the rows to it.
 - use_native=False, and a host without g++, take the numpy builder.
+- The `native` fixture skips only on a host without g++. JAX's builder can
+  lose a build race between xdist workers and then never loads again;
+  load_jax_native rebuilds it one worker at a time (a file lock of this
+  test's own) and fails the tests only if it still does not load.
 """
 
+import fcntl
 import os
+import shutil
+import tempfile
+import time
 
 import numpy as np
 import pytest
@@ -49,10 +57,48 @@ SCENE_FIELDS = ("verts", "faces", "mat_idx", "mats_kd", "mats_ks", "mats_kr",
                 "spheres_mat")
 
 
+JB_LOCK = os.path.join(tempfile.gettempdir(), "test_torch_native.jb.lock")
+
+
+def load_jax_native(timeout: float = 60.0) -> bool:
+    """Whether JAX's native library loads, rebuilding it if it does not.
+
+    JAX's builder (parallel_ray_tracer_tpu/native/builder.py) compiles
+    straight into librtnative.so under a thread lock only, so an xdist
+    worker can load a file another worker is still writing; it then sets
+    _lib_failed and never tries again. Here the workers take a file lock of
+    this test's own and, one at a time, reset the builder's state, rebuild
+    through its own _compile() and load again, until it loads or `timeout`
+    seconds have passed."""
+    if jb.available():
+        return True
+    deadline = time.monotonic() + timeout
+    with open(JB_LOCK, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            while True:
+                jb._lib, jb._lib_failed = None, False
+                if jb.available():    # another worker rebuilt it meanwhile
+                    return True
+                jb._lib_failed = False
+                if jb._compile() and jb.available():
+                    return True
+                if time.monotonic() >= deadline:
+                    return False
+                time.sleep(1.0)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
 @pytest.fixture(scope="module")
 def native():
-    if not (tb.available() and jb.available()):
+    """Both packages' native builders. Skips only on a host without g++;
+    with g++ a library that does not load fails the test."""
+    if shutil.which("g++") is None:
         pytest.skip("g++ unavailable: both packages fall back to numpy")
+    assert tb.available(), "g++ is present but the port's native library does not load"
+    assert load_jax_native(), ("g++ is present but JAX's native library does not load, "
+                               "even rebuilt one worker at a time for 60 s")
     return tb
 
 
@@ -223,3 +269,15 @@ def test_build_goes_to_the_package_build_dir(native):
     assert os.path.dirname(os.path.dirname(path)) == tb.BUILD_ROOT
     assert os.path.basename(os.path.dirname(path)).startswith("native-")
     assert os.path.realpath(path) != os.path.realpath(jb._LIB)
+
+
+def test_jax_native_recovers_from_a_failed_load(native, monkeypatch):
+    """A worker that lost the race (JAX's builder left with _lib None and
+    _lib_failed True) gets the library back through load_jax_native."""
+    monkeypatch.setattr(jb, "_lib", None)
+    monkeypatch.setattr(jb, "_lib_failed", True)
+    assert not jb.available()
+    assert load_jax_native()
+    assert jb.available() and not jb._lib_failed
+    flat = jb.build_bvh_native(_tris(50), heuristic=6)
+    assert flat is not None
