@@ -155,6 +155,19 @@ each probe's readings print as one JSON line; the inner record sets the
 cost of one packet-1 inner visit (body A) times the width-4 frame kernel's
 inner visits beside the frame's time.
 
+Its `diff` phase runs differentiable rendering (ops/diff.py) and the
+training step (parallel/sharded.make_train_step, variant "pallas") on
+car_boxed with the MXU leaf (the defaults) and with the FP32 leaf, at
+1920x1080 and at scripts/bench_train.py's 512x512 (2 bounces, lr 1e-4):
+each step with the launch counts from 0 (exactly its closest-with-attributes
+and any-hit launches, of the instances prepare chose), its peak memory,
+the step, its forward and its backward timed with CUDA events, the forward
+at lr = 0 against the pass-based render, at 1080p a profiler window, the
+band gradients through the kernels against their plain versions and the
+MXU's against the FP32's, and three SGD steps; at 512x512 a material
+gradient against a finite difference. The traversal runs in the kernels;
+the backward is torch ops, as JAX's is jnp.
+
 Every prepare must take the native host builder (native/, built with g++
 on the card's host): a prepare that fell back to the numpy builder fails,
 and each record carries its builder and BVH build milliseconds
@@ -456,6 +469,29 @@ MB_SLAB_CHECK_ITERS = (MB_ITERS, 64)
 MB_INNER_CHECK_ITERS = (MB_ITERS, 16)
 MB_INNER_ROW_ITERS = 64
 MB_GLUE_ROW_NPOP = 4
+
+# The diff phase: the training step of scripts/bench_train.py (car_boxed, 2
+# bounces, lr 1e-4, target zeros) at the resolution users render and at the
+# script's own; the 64-row band of its kernel-against-plain gradients; the
+# finite-difference step of tests/test_diff.py's material check; the timing
+# repeats (median of 10 after 3 warm-ups); the SGD steps at 1080p.
+DIFF_SIZES = ((1920, 1080), (512, 512))
+DIFF_BOUNCES, DIFF_LR = 2, 1e-4
+DIFF_BAND = 384
+DIFF_FD_H = 1e-3
+DIFF_WARMUP, DIFF_TIMED = 3, 10
+DIFF_SGD_STEPS = 3
+# The training forward against the pass-based render of the same camera,
+# tiles and flags, at lr = 0 (the loss is a mean square over the frame's
+# colours): on the FP32 table below 1e-10, since the recompute's t is the
+# kernel's; on the MXU table below 1e-4, since the render shades at the
+# kernel's t, which carries the bf16x3 error, and the forward at the
+# recomputed t (as in JAX), so a bounce past a silhouette can flip: 1.6e-5
+# at 1080p and 2.3e-5 at 512x512 on the H100, with 99.956% and 99.944% of
+# pixels within 1e-3 (PERF.md section 6). On either table at least
+# DIFF_FORWARD_SHARE of the pixels lie within 1e-3 of the render.
+DIFF_FORWARD_LOSS = {"fp32": 1e-10, "mxu": 1e-4}
+DIFF_FORWARD_SHARE = 0.999
 
 # The numpy builder's seconds on the card's host before the native builder
 # (PERF.md section 4-5): synthetic_600k's prepare and BVH build, the
@@ -3014,7 +3050,10 @@ def main() -> int:
     run_clis({"cli_bf16": ["--bf16-bvh", "--no-mxu-leaf"]}, {"cli_bf16": frames["w4_bf16"]})
     del frames
 
-    # ---- 20. the kernels line --------------------------------------------
+    # ---- 20. differentiable rendering and the training step ----------------
+    diff_phase(card, {"mxu": prepare_native(RenderConfig(**MXU_CFG)), "fp32": pipe})
+
+    # ---- 21. the kernels line --------------------------------------------
     kernels = []
     for name, key, kernel, line in KERNEL_ROWS:
         t = timing[key][kernel]
@@ -3044,6 +3083,321 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def diff_phase(card: str, pipes: dict) -> None:
+    """Phase `diff`: differentiable rendering (ops/diff.py) and the training
+    step (parallel/sharded.make_train_step) on car_boxed's tables with the
+    MXU leaf (the defaults) and the FP32 leaf. For each table and size of
+    DIFF_SIZES: one step with the launch counts from 0 (exactly `bounces`
+    closest-with-attributes launches and bounces x lights any-hit launches,
+    of the instances prepare chose; npop0 = 2 with npop = 8 the same), its
+    peak memory, the step, its forward under no_grad and its backward timed
+    with CUDA events, the forward at lr = 0 against the pass-based render
+    of the same camera, tiles and flags (the loss below DIFF_FORWARD_LOSS
+    of the table, DIFF_FORWARD_SHARE of the pixels within 1e-3; on the MXU
+    table its loss against the FP32 table's render recorded); at 1080p a
+    torch.profiler window
+    (launches, the traversal kernels' share of the device time, the idle
+    share), the gradients of the training loss with respect to the
+    vertices, the material kd and the light positions on a 64-row band
+    through the kernels against a tracer of their plain versions on the same
+    tensors (hits to the hit bounds, gradients within 1e-5 max|g|; the MXU
+    gradient also against the FP32 one: loss within 1e-3 relative, vertex
+    gradient within 1e-2 relative L2), and DIFF_SGD_STEPS steps (finite,
+    the last loss below the first); at 512x512 on the FP32 table the kd
+    gradient of the most seen material against a central finite difference
+    (h = DIFF_FD_H, the attr rows repacked, rtol 2e-2)."""
+    from parallel_ray_tracer_tpu_torch.models.camera import default_camera
+    from parallel_ray_tracer_tpu_torch.models.device_scene import build_device_scene
+    from parallel_ray_tracer_tpu_torch.ops import cuda_trace as ct
+    from parallel_ray_tracer_tpu_torch.ops import diff
+    from parallel_ray_tracer_tpu_torch.ops import render as R
+    from parallel_ray_tracer_tpu_torch.ops import trace_plain as tp
+    from parallel_ray_tracer_tpu_torch.ops.pack import pack_attr
+    from parallel_ray_tracer_tpu_torch.ops.shade import trace_rays
+    from parallel_ray_tracer_tpu_torch.ops.vecmath import Vec3
+    from parallel_ray_tracer_tpu_torch.parallel import sharded
+
+    t_phase = time.perf_counter()
+    B = DIFF_BOUNCES
+    check("diff", pipes["mxu"].mxu and not pipes["fp32"].mxu,
+          "prepare took the MXU leaf with mxu_leaf=False, or not with the defaults")
+
+    def pass_based_tiles(p, W, H):
+        """The pass-based render's colours in prepare_inputs' (ntiles, 1024,
+        3) layout, the tile padding included (1080 rows take 34 tile
+        rows): render_bvh_pallas before its crop, held to its frame."""
+        T = p.tables
+        o, d = R._tiled_planes(default_camera(), W, H, 32, 32, p.device)
+        cf, of = ct.make_tracer(T.packed_dev, T.leaf_size, ds=p.ds, stack_depth=T.stack_depth,
+                                compressed=T.compressed, dual=True)
+        col = trace_rays(p.ds, cf, of, o.reshape(-1), d.reshape(-1), B, reverse_shadows=True)
+        flat = col.clamp(0.0, 1.0).stack(-1).reshape(-1, 3)
+        img = R.render_bvh_pallas(p.ds, T, default_camera(), W, H, bounces=B,
+                                  fast_light=True, reverse_shadows=True)
+        check(f"diff/{W}x{H}/render", torch.equal(R.tiles_to_image(flat, W, H, 32, 32), img),
+              "the pass-based colours are not render_bvh_pallas's frame")
+        return flat.reshape(-1, 1024, 3)
+
+    def plain_tracer(T):
+        L = T.leaf_size
+
+        def closest(o, d):
+            if T.cmat is None:
+                return tp.closest_full_plain(T.tri, T.attr, o, d, L)
+            return tp.closest_full_mxu_plain(T.cmat, T.tri, T.attr, o, d, L)
+
+        def occluded(o, d, m2):
+            if T.cmat is None:
+                return tp.occluded_plain(T.tri, o, d, m2, L)
+            return tp.occluded_mxu_plain(T.cmat, T.tri, o, d, m2, L)
+
+        return closest, occluded
+
+    def kernel_tracer(T, ds):
+        return ct.make_tracer(T.packed_dev, T.leaf_size, ds=ds, stack_depth=T.stack_depth,
+                              compressed=T.compressed, dual=True)
+
+    def recording(pair, log):
+        """The tracer pair, each output also kept in `log`."""
+        c, o = pair
+
+        def closest(*a):
+            log.append(c(*a))
+            return log[-1]
+
+        def occluded(*a):
+            log.append(o(*a))
+            return log[-1]
+
+        return closest, occluded
+
+    def band_grads(p, tracer_of, o_b, d_b, log):
+        """The training loss on the band (target zeros) and its gradients
+        with respect to verts, mats_kd and lights_pos."""
+        sc = p.scene
+        params = [torch.tensor(np.asarray(a, np.float32), device=p.device, requires_grad=True)
+                  for a in (sc.verts, sc.mats_kd, sc.lights_pos)]
+        ds = build_device_scene(params[0], sc.faces, sc.mat_idx, params[1], sc.mats_ks,
+                                sc.mats_kr, params[2], sc.lights_kl,
+                                slot_map=p.flat.slot_map, device=p.device)
+        cf, of = recording(tracer_of(ds), log)
+        col = diff.trace_rays_diff(ds, cf, of, o_b, d_b, B, reverse_shadows=True)
+        loss = (col.clamp(0.0, 1.0).stack(-1) ** 2).sum() / (3 * o_b.x.numel())
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    def cmp_logs(name, lk, lp, mxu, expect):
+        """Each pass's kernel hits against the plain ones: miss masks and
+        idx (blocked) agreement >= 0.999 (MXU: 0.9999), t within atol 1e-4,
+        rtol 1e-5 (MXU: relative 1e-5) where both hit; bit-equal shares."""
+        out, floor = [], 0.9999 if mxu else 0.999
+        for i, (a, b) in enumerate(zip(lk, lp)):
+            if isinstance(a, torch.Tensor):
+                agree = (a == b).float().mean().item()
+                check(name, agree >= floor, f"pass {i}: blocked agreement {agree}")
+                out.append({"pass": i, "blocked_agree": agree})
+                continue
+            miss = ((a.t >= 3e38) == (b.t >= 3e38)).float().mean().item()
+            both = (a.t < 3e38) & (b.t < 3e38)
+            err = (a.t[both] - b.t[both]).abs()
+            tol = (1e-5 * b.t[both].abs()) if mxu else (1e-4 + 1e-5 * b.t[both].abs())
+            idx = (a.idx == b.idx).float().mean().item()
+            check(name, miss >= floor and idx >= floor and bool((err <= tol).all()),
+                  f"pass {i}: miss agreement {miss}, idx agreement {idx}, t beyond the bound")
+            out.append({"pass": i, "miss_agree": miss, "idx_agree": idx,
+                        "t_bit_equal": (a.t == b.t).float().mean().item(),
+                        "t_max_err": err.max().item() if err.numel() else 0.0})
+        check(name, len(lk) == len(lp) == expect, f"{len(lk)} / {len(lp)} passes, not {expect}")
+        return out
+
+    def grad_err(gk, gp):
+        errs = [((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                for a, b in zip(gk, gp)]
+        return dict(zip(("verts", "mats_kd", "lights_pos"), errs))
+
+    def backward_ms(step, v, o_t, d_t, target):
+        ms = []
+        for i in range(DIFF_WARMUP + DIFF_TIMED):
+            vv = v.detach().requires_grad_(True)
+            loss = step.loss(vv, o_t, d_t, target)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            torch.autograd.grad(loss, vv)
+            b.record()
+            torch.cuda.synchronize()
+            if i >= DIFF_WARMUP:
+                ms.append(a.elapsed_time(b))
+        return {"median": statistics.median(ms), "min": min(ms), "max": max(ms), "runs": len(ms)}
+
+    band_ref = {}
+    for tag, p in pipes.items():
+        T = p.tables
+        mode = "_mxu" if T.cmat is not None else ""
+        nl = T.lamb.shape[0] - 1
+        want = {f"closest_full{mode}<4>": B, f"occluded{mode}<4>": B * nl}
+
+        def make(W, H, lr, **kw):
+            return sharded.make_train_step(
+                p.scene, None, W, H, bounces=B, lr=lr, variant="pallas",
+                tracer_data=T.packed_dev, leaf_size=T.leaf_size, stack_depth=T.stack_depth,
+                slot_map=p.flat.slot_map, compressed=T.compressed, device=p.device, **kw)
+
+        for W, H in DIFF_SIZES:
+            rec = {"phase": "diff", "table": tag, "size": f"{W}x{H}", "card": card,
+                   "bounces": B, "lr": DIFF_LR, "builder": p.builder}
+            step, prep = make(W, H, DIFF_LR)
+            v, o_t, d_t, target = prep()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ct.reset_launch_counts()
+            t0 = time.perf_counter()
+            v1, loss = step(v, o_t, d_t, target)
+            torch.cuda.synchronize()
+            rec["first_step_s"] = time.perf_counter() - t0
+            rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+            rec["step_bytes"] = rec["peak_bytes"] - base
+            counts = {k: n for k, n in ct.LAUNCHES.items() if n}
+            check(f"diff/{tag}/{W}x{H}", counts == want, f"launches {counts}, expected {want}")
+            rec["launches"] = counts
+            step8, _ = make(W, H, DIFF_LR, npop=8, npop0=2)
+            ct.reset_launch_counts()
+            v8, loss8 = step8(v, o_t, d_t, target)
+            counts8 = {k: n for k, n in ct.LAUNCHES.items() if n}
+            # the forward repeats bit for bit; the gradient to rounding (the
+            # scatter-adds of the backward sum with atomics)
+            rec["npop0_vertex_diff"] = (v8 - v1).abs().max().item()
+            check(f"diff/{tag}/{W}x{H}/npop0", counts8 == want and torch.equal(loss8, loss)
+                  and rec["npop0_vertex_diff"] <= 1e-6 * v1.abs().max().item(),
+                  f"npop0=2, npop=8: launches {counts8}, or another step")
+            rec["loss"] = loss.item()
+            check(f"diff/{tag}/{W}x{H}", bool(torch.isfinite(v1).all()) and loss.item() > 0,
+                  "a non-finite vertex, or no loss")
+
+            rec["step_ms"] = time_ms(lambda: step(v, o_t, d_t, target), DIFF_WARMUP, DIFF_TIMED)
+
+            def forward():
+                with torch.no_grad():
+                    step.loss(v, o_t, d_t, target)
+
+            rec["forward_ms"] = time_ms(forward, DIFF_WARMUP, DIFF_TIMED)
+            rec["backward_ms"] = backward_ms(step, v, o_t, d_t, target)
+
+            # the forward against the pass-based render, at lr = 0
+            tgt = pass_based_tiles(p, W, H)
+            step0, _ = make(W, H, 0.0)
+            v0, l0 = step0(v, o_t, d_t, tgt)
+            with torch.no_grad():
+                fwd = step.forward(v, o_t, d_t)
+            dd = (fwd - tgt).abs()
+            within = (dd.amax(-1) < 1e-3).float().mean().item()
+            bound = DIFF_FORWARD_LOSS[tag]
+            rec["forward_vs_render"] = {"loss": l0.item(), "bound": bound,
+                                        "within_1e-3": within, "median": dd.median().item(),
+                                        "max": dd.max().item()}
+            if T.cmat is not None:
+                # the recompute's frame is the FP32 leaf's wherever both
+                # leaves pick one triangle
+                with torch.no_grad():
+                    rec["forward_vs_fp32_render"] = step.loss(
+                        v, o_t, d_t, pass_based_tiles(pipes["fp32"], W, H)).item()
+            check(f"diff/{tag}/{W}x{H}/forward", l0.item() < bound and torch.equal(v0, v),
+                  f"lr=0 loss {l0.item()} against the render")
+            check(f"diff/{tag}/{W}x{H}/forward",
+                  within > DIFF_FORWARD_SHARE and dd.median().item() < 1e-5,
+                  f"{within} of pixels within 1e-3, median {dd.median().item()}")
+
+            if (W, H) == DIFF_SIZES[0]:
+                prof = profile(lambda: step(v, o_t, d_t, target), n=3)
+                rec["profile"] = prof
+                if "kernel_launches_per_call" in prof:
+                    rec["launches_per_step"] = {
+                        "traversal": prof["traversal_launches_per_call"],
+                        "other": prof["kernel_launches_per_call"]
+                        - prof["traversal_launches_per_call"]}
+                # the kernels' gradients against their plain versions' on a band
+                r0 = (DIFF_BAND // 32) * (W // 32)
+                r1 = r0 + 2 * (W // 32)
+                o_b = Vec3(*(x[r0:r1].reshape(-1) for x in o_t))
+                d_b = Vec3(*(x[r0:r1].reshape(-1) for x in d_t))
+                lk, lp = [], []
+                loss_k, gk = band_grads(p, lambda ds: kernel_tracer(T, ds), o_b, d_b, lk)
+                t0 = time.perf_counter()
+                loss_p, gp = band_grads(p, lambda ds: plain_tracer(T), o_b, d_b, lp)
+                torch.cuda.synchronize()
+                errs = grad_err(gk, gp)
+                rec["band"] = {"rays": o_b.x.numel(), "loss": loss_k.item(),
+                               "plain_loss": loss_p.item(), "plain_s": time.perf_counter() - t0,
+                               "grad_max_rel_err": errs,
+                               "passes": cmp_logs(f"diff/{tag}/band", lk, lp, bool(mode),
+                                                  B * (1 + nl))}
+                check(f"diff/{tag}/band", all(e <= 1e-5 for e in errs.values())
+                      and all(torch.isfinite(g).all() for g in gk),
+                      f"gradients against the plain versions' {errs}")
+                band_ref[tag] = (loss_k, gk)
+
+                # SGD steps at 1080p
+                losses, vs = [], v
+                for _ in range(DIFF_SGD_STEPS):
+                    vs, ls = step(vs, o_t, d_t, target)
+                    losses.append(ls.item())
+                rec["sgd_losses"] = losses
+                check(f"diff/{tag}/sgd", all(np.isfinite(losses))
+                      and bool(torch.isfinite(vs).all()) and losses[-1] < losses[0],
+                      f"losses {losses}")
+            emit(rec)
+            del step, step8, step0, prep, v, o_t, d_t, target, v1, tgt, fwd
+
+    # the MXU leaf's band gradient against the FP32 leaf's
+    (lm, gm), (lf, gf) = band_ref["mxu"], band_ref["fp32"]
+    rel_loss = abs(lm.item() - lf.item()) / abs(lf.item())
+    rel_l2 = ((gm[0] - gf[0]).norm() / gf[0].norm()).item()
+    check("diff/mxu_vs_fp32", rel_loss < 1e-3 and rel_l2 < 1e-2,
+          f"loss {rel_loss} relative, vertex gradient {rel_l2} relative L2")
+
+    # kd of the most seen material by central difference, the attr rows
+    # repacked from the perturbed table (tests/test_diff.py:239-283)
+    p = pipes["fp32"]
+    T, sc = p.tables, p.scene
+    W, H = DIFF_SIZES[1]
+    _, prep = sharded.make_train_step(sc, None, W, H, device=p.device)
+    _, o_t, d_t, _ = prep()
+    of, df = o_t.reshape(-1), d_t.reshape(-1)
+    hit = ct.make_tracer(T.packed_dev, T.leaf_size, stack_depth=T.stack_depth)[0](of, df)
+    mats = p.ds.mat_idx[hit.idx[hit.idx >= 0].long()].long()
+    mi = int(torch.bincount(mats).argmax())
+
+    def color_sum(kd, tables):
+        ds = build_device_scene(sc.verts, sc.faces, sc.mat_idx, kd, sc.mats_ks, sc.mats_kr,
+                                sc.lights_pos, sc.lights_kl, slot_map=p.flat.slot_map,
+                                device=p.device)
+        col = diff.trace_rays_diff(ds, *kernel_tracer(tables, ds), of, df, B,
+                                   reverse_shadows=True)
+        return col.stack(-1).double().sum()
+
+    kd0 = np.asarray(sc.mats_kd, np.float32)
+    kd = torch.tensor(kd0, device=p.device, requires_grad=True)
+    (g,) = torch.autograd.grad(color_sum(kd, T), kd)
+    fd_vals = []
+    for sign in (1.0, -1.0):
+        kd1 = kd0.copy()
+        kd1[mi, 0] += sign * DIFF_FD_H
+        attr = pack_attr(p.flat, sc.mat_idx, kd1, sc.mats_ks, sc.mats_kr)
+        tables = T._replace(attr=torch.tensor(attr, device=p.device))
+        with torch.no_grad():
+            fd_vals.append(color_sum(torch.tensor(kd1, device=p.device), tables).item())
+    fd = (fd_vals[0] - fd_vals[1]) / (2 * DIFF_FD_H)
+    ad = g[mi, 0].item()
+    check("diff/fd_kd", abs(fd) > 0.3 and abs(ad - fd) <= 2e-2 * abs(fd),
+          f"d/dkd[{mi}, 0]: gradient {ad}, finite difference {fd}")
+    emit({"phase": "diff", "case": "summary", "card": card,
+          "mxu_vs_fp32": {"loss_rel": rel_loss, "verts_grad_rel_l2": rel_l2,
+                          "loss_mxu": lm.item(), "loss_fp32": lf.item()},
+          "fd_kd": {"material": mi, "h": DIFF_FD_H, "gradient": ad, "fd": fd,
+                    "size": f"{W}x{H}"},
+          "seconds": time.perf_counter() - t_phase})
 
 
 def microbench_phase(card: str, out_dir: str, frame: dict) -> list:
@@ -3751,6 +4105,10 @@ def ratios(a: dict, b: dict) -> dict:
             ("inner_visits", "box_tests", "leaf_visits", "tri_tests", "median")}
 
 
+# The traversal kernels' names in a profiler trace (csrc/trace.cuh).
+TRAVERSAL_NAME = re.compile(r"(closest|occluded|frame)_kernel")
+
+
 def profile(fn, n: int = 5) -> dict:
     """Device time by kernel name and the device's busy share over n calls
     of fn, from a torch.profiler trace (CUPTI). The window runs from the
@@ -3779,10 +4137,15 @@ def profile(fn, n: int = 5) -> dict:
             busy += t - max(s, end)
             end = t
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    trav = [e for e in kernels if TRAVERSAL_NAME.search(e.name)]
+    trav_us = sum(e.time_range.elapsed_us() for e in trav)
     return {"calls": n, "wall_ms_per_call": wall_us / n / 1e3,
             "device_busy_ms_per_call": busy / n / 1e3,
             "idle_share": 1.0 - busy / wall_us,
             "kernel_launches_per_call": len(kernels) / n,
+            "traversal_launches_per_call": len(trav) / n,
+            "traversal_ms_per_call": trav_us / n / 1e3,
+            "traversal_share_of_busy": trav_us / busy if busy else None,
             "top_kernels_ms_per_call": {k: v / n / 1e3 for k, v in top}}
 
 

@@ -4,7 +4,8 @@
 prepared state, `np.asarray(pipe.packed_dev[i])`, or the port's own packers)
 and uploads them, so that both packages can trace the very same tables.
 `device_scene_from_numpy` does the same for the scene planes of a
-DeviceScene (the JAX package's `pipe.ds`).
+DeviceScene (the JAX package's `pipe.ds`), and `train_inputs_from_numpy`
+for the training state of the JAX package's `make_train_step`.
 """
 
 from __future__ import annotations
@@ -40,6 +41,13 @@ class SceneTables(NamedTuple):
     # (ops/pack.split_cmat) or (rows, 128) (ops/pack.pack_cmi4); None: the
     # FP32 leaf test.
     cmat: Optional[torch.Tensor] = None
+
+    @property
+    def packed_dev(self) -> tuple:
+        """(cbox, cmeta, tri, attr[, cmat]): the tables as make_tracer takes
+        them (JAX's pipe.packed_dev)."""
+        return (self.cbox, self.cmeta, self.tri, self.attr) + (
+            () if self.cmat is None else (self.cmat,))
 
 
 def _upload_cbox(cbox, device, compressed: bool):
@@ -116,6 +124,19 @@ def packed_from_numpy(cbox, cmeta, tri, attr, lamb, *, device, leaf_size: int = 
     )
 
 
+def train_inputs_from_numpy(verts, o_t, d_t, target, *, device):
+    """The training state of the JAX package's make_train_step as the port's:
+    its prepare_inputs() output (verts, o_t, d_t, target), given as
+    numpy-convertible arrays (o_t, d_t as (x, y, z) triples of (ntiles, K)
+    planes), uploaded to `device` value for value, so that both packages
+    step the same vertices against the same target on the same rays."""
+    def f32(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    return (f32(verts), Vec3(*(f32(p) for p in o_t)), Vec3(*(f32(p) for p in d_t)),
+            f32(target))
+
+
 def device_scene_from_numpy(ds, *, device) -> DeviceScene:
     """Upload the planes of a DeviceScene given as numpy-convertible arrays
     (the JAX package's DeviceScene, whose Vec3 fields are (x, y, z) triples)
@@ -139,5 +160,5 @@ def device_scene_from_numpy(ds, *, device) -> DeviceScene:
         v0=vec(ds.v0), v1=vec(ds.v1), v2=vec(ds.v2), n0=vec(ds.n0),
         mat_idx=i32(ds.mat_idx), kd=vec(ds.kd), ks=vec(ds.ks), kr=vec(ds.kr),
         sph_c=vec(ds.sph_c), sph_r=f32(ds.sph_r), sph_mat=i32(ds.sph_mat),
-        **light_planes(f32(lamb)),
+        **light_planes(lamb.to(device)),
     )

@@ -7,7 +7,10 @@ serve the gather path: the brute-force tracer and the shading of plain
 (ops/spheres.wrap_tracer). The sphere planes (sph_c sph_r sph_mat) serve
 the sphere tests, and `lamb` is the packed light table (ops/pack.pack_lights)
 that the fused frame kernel reads; lights_pos, lights_kl and ambient are
-its planes. The scene is not differentiable here.
+its planes. Inputs given as tensors stay in their autograd graph: the
+planes built from vertices, materials, lights and spheres passed as tensors
+carry gradients back to them (ops/diff.py), as the JAX scene does; numpy
+inputs give the same planes as ever.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import numpy as np
 import torch
 
 from ..ops.pack import pack_lights
-from ..ops.vecmath import Vec3, from_array
+from ..ops.vecmath import Vec3, from_array, take
 from .scene import Scene
 
 
@@ -62,11 +65,15 @@ class DeviceScene(NamedTuple):
 
 
 def _f32(a, device) -> torch.Tensor:
+    """f32 on `device`: a tensor by torch ops (its graph kept), anything
+    else through numpy."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.float32)
     return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
 
 def _planes(a, device) -> Vec3:
-    return from_array(_f32(np.asarray(a, np.float32).reshape(-1, 3), device))
+    return from_array(_f32(a, device).reshape(-1, 3))
 
 
 def build_device_scene(verts, faces, mat_idx, mats_kd, mats_ks, mats_kr,
@@ -84,7 +91,12 @@ def build_device_scene(verts, faces, mat_idx, mats_kd, mats_ks, mats_kr,
     layout (ops/bvh_flat.py): slot s holds triangle slot_map[s], and -1
     slots become degenerate triangles, so a traversal's hit index
     addresses these planes. n0 is e1 x e2 normalised, and zero where
-    |e1 x e2| is 0 (degenerate and padding slots)."""
+    |e1 x e2| is 0 (degenerate and padding slots).
+
+    verts, mats_kd/ks/kr, lights_pos/kl, ambient, spheres_center and
+    spheres_radius may be tensors (on any device; they are moved to
+    `device`): the planes then stay in their autograd graph, and
+    gradients of anything computed from the planes reach them."""
     faces = np.asarray(faces, np.int32).reshape(-1, 3)
     mat_idx = np.asarray(mat_idx, np.int32)
     if slot_map is not None:
@@ -103,7 +115,7 @@ def build_device_scene(verts, faces, mat_idx, mats_kd, mats_ks, mats_kr,
         mat_idx = np.concatenate([mat_idx, np.zeros(pad, np.int32)], axis=0)
 
     vt = _f32(verts, device).reshape(-1, 3)
-    tv = vt[torch.as_tensor(faces, dtype=torch.long, device=device)]  # (T, 3, 3)
+    tv = take(vt, torch.as_tensor(faces, dtype=torch.long, device=device))  # (T, 3, 3)
     v0, v1, v2 = from_array(tv[:, 0]), from_array(tv[:, 1]), from_array(tv[:, 2])
     n = (v1 - v0).cross(v2 - v0)
     mag2 = n.mag2()
@@ -119,7 +131,7 @@ def build_device_scene(verts, faces, mat_idx, mats_kd, mats_ks, mats_kr,
         spheres_radius = np.zeros((0,), np.float32)
     if spheres_mat is None:
         spheres_mat = np.zeros((0,), np.int32)
-    lamb = pack_lights(lights_pos, lights_kl, ambient)
+    lamb = _f32(pack_lights(lights_pos, lights_kl, ambient), device)
     return DeviceScene(
         v0=v0, v1=v1, v2=v2, n0=n0,
         mat_idx=torch.as_tensor(mat_idx, dtype=torch.int32, device=device),
@@ -129,7 +141,7 @@ def build_device_scene(verts, faces, mat_idx, mats_kd, mats_ks, mats_kr,
         sph_r=_f32(spheres_radius, device).reshape(-1),
         sph_mat=torch.as_tensor(np.asarray(spheres_mat, np.int32).reshape(-1),
                                 device=device),
-        **light_planes(_f32(lamb, device)),
+        **light_planes(lamb),
     )
 
 

@@ -6,7 +6,9 @@ triangle tests and the ray-sphere test.
 JAX kernels' `_mt_scalar_tri` (ops/pallas_trace.py:563-594) and the CUDA
 kernels' `rt_mt` (csrc/trace.cuh), so that all three round alike.
 `moller_trumbore` is the same test on vertex planes (intersect.py:36-66),
-which the brute-force tracer uses, and `ray_sphere` the sphere test
+which the brute-force tracer uses; `moller_trumbore_t` the differentiable
+(t, u, v) of a known hit (intersect.py:67-90), which ops/diff.py recomputes
+on the winning triangle; and `ray_sphere` the sphere test
 (intersect.py:140-162), in the operation order of the CUDA frame kernel's
 `rt_sphere_t`.
 """
@@ -94,6 +96,27 @@ def moller_trumbore(o: Vec3, d: Vec3, v0: Vec3, v1: Vec3, v2: Vec3) -> TriHit:
     hit = ok & (t > EPSILON) & (u >= 0.0) & (v >= 0.0) & ((u + v) <= 1.0)
     return TriHit(t=torch.where(hit, t, torch.full_like(t, T_MAX)),
                   norm_dir=det < 0.0, u=u, v=v)
+
+
+def moller_trumbore_t(o: Vec3, d: Vec3, v0: Vec3, v1: Vec3, v2: Vec3):
+    """Differentiable (t, u, v) of the known-hit triangle, with no hit test:
+    traversal has chosen the triangle, this recomputes the distance so that
+    gradients reach the vertices. Real hits have |det| >= EPSILON, so the
+    guarded denominator is inert for them; it keeps masked and miss lanes
+    (garbage rays) finite, so their zero cotangents stay zero instead of
+    0 * inf = NaN."""
+    e1 = v1 - v0
+    e2 = v2 - v0
+    n = e1.cross(e2)
+    det = -(d.dot(n))
+    det_safe = torch.where(det.abs() >= 1e-12, det, torch.ones_like(det))
+    invdet = 1.0 / det_safe
+    ao = o - v0
+    dao = ao.cross(d)
+    u = e2.dot(dao) * invdet
+    v = -(e1.dot(dao)) * invdet
+    t = ao.dot(n) * invdet
+    return t, u, v
 
 
 class SphereHit(NamedTuple):

@@ -39,7 +39,8 @@ prepare's choice of leaf-row streaming (pipeline.py:350-368),
     (pack_cmi4). bf16 tables are numpy uint16 bits, the bits of JAX's
     ml_dtypes bfloat16 arrays.
   - ``lamb`` (nl+1, 8) f32: rows (light_pos.xyz, light_kl.rgb, 0, 0), then
-    the ambient colour.
+    the ambient colour, packed in torch ops (a tensor, in the autograd graph
+    of tensor inputs: models/device_scene.build_device_scene).
   - ``sph`` (S, 16) f32: rows (centre.xyz, r, kd.rgb, ks.rgb, kr.rgb, 0, 0,
     0), the material looked up at pack time.
 """
@@ -49,6 +50,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from .bvh_flat import FlatBVH
 
@@ -510,16 +512,24 @@ def pack_attr(flat: FlatBVH, mat_idx, mats_kd, mats_ks, mats_kr) -> np.ndarray:
     return attr
 
 
-def pack_lights(lights_pos, lights_kl, ambient) -> np.ndarray:
-    """(num_lights + 1, 8) f32 light/ambient table."""
-    pos = np.asarray(lights_pos, np.float32).reshape(-1, 3)
-    kl = np.asarray(lights_kl, np.float32).reshape(-1, 3)
+def pack_lights(lights_pos, lights_kl, ambient) -> torch.Tensor:
+    """(num_lights + 1, 8) f32 light/ambient table, built with torch ops on
+    the device of the first input that is a tensor (the CPU when none is),
+    so that the table stays in the inputs' autograd graph; other inputs go
+    through numpy f32 first."""
+    ref = next((a for a in (lights_pos, lights_kl, ambient) if isinstance(a, torch.Tensor)),
+               None)
+    device = ref.device if ref is not None else "cpu"
+
+    def rows3(a):
+        if not isinstance(a, torch.Tensor):
+            a = np.asarray(a, np.float32)
+        return torch.as_tensor(a, dtype=torch.float32, device=device).reshape(-1, 3)
+
+    pos, kl, amb = rows3(lights_pos), rows3(lights_kl), rows3(ambient)
     nl = pos.shape[0]
-    out = np.zeros((nl + 1, 8), np.float32)
-    out[:nl, 0:3] = pos
-    out[:nl, 3:6] = kl
-    out[nl, 0:3] = np.asarray(ambient, np.float32)
-    return out
+    top = torch.cat([pos, kl, pos.new_zeros((nl, 2))], dim=1)
+    return torch.cat([top, torch.cat([amb, amb.new_zeros((1, 5))], dim=1)], dim=0)
 
 
 def pack_spheres(centers, radii, mats, mats_kd, mats_ks, mats_kr):

@@ -52,12 +52,13 @@ def generate_rays(origin, dir00, inc_x, inc_y, width: int, height: int,
 def render_band(ds, closest_fn, occluded_fn, cam_arrays, width: int,
                 height: int, y_offset: int, rows: int, bounces: int) -> torch.Tensor:
     """Render a band of `rows` scanlines from y_offset -> (rows, width, 3)
-    f32 in [0, 1]."""
+    f32 in [0, 1], shadow rays traced from the light (reverse_shadows=True,
+    as JAX's render_band, render.py:67)."""
     origin, dir00, inc_x, inc_y = cam_arrays
     o, d = generate_rays(origin, dir00, inc_x, inc_y, width, height, y_offset,
                          rows, device=ds.device)
     col = trace_rays(ds, closest_fn, occluded_fn, o.reshape(rows * width),
-                     d.reshape(rows * width), bounces)
+                     d.reshape(rows * width), bounces, reverse_shadows=True)
     return col.clamp(0.0, 1.0).stack(-1).reshape(rows, width, 3)
 
 
@@ -179,10 +180,8 @@ def render_bvh_pallas(ds, tables, cam: Camera, width: int, height: int,
     reverse_shadows=False traces forward ones with the any-hit kernel, as
     JAX's _render_bvh_pallas (render.py:288-295)."""
     o, d = _tiled_planes(cam, width, height, tile_rows, tile_cols, ds.device)
-    packed = (tables.cbox, tables.cmeta, tables.tri, tables.attr) + (
-        () if tables.cmat is None else (tables.cmat,))
     closest, occluded = cuda_trace.make_tracer(
-        packed, tables.leaf_size, ds=ds, stack_depth=tables.stack_depth,
+        tables.packed_dev, tables.leaf_size, ds=ds, stack_depth=tables.stack_depth,
         dual=True, compressed=tables.compressed, stream=stream)
     if not fast_light:
         occluded = occluded_from_closest(closest)

@@ -12,8 +12,8 @@ Semantics, as in the reference GPU renderer (gpu/src/raytracer.cu:61-116):
     unnormalised view -d in the half vector;
   - kd*ambient on hit, ambient on miss; 1/r^2 falloff; backface test
     dot(L-P, n) < 0; shadows by any-hit, traced from the light toward the
-    hit point with the window (dist - EPSILON)^2 (reverse_shadows=True, the
-    default of every render path here; see the JAX package's shade_hit
+    hit point with the window (dist - EPSILON)^2 (reverse_shadows=True, which
+    every render path here passes; see the JAX package's shade_hit
     docstring for why the window maps exactly), or from the hit point
     toward the light with the window dist^2 (reverse_shadows=False);
     occluded_from_closest finds them by the closest-hit traversal
@@ -35,7 +35,7 @@ import torch
 from .intersect import EPSILON
 from .spheres import override_attrs
 from .trace_plain import Hit, HitFull
-from .vecmath import Vec3
+from .vecmath import Vec3, take
 
 ClosestFn = Callable[[Vec3, Vec3], Union[Hit, HitFull]]
 OccludedFn = Callable[[Vec3, Vec3, torch.Tensor], torch.Tensor]
@@ -67,7 +67,7 @@ def occluded_from_closest(closest_fn: ClosestFn) -> OccludedFn:
 
 
 def _gather_vec(v: Vec3, idx: torch.Tensor) -> Vec3:
-    return Vec3(v.x[idx], v.y[idx], v.z[idx])
+    return Vec3(take(v.x, idx), take(v.y, idx), take(v.z, idx))
 
 
 def surface_attrs(ds, hit, p: Vec3):
@@ -89,7 +89,7 @@ def surface_attrs(ds, hit, p: Vec3):
 
 
 def shade_hit(ds, occluded_fn: OccludedFn, o: Vec3, d: Vec3, hit,
-              active=None, reverse_shadows: bool = True) -> Vec3:
+              active=None, reverse_shadows: bool = False) -> Vec3:
     """Direct lighting at the hit points (no reflection term): the
     reference's per-bounce kd*amb + sum over lights, with shadow rays from
     the light (reverse_shadows) or from the hit point (JAX shade_hit :111,
@@ -133,18 +133,24 @@ def shade_hit(ds, occluded_fn: OccludedFn, o: Vec3, d: Vec3, hit,
     return col
 
 
-def trace_rays(ds, closest_fn: ClosestFn, occluded_fn: OccludedFn, o: Vec3,
-               d: Vec3, bounces: int, reverse_shadows: bool = True) -> Vec3:
+def trace_rays(ds, closest_fn, occluded_fn, o: Vec3, d: Vec3, bounces: int,
+               reverse_shadows: bool = False) -> Vec3:
     """Full masked bounce loop; returns the unclamped colour per ray.
-    reverse_shadows: see shade_hit."""
+
+    closest_fn / occluded_fn may each be a per-bounce sequence: entry b
+    traces bounce b, and the last entry covers the remaining bounces (JAX
+    shade.py:192-219; the pass-based path narrows the primary bounce's pop
+    width this way). reverse_shadows: see shade_hit."""
+    cfs = list(closest_fn) if isinstance(closest_fn, (list, tuple)) else [closest_fn]
+    ofs = list(occluded_fn) if isinstance(occluded_fn, (list, tuple)) else [occluded_fn]
     zero = Vec3(o.x * 0, o.y * 0, o.z * 0)
     final = zero
     mult = Vec3(o.x * 0 + 1, o.y * 0 + 1, o.z * 0 + 1)
     alive = torch.ones(o.x.shape, dtype=torch.bool, device=o.x.device)
 
-    for _ in range(bounces):
+    for b in range(bounces):
         o_m, d_m = mask_dead_rays(o, d, alive)
-        hit = closest_fn(o_m, d_m)
+        hit = cfs[min(b, len(cfs) - 1)](o_m, d_m)
         is_hit = hit.idx >= 0
 
         # Miss: add multiplier * ambient, lane dies (raytracer.cu:71-74).
@@ -153,7 +159,7 @@ def trace_rays(ds, closest_fn: ClosestFn, occluded_fn: OccludedFn, o: Vec3,
         final = final + (mult * amb).where(miss_now, zero)
         alive = alive & is_hit
 
-        col = shade_hit(ds, occluded_fn, o, d, hit, active=alive,
+        col = shade_hit(ds, ofs[min(b, len(ofs) - 1)], o, d, hit, active=alive,
                         reverse_shadows=reverse_shadows)
         final = final + (mult * col).where(alive, zero)
 

@@ -16,7 +16,7 @@ import torch
 
 from .intersect import T_MAX, ray_sphere
 from .trace_plain import Hit
-from .vecmath import Vec3
+from .vecmath import Vec3, take
 
 
 def _expand(v: Vec3) -> Vec3:
@@ -90,19 +90,20 @@ def override_attrs(ds, hit, p: Vec3, n: Vec3, kd: Vec3, ks: Vec3, kr: Vec3):
 
     JAX loops over the spheres with masked selects, since per-lane gathers
     are slow on the TPU; on the card one gather per plane replaces the S
-    passes over the frame, with the same arithmetic per lane."""
+    passes over the frame, with the same arithmetic per lane (vecmath.take,
+    whose backward scatter-adds with atomics)."""
     S = ds.num_spheres
     if S == 0:
         return n, kd, ks, kr
     T = ds.num_triangles
     is_sph = hit.idx >= T
     sidx = (hit.idx - T).clamp(0, S - 1).long()
-    r = ds.sph_r.clamp(min=1e-30)[sidx]
-    ns = Vec3((p.x - ds.sph_c.x[sidx]) / r, (p.y - ds.sph_c.y[sidx]) / r,
-              (p.z - ds.sph_c.z[sidx]) / r)
+    r = take(ds.sph_r.clamp(min=1e-30), sidx)
+    ns = Vec3((p.x - take(ds.sph_c.x, sidx)) / r, (p.y - take(ds.sph_c.y, sidx)) / r,
+              (p.z - take(ds.sph_c.z, sidx)) / r)
     mi = ds.sph_mat.long()[sidx]
 
     def pick(table: Vec3, cur: Vec3) -> Vec3:
-        return Vec3(*(torch.where(is_sph, t[mi], c) for t, c in zip(table, cur)))
+        return Vec3(*(torch.where(is_sph, take(t, mi), c) for t, c in zip(table, cur)))
 
     return ns.where(is_sph, n), pick(ds.kd, kd), pick(ds.ks, ks), pick(ds.kr, kr)

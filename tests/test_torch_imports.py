@@ -63,6 +63,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import parallel_ray_tracer_tpu_torch.microbench.tiled\n"
         "import parallel_ray_tracer_tpu_torch.microbench.mxu_inner\n"
         "import parallel_ray_tracer_tpu_torch.native.builder\n"
+        "import parallel_ray_tracer_tpu_torch.ops.diff\n"
+        "import parallel_ray_tracer_tpu_torch.parallel.sharded\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'parallel_ray_tracer_tpu')]\n"
         "print(bad)\n"
