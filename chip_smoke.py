@@ -168,6 +168,17 @@ MXU's against the FP32's, and three SGD steps; at 512x512 a material
 gradient against a finite difference. The traversal runs in the kernels;
 the backward is torch ops, as JAX's is jnp.
 
+Its `sharded` phase runs the sharded render and training step
+(parallel/sharded.py, parallel/distributed.py), the checkpointed banded
+render (Pipeline.render_band, utils/checkpoint.py) and the profiler trace
+(utils/profiling.py) on car_boxed 1080p with the MXU and the FP32 table:
+render_sharded over one card and over four shards on it, "fused" and
+"pallas", against render() within 1e-6 with the launch counts from 0; a
+one-rank NCCL group's frame bit for bit; the fused frames in turns with
+render(); the training step over two shards against one device at 512x512;
+the frame in 256-row bands through a checkpoint file, and a stopped run
+resumed; a profiler trace that names the frame kernel.
+
 Every prepare must take the native host builder (native/, built with g++
 on the card's host): a prepare that fell back to the numpy builder fails,
 and each record carries its builder and BVH build milliseconds
@@ -3051,9 +3062,14 @@ def main() -> int:
     del frames
 
     # ---- 20. differentiable rendering and the training step ----------------
-    diff_phase(card, {"mxu": prepare_native(RenderConfig(**MXU_CFG)), "fp32": pipe})
+    mxu_pipe = prepare_native(RenderConfig(**MXU_CFG))
+    diff_phase(card, {"mxu": mxu_pipe, "fp32": pipe})
 
-    # ---- 21. the kernels line --------------------------------------------
+    # ---- 21. the sharded render and step, the bands, the profiler ----------
+    sharded_phase(card, {"mxu": mxu_pipe, "fp32": pipe})
+    del mxu_pipe
+
+    # ---- 22. the kernels line --------------------------------------------
     kernels = []
     for name, key, kernel, line in KERNEL_ROWS:
         t = timing[key][kernel]
@@ -3397,6 +3413,233 @@ def diff_phase(card: str, pipes: dict) -> None:
                           "loss_mxu": lm.item(), "loss_fp32": lf.item()},
           "fd_kd": {"material": mi, "h": DIFF_FD_H, "gradient": ad, "fd": fd,
                     "size": f"{W}x{H}"},
+          "seconds": time.perf_counter() - t_phase})
+
+
+# The sharded phase: the shards of one card's mesh, the sharded training
+# step's size (scripts/bench_train.py's 512x512, the diff phase's bounces
+# and lr), the checkpointed render's band rows (1080 rows: 4 bands of 256
+# and one of 56) and the bands a first run renders before it stops; the
+# bound of a sharded frame against render() (tests/test_sharded.py:123-125)
+# and of the sharded step against the one-device step (:321-323).
+SHARDS = 4
+SHARD_STEP_SIZE = (512, 512)
+SHARD_BAND_ROWS = 256
+SHARD_BANDS_BEFORE_STOP = 2
+SHARD_ATOL = 1e-6
+SHARD_STEP_LOSS_ATOL, SHARD_STEP_VERTS_ATOL = 1e-6, 1e-5
+
+
+class _Stop(Exception):
+    """Ends a checkpointed render after some bands, as a crash would."""
+
+
+def sharded_phase(card: str, pipes: dict) -> None:
+    """Phase `sharded`: parallel/sharded.py, parallel/distributed.py,
+    Pipeline.render_band with utils/checkpoint.py and utils/profiling.py on
+    car_boxed 1080p, 4 bounces, with the MXU table (the defaults) and the
+    FP32 table. For each table: render_sharded over make_mesh(1) and over a
+    mesh naming cuda:0 SHARDS times, "fused" and "pallas", each with the
+    launch counts from 0 (one frame launch a shard; the pass kernels'
+    launches of render(), a shard each) and held against render() of the
+    variant within SHARD_ATOL, rtol 0 (bit equality recorded); a one-rank
+    NCCL group (distributed.initialize with a local address) whose sharded
+    frame must be the frame without a group, bit for bit, the group
+    destroyed after; the fused frames timed in turns (render(), 1 shard,
+    SHARDS shards) with CUDA events. With the defaults: make_train_step
+    over a mesh of cuda:0 twice against one device at SHARD_STEP_SIZE (the
+    loss within SHARD_STEP_LOSS_ATOL, the vertices within
+    SHARD_STEP_VERTS_ATOL, the traversal launches doubled), both steps
+    timed; TileRenderCheckpoint in SHARD_BAND_ROWS-row bands through
+    render_band("fused") into a temporary file (render()'s frame bit for
+    bit, one frame launch a band, the bands timed), then a run stopped
+    after SHARD_BANDS_BEFORE_STOP bands and resumed (only the missing bands
+    rendered, the last of 56 rows, the frame bit for bit); and
+    profiling.trace around one sharded frame, whose trace file must name
+    the frame kernel."""
+    import socket
+
+    from parallel_ray_tracer_tpu_torch.ops import cuda_trace as ct
+    from parallel_ray_tracer_tpu_torch.parallel import distributed, sharded
+    from parallel_ray_tracer_tpu_torch.utils import profiling
+    from parallel_ray_tracer_tpu_torch.utils.checkpoint import TileRenderCheckpoint
+
+    t_phase = time.perf_counter()
+    mesh1 = sharded.make_mesh(1)
+    meshn = sharded.make_mesh(devices=["cuda:0"] * SHARDS)
+    check("sharded", mesh1.size == 1 and meshn.size == SHARDS and not mesh1.distributed,
+          f"meshes {mesh1}, {meshn}")
+
+    def counted(fn):
+        ct.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: n for k, n in ct.LAUNCHES.items() if n}
+
+    def sharded_frame(p, mesh, variant):
+        c = p.cfg
+        return sharded.render_sharded(p.ds, p.tables, p.camera(), c.width, c.height, mesh,
+                                      bounces=c.bounces, tile_rows=c.tile_rows,
+                                      tile_cols=c.tile_cols, variant=variant,
+                                      dual=c.dual_pop, stream=p.stream,
+                                      fast_light=c.fast_light,
+                                      reverse_shadows=c.reverse_shadows)
+
+    for tag, p in pipes.items():
+        rec = {"phase": "sharded", "table": tag, "card": card, "mxu": p.mxu,
+               "shards": SHARDS}
+        for variant in ("fused", "pallas"):
+            ref, want = counted(lambda: p.render(variant=variant))
+            for name, mesh in (("1", mesh1), (str(SHARDS), meshn)):
+                img, got = counted(lambda: sharded_frame(p, mesh, variant))
+                err = (img - ref).abs().max().item()
+                expect = {k: n * mesh.size for k, n in want.items()}
+                rec[f"{variant}_{name}"] = {"max_abs_err": err, "bit_equal": torch.equal(img, ref),
+                                            "launches": got, "render_launches": want}
+                check(f"sharded/{tag}/{variant}/{name}", err <= SHARD_ATOL,
+                      f"max |sharded - render()| {err}")
+                check(f"sharded/{tag}/{variant}/{name}", got == expect,
+                      f"launches {got}, expected {expect}")
+                del img
+            if variant == "fused":
+                frame_ref = ref
+        # a one-rank NCCL group: the frame through the all-gather
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            port = sk.getsockname()[1]
+        distributed.initialize(f"localhost:{port}", num_processes=1, process_id=0)
+        try:
+            gmesh = sharded.make_mesh(1)
+            img = sharded_frame(p, gmesh, "fused")
+            torch.cuda.synchronize()
+            rec["nccl_one_rank"] = {"backend": torch.distributed.get_backend(),
+                                    "distributed": gmesh.distributed,
+                                    "bit_equal": torch.equal(img, frame_ref)}
+            check(f"sharded/{tag}/nccl", gmesh.distributed and rec["nccl_one_rank"]["bit_equal"]
+                  and rec["nccl_one_rank"]["backend"] == "nccl",
+                  f"the one-rank group's frame: {rec['nccl_one_rank']}")
+        finally:
+            distributed.shutdown()
+        check(f"sharded/{tag}/nccl", not distributed.active(), "the group outlived the phase")
+        # the fused frames in turns: render(), 1 shard, SHARDS shards
+        fns = {"render": lambda: p.render(variant="fused"),
+               "sharded_1": lambda: sharded_frame(p, mesh1, "fused"),
+               f"sharded_{SHARDS}": lambda: sharded_frame(p, meshn, "fused")}
+        order = list(fns) + list(fns)[::-1]
+        runs = {k: [] for k in fns}
+        for k in order:
+            runs[k].append(time_ms(fns[k], 3, 20)["median"])
+        rec["ms"] = {k: statistics.median(v) for k, v in runs.items()}
+        rec["ms_turns"] = runs
+        rec["overhead"] = {k: rec["ms"][k] / rec["ms"]["render"] - 1.0
+                           for k in fns if k != "render"}
+        emit(rec)
+
+    # the sharded training step against one device, with the defaults
+    p = pipes["mxu"]
+    T = p.tables
+    W, H = SHARD_STEP_SIZE
+    rec = {"phase": "sharded", "case": "train", "card": card, "size": f"{W}x{H}",
+           "bounces": DIFF_BOUNCES, "lr": DIFF_LR}
+    steps = {}
+    for name, mesh in (("one", None), ("two", sharded.make_mesh(devices=["cuda:0"] * 2))):
+        step, prep = sharded.make_train_step(
+            p.scene, mesh, W, H, bounces=DIFF_BOUNCES, lr=DIFF_LR, variant="pallas",
+            tracer_data=T.packed_dev, leaf_size=T.leaf_size, stack_depth=T.stack_depth,
+            slot_map=p.flat.slot_map, compressed=T.compressed, device=p.device)
+        args = prep()
+        (v1, loss), got = counted(lambda: step(*args))
+        steps[name] = (v1, loss, got)
+        rec[f"{name}_launches"] = got
+        rec[f"{name}_step_ms"] = time_ms(lambda: step(*args), DIFF_WARMUP, DIFF_TIMED)
+        del step, prep, args
+    (v1, l1, g1), (v2, l2, g2) = steps["one"], steps["two"]
+    rec["loss"] = {"one": l1.item(), "two": l2.item(), "abs_diff": abs(l2.item() - l1.item())}
+    rec["verts_max_abs_diff"] = (v2 - v1).abs().max().item()
+    rec["step_ratio"] = rec["two_step_ms"]["median"] / rec["one_step_ms"]["median"]
+    check("sharded/train", rec["loss"]["abs_diff"] <= SHARD_STEP_LOSS_ATOL
+          and rec["verts_max_abs_diff"] <= SHARD_STEP_VERTS_ATOL
+          and bool(torch.isfinite(v2).all()) and l1.item() > 0,
+          f"two shards against one device: loss {rec['loss']}, verts "
+          f"{rec['verts_max_abs_diff']}")
+    check("sharded/train", bool(g1) and g2 == {k: 2 * n for k, n in g1.items()},
+          f"launches {g2}, expected twice {g1}")
+    emit(rec)
+    del steps, v1, v2
+
+    # the checkpointed banded render, then a stopped run resumed
+    c = p.cfg
+    rec = {"phase": "sharded", "case": "bands", "card": card, "band_rows": SHARD_BAND_ROWS}
+    frame_ref, frame_launch = counted(lambda: p.render(variant="fused"))
+    ref_np = frame_ref.cpu().numpy()
+    band_calls = []
+
+    def band(y0, rows):
+        band_calls.append((y0, rows))
+        return p.render_band(y0, max(rows, c.tile_rows), variant="fused")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = TileRenderCheckpoint(os.path.join(tmp, "frame.npz"), c.width, c.height,
+                                  SHARD_BAND_ROWS)
+        t0 = time.perf_counter()
+        (img, got) = counted(lambda: ck.run(band))
+        rec["checkpointed_run_s"] = time.perf_counter() - t0
+        rec["bands"] = list(band_calls)
+        rec["launches"] = got
+        frame_key = next(iter(frame_launch))
+        check("sharded/bands", np.array_equal(img, ref_np) and got == {frame_key: ck.n_bands},
+              f"banded frame bit for bit: {np.array_equal(img, ref_np)}, launches {got}")
+
+        # a run that stops after some bands, then the resume
+        ck2 = TileRenderCheckpoint(os.path.join(tmp, "resume.npz"), c.width, c.height,
+                                   SHARD_BAND_ROWS)
+
+        def stopping(y0, rows):
+            if len(band_calls) >= SHARD_BANDS_BEFORE_STOP:
+                raise _Stop
+            return band(y0, rows)
+
+        band_calls.clear()
+        try:
+            ck2.run(stopping)
+        except _Stop:
+            pass
+        first = list(band_calls)
+        band_calls.clear()
+        (img2, got2) = counted(lambda: ck2.run(band))
+        rec["resume"] = {"first_run_bands": first, "resumed_bands": list(band_calls),
+                         "launches": got2, "bit_equal": bool(np.array_equal(img2, ref_np))}
+        missing = ck2.n_bands - SHARD_BANDS_BEFORE_STOP
+        check("sharded/bands/resume", rec["resume"]["bit_equal"]
+              and len(first) == SHARD_BANDS_BEFORE_STOP and len(band_calls) == missing
+              and got2 == {frame_key: missing}
+              and band_calls[-1][1] == c.height - (ck2.n_bands - 1) * SHARD_BAND_ROWS == 56,
+              f"resume: {rec['resume']}")
+    rec["banded_ms"] = time_ms(lambda: [p.render_band(y0, max(min(SHARD_BAND_ROWS, c.height - y0),
+                                                              c.tile_rows), variant="fused")
+                                        for y0 in range(0, c.height, SHARD_BAND_ROWS)], 3, 20)
+    rec["render_ms"] = time_ms(lambda: p.render(variant="fused"), 3, 20)
+    rec["banded_over_render"] = rec["banded_ms"]["median"] / rec["render_ms"]["median"]
+    emit(rec)
+
+    # a profiler trace of one sharded frame
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            with profiling.annotate("sharded_frame"):
+                sharded_frame(p, mesh1, "fused")
+            torch.cuda.synchronize()
+        files = [f for f in os.listdir(tmp) if f.endswith(".pt.trace.json")]
+        names = []
+        if files:
+            with open(os.path.join(tmp, files[0])) as f:
+                names = [e.get("name", "") for e in json.load(f).get("traceEvents", [])]
+    frame_events = [n for n in names if "frame_kernel" in n]
+    check("sharded/profile", len(files) == 1 and frame_events and "sharded_frame" in names,
+          f"trace files {files}, frame kernel events {len(frame_events)}")
+    emit({"phase": "sharded", "case": "summary", "card": card,
+          "profile": {"files": len(files), "events": len(names),
+                      "frame_kernel_events": len(frame_events),
+                      "frame_kernel": frame_events[:1]},
           "seconds": time.perf_counter() - t_phase})
 
 

@@ -12,9 +12,19 @@ iterations (gpu/include/options.cuh:25-26), per-frame times, then
 mean/median/stddev/99% CI/FPS (cpu/src/main.c:194-209), an optional BMP and
 a JSON metrics record.
 
-A flag whose path the port does not have yet (--devices N > 1,
---checkpoint, --profile, --interpret, --variant jax) ends the run with the
-NotImplementedError message and exit code 2. --leaf-size 4 packs and
+A flag whose path the port does not have yet (--interpret, --variant jax)
+ends the run with the NotImplementedError message and exit code 2.
+--devices N renders each frame with its tiles sharded over a mesh of N
+devices (parallel/sharded.render_sharded): N cards, or with --device cpu N
+virtual CPU devices; fewer cards than N end the run with the reason.
+--checkpoint PATH renders one frame in bands of --band-rows rows that
+persist to PATH (utils/checkpoint.TileRenderCheckpoint, Pipeline.
+render_band), resumes at the first missing band, and skips the timing
+loop. --profile DIR writes a torch.profiler trace of the timed iterations
+into DIR (utils/profiling.trace). The run joins its processes first
+(parallel/distributed.initialize: a no-op in one process; under torchrun
+every rank renders, and only rank 0 prints and writes files).
+--leaf-size 4 packs and
 traces leaf groups of 4 triangles (the kernels' L = 4 instances),
 --no-reverse-shadows traces shadow rays from the hit point to the light,
 --no-fast-light finds shadows by the closest-hit kernel on the pass-based
@@ -33,6 +43,7 @@ the banner and the metrics record give the pipeline's resolved choices.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import sys
@@ -125,12 +136,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "GPU protocol, gpu/include/options.cuh:25) when "
                         "--iterations > 1")
     p.add_argument("--checkpoint", default=None, metavar="PATH",
-                   help="resumable banded render (not ported)")
+                   help="resumable banded render: finished scanline bands "
+                        "persist to PATH and a rerun resumes at the first "
+                        "missing band")
     p.add_argument("--band-rows", type=int, default=128,
-                   help="scanline rows per checkpoint band")
+                   help="scanline rows per checkpoint band (a multiple of "
+                        "the tile row count)")
     p.add_argument("--devices", type=int, default=1,
-                   help="shard image tiles over this many devices (only 1 "
-                        "is ported)")
+                   help="shard image tiles over this many devices (cards, "
+                        "or virtual CPU devices with --device cpu)")
     p.add_argument("--output", default=None, metavar="BMP",
                    help="write the final frame as a BMP")
     p.add_argument("--metrics-json", default=None, metavar="PATH",
@@ -140,7 +154,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-native", action="store_true",
                    help="NumPy loaders and builders instead of the C++ ones")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="capture a profiler trace (not ported)")
+                   help="capture a torch.profiler trace of the timed "
+                        "iterations into DIR")
     p.add_argument("--quiet", action="store_true")
     return p
 
@@ -191,13 +206,8 @@ def config_from_args(args) -> RenderConfig:
 
 def _check_cli_ported(args) -> None:
     """Flags the CLI itself would serve, whose paths are not ported."""
-    bad = [flag for flag, on in (
-        ("--checkpoint", args.checkpoint is not None),
-        ("--profile", args.profile is not None),
-        ("--interpret", args.interpret),
-    ) if on]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+    if args.interpret:
+        raise NotImplementedError("not ported yet: --interpret")
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -217,10 +227,17 @@ def _run(args) -> int:
     import torch
 
     from . import pipeline
+    from .parallel import distributed, sharded
     from .utils.bmp import write_bmp
+    from .utils.profiling import timed, trace
     from .utils.stats import format_summary, summarize
 
-    say = (lambda *a: None) if args.quiet else print
+    # A multi-process run joins its group before any device use; a single
+    # process is a no-op.
+    distributed.initialize(
+        backend="gloo" if torch.device(args.device).type == "cpu" else None)
+    primary = distributed.is_primary()
+    say = (lambda *a: None) if args.quiet or not primary else print
 
     say(f"\n# Scene settings #\nscene: "
         f"{'synthetic:%d' % cfg.synthetic_triangles if cfg.synthetic_triangles else cfg.scene}, "
@@ -233,9 +250,14 @@ def _run(args) -> int:
     on_card = device.type == "cuda"
     device_name = torch.cuda.get_device_name(device) if on_card else None
     variant = pipe.resolved_variant()
+    mesh = None
+    if cfg.num_devices > 1 or distributed.active():
+        # one device a process when a group renders without --devices
+        mesh = sharded.make_mesh(cfg.num_devices if cfg.num_devices > 1 else None,
+                                 device=device.type)
     say(f"# Host settings #\nbackend: {device}"
         + (f" ({device_name})" if device_name else "")
-        + f", devices: 1, variant: {variant}"
+        + f", devices: {mesh.size if mesh else 1}, variant: {variant}"
         + (" (auto)" if cfg.variant == "auto" else "")
         + f", stream: {pipe.stream}" + (" (auto)" if cfg.stream == "auto" else "")
         + f", mxu: {pipe.mxu}")
@@ -252,27 +274,52 @@ def _run(args) -> int:
                 say(banner)
     say(f"(total prepare: {prep_s:.1f} s)")
 
-    def fence():
-        if on_card:
-            torch.cuda.synchronize(device)
+    if args.checkpoint:
+        # Resumable banded render (utils/checkpoint.py): each finished band
+        # persists; a rerun picks up at the first missing band. This path
+        # renders ONE frame and skips the timing loop (JAX cli.py:227-249).
+        from .utils.checkpoint import TileRenderCheckpoint
+
+        band = max(args.band_rows // cfg.tile_rows, 1) * cfg.tile_rows
+        ckpt = TileRenderCheckpoint(args.checkpoint, cfg.width, cfg.height, band)
+        img = ckpt.run(
+            lambda y0, rows: pipe.render_band(y0, max(rows, cfg.tile_rows)).cpu().numpy(),
+            progress=lambda done, total: say(f"band {done}/{total}"),
+        )
+        if args.output and primary:
+            write_bmp(args.output, img)
+            say(f"Wrote {args.output}")
+        return 0
+
+    def render_once():
+        if mesh is None:
+            return pipe.render()
+        # The pipeline's kernel schedule and shadow knobs: --devices N
+        # renders the frame --devices 1 does.
+        return sharded.render_sharded(
+            pipe.ds, pipe.tables, pipe.camera(), cfg.width, cfg.height, mesh,
+            bounces=cfg.bounces, tile_rows=cfg.tile_rows, tile_cols=cfg.tile_cols,
+            variant=variant, dual=cfg.dual_pop, stream=pipe.stream,
+            fast_light=cfg.fast_light, reverse_shadows=cfg.reverse_shadows)
 
     # The JAX CLI moves the camera by i * 1e-7 each iteration to defeat a
     # remote dispatch cache; nothing here caches, so every frame is the
     # frame an in-process render() gives.
+    # Each frame's time ends when its device is done (the frame of a mesh
+    # comes back to one device, after every shard).
     for i in range(cfg.warmup):
-        t0 = time.perf_counter()
-        pipe.render()
-        fence()
-        say(f"Warmup {i}: {(time.perf_counter()-t0)*1e3:.3f} ms")
+        _, s = timed(render_once)
+        say(f"Warmup {i}: {s * 1e3:.3f} ms")
 
     times = []
     img = None
-    for i in range(cfg.iterations):
-        t0 = time.perf_counter()
-        img = pipe.render()
-        fence()
-        times.append((time.perf_counter() - t0) * 1e3)
-        say(f"Iteration {i}: {times[-1]:.3f} ms")
+    with trace(args.profile) if args.profile else contextlib.nullcontext():
+        for i in range(cfg.iterations):
+            img, s = timed(render_once)
+            times.append(s * 1e3)
+            say(f"Iteration {i}: {times[-1]:.3f} ms")
+    if args.profile:
+        say(f"Wrote profiler trace to {args.profile}")
 
     stats = summarize(times)
     if stats:
@@ -280,15 +327,16 @@ def _run(args) -> int:
         stats["primary_rays_per_s"] = cfg.width * cfg.height / (stats["median_ms"] / 1e3)
         say(f"Primary rays/s: {stats['primary_rays_per_s']:.3e}")
 
-    if args.output and img is not None:
+    if args.output and img is not None and primary:
         write_bmp(args.output, np.asarray(img.cpu()))
         say(f"Wrote {args.output}")
 
-    if args.metrics_json:
+    if args.metrics_json and primary:
         record = {
             "config": dataclasses.asdict(cfg),
             "backend": str(device),
             "device_name": device_name,
+            "devices": mesh.size if mesh else 1,
             "build_ms": pipe.build_ms,
             "builder": pipe.builder,
             "bvh_stats": pipe.bvh_stats,

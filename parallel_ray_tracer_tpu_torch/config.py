@@ -104,8 +104,9 @@ class RenderConfig:
     # the C++ scene loader and BVH builder (native/, built with g++ at first
     # use; the numpy builder where g++ is missing), as in JAX. The port
     # ignores pop_width and adaptive_pop (packet schedules; one thread
-    # traces one ray here). num_devices != 1 (no sharding yet) and
-    # presplit > 0 raise NotImplementedError.
+    # traces one ray here). num_devices is the mesh size of the command
+    # line's sharded render (--devices, parallel/sharded.render_sharded);
+    # prepare itself uploads to one device.
     num_devices: int = 1
     use_native: bool = True
     # Node arity of the packed BVH: 2 (the binary tree), 4 or 8. Each has

@@ -32,6 +32,9 @@
 // counts (RT_NCOUNTS with stream or cmat, the first RT_C_FILLS without;
 // trace.cuh);
 // with counts null the timed instance runs.
+// Each launch goes to the card that holds the rays (use_device_of): this
+// library's CUDA runtime keeps its own current device, 0 until set, so a
+// launch for another card of a mesh must make that card current first.
 
 #include "trace.cuh"
 
@@ -58,6 +61,17 @@ RtDeep make_deep(int* ent, float* dst, int n) {
 }
 
 const int kNoInstance = (int)cudaErrorInvalidValue;
+
+// Make the card that holds the device pointer p current for this thread.
+cudaError_t use_device_of(const void* p) {
+  cudaPointerAttributes a;
+  cudaError_t e = cudaPointerGetAttributes(&a, p);
+  if (e != cudaSuccess) return e;
+  int cur = -1;
+  e = cudaGetDevice(&cur);
+  if (e != cudaSuccess) return e;
+  return a.device == cur ? cudaSuccess : cudaSetDevice(a.device);
+}
 
 // The instance key of (arity, box format, leaf-row mode, stack tier, leaf
 // test), at one leaf size.
@@ -142,6 +156,7 @@ int rt_closest(const float* ox, const float* oy, const float* oz,
                int stream, int cmat_pitch, int leaf, int n, int* stk_ent,
                float* stk_dst, float* t, int* idx, int* nd, float* attr_out,
                unsigned long long* counts, void* cuda_stream) {
+  if (cudaError_t e = use_device_of(ox)) return (int)e;
   RtRays rays = make_rays(ox, oy, oz, dx, dy, dz);
   RtScene s = make_scene(cbox, cmeta, tri, attr, cmat, cmat_pitch);
   RtDeep g = make_deep(stk_ent, stk_dst, n);
@@ -161,6 +176,7 @@ int rt_occluded(const float* ox, const float* oy, const float* oz,
                 int stream, int cmat_pitch, int leaf, int n, int* stk_ent,
                 float* stk_dst, int* blocked, unsigned long long* counts,
                 void* cuda_stream) {
+  if (cudaError_t e = use_device_of(ox)) return (int)e;
   RtRays rays = make_rays(ox, oy, oz, dx, dy, dz);
   RtScene s = make_scene(cbox, cmeta, tri, nullptr, cmat, cmat_pitch);
   RtDeep g = make_deep(stk_ent, stk_dst, n);
@@ -180,6 +196,7 @@ int rt_frame(const float* ox, const float* oy, const float* oz,
              int num_lights, const float* sph, int ns, int arity, int box,
              int cmat_pitch, int leaf, int n, int bounces, int fwd, int* stk_ent,
              float* stk_dst, float* col, unsigned long long* counts, void* stream) {
+  if (cudaError_t e = use_device_of(ox)) return (int)e;
   RtRays rays = make_rays(ox, oy, oz, dx, dy, dz);
   RtScene s = make_scene(cbox, cmeta, tri, attr, cmat, cmat_pitch);
   RtDeep g = make_deep(stk_ent, stk_dst, n);

@@ -106,12 +106,15 @@ def tiles_to_image(flat: torch.Tensor, width, height, tr, tc) -> torch.Tensor:
     return img[:height, :width]
 
 
-def generate_rays_tiled(cam_arrays, width, height, tr, tc,
-                        device="cuda") -> Tuple[Vec3, Vec3]:
-    """(ntiles*K,) origin/direction planes in tile-major order."""
+def generate_rays_tiled(cam_arrays, width, height, tr, tc, device="cuda",
+                        y_offset: int = 0) -> Tuple[Vec3, Vec3]:
+    """(ntiles*K,) origin/direction planes in tile-major order. y_offset
+    shifts pixel rows (band rendering): row r gets the direction of frame
+    row r + y_offset, with the frame's arithmetic, so a band's pixels are
+    the frame's bit for bit (JAX render.py:154-178)."""
     origin, dir00, inc_x, inc_y = cam_arrays
     wp, hp, nty, ntx = tile_image_shape(width, height, tr, tc)
-    o, d = generate_rays(origin, dir00, inc_x, inc_y, wp, hp, device=device)
+    o, d = generate_rays(origin, dir00, inc_x, inc_y, wp, hp, y_offset, hp, device=device)
 
     def tilewise(p):
         return (
@@ -121,15 +124,19 @@ def generate_rays_tiled(cam_arrays, width, height, tr, tc,
     return Vec3(*(tilewise(p) for p in o)), Vec3(*(tilewise(p) for p in d))
 
 
-def _tiled_planes(cam: Camera, width, height, tile_rows, tile_cols, device):
+def _tiled_planes(cam: Camera, width, height, tile_rows, tile_cols, device,
+                  y_offset: int = 0, rows: Optional[int] = None):
+    """(rows, 128) ray planes of the frame's tiles, or with y_offset / rows
+    of the band of frame rows [y_offset, y_offset + rows), in the frame's
+    camera basis."""
     if (tile_rows * tile_cols) % LANES:
         raise ValueError(
             f"a tile of {tile_rows}x{tile_cols} pixels is not a whole number "
             f"of {LANES}-lane rows"
         )
     o, d = generate_rays_tiled(
-        ray_basis(cam, width, height), width, height, tile_rows, tile_cols,
-        device=device,
+        ray_basis(cam, width, height), width, height if rows is None else rows,
+        tile_rows, tile_cols, device=device, y_offset=y_offset,
     )
     rows = o.x.shape[0] // LANES
     return o.reshape(rows, LANES), d.reshape(rows, LANES)
@@ -142,28 +149,33 @@ def _to_image(col: Vec3, width, height, tile_rows, tile_cols) -> torch.Tensor:
 
 def render_bvh_fused(ds, tables, cam: Camera, width: int, height: int,
                      bounces: int = 4, tile_rows: int = 32,
-                     tile_cols: int = 32, reverse_shadows: bool = True) -> torch.Tensor:
+                     tile_cols: int = 32, reverse_shadows: bool = True,
+                     y_offset: int = 0, rows: Optional[int] = None) -> torch.Tensor:
     """Whole-frame render with one launch of the fused frame kernel
     (cuda_trace.frame_tiles) -> (H, W, 3) f32 in [0, 1]. The tables' box
     format (f32, bf16 pairs) picks the kernel instance, their leaf size its
     L, their sphere table (ops/pack.pack_spheres) its sphere instance, and
     their C-matrix table (ops/pack.split_cmat) its MXU instance;
-    reverse_shadows=False traces shadow rays from the hit points."""
-    o, d = _tiled_planes(cam, width, height, tile_rows, tile_cols, ds.device)
+    reverse_shadows=False traces shadow rays from the hit points. With
+    y_offset / rows it renders the band of frame rows [y_offset, y_offset +
+    rows) -> (rows, W, 3), the frame's rows bit for bit (JAX
+    _render_bvh_fused(y_offset), render.py:301-338)."""
+    o, d = _tiled_planes(cam, width, height, tile_rows, tile_cols, ds.device, y_offset, rows)
     col = cuda_trace.frame_tiles(
         tables.cbox, tables.cmeta, tables.tri, tables.attr, tables.lamb, o, d,
         bounces=bounces, leaf_size=tables.leaf_size,
         stack_depth=tables.stack_depth, compressed=tables.compressed,
         sph=tables.sph, cmat=tables.cmat, reverse_shadows=reverse_shadows,
     )
-    return _to_image(col, width, height, tile_rows, tile_cols)
+    return _to_image(col, width, height if rows is None else rows, tile_rows, tile_cols)
 
 
 def render_bvh_pallas(ds, tables, cam: Camera, width: int, height: int,
                       bounces: int = 4, tile_rows: int = 32,
                       tile_cols: int = 32, stream: bool = False,
                       fast_light: bool = True,
-                      reverse_shadows: bool = True) -> torch.Tensor:
+                      reverse_shadows: bool = True, y_offset: int = 0,
+                      rows: Optional[int] = None) -> torch.Tensor:
     """Pass-based render: per bounce one closest-hit launch and one any-hit
     launch per light (cuda_trace.closest_tiles_full / occluded_tiles), with
     the shading in torch (ops/shade.trace_rays), on the tracer pair of
@@ -178,8 +190,9 @@ def render_bvh_pallas(ds, tables, cam: Camera, width: int, height: int,
     fast_light=False finds shadows by the closest-hit kernel
     (shade.occluded_from_closest) with forward shadow rays, and
     reverse_shadows=False traces forward ones with the any-hit kernel, as
-    JAX's _render_bvh_pallas (render.py:288-295)."""
-    o, d = _tiled_planes(cam, width, height, tile_rows, tile_cols, ds.device)
+    JAX's _render_bvh_pallas (render.py:288-295). y_offset / rows render a
+    band of the frame, as render_bvh_fused's."""
+    o, d = _tiled_planes(cam, width, height, tile_rows, tile_cols, ds.device, y_offset, rows)
     closest, occluded = cuda_trace.make_tracer(
         tables.packed_dev, tables.leaf_size, ds=ds, stack_depth=tables.stack_depth,
         dual=True, compressed=tables.compressed, stream=stream)
@@ -187,4 +200,4 @@ def render_bvh_pallas(ds, tables, cam: Camera, width: int, height: int,
         occluded = occluded_from_closest(closest)
     col = trace_rays(ds, closest, occluded, o.reshape(-1), d.reshape(-1), bounces,
                      reverse_shadows=fast_light and reverse_shadows)
-    return _to_image(col, width, height, tile_rows, tile_cols)
+    return _to_image(col, width, height if rows is None else rows, tile_rows, tile_cols)

@@ -9,8 +9,9 @@ use_native) or its own numpy modules, decides as JAX does
 whether leaf rows stream and whether the leaf test is the MXU leaf, and
 uploads the tables and the scene planes
 (DeviceScene, in the BVH's slot order) once; `Pipeline.render` then renders
-frames from them on the device. With use_bvh=False it builds no BVH, and
-every frame is the brute-force render.
+frames from them on the device, and `Pipeline.render_band` bands of rows of
+a frame. With use_bvh=False it builds no BVH, and every frame is the
+brute-force render.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 
 from .config import DEFAULT_ASSET_ROOTS, RenderConfig
 from .convert import SceneTables, packed_from_numpy
-from .models.camera import Camera
+from .models.camera import Camera, ray_basis
 from .models.device_scene import DeviceScene, device_scene_from_host
 from .models.presplit import presplit_scene
 from .models.procgen import substitute_scene
@@ -115,13 +116,33 @@ class Pipeline:
         shadows by the closest-hit kernel in "pallas", as JAX's render
         does."""
         cfg = self.cfg
-        cam, width, height = cam or self.camera(), width or cfg.width, height or cfg.height
+        return self._render(cam, width or cfg.width, height or cfg.height, variant)
+
+    def render_band(self, y0: int, rows: int, cam: Optional[Camera] = None,
+                    variant: Optional[str] = None) -> torch.Tensor:
+        """Render scanlines [y0, y0 + rows) of the configured frame ->
+        (rows, W, 3), through the same kernels as render() (JAX
+        pipeline.py:160-215). The band keeps the whole frame's camera basis
+        with its rows shifted by y0, so its pixels are the same rows of a
+        whole-frame render, bit for bit: the checkpointed render
+        (utils/checkpoint.TileRenderCheckpoint) assembles a frame of them.
+        Rows past the frame's last are traced and returned as the basis
+        gives them. "jax" raises NotImplementedError, as render() does."""
+        cfg = self.cfg
+        return self._render(cam, cfg.width, cfg.height, variant, int(y0), int(rows))
+
+    def _render(self, cam, width: int, height: int, variant, y_offset: int = 0,
+                rows: Optional[int] = None) -> torch.Tensor:
+        cfg = self.cfg
+        cam = cam or self.camera()
         variant = self.resolved_variant(variant)
         if variant == "bruteforce":
-            return render_ops.render_bruteforce(self.ds, cam, width, height,
-                                                bounces=cfg.bounces)
+            return render_ops._render_bruteforce(
+                self.ds, ray_basis(cam, width, height), width,
+                height if rows is None else rows, cfg.bounces, y_offset=y_offset)
         kw = dict(bounces=cfg.bounces, tile_rows=cfg.tile_rows,
-                  tile_cols=cfg.tile_cols, reverse_shadows=cfg.reverse_shadows)
+                  tile_cols=cfg.tile_cols, reverse_shadows=cfg.reverse_shadows,
+                  y_offset=y_offset, rows=rows)
         if variant == "fused":
             fn = render_ops.render_bvh_fused
         else:
@@ -134,7 +155,6 @@ def _check_ported(cfg: RenderConfig) -> None:
     if cfg.bvh_width not in PACKERS:
         raise ValueError(f"bvh_width must be 2, 4 or 8, got {cfg.bvh_width}")
     unported = {
-        "num_devices != 1": cfg.num_devices != 1,
         f"leaf_size={cfg.leaf_size}": cfg.leaf_size not in (None, *LEAF_SIZES),
         f"variant={cfg.variant!r}": cfg.variant not in VARIANTS,
     }

@@ -3,9 +3,10 @@ CPU (--device cpu): the JAX CLI's flags and defaults, the frame an
 in-process render() gives, the JAX CLI's metrics record and statistics,
 --bf16-bvh, --leaf-size 4, --no-reverse-shadows, --no-fast-light and
 --presplit (each the frame an in-process render() of its config gives),
-the car scenes' substitutes without a car_only folder, and a non-zero exit
-with NotImplementedError's message for each flag whose path is not
-ported."""
+the car scenes' substitutes without a car_only folder, --devices 2 (the
+sharded frame over 2 virtual CPU devices, render()'s BMP), --checkpoint
+(a resumed banded frame), --profile (a trace file), and a non-zero exit
+with NotImplementedError's message for --interpret and --variant jax."""
 
 import dataclasses
 import json
@@ -71,11 +72,7 @@ def test_stats_as_jax(times):
     assert t_stats.format_summary(s) == j_stats.format_summary(s)
 
 
-@pytest.mark.parametrize("flags", [
-    ["--devices", "2"],
-    ["--checkpoint", "ck"], ["--profile", "prof"], ["--interpret"],
-    ["--variant", "jax"],
-], ids=" ".join)
+@pytest.mark.parametrize("flags", [["--interpret"], ["--variant", "jax"]], ids=" ".join)
 def test_unported_flag_exits_nonzero(flags, capsys, tmp_path):
     argv = ["--device", "cpu", "--width", "32", "--height", "32",
             "--asset-root", str(tmp_path), *flags]
@@ -83,6 +80,65 @@ def test_unported_flag_exits_nonzero(flags, capsys, tmp_path):
         argv += ["--synthetic", "16"]
     assert cli.main(argv) != 0
     assert "NotImplementedError" in capsys.readouterr().err
+
+
+SHARDED_ARGV = ["--device", "cpu", "--synthetic", "64", "--width", "64", "--height", "40",
+                "--bounces", "2", "--warmup", "0", "--iterations", "1"]
+
+
+@pytest.mark.parametrize("variant", ["auto", "pallas", "bruteforce"])
+def test_devices_renders_the_sharded_frame(variant, tmp_path, capsys):
+    """--devices 2 --device cpu times render_sharded over 2 virtual CPU
+    devices: its BMP is render()'s, the banner and the record say 2."""
+    argv = SHARDED_ARGV + ["--variant", variant]
+    bmp, rec = tmp_path / "f.bmp", tmp_path / "m.json"
+    assert cli.main(argv + ["--devices", "2", "--output", str(bmp),
+                            "--metrics-json", str(rec)]) == 0
+    assert "devices: 2," in capsys.readouterr().out
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    img = pipeline.prepare(cfg, device="cpu").render().numpy()
+    assert img.std() > 0.01 and bmp.read_bytes() == bmp_bytes(img)
+    assert json.loads(rec.read_text())["devices"] == 2
+
+
+def test_checkpoint_resumes(tmp_path):
+    """--checkpoint renders in bands and a rerun resumes at the first
+    missing band: a file with its first band done renders the rest."""
+    from parallel_ray_tracer_tpu_torch.utils.checkpoint import TileRenderCheckpoint, save_pytree
+
+    ck, bmp = tmp_path / "ck.npz", tmp_path / "f.bmp"
+    argv = SHARDED_ARGV + ["--checkpoint", str(ck), "--band-rows", "32", "--output", str(bmp)]
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    img = pipeline.prepare(cfg, device="cpu").render().numpy()
+    part = TileRenderCheckpoint(str(ck), 64, 40, 32)
+    state = part.load()
+    state["image"][:32], state["done"][0] = 0.25, True  # a band the rerun must keep
+    save_pytree(str(ck), state)
+    assert cli.main(argv) == 0
+    want = img.copy()
+    want[:32] = 0.25
+    assert bmp.read_bytes() == bmp_bytes(want) and part.load()["done"].all()
+
+
+def test_profile_writes_a_trace(tmp_path, capsys):
+    prof = tmp_path / "prof"
+    assert cli.main(SHARDED_ARGV + ["--iterations", "2", "--profile", str(prof)]) == 0
+    (trace,) = prof.glob("*.pt.trace.json")
+    assert json.loads(trace.read_text())["traceEvents"]
+    assert f"Wrote profiler trace to {prof}" in capsys.readouterr().out
+
+
+def test_devices_past_the_cards_exits_nonzero(tmp_path):
+    """On the card --devices asks for cards; without them the run ends with
+    the reason, never on fewer devices or on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-m", "parallel_ray_tracer_tpu_torch", "--synthetic", "16",
+         "--width", "32", "--height", "32", "--devices", "2"],
+        capture_output=True, text=True, cwd=REPO, env=env, timeout=120)
+    assert proc.returncode != 0 and "no CUDA device" in proc.stderr
 
 
 @pytest.mark.parametrize("flags", [

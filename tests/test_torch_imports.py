@@ -86,7 +86,7 @@ def test_prepare_without_device_raises_when_no_cuda():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(variant="jax"), dict(num_devices=2), dict(leaf_size=3), dict(leaf_size=16),
+    dict(variant="jax"), dict(leaf_size=3), dict(leaf_size=16),
 ])
 def test_unported_knobs_raise(kw):
     with pytest.raises(NotImplementedError):
@@ -95,7 +95,7 @@ def test_unported_knobs_raise(kw):
 
 @pytest.mark.parametrize("kw", [
     dict(fast_light=False), dict(presplit=0.1), dict(leaf_size=4),
-    dict(reverse_shadows=False),
+    dict(reverse_shadows=False), dict(num_devices=2),
 ])
 def test_ported_knobs_render(kw):
     """The knobs that raised before their paths were ported prepare and
