@@ -179,6 +179,15 @@ render(); the training step over two shards against one device at 512x512;
 the frame in 256-row bands through a checkpoint file, and a stopped run
 resumed; a profiler trace that names the frame kernel.
 
+Its `packet` phase runs the packet traversal in torch ops (ops/trace_bvh.py,
+variant "jax"; no kernel) on the FP32 main path: a 256-row band, the 1080p
+frame timed with its passes' steps (no kernel launched), the frame against
+the pass-based render, a one-bounce frame under the profiler, the primary
+pass's hits and the first bounce's shadow rays against the kernels',
+render_sharded over four shards of cuda:0 at 480x270 against render(), the
+512x512 training step against the FP32 pallas step, and the command line
+with --variant jax and with --interpret (no traversal kernel in its trace).
+
 Every prepare must take the native host builder (native/, built with g++
 on the card's host): a prepare that fell back to the numpy builder fails,
 and each record carries its builder and BVH build milliseconds
@@ -263,8 +272,9 @@ WARMUP, TIMED = 10, 50
 # fewer repeats, and so do the stream, deep, spheres and mxu phases (the
 # streamed, DEEP, sphere and MXU instances, synthetic_600k and the turns
 # against the FP32 twins) and the leaf4 phase's tables other than the main
-# path's, to make room for the microbench, leaf4 and shadows phases.
-ARITY_WARMUP, ARITY_TIMED = 5, 20
+# path's, to make room for the microbench, leaf4, shadows and packet
+# phases: 3 warm-ups and 10 timed calls (5 and 20 before the packet phase).
+ARITY_WARMUP, ARITY_TIMED = 3, 10
 BANDS = (384, 704)          # 64-row bands: sky + geometry, car body
 BAND_ROWS = 64
 # Phase 7's plain frame, which the 1080p frames of the arity, leaf4 and
@@ -485,12 +495,13 @@ MB_GLUE_ROW_NPOP = 4
 # bounces, lr 1e-4, target zeros) at the resolution users render and at the
 # script's own; the 64-row band of its kernel-against-plain gradients; the
 # finite-difference step of tests/test_diff.py's material check; the timing
-# repeats (median of 10 after 3 warm-ups); the SGD steps at 1080p.
+# repeats (median of 5 after 2 warm-ups; 10 after 3 before the packet
+# phase); the SGD steps at 1080p.
 DIFF_SIZES = ((1920, 1080), (512, 512))
 DIFF_BOUNCES, DIFF_LR = 2, 1e-4
 DIFF_BAND = 384
 DIFF_FD_H = 1e-3
-DIFF_WARMUP, DIFF_TIMED = 3, 10
+DIFF_WARMUP, DIFF_TIMED = 2, 5
 DIFF_SGD_STEPS = 3
 # The training forward against the pass-based render of the same camera,
 # tiles and flags, at lr = 0 (the loss is a mean square over the frame's
@@ -3069,7 +3080,10 @@ def main() -> int:
     sharded_phase(card, {"mxu": mxu_pipe, "fp32": pipe})
     del mxu_pipe
 
-    # ---- 22. the kernels line --------------------------------------------
+    # ---- 22. the packet traversal in torch ops (variant="jax") -------------
+    packet_phase(card, pipe, out_dir)
+
+    # ---- 23. the kernels line --------------------------------------------
     kernels = []
     for name, key, kernel, line in KERNEL_ROWS:
         t = timing[key][kernel]
@@ -3326,7 +3340,7 @@ def diff_phase(card: str, pipes: dict) -> None:
                   f"{within} of pixels within 1e-3, median {dd.median().item()}")
 
             if (W, H) == DIFF_SIZES[0]:
-                prof = profile(lambda: step(v, o_t, d_t, target), n=3)
+                prof = profile(lambda: step(v, o_t, d_t, target))
                 rec["profile"] = prof
                 if "kernel_launches_per_call" in prof:
                     rec["launches_per_step"] = {
@@ -3641,6 +3655,338 @@ def sharded_phase(card: str, pipes: dict) -> None:
                       "frame_kernel_events": len(frame_events),
                       "frame_kernel": frame_events[:1]},
           "seconds": time.perf_counter() - t_phase})
+
+
+# The packet phase: the packet traversal in torch ops (ops/trace_bvh.py,
+# variant="jax"; no kernel) on the FP32 main path. First the band of
+# PACKET_BAND rows from its y0 (which also makes the smaller buckets'
+# CUDA graphs), then the 1080p frame with its passes' steps, timed with
+# CUDA events: if that call took more than PACKET_ONE_CALL_S it is the one
+# timed call, else PACKET_TIMED more follow; the band must be the frame's
+# rows bit for bit, and the frame within tests/test_fused.py's frame bounds
+# (more than 99% of pixels within 1e-3, median below 1e-5) of the
+# pass-based render, with no kernel launched (the launch counts from 0).
+# The frame at PACKET_PROFILE_BOUNCES bounce under the profiler (device
+# kernels, idle share; no traversal kernel): the 4-bounce frame's million
+# kernels took the profiler 28 s to stop and 10 s to read (NVIDIA H100
+# 80GB HBM3, 700 W, and its host). The primary closest-hit pass and the
+# first bounce's shadow rays against the kernels' (ops/cuda_trace.
+# make_tracer): equal miss masks, t within PACKET_T_ATOL + PACKET_T_RTOL
+# |t|, idx agreement >= PACKET_IDX_SHARE, blocked agreement >=
+# PACKET_BLOCKED_SHARE. render_sharded over SHARDS shards of cuda:0 at
+# PACKET_SMALL and PACKET_SMALL_BOUNCES bounce (four shards at 4 bounces
+# took 16.5 s on the NVIDIA H100 80GB HBM3 at 700 W), render()'s frame
+# there bit for bit; the training step at
+# SHARD_STEP_SIZE against the FP32 pallas step within tests/test_torch_
+# train.py's bounds for the pair; the command line with --variant jax at
+# PACKET_SMALL and PACKET_SMALL_BOUNCES (render()'s BMP byte for byte) and
+# with --interpret at
+# PACKET_INTERPRET and one bounce (the kernels' frame through the same
+# 8-bit BMP; its profiler trace holds no traversal kernel), both run while
+# the in-process checks run.
+PACKET_TIMED = 3
+PACKET_ONE_CALL_S = 5.0
+PACKET_BAND = (384, 256)
+PACKET_SMALL = (480, 270)
+PACKET_SMALL_BOUNCES = 1
+PACKET_PROFILE_BOUNCES = 1
+PACKET_INTERPRET = (64, 32)
+PACKET_T_ATOL, PACKET_T_RTOL = 1e-4, 1e-5
+PACKET_IDX_SHARE, PACKET_BLOCKED_SHARE = 0.999, 0.9999
+PACKET_STEP_LOSS_RTOL, PACKET_STEP_VERTS_ATOL = 1e-6, 1e-6
+
+
+def device_profile(fn) -> dict:
+    """One call of fn under torch.profiler with CUDA activity only: its
+    device kernels, busy and wall ms, idle share, and the seconds the
+    profiler's stop and the reading took. It reads the raw kineto events (a
+    frame of the packet traversal runs about a million kernels, too many
+    for the profiler's Python event list)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    t2 = time.perf_counter()
+    cuda = DeviceType.CUDA
+    spans, names = [], {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            start = e.start_ns()
+            spans.append((start, start + e.duration_ns()))
+            name = e.name()
+            names[name] = names.get(name, 0) + 1
+    t3 = time.perf_counter()
+    out = {"wall_ms": (t1 - t0) * 1e3, "stop_s": t2 - t1, "read_s": t3 - t2}
+    if not spans:
+        return dict(out, device_time="not measured: the trace holds no device events")
+    span = np.array(spans, np.float64)
+    span = span[np.argsort(span[:, 0])]
+    reach = np.maximum.accumulate(span[:, 1])
+    starts = np.maximum(span[:, 0], np.concatenate([[-np.inf], reach[:-1]]))
+    busy_ns = float(np.clip(span[:, 1] - starts, 0.0, None).sum())
+    return dict(out, device_kernels=len(spans),
+                traversal_kernels=sum(n for k, n in names.items() if TRAVERSAL_NAME.search(k)),
+                device_busy_ms=busy_ns / 1e6, idle_share=1.0 - busy_ns / 1e6 / out["wall_ms"],
+                top_kernels=dict(sorted(names.items(), key=lambda kv: -kv[1])[:5]))
+
+
+def packet_phase(card: str, pipe, out_dir: str) -> None:
+    """Phase `packet`: the packet traversal (ops/trace_bvh.py, variant="jax")
+    on car_boxed 1080p, 4 bounces, the FP32 tables' pipeline; see the
+    constants above."""
+    from parallel_ray_tracer_tpu_torch.models.camera import ray_basis
+    from parallel_ray_tracer_tpu_torch.ops import cuda_trace as ct
+    from parallel_ray_tracer_tpu_torch.ops import render as R
+    from parallel_ray_tracer_tpu_torch.ops import shade, trace_bvh
+    from parallel_ray_tracer_tpu_torch.ops.intersect import T_MAX
+    from parallel_ray_tracer_tpu_torch.parallel import sharded
+    from parallel_ray_tracer_tpu_torch.utils.bmp import bmp_bytes, read_bmp
+
+    t_phase = time.perf_counter()
+    c, T = pipe.cfg, pipe.tables
+    W, H = c.width, c.height
+    K = c.tile_rows * c.tile_cols
+    parts = {}
+
+    def part(name, t0):
+        torch.cuda.synchronize()
+        parts[name] = time.perf_counter() - t0
+
+    def timed_call(fn):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b)
+
+    def frame_bounds(name, a, b):
+        diff = (a - b).abs()
+        out = {"within_1e-3": (diff.amax(-1) < 1e-3).float().mean().item(),
+               "median": diff.median().item(), "max": diff.max().item(),
+               "bit_equal": torch.equal(a, b)}
+        check(name, out["within_1e-3"] > 0.99 and out["median"] < 1e-5
+              and a.std().item() > 0.01, f"frame bounds: {out}")
+        return out
+
+    # the command line, in the background of the phase: the processes'
+    # start-up is host work, and the frames they trace are small
+    small_w, small_h = PACKET_SMALL
+    iw, ih = PACKET_INTERPRET
+    prof_dir = tempfile.mkdtemp(prefix="packet_profile_", dir=out_dir)
+    base = [sys.executable, "-m", "parallel_ray_tracer_tpu_torch", "--scene", c.scene,
+            "--heuristic", str(c.bvh_heuristic), "--no-mxu-leaf", "--warmup", "0",
+            "--iterations", "1"]
+    clis = {"cli_jax": ["--variant", "jax", "--width", str(small_w), "--height",
+                        str(small_h), "--bounces", str(PACKET_SMALL_BOUNCES)],
+            "cli_interpret": ["--interpret", "--width", str(iw), "--height", str(ih),
+                              "--bounces", "1", "--profile", prof_dir]}
+    t_cli = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        base + flags + ["--output", os.path.join(out_dir, f"packet_{name}.bmp")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=HERE)
+        for name, flags in clis.items()}
+
+
+    rec = {"phase": "packet", "card": card, "size": f"{W}x{H}", "bounces": c.bounces,
+           "packet": K, "nodes": pipe.flat.n_nodes, "depth": pipe.flat.depth,
+           "stack_depth": pipe.stack_depth, "schedule": "masked",
+           "graph_steps": trace_bvh.GRAPH_STEPS}
+    # the band first: its call also makes the buckets up to its packets'
+    t0 = time.perf_counter()
+    y0, rows = PACKET_BAND
+    band, rec["band_first_call_ms"] = timed_call(
+        lambda: pipe.render_band(y0, rows, variant="jax"))
+    part("band", t0)
+    # the frame, with its passes' steps
+    t0 = time.perf_counter()
+    stats = []
+    ct.reset_launch_counts()
+    img, first_ms = timed_call(lambda: R.render_bvh_jax(
+        pipe.ds, pipe.dbvh, pipe.camera(), W, H, bounces=c.bounces, leaf_size=pipe.leaf_size,
+        stack_depth=pipe.stack_depth, tile_rows=c.tile_rows, tile_cols=c.tile_cols,
+        fast_light=c.fast_light, reverse_shadows=c.reverse_shadows, stats=stats))
+    runs = [first_ms]
+    if first_ms <= PACKET_ONE_CALL_S * 1e3:
+        for _ in range(PACKET_TIMED):
+            again, ms = timed_call(lambda: pipe.render(variant="jax"))
+            runs.append(ms)
+            check("packet/frame", torch.equal(again, img), "render(variant=\"jax\") is not "
+                  "the first call's frame")
+        runs = runs[1:]
+    rec["frame_ms"] = {"median": statistics.median(runs), "runs": runs,
+                       "first_call_ms": first_ms,
+                       "capture_s": sum(r.get("capture_s", 0.0) for r in stats)}
+    rec["launches"] = {k: n for k, n in ct.LAUNCHES.items() if n}
+    check("packet/frame", not rec["launches"], f"the frame launched kernels: {rec['launches']}")
+    part("frame", t0)
+    rec["passes"] = [{k: v for k, v in r.items() if k != "live"} | {
+        "live_max": max(r["live"]), "live_at": [r["live"][i] for i in
+                                                range(0, r["steps"], max(1, r["steps"] // 8))]}
+        for r in stats]
+    rec["steps"] = sum(r["steps"] for r in stats)
+    rec["packet_visits"] = sum(r["visits"] for r in stats)
+    rec["replays"] = sum(r.get("replays", 0) for r in stats)
+    rec["ms_per_step"] = rec["frame_ms"]["median"] / rec["steps"]
+    rec["band_bit_equal"] = torch.equal(band, img[y0:y0 + rows])
+    check("packet/band", rec["band_bit_equal"], f"the {rows}-row band at {y0}")
+    t0 = time.perf_counter()
+    rec["vs_pallas"] = frame_bounds("packet/frame", img, pipe.render(variant="pallas"))
+    pb = PACKET_PROFILE_BOUNCES
+    pstats = []
+    rec["profile"] = device_profile(lambda: R.render_bvh_jax(
+        pipe.ds, pipe.dbvh, pipe.camera(), W, H, bounces=pb, leaf_size=pipe.leaf_size,
+        stack_depth=pipe.stack_depth, tile_rows=c.tile_rows, tile_cols=c.tile_cols,
+        fast_light=c.fast_light, reverse_shadows=c.reverse_shadows, stats=pstats))
+    rec["profile"].update(bounces=pb, steps=sum(r["steps"] for r in pstats),
+                          replays=sum(r.get("replays", 0) for r in pstats))
+    if rec["profile"].get("device_kernels"):
+        rec["profile"]["kernels_per_step"] = (rec["profile"]["device_kernels"]
+                                              / rec["profile"]["steps"])
+    check("packet/frame", rec["profile"].get("traversal_kernels") == 0,
+          f"the traversal kernels ran: {rec['profile']}")
+    part("profile", t0)
+    emit(rec)
+    del band
+
+    # the primary pass and the first bounce's shadow rays against the kernels
+    t0 = time.perf_counter()
+    rec = {"phase": "packet", "case": "passes", "card": card}
+    o, d = R.generate_rays_tiled(ray_basis(pipe.camera(), W, H), W, H, c.tile_rows,
+                                 c.tile_cols, device=pipe.device)
+    pstats = []
+    jc, jo = trace_bvh.make_tracer(pipe.dbvh, pipe.ds, pipe.leaf_size, pipe.stack_depth,
+                                   packet=K, stats=pstats)
+    kc, ko = ct.make_tracer(T.packed_dev, T.leaf_size, ds=pipe.ds, stack_depth=T.stack_depth,
+                            dual=True, compressed=T.compressed)
+    hj, hk = jc(o, d), kc(o, d)
+    mj, mk = hj.t >= T_MAX, hk.t >= T_MAX
+    both = ~mj & ~mk
+    err = (hj.t[both] - hk.t[both]).abs()
+    rec["closest"] = {"miss_equal": torch.equal(mj, mk), "hits": int(both.sum()),
+                      "t_max_abs_err": err.max().item(),
+                      "t_bit_equal_share": (hj.t == hk.t).float().mean().item(),
+                      "idx_share": (hj.idx == hk.idx).float().mean().item()}
+    check("packet/closest", rec["closest"]["miss_equal"]
+          and bool((err <= PACKET_T_ATOL + PACKET_T_RTOL * hk.t[both].abs()).all())
+          and rec["closest"]["idx_share"] >= PACKET_IDX_SHARE, f"{rec['closest']}")
+    shadow = []
+
+    def kernel_occluded(so, sd, m2):
+        shadow.append((so, sd, m2))
+        return ko(so, sd, m2)
+
+    shade.trace_rays(pipe.ds, kc, kernel_occluded, o, d, 1, reverse_shadows=c.reverse_shadows)
+    so, sd, m2 = shadow[0]
+    bj, bk = jo(so, sd, m2), ko(so, sd, m2)
+    rec["occluded"] = {"blocked_share": (bj == bk).float().mean().item(),
+                       "blocked": int(bk.sum())}
+    check("packet/occluded", rec["occluded"]["blocked_share"] >= PACKET_BLOCKED_SHARE
+          and rec["occluded"]["blocked"] > 0, f"{rec['occluded']}")
+    rec["passes"] = [{k: v for k, v in r.items() if k != "live"} for r in pstats]
+    part("passes", t0)
+    emit(rec)
+    del o, d, hj, hk, so, sd, m2, bj, bk, shadow
+
+    # the sharded frame, the training step
+    rec = {"phase": "packet", "case": "entry_points", "card": card}
+    t0 = time.perf_counter()
+    small_pipe = dataclasses.replace(pipe, cfg=dataclasses.replace(
+        c, bounces=PACKET_SMALL_BOUNCES))
+    small, rec["small_ms"] = timed_call(
+        lambda: small_pipe.render(variant="jax", width=small_w, height=small_h))
+    meshn = sharded.make_mesh(devices=["cuda:0"] * SHARDS)
+    shards, rec["sharded_ms"] = timed_call(lambda: sharded.render_sharded(
+        pipe.ds, pipe.dbvh, pipe.camera(), small_w, small_h, meshn,
+        bounces=PACKET_SMALL_BOUNCES,
+        leaf_size=pipe.leaf_size, stack_depth=pipe.stack_depth, tile_rows=c.tile_rows,
+        tile_cols=c.tile_cols, variant="jax", fast_light=c.fast_light,
+        reverse_shadows=c.reverse_shadows))
+    rec["sharded_bit_equal"] = torch.equal(shards, small)
+    check("packet/sharded", rec["sharded_bit_equal"] and small.std().item() > 0.01,
+          f"render_sharded over {SHARDS} shards against render() at {small_w}x{small_h}")
+    part("sharded", t0)
+    t0 = time.perf_counter()
+    sw, sh = SHARD_STEP_SIZE
+    step_j, prep = sharded.make_train_step(
+        pipe.scene, None, sw, sh, bounces=DIFF_BOUNCES, lr=DIFF_LR, variant="jax",
+        tracer_data=pipe.dbvh, leaf_size=pipe.leaf_size, stack_depth=pipe.stack_depth,
+        slot_map=pipe.flat.slot_map, device=pipe.device)
+    step_p, _ = sharded.make_train_step(
+        pipe.scene, None, sw, sh, bounces=DIFF_BOUNCES, lr=DIFF_LR, variant="pallas",
+        tracer_data=T.packed_dev, leaf_size=T.leaf_size, stack_depth=T.stack_depth,
+        slot_map=pipe.flat.slot_map, compressed=T.compressed, device=pipe.device)
+    args = prep()
+    (vj, lj), rec["train_jax_step_ms"] = timed_call(lambda: step_j(*args))
+    vp, lp = step_p(*args)
+    rec["train"] = {"size": f"{sw}x{sh}", "loss_jax": lj.item(), "loss_pallas": lp.item(),
+                    "loss_abs_diff": abs(lj.item() - lp.item()),
+                    "verts_max_abs_diff": (vj - vp).abs().max().item()}
+    check("packet/train", rec["train"]["loss_abs_diff"]
+          <= PACKET_STEP_LOSS_RTOL * max(1.0, lp.item()) and lp.item() > 0
+          and rec["train"]["verts_max_abs_diff"] <= PACKET_STEP_VERTS_ATOL,
+          f"the jax step against the FP32 pallas step: {rec['train']}")
+    del step_j, step_p, prep, args, vj, vp
+    part("train", t0)
+
+    # the command line's frames
+    t0 = time.perf_counter()
+    interp_pipe = dataclasses.replace(pipe, cfg=dataclasses.replace(c, width=iw, height=ih,
+                                                                    bounces=1))
+    want_interp = interp_pipe.render()
+    for name, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        cli = {"rc": proc.returncode, "stdout_tail": out[-600:], "stderr_tail": err[-800:],
+               "seconds_since_start": time.perf_counter() - t_cli}
+        check(f"packet/{name}", proc.returncode == 0, f"exit {proc.returncode}: {err[-800:]}")
+        path = os.path.join(out_dir, f"packet_{name}.bmp")
+        if proc.returncode == 0 and os.path.exists(path):
+            with open(path, "rb") as f:
+                data = f.read()
+            if name == "cli_jax":
+                cli["bmp_equal"] = data == bmp_bytes(small.cpu().numpy())
+                check("packet/cli_jax", cli["bmp_equal"], "its BMP is not render()'s")
+            else:
+                # the kernels' frame through the same 8-bit BMP: the frame
+                # bounds' 1e-3 is below one step of 1/255, so more than 99%
+                # of the pixels must have the same bytes
+                got = read_bmp(path)
+                with tempfile.NamedTemporaryFile(suffix=".bmp", dir=out_dir) as f:
+                    f.write(bmp_bytes(want_interp.cpu().numpy()))
+                    f.flush()
+                    mine = read_bmp(f.name)
+                cli["bmp_equal"] = bool(np.array_equal(got, mine))
+                cli["pixels_equal"] = float((got == mine).all(axis=-1).mean())
+                check("packet/cli_interpret", cli["pixels_equal"] > 0.99,
+                      f"the --interpret frame against the kernels': {cli}")
+                traces = [f for f in os.listdir(prof_dir) if f.endswith(".pt.trace.json")]
+                events = []
+                if traces:
+                    with open(os.path.join(prof_dir, traces[0])) as f:
+                        events = json.load(f).get("traceEvents", [])
+                kern = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+                cli["profile"] = {"traces": len(traces), "device_kernels": len(kern),
+                                  "traversal_kernels": sum(bool(TRAVERSAL_NAME.search(k))
+                                                           for k in kern)}
+                check("packet/cli_interpret", len(traces) == 1 and kern
+                      and cli["profile"]["traversal_kernels"] == 0,
+                      f"its profiler trace: {cli['profile']}")
+            os.remove(path)
+        rec[name] = cli
+    part("cli_wait", t0)
+    rec["parts_s"] = parts
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
 
 
 def microbench_phase(card: str, out_dir: str, frame: dict) -> list:
@@ -4073,8 +4419,10 @@ def microbench_phase(card: str, out_dir: str, frame: dict) -> list:
     # the kernels line: each kernel at one configuration of its run, its
     # plain version on the same inputs, its bound and (gather) the library
     def once_ms(fn):
+        """A plain version's ms: one call after a warm-up call (a warm-up
+        and 3 timed calls before the packet phase)."""
         fn()
-        return time_ms(fn, 1, 3)["median"]
+        return time_ms(fn, 0, 1)["median"]
 
     def ops_bound(fp32_ops, tensor_ops, bytes_):
         t_ops = max(fp32_ops / PEAK_FP32_OPS, tensor_ops / PEAK_BF16_OPS) * 1e3
@@ -4352,10 +4700,12 @@ def ratios(a: dict, b: dict) -> dict:
 TRAVERSAL_NAME = re.compile(r"(closest|occluded|frame)_kernel")
 
 
-def profile(fn, n: int = 5) -> dict:
+def profile(fn, n: int = 2) -> dict:
     """Device time by kernel name and the device's busy share over n calls
-    of fn, from a torch.profiler trace (CUPTI). The window runs from the
-    first call's start on the host to the synchronise after the last."""
+    of fn (2; 5 before the packet phase: the event list of a pass-based
+    frame takes seconds to read), from a torch.profiler trace (CUPTI), as
+    per-call averages. The window runs from the first call's start on the
+    host to the synchronise after the last."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile

@@ -12,8 +12,11 @@ iterations (gpu/include/options.cuh:25-26), per-frame times, then
 mean/median/stddev/99% CI/FPS (cpu/src/main.c:194-209), an optional BMP and
 a JSON metrics record.
 
-A flag whose path the port does not have yet (--interpret, --variant jax)
-ends the run with the NotImplementedError message and exit code 2.
+--variant jax renders by the packet traversal in torch ops
+(ops/trace_bvh.py). --interpret runs the kernels' plain versions on the
+device instead of launching the kernels (JAX's Pallas interpreter); the
+card is still needed without --device cpu. A NotImplementedError (a leaf
+size without kernels) ends the run with its message and exit code 2.
 --devices N renders each frame with its tiles sharded over a mesh of N
 devices (parallel/sharded.render_sharded): N cards, or with --device cpu N
 virtual CPU devices; fewer cards than N end the run with the reason.
@@ -79,8 +82,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="auto = fused whole-frame kernel at --bvh-width 4 "
                         "or 8 with 1024-pixel tiles, else pallas; pallas = "
                         "pass-based kernels; fused = whole-frame single-"
-                        "launch kernel; bruteforce = every ray against "
-                        "every triangle; jax is not ported")
+                        "launch kernel; jax = packet traversal in torch "
+                        "ops; bruteforce = every ray against every "
+                        "triangle")
     p.add_argument("--no-bvh", action="store_true",
                    help="USE_BVH=0: brute-force all triangles")
     p.add_argument("--heuristic", type=int, default=6, choices=range(7),
@@ -150,7 +154,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics-json", default=None, metavar="PATH",
                    help="write run metrics as JSON")
     p.add_argument("--interpret", action="store_true",
-                   help="Pallas interpreter mode (not ported)")
+                   help="the kernels' plain PyTorch versions on the device "
+                        "instead of the kernels (Pallas interpreter mode)")
     p.add_argument("--no-native", action="store_true",
                    help="NumPy loaders and builders instead of the C++ ones")
     p.add_argument("--profile", default=None, metavar="DIR",
@@ -204,12 +209,6 @@ def config_from_args(args) -> RenderConfig:
     )
 
 
-def _check_cli_ported(args) -> None:
-    """Flags the CLI itself would serve, whose paths are not ported."""
-    if args.interpret:
-        raise NotImplementedError("not ported yet: --interpret")
-
-
 def main(argv: Optional[list] = None) -> int:
     args = build_parser().parse_args(argv)
     try:
@@ -220,7 +219,6 @@ def main(argv: Optional[list] = None) -> int:
 
 
 def _run(args) -> int:
-    _check_cli_ported(args)
     cfg = config_from_args(args)
 
     import numpy as np
@@ -283,7 +281,8 @@ def _run(args) -> int:
         band = max(args.band_rows // cfg.tile_rows, 1) * cfg.tile_rows
         ckpt = TileRenderCheckpoint(args.checkpoint, cfg.width, cfg.height, band)
         img = ckpt.run(
-            lambda y0, rows: pipe.render_band(y0, max(rows, cfg.tile_rows)).cpu().numpy(),
+            lambda y0, rows: pipe.render_band(y0, max(rows, cfg.tile_rows),
+                                              interpret=args.interpret).cpu().numpy(),
             progress=lambda done, total: say(f"band {done}/{total}"),
         )
         if args.output and primary:
@@ -293,14 +292,18 @@ def _run(args) -> int:
 
     def render_once():
         if mesh is None:
-            return pipe.render()
+            return pipe.render(interpret=args.interpret)
         # The pipeline's kernel schedule and shadow knobs: --devices N
         # renders the frame --devices 1 does.
+        jax_path = variant == "jax"
         return sharded.render_sharded(
-            pipe.ds, pipe.tables, pipe.camera(), cfg.width, cfg.height, mesh,
-            bounces=cfg.bounces, tile_rows=cfg.tile_rows, tile_cols=cfg.tile_cols,
-            variant=variant, dual=cfg.dual_pop, stream=pipe.stream,
-            fast_light=cfg.fast_light, reverse_shadows=cfg.reverse_shadows)
+            pipe.ds, pipe.dbvh if jax_path else pipe.tables, pipe.camera(), cfg.width,
+            cfg.height, mesh, bounces=cfg.bounces,
+            leaf_size=pipe.leaf_size if jax_path else None,
+            stack_depth=pipe.stack_depth if jax_path else None,
+            tile_rows=cfg.tile_rows, tile_cols=cfg.tile_cols, variant=variant,
+            dual=cfg.dual_pop, stream=pipe.stream, fast_light=cfg.fast_light,
+            reverse_shadows=cfg.reverse_shadows, interpret=args.interpret)
 
     # The JAX CLI moves the camera by i * 1e-7 each iteration to defeat a
     # remote dispatch cache; nothing here caches, so every frame is the

@@ -2,9 +2,9 @@
 fields and defaults, so a test can build both packages' configs from one
 set of keyword arguments.
 
-The port runs only part of what the fields select; `pipeline.prepare`
-raises NotImplementedError for a knob whose path it does not have yet.
-Asset lookup is limited to this repository's `assets/`.
+The port runs every path the fields select; `pipeline.prepare` raises
+NotImplementedError only for a leaf size without kernel instances. Asset
+lookup is limited to this repository's `assets/`.
 """
 
 from __future__ import annotations
@@ -76,10 +76,11 @@ class RenderConfig:
     tile_cols: int = 128
 
     # "fused": the fused frame kernel; "pallas": the pass-based path over
-    # the closest / any-hit kernels; "bruteforce": every ray against every
+    # the closest / any-hit kernels; "jax": the packet traversal in torch
+    # ops (ops/trace_bvh.py); "bruteforce": every ray against every
     # triangle (use_bvh=False always takes it); "auto": fused where the JAX
     # package would take it (bvh_width >= 4, fast_light, 1024-ray tiles),
-    # else pallas. The JAX package's "jax" variant is not ported.
+    # else pallas.
     variant: str = "auto"
     # bf16 node boxes, rounded conservatively: pair rows at bvh_width 4, the
     # raw bf16 binary table at 2, f32 at 8 (as the JAX prepare packs them).
@@ -133,12 +134,12 @@ class RenderConfig:
     true_sah: bool = True
 
     # Trace shadow segments from the light toward the hit points (the
-    # distance window maps exactly, see ops/shade.shade_hit). False is not
-    # ported and raises NotImplementedError.
+    # distance window maps exactly, see ops/shade.shade_hit); False traces
+    # them from the hit points toward the light.
     reverse_shadows: bool = True
 
     # Triangles per leaf group row; None = largest that fits the 128-lane
-    # row (8). The kernels hold 8: any other value raises
+    # row (8). The kernels hold 8, 4, 2 and 1: any other value raises
     # NotImplementedError.
     leaf_size: Optional[int] = None
 

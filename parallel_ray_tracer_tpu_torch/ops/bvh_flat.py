@@ -1,5 +1,6 @@
-"""Copy of parallel_ray_tracer_tpu/ops/bvh_flat.py (numpy only), without
-`compress_bf16`: the port does not take bf16 boxes yet.
+"""Copy of parallel_ray_tracer_tpu/ops/bvh_flat.py (numpy; `compress_bf16`
+returns torch.bfloat16 tensors where JAX's returns ml_dtypes arrays, with
+the same bits).
 
 Device-flattened BVH: fixed-size leaf groups, SoA planes, bf16 option.
 
@@ -35,16 +36,18 @@ directly an index into the device triangle/material arrays.
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
+import torch
 
 from .bvh import BVH
 
 
 @dataclasses.dataclass
 class FlatBVH:
-    """Host-side flattened tree (NumPy); `as_device()` yields the jnp pytree."""
+    """Host-side flattened tree (NumPy); ops/trace_bvh.device_bvh_from_flat
+    uploads it."""
 
     node_min: np.ndarray  # (N, 3) f32
     node_max: np.ndarray  # (N, 3) f32
@@ -186,3 +189,43 @@ def flatten_bvh(
         depth=int(max_depth[0]),
     )
 
+
+def compress_bf16(flat: FlatBVH) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Conservatively bf16-round node AABBs: min down, max up -> (N, 3)
+    torch.bfloat16 tensors (on the CPU), JAX's bits (bvh_flat.py:187-223).
+
+    The reference compresses with round-to-nearest (gpu/src/gpu.cu:181-184),
+    which can shrink boxes and cull true hits; directed rounding keeps every
+    box a superset of its f32 original, so traversal stays exact (only
+    slightly less effective at culling). The truncated values have zero low
+    halves, so their conversion to torch.bfloat16 is exact and needs no
+    ml_dtypes.
+    """
+
+    def trunc_bits(x: np.ndarray) -> np.ndarray:
+        """f32 -> bf16 bit pattern by mantissa truncation (round toward zero
+        in magnitude for positives, toward zero for negatives too)."""
+        return np.ascontiguousarray(x, np.float32).view(np.uint32) & np.uint32(
+            0xFFFF0000
+        )
+
+    def bump(bits: np.ndarray) -> np.ndarray:
+        """One bf16 ulp away from zero (works for both signs: increasing the
+        magnitude bits of a negative float makes it more negative)."""
+        return bits + np.uint32(0x00010000)
+
+    def as_f32(bits: np.ndarray) -> np.ndarray:
+        return bits.view(np.float32)
+
+    lo_bits = trunc_bits(flat.node_min)
+    # Truncation only increases negative values; push those one ulp down.
+    lo_bits = np.where(as_f32(lo_bits) > flat.node_min, bump(lo_bits), lo_bits)
+    hi_bits = trunc_bits(flat.node_max)
+    # Truncation only decreases positive values; push those one ulp up.
+    hi_bits = np.where(as_f32(hi_bits) < flat.node_max, bump(hi_bits), hi_bits)
+
+    lo = torch.from_numpy(as_f32(lo_bits).copy()).to(torch.bfloat16)
+    hi = torch.from_numpy(as_f32(hi_bits).copy()).to(torch.bfloat16)
+    assert (lo.float().numpy() <= flat.node_min).all()
+    assert (hi.float().numpy() >= flat.node_max).all()
+    return lo, hi

@@ -53,7 +53,11 @@ A tensor on the CPU runs the kernel's plain version (ops/trace_plain.py, and
 ops/shade.trace_rays for the frame; the `*_mxu_plain` versions with
 `cmat`); the plain versions read no node table, so they are the oracle for
 every box format. A CUDA tensor launches the kernel, or raises: there is no
-fallback. Each wrapper checks device, dtype, shape and contiguity, counts
+fallback. `interpret=True` (default False) runs the plain version on the
+tensors' own device, a CUDA tensor too, and counts no launch: the port's
+counterpart of JAX's `interpret`, which runs a Pallas kernel's body in the
+interpreter instead of the compiled kernel. Each wrapper checks device,
+dtype, shape and contiguity, counts
 its launches in `LAUNCHES` by kernel, arity and format (keys such as
 "closest_full<8>", or "frame<8,bf16>" and "occluded<2,bf16>" for the bf16
 instances, "closest_full_stream<4>" for a streamed one, "frame_mxu<4>" or
@@ -339,7 +343,8 @@ def _stream(device):
 
 def _no_counters_on_cpu(counters):
     if counters:
-        raise ValueError("counters are kept by the CUDA kernels only")
+        raise ValueError("counters are kept by the CUDA kernels only, not by "
+                         "the plain versions (CPU tensors or interpret=True)")
 
 
 def _cmat_args(cmat, mxu: bool):
@@ -350,14 +355,15 @@ def _cmat_args(cmat, mxu: bool):
 
 def closest_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, leaf_size: int,
                   stack_depth: Optional[int] = None, counters: bool = False,
-                  compressed: bool = False, stream: bool = False, cmat=None):
+                  compressed: bool = False, stream: bool = False, cmat=None,
+                  interpret: bool = False):
     """Closest hit over (rows, 128) ray planes -> Hit (t, idx, norm_dir)."""
     device, rows, arity, box = _check_inputs(cbox, cmeta, tri, None, None,
                                              (*o, *d), leaf_size, compressed)
     _check_stream(stream, arity, tri, None)
     mxu = _use_mxu(cmat, arity, stream, leaf_size)
     _check_cmat(cmat, tri, device, mxu, leaf_size)
-    if device.type == "cpu":
+    if device.type == "cpu" or interpret:
         _no_counters_on_cpu(counters)
         if mxu:
             return closest_mxu_plain(cmat, tri, o, d, leaf_size)
@@ -382,7 +388,8 @@ def closest_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, leaf_size: int,
 
 def closest_tiles_full(cbox, cmeta, tri, attr, o: Vec3, d: Vec3, leaf_size: int,
                        stack_depth: Optional[int] = None, counters: bool = False,
-                       compressed: bool = False, stream: bool = False, cmat=None):
+                       compressed: bool = False, stream: bool = False, cmat=None,
+                       interpret: bool = False):
     """Closest hit plus the winning triangle's raw normal and kd/ks/kr ->
     HitFull."""
     device, rows, arity, box = _check_inputs(cbox, cmeta, tri, attr, None,
@@ -390,7 +397,7 @@ def closest_tiles_full(cbox, cmeta, tri, attr, o: Vec3, d: Vec3, leaf_size: int,
     _check_stream(stream, arity, tri, attr)
     mxu = _use_mxu(cmat, arity, stream, leaf_size)
     _check_cmat(cmat, tri, device, mxu, leaf_size)
-    if device.type == "cpu":
+    if device.type == "cpu" or interpret:
         _no_counters_on_cpu(counters)
         if mxu:
             return closest_full_mxu_plain(cmat, tri, attr, o, d, leaf_size)
@@ -420,7 +427,8 @@ def closest_tiles_full(cbox, cmeta, tri, attr, o: Vec3, d: Vec3, leaf_size: int,
 
 def occluded_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, max_dist2, leaf_size: int,
                    stack_depth: Optional[int] = None, counters: bool = False,
-                   compressed: bool = False, stream: bool = False, cmat=None):
+                   compressed: bool = False, stream: bool = False, cmat=None,
+                   interpret: bool = False):
     """Any hit with t*t < max_dist2 over (rows, 128) ray planes -> bool."""
     device, rows, arity, box = _check_inputs(
         cbox, cmeta, tri, None, None, (*o, *d, max_dist2), leaf_size, compressed
@@ -428,7 +436,7 @@ def occluded_tiles(cbox, cmeta, tri, o: Vec3, d: Vec3, max_dist2, leaf_size: int
     _check_stream(stream, arity, tri, None)
     mxu = _use_mxu(cmat, arity, stream, leaf_size)
     _check_cmat(cmat, tri, device, mxu, leaf_size)
-    if device.type == "cpu":
+    if device.type == "cpu" or interpret:
         _no_counters_on_cpu(counters)
         if mxu:
             return occluded_mxu_plain(cmat, tri, o, d, max_dist2, leaf_size)
@@ -452,7 +460,7 @@ def frame_tiles(cbox, cmeta, tri, attr, lamb, o: Vec3, d: Vec3, *, bounces: int,
                 leaf_size: int, stack_depth: Optional[int] = None,
                 reverse_shadows: bool = True, counters: bool = False,
                 compressed: bool = False, sph: Optional[torch.Tensor] = None,
-                cmat=None):
+                cmat=None, interpret: bool = False):
     """Fused whole-frame render over (rows, 128) ray planes -> unclamped
     colour planes (Vec3). `lamb` is the (num_lights + 1, 8) light table of
     ops/pack.pack_lights; `sph`, when it has rows, the (S, 16) sphere table
@@ -469,7 +477,7 @@ def frame_tiles(cbox, cmeta, tri, attr, lamb, o: Vec3, d: Vec3, *, bounces: int,
     ns = 0 if sph is None else int(sph.shape[0])
     mxu = _use_mxu(cmat, arity, False, leaf_size)
     _check_cmat(cmat, tri, device, mxu, leaf_size)
-    if device.type == "cpu":
+    if device.type == "cpu" or interpret:
         _no_counters_on_cpu(counters)
         return frame_plain(tri, attr, lamb, o, d, bounces=bounces,
                            leaf_size=leaf_size, sph=sph, cmat=cmat if mxu else None,
@@ -572,7 +580,7 @@ def frame_plain(tri, attr, lamb, o: Vec3, d: Vec3, *, bounces: int,
 
 def make_tracer(packed_dev, leaf_size: int, ds=None, stack_depth: Optional[int] = None,
                 dual: bool = False, compressed: bool = False, stream: bool = False,
-                npop: int = 2, adaptive: bool = False):
+                npop: int = 2, adaptive: bool = False, interpret: bool = False):
     """(closest, occluded) over flat (R,) ray planes, R % LANES == 0: the
     port of pallas_trace.make_tracer (:3361), on the wrappers above. JAX
     asserts whole 1,024-ray packets; the wrappers here need whole 128-lane
@@ -599,8 +607,8 @@ def make_tracer(packed_dev, leaf_size: int, ds=None, stack_depth: Optional[int] 
     (tests/test_kernel_variants.py:55-67): one thread traces one ray here,
     so they are accepted, checked as JAX asserts them (npop 2, 4, 8 or 16;
     wide pops on the dual-pop kernels at arity 4 or 8), and change nothing
-    else. JAX's `interpret` has no counterpart: tensors on the CPU run the
-    kernels' plain versions."""
+    else. interpret=True runs the wrappers' plain versions on the tables'
+    device, as JAX's `interpret` runs its kernels in the interpreter."""
     tables = tuple(packed_dev)
     cmat = None
     if len(tables) >= 5:
@@ -614,7 +622,7 @@ def make_tracer(packed_dev, leaf_size: int, ds=None, stack_depth: Optional[int] 
     if stack_depth is None:
         stack_depth = stack_need(cmeta.cpu().numpy(), arity)
     kw = dict(leaf_size=leaf_size, stack_depth=stack_depth, compressed=compressed,
-              stream=stream, cmat=cmat if dual else None)
+              stream=stream, cmat=cmat if dual else None, interpret=interpret)
 
     def rows_of(o: Vec3) -> int:
         n = o.x.shape[0] if o.x.dim() == 1 else -1

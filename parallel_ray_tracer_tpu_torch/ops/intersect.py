@@ -1,5 +1,5 @@
 """Port of parallel_ray_tracer_tpu/ops/intersect.py: the constants, the
-triangle tests and the ray-sphere test.
+triangle tests, the slab test and the ray-sphere test.
 
 `mt_rows` is Möller–Trumbore on the packed triangle row layout
 [v0, e1, e2, n] (n = e1 x e2), written in the same operation order as the
@@ -8,7 +8,9 @@ kernels' `rt_mt` (csrc/trace.cuh), so that all three round alike.
 `moller_trumbore` is the same test on vertex planes (intersect.py:36-66),
 which the brute-force tracer uses; `moller_trumbore_t` the differentiable
 (t, u, v) of a known hit (intersect.py:67-90), which ops/diff.py recomputes
-on the winning triangle; and `ray_sphere` the sphere test
+on the winning triangle; `aabb_intersect` the slab test of the packet
+traversal (intersect.py:114-130, ops/trace_bvh.py); and `ray_sphere` the
+sphere test
 (intersect.py:140-162), in the operation order of the CUDA frame kernel's
 `rt_sphere_t`.
 """
@@ -117,6 +119,26 @@ def moller_trumbore_t(o: Vec3, d: Vec3, v0: Vec3, v1: Vec3, v2: Vec3):
     v = -(e1.dot(dao)) * invdet
     t = ao.dot(n) * invdet
     return t, u, v
+
+
+def aabb_intersect(bb_min: Vec3, bb_max: Vec3, o: Vec3, inv_d: Vec3) -> torch.Tensor:
+    """Slab test returning the entry distance tmin, or T_MAX on a miss
+    (cpu/src/bvh.c:48-59), in JAX's operation order. `inv_d` must come from
+    clip_inv_dir (no NaNs). The box and ray planes broadcast."""
+    tx1 = (bb_min.x - o.x) * inv_d.x
+    tx2 = (bb_max.x - o.x) * inv_d.x
+    tmin = torch.minimum(tx1, tx2)
+    tmax = torch.maximum(tx1, tx2)
+    ty1 = (bb_min.y - o.y) * inv_d.y
+    ty2 = (bb_max.y - o.y) * inv_d.y
+    tmin = torch.maximum(tmin, torch.minimum(ty1, ty2))
+    tmax = torch.minimum(tmax, torch.maximum(ty1, ty2))
+    tz1 = (bb_min.z - o.z) * inv_d.z
+    tz2 = (bb_max.z - o.z) * inv_d.z
+    tmin = torch.maximum(tmin, torch.minimum(tz1, tz2))
+    tmax = torch.minimum(tmax, torch.maximum(tz1, tz2))
+    hit = (tmax >= tmin) & (tmax > 0.0)
+    return torch.where(hit, tmin, T_MAX)
 
 
 class SphereHit(NamedTuple):

@@ -1,5 +1,7 @@
 """Port of parallel_ray_tracer_tpu/ops/render.py: ray generation, the
-brute-force renderer (the oracle), and the two BVH renderers.
+brute-force renderer (the oracle), and the three BVH renderers: the fused
+frame kernel, the pass-based kernels, and the packet traversal in torch ops
+(variant="jax", ops/trace_bvh.py).
 
 Pixel (x, y) gets the unnormalised direction dir00 + x*inc_x + y*inc_y from
 the camera basis. The brute-force renderer traces scanline bands in row
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 
 from ..models.camera import Camera, ray_basis
-from . import cuda_trace, trace_brute
+from . import cuda_trace, trace_brute, trace_bvh
 from .pack import LANES
 from .shade import occluded_from_closest, trace_rays
 from .vecmath import Vec3
@@ -150,7 +152,8 @@ def _to_image(col: Vec3, width, height, tile_rows, tile_cols) -> torch.Tensor:
 def render_bvh_fused(ds, tables, cam: Camera, width: int, height: int,
                      bounces: int = 4, tile_rows: int = 32,
                      tile_cols: int = 32, reverse_shadows: bool = True,
-                     y_offset: int = 0, rows: Optional[int] = None) -> torch.Tensor:
+                     y_offset: int = 0, rows: Optional[int] = None,
+                     interpret: bool = False) -> torch.Tensor:
     """Whole-frame render with one launch of the fused frame kernel
     (cuda_trace.frame_tiles) -> (H, W, 3) f32 in [0, 1]. The tables' box
     format (f32, bf16 pairs) picks the kernel instance, their leaf size its
@@ -159,13 +162,16 @@ def render_bvh_fused(ds, tables, cam: Camera, width: int, height: int,
     reverse_shadows=False traces shadow rays from the hit points. With
     y_offset / rows it renders the band of frame rows [y_offset, y_offset +
     rows) -> (rows, W, 3), the frame's rows bit for bit (JAX
-    _render_bvh_fused(y_offset), render.py:301-338)."""
+    _render_bvh_fused(y_offset), render.py:301-338). interpret=True runs
+    the kernel's plain version on the tables' device (JAX's Pallas
+    interpreter)."""
     o, d = _tiled_planes(cam, width, height, tile_rows, tile_cols, ds.device, y_offset, rows)
     col = cuda_trace.frame_tiles(
         tables.cbox, tables.cmeta, tables.tri, tables.attr, tables.lamb, o, d,
         bounces=bounces, leaf_size=tables.leaf_size,
         stack_depth=tables.stack_depth, compressed=tables.compressed,
         sph=tables.sph, cmat=tables.cmat, reverse_shadows=reverse_shadows,
+        interpret=interpret,
     )
     return _to_image(col, width, height if rows is None else rows, tile_rows, tile_cols)
 
@@ -175,7 +181,8 @@ def render_bvh_pallas(ds, tables, cam: Camera, width: int, height: int,
                       tile_cols: int = 32, stream: bool = False,
                       fast_light: bool = True,
                       reverse_shadows: bool = True, y_offset: int = 0,
-                      rows: Optional[int] = None) -> torch.Tensor:
+                      rows: Optional[int] = None,
+                      interpret: bool = False) -> torch.Tensor:
     """Pass-based render: per bounce one closest-hit launch and one any-hit
     launch per light (cuda_trace.closest_tiles_full / occluded_tiles), with
     the shading in torch (ops/shade.trace_rays), on the tracer pair of
@@ -191,13 +198,54 @@ def render_bvh_pallas(ds, tables, cam: Camera, width: int, height: int,
     (shade.occluded_from_closest) with forward shadow rays, and
     reverse_shadows=False traces forward ones with the any-hit kernel, as
     JAX's _render_bvh_pallas (render.py:288-295). y_offset / rows render a
-    band of the frame, as render_bvh_fused's."""
+    band of the frame, as render_bvh_fused's; interpret=True runs the
+    kernels' plain versions on the tables' device."""
     o, d = _tiled_planes(cam, width, height, tile_rows, tile_cols, ds.device, y_offset, rows)
     closest, occluded = cuda_trace.make_tracer(
         tables.packed_dev, tables.leaf_size, ds=ds, stack_depth=tables.stack_depth,
-        dual=True, compressed=tables.compressed, stream=stream)
+        dual=True, compressed=tables.compressed, stream=stream, interpret=interpret)
     if not fast_light:
         occluded = occluded_from_closest(closest)
     col = trace_rays(ds, closest, occluded, o.reshape(-1), d.reshape(-1), bounces,
                      reverse_shadows=fast_light and reverse_shadows)
     return _to_image(col, width, height if rows is None else rows, tile_rows, tile_cols)
+
+
+def _render_bvh_jax(ds, bvh, cam_arrays, width: int, height: int, bounces: int,
+                    leaf_size: int, stack_depth: int, tile_rows: int, tile_cols: int,
+                    fast_light: bool = True, y_offset: int = 0,
+                    reverse_shadows: bool = True, stats=None) -> torch.Tensor:
+    """JAX's _render_bvh_jax (render.py:182-213): `height` rows of tiles
+    from frame row y_offset in the camera basis cam_arrays, one packet a
+    tile, through the packet traversal (ops/trace_bvh.make_tracer)."""
+    o, d = generate_rays_tiled(cam_arrays, width, height, tile_rows, tile_cols,
+                               device=ds.device, y_offset=y_offset)
+    closest_fn, occluded_fn = trace_bvh.make_tracer(
+        bvh, ds, leaf_size, stack_depth, packet=tile_rows * tile_cols, stats=stats)
+    if not fast_light:
+        # Keep the USE_BVH_FAST_LIGHT=0 parity mode literally
+        # reference-shaped: forward shadow rays.
+        occluded_fn = occluded_from_closest(closest_fn)
+    col = trace_rays(ds, closest_fn, occluded_fn, o, d, bounces,
+                     reverse_shadows=fast_light and reverse_shadows)
+    return _to_image(col, width, height, tile_rows, tile_cols)
+
+
+def render_bvh_jax(ds, bvh, cam: Camera, width: int, height: int, bounces: int = 4,
+                   leaf_size: int = 4, stack_depth: int = 64, tile_rows: int = 32,
+                   tile_cols: int = 32, fast_light: bool = True,
+                   reverse_shadows: bool = True, y_offset: int = 0,
+                   rows: Optional[int] = None, stats=None) -> torch.Tensor:
+    """Packet-traversal render (variant="jax", JAX render.py:216-235) ->
+    (H, W, 3) f32 in [0, 1] on the scene's device: the tracer pair of
+    ops/trace_bvh.make_tracer over the DeviceBVH `bvh`, one packet a tile
+    of any shape, under ops/shade.trace_rays. fast_light=False finds
+    shadows by the closest-hit traversal with forward shadow rays. y_offset /
+    rows render the band of frame rows [y_offset, y_offset + rows), the
+    frame's rows bit for bit. `stats`, a list, gets one record a pass
+    (trace_bvh.make_tracer)."""
+    return _render_bvh_jax(ds, bvh, ray_basis(cam, width, height), width,
+                           height if rows is None else rows, bounces, leaf_size,
+                           stack_depth, tile_rows, tile_cols, fast_light,
+                           y_offset=y_offset, reverse_shadows=reverse_shadows,
+                           stats=stats)

@@ -22,9 +22,10 @@ A mesh is an ordered list of devices (`Mesh`, made by `make_mesh`), in
 place of a jax.sharding.Mesh. Each device's block runs through the calls
 that Pipeline.render makes: the fused frame kernel
 (ops/cuda_trace.frame_tiles) or the pass-based tracer of
-ops/cuda_trace.make_tracer under ops/shade.trace_rays, or the brute force
+ops/cuda_trace.make_tracer under ops/shade.trace_rays, the packet traversal
+in torch ops (ops/trace_bvh.make_tracer, variant="jax"), or the brute force
 (ops/trace_brute.py). A CUDA device launches the kernels or raises; CPU
-devices run their plain versions. JAX's `interpret` has no counterpart.
+devices, and `interpret=True` on any device, run their plain versions.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ import torch.nn.functional as F
 from ..convert import SceneTables
 from ..models.camera import Camera, default_camera, ray_basis
 from ..models.device_scene import build_device_scene
-from ..ops import cuda_trace, diff, trace_brute
+from ..ops import cuda_trace, diff, trace_brute, trace_bvh
 from ..ops.pack import LANES, stack_need
 from ..ops.render import generate_rays_tiled, tile_image_shape, tiles_to_image
 from ..ops.shade import occluded_from_closest, trace_rays
@@ -49,8 +50,9 @@ from ..pipeline import _pick_device
 from ..utils.profiling import annotate
 from . import distributed
 
-VARIANTS = ("brute", "pallas")                        # make_train_step
-RENDER_VARIANTS = ("fused", "pallas", "bruteforce")   # render_sharded
+VARIANTS = ("brute", "pallas", "jax")                        # make_train_step
+RENDER_VARIANTS = ("fused", "pallas", "jax", "bruteforce")   # render_sharded
+JAX_STACK_DEPTH = 96     # JAX make_train_step's default stack_depth
 
 
 def _device(d) -> torch.device:
@@ -208,19 +210,26 @@ def _on(device: torch.device):
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
-def _tracers(brute: bool, packed_dev, ds, leaf_size: int, stack_depth, compressed: bool,
+def _tracers(kind: str, tracer_data, ds, leaf_size: int, stack_depth, compressed: bool,
              dual: bool, stream: bool, npop: int, npop0: int, adaptive: bool,
-             fast_light: bool):
+             fast_light: bool, K: int, interpret: bool = False):
     """(closest, occluded) at the pass-based render's kernel schedule (JAX
-    sharded.py:135-155, 308-340): the traversal kernels through
-    cuda_trace.make_tracer, or the brute force; npop0 != npop gives the
-    first bounce its own tracer (per-bounce lists; the pop widths change no
-    hit here); fast_light=False finds shadows by the closest-hit traversal."""
-    if brute:
+    sharded.py:135-155, 308-340): kind "pallas", the traversal kernels
+    through cuda_trace.make_tracer on the tables `tracer_data`; "jax", the
+    packet traversal (trace_bvh.make_tracer on the DeviceBVH `tracer_data`,
+    one packet a tile of K rays); "brute", the brute force. npop0 != npop
+    gives the first bounce its own kernel tracer (per-bounce lists; the pop
+    widths change no hit here); fast_light=False finds shadows by the
+    closest-hit traversal."""
+    if kind == "brute":
         closest_fn, occluded_fn = trace_brute.make_tracer(ds)
+    elif kind == "jax":
+        closest_fn, occluded_fn = trace_bvh.make_tracer(tracer_data, ds, leaf_size,
+                                                        stack_depth, packet=K)
     else:
+        packed_dev = tracer_data
         kw = dict(ds=ds, stack_depth=stack_depth, compressed=compressed, dual=dual,
-                  stream=stream, adaptive=adaptive)
+                  stream=stream, adaptive=adaptive, interpret=interpret)
         closest_fn, occluded_fn = cuda_trace.make_tracer(packed_dev, leaf_size, npop=npop, **kw)
         if npop0 and npop0 != npop:
             c0, o0 = cuda_trace.make_tracer(packed_dev, leaf_size, npop=npop0, **kw)
@@ -256,7 +265,7 @@ def render_sharded(ds, tables, cam: Camera, width: int, height: int, mesh,
                    compressed: Optional[bool] = None, dual: bool = True,
                    stream: bool = False, npop: int = 2, npop0: int = 0,
                    fast_light: bool = True, reverse_shadows: bool = True,
-                   adaptive: bool = False) -> torch.Tensor:
+                   adaptive: bool = False, interpret: bool = False) -> torch.Tensor:
     """Render with the image's tiles sharded over `mesh` (scene replicated)
     -> (H, W, 3) f32 in [0, 1] on this process's first mesh device (JAX
     sharded.py:195-236).
@@ -269,24 +278,32 @@ def render_sharded(ds, tables, cam: Camera, width: int, height: int, mesh,
     tables' leaf size, box format, spheres and C-matrix table, as
     render_bvh_fused), "pallas" by the pass-based path (cuda_trace.
     make_tracer and shade.trace_rays, as render_bvh_pallas; `stream` takes
-    the streamed instances), "bruteforce" by the brute force (tables may be
-    None). The blocks are gathered (across processes too, on every
-    process), unpermuted and cropped. "jax" needs ops/trace_bvh.py, which
-    the port does not have, and raises NotImplementedError.
+    the streamed instances), "jax" by the packet traversal in torch ops
+    (trace_bvh.make_tracer, one packet a tile, as render_bvh_jax), and
+    "bruteforce" by the brute force (tables may be None). The blocks are
+    gathered (across processes too, on every process), unpermuted and
+    cropped.
 
-    tables: the pipeline's SceneTables. leaf_size and compressed, when
-    given, must be the tables' own; stack_depth is the stack entries a ray
-    needs (the tables' when None). dual, npop, npop0 and adaptive are JAX's
-    kernel schedule, accepted as make_tracer accepts them; fast_light and
-    reverse_shadows are the pipeline's shadow knobs. With the same knobs
-    the frame is Pipeline.render's: each ray is traced alone."""
-    if variant == "jax":
-        raise NotImplementedError(
-            'variant="jax" needs ops/trace_bvh.py, which the port does not have yet')
+    tables: the pipeline's SceneTables, or for "jax" its DeviceBVH
+    (Pipeline.dbvh, JAX's tracer_data), with the pipeline's leaf_size and
+    stack_depth (Pipeline.stack_depth), both required. For the kernels,
+    leaf_size and compressed, when given, must be the tables' own;
+    stack_depth is the stack entries a ray needs (the tables' when None).
+    dual, npop, npop0 and adaptive are JAX's kernel schedule, accepted as
+    make_tracer accepts them; fast_light and reverse_shadows are the
+    pipeline's shadow knobs; interpret=True runs the kernels' plain
+    versions on each mesh device. With the same knobs the frame is
+    Pipeline.render's: each ray is traced alone, and with "jax" each tile
+    is its packet either way."""
     if variant not in RENDER_VARIANTS:
         raise ValueError(f"variant {variant!r}: one of {RENDER_VARIANTS}")
     brute = variant == "bruteforce"
-    if not brute:
+    if variant == "jax":
+        if not isinstance(tables, trace_bvh.DeviceBVH):
+            raise ValueError('variant="jax" needs the pipeline\'s DeviceBVH (Pipeline.dbvh)')
+        if leaf_size is None or stack_depth is None:
+            raise ValueError('variant="jax" needs the pipeline\'s leaf_size and stack_depth')
+    elif not brute:
         if not isinstance(tables, SceneTables):
             raise ValueError(f'variant={variant!r} needs the pipeline\'s SceneTables')
         for name, given in (("leaf_size", leaf_size), ("compressed", compressed)):
@@ -295,7 +312,7 @@ def render_sharded(ds, tables, cam: Camera, width: int, height: int, mesh,
         stack_depth = tables.stack_depth if stack_depth is None else stack_depth
     mesh = as_mesh(mesh)
     K = tile_rows * tile_cols
-    if K % LANES:
+    if K % LANES and variant in ("fused", "pallas"):
         raise ValueError(f"a tile of {tile_rows}x{tile_cols} pixels is not a whole "
                          f"number of {LANES}-lane rows")
     _, _, nty, ntx = tile_image_shape(width, height, tile_rows, tile_cols)
@@ -327,14 +344,16 @@ def render_sharded(ds, tables, cam: Camera, width: int, height: int, mesh,
                     T.cbox, T.cmeta, T.tri, T.attr, T.lamb, ob.reshape(n, LANES),
                     db.reshape(n, LANES), bounces=bounces, leaf_size=T.leaf_size,
                     stack_depth=stack_depth, compressed=T.compressed, sph=T.sph,
-                    cmat=T.cmat, reverse_shadows=reverse_shadows).reshape(-1)
+                    cmat=T.cmat, reverse_shadows=reverse_shadows,
+                    interpret=interpret).reshape(-1)
             else:
                 T = None if brute else mesh.replica(tables, dev)
+                pallas = variant == "pallas"
                 closest_fn, occluded_fn = _tracers(
-                    brute, None if brute else T.packed_dev, ds_r,
-                    None if brute else T.leaf_size, stack_depth,
-                    False if brute else T.compressed, dual, stream, npop, npop0,
-                    adaptive, fast_light)
+                    "brute" if brute else variant, T.packed_dev if pallas else T, ds_r,
+                    T.leaf_size if pallas else leaf_size, stack_depth,
+                    pallas and T.compressed, dual, stream, npop, npop0, adaptive,
+                    fast_light, K, interpret)
                 col = trace_rays(ds_r, closest_fn, occluded_fn, ob, db, bounces,
                                  reverse_shadows=fast_light and reverse_shadows)
             out[i] = col.clamp(0.0, 1.0).stack(-1).reshape(per, K, 3)
@@ -449,7 +468,8 @@ def make_train_step(scene, mesh, width: int, height: int, bounces: int = 1,
                     stack_depth: Optional[int] = None, slot_map=None,
                     compressed: bool = False, dual: bool = True, stream: bool = False,
                     npop: int = 2, npop0: int = 0, fast_light: bool = True,
-                    reverse_shadows: bool = True, adaptive: bool = False, device=None):
+                    reverse_shadows: bool = True, adaptive: bool = False, device=None,
+                    interpret: bool = False):
     """(step, prepare_inputs) of an SGD step on the vertex positions against
     a target image (sharded.py:239-419), over the devices of `mesh`.
 
@@ -463,9 +483,13 @@ def make_train_step(scene, mesh, width: int, height: int, bounces: int = 1,
         (cbox, cmeta, tri, attr[, cmat]) tuple (SceneTables.packed_dev): a
         trailing C-matrix table with dual=True takes the MXU instances,
         as JAX's step does; `slot_map` is the flattened BVH's slot layout,
-        so hit indices address the scene planes.
-    "jax" (the packet traversal of ops/trace_bvh.py) is not ported and
-    raises NotImplementedError; any other variant raises ValueError.
+        so hit indices address the scene planes;
+      - "jax": the packet traversal in torch ops (ops/trace_bvh.make_tracer,
+        one packet a tile), under the same wrapper and frozen the same way;
+        `tracer_data` is the DeviceBVH (Pipeline.dbvh), with its leaf_size
+        and `slot_map`, and stack_depth its packets' stack slots
+        (Pipeline.stack_depth; JAX's default, 96, when None).
+    Any other variant raises ValueError.
 
     The mesh: None (then `device`, else the card), a device, a sequence of
     devices, or a Mesh (make_mesh). The frame's tiles are padded to a
@@ -496,10 +520,7 @@ def make_train_step(scene, mesh, width: int, height: int, bounces: int = 1,
     when None; JAX's stack_depth counts SMEM words and is not the same
     number. The step is a plain function: autograd.grad, then the update
     under no_grad. On a CUDA device the kernels launch or raise, and on
-    the CPU their plain versions run."""
-    if variant == "jax":
-        raise NotImplementedError(
-            'variant="jax" needs ops/trace_bvh.py, which the port does not have yet')
+    the CPU (or with interpret=True) their plain versions run."""
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r}: one of {VARIANTS}")
     mesh = _train_mesh(mesh, device)
@@ -514,6 +535,12 @@ def make_train_step(scene, mesh, width: int, height: int, bounces: int = 1,
         if stack_depth is None:
             arity = cuda_trace._box_format(tracer_data[0], compressed)[0]
             stack_depth = stack_need(tracer_data[1].cpu().numpy(), arity)
+    elif variant == "jax":
+        if not isinstance(tracer_data, trace_bvh.DeviceBVH):
+            raise ValueError('variant="jax" needs a DeviceBVH as tracer_data')
+        if tracer_data.device != home:
+            raise ValueError(f"tracer_data lies on {tracer_data.device}, the step runs on {home}")
+        stack_depth = JAX_STACK_DEPTH if stack_depth is None else stack_depth
 
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=home)
@@ -527,9 +554,9 @@ def make_train_step(scene, mesh, width: int, height: int, bounces: int = 1,
     ntiles_p = _pad_tiles(ntiles, mesh.size)
 
     def make_tracers(ds, dev):
-        packed = None if variant == "brute" else mesh.replica(tracer_data, dev)
-        return _tracers(variant == "brute", packed, ds, leaf_size, stack_depth, compressed,
-                        dual, stream, npop, npop0, adaptive, fast_light)
+        data = None if variant == "brute" else mesh.replica(tracer_data, dev)
+        return _tracers(variant, data, ds, leaf_size, stack_depth, compressed, dual,
+                        stream, npop, npop0, adaptive, fast_light, K, interpret)
 
     step = TrainStep(mesh, make_tracers, consts, scene.faces, scene.mat_idx, slot_map,
                      bounces, lr, variant, fast_light and reverse_shadows, ntiles,

@@ -7,11 +7,11 @@ arity (bvh_width 2, 4 or 8), box format (f32, or bf16 with bf16_bvh) and
 leaf size (8, 4, 2 or 1) with the port's C++ host runtime (native/, with
 use_native) or its own numpy modules, decides as JAX does
 whether leaf rows stream and whether the leaf test is the MXU leaf, and
-uploads the tables and the scene planes
-(DeviceScene, in the BVH's slot order) once; `Pipeline.render` then renders
-frames from them on the device, and `Pipeline.render_band` bands of rows of
-a frame. With use_bvh=False it builds no BVH, and every frame is the
-brute-force render.
+uploads the tables, the packet traversal's flat tree (DeviceBVH) and the
+scene planes (DeviceScene, in the BVH's slot order) once; `Pipeline.render`
+then renders frames from them on the device, and `Pipeline.render_band`
+bands of rows of a frame. With use_bvh=False it builds no BVH, and every
+frame is the brute-force render.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from .models.presplit import presplit_scene
 from .models.procgen import substitute_scene
 from .models.scene import Scene, load_scene, load_scene_npz, synthetic_scene
 from .ops import render as render_ops
+from .ops import trace_bvh
 from .ops.bvh import build_bvh
 from .ops.bvh_flat import FlatBVH, flatten_bvh
 from .ops.cuda_trace import LEAF_SIZES
@@ -38,7 +39,7 @@ from .ops.pack import (LANES, TRI_STRIDE, cbox_to_bf16, mxu_decision, pack_attr,
                        pack_bvh, pack_bvh4, pack_bvh8, pack_spheres, pad_stream_rows,
                        split_cmat, stream_decision)
 
-VARIANTS = ("auto", "fused", "pallas", "bruteforce")
+VARIANTS = ("auto", "fused", "pallas", "jax", "bruteforce")
 PACKERS = {2: pack_bvh, 4: pack_bvh4, 8: pack_bvh8}   # by bvh_width
 PACKET = 1024            # rays per TPU packet (pallas_trace.PACKET)
 
@@ -58,6 +59,12 @@ class Pipeline:
     stream: bool = False                # streamed leaf rows (pass-based path)
     mxu: bool = False                   # the MXU leaf (tables.cmat is set)
     leaf_size: int = 8                  # triangles per leaf group (_pick_leaf_size)
+    # The packet traversal's tree (variant="jax", ops/trace_bvh.py) and its
+    # stack slots a packet, JAX's Pipeline.dbvh and Pipeline.stack_depth.
+    # tables.stack_depth is another number: the stack entries a ray of the
+    # CUDA kernels needs (ops/pack.stack_need).
+    dbvh: Optional[trace_bvh.DeviceBVH] = None
+    stack_depth: int = 0
 
     def bvh_metrics_banner(self) -> Optional[str]:
         """The reference's BVH_METRICS printout (cpu/src/bvh.c:381-387)."""
@@ -90,7 +97,7 @@ class Pipeline:
         cfg = self.cfg
         variant = variant or cfg.variant
         if variant not in VARIANTS:
-            raise NotImplementedError(f"variant {variant!r} is not ported")
+            raise ValueError(f"unknown variant {variant!r}: one of {VARIANTS}")
         if not cfg.use_bvh:
             return "bruteforce"
         if variant != "auto":
@@ -104,22 +111,28 @@ class Pipeline:
         return "fused" if fused_ok else "pallas"
 
     def render(self, cam: Optional[Camera] = None, width: Optional[int] = None,
-               height: Optional[int] = None, variant: Optional[str] = None) -> torch.Tensor:
+               height: Optional[int] = None, variant: Optional[str] = None,
+               interpret: bool = False) -> torch.Tensor:
         """Render one frame -> (H, W, 3) f32 in [0, 1] on the pipeline's
         device. "fused" launches the frame kernel once; "pallas" is the
         pass-based path (one closest-hit and one any-hit launch per light,
         per bounce), on the streamed instances when the leaf rows stream;
-        with the MXU leaf both take the MXU instances;
-        "bruteforce" tests every ray against every triangle in torch ops
-        (ops/trace_brute.py). cfg.reverse_shadows picks the shadow rays'
-        direction in "fused" and "pallas", and cfg.fast_light=False finds
-        shadows by the closest-hit kernel in "pallas", as JAX's render
-        does."""
+        with the MXU leaf both take the MXU instances; "jax" is the packet
+        traversal in torch ops (ops/trace_bvh.py, one packet a tile, no
+        kernel); "bruteforce" tests every ray against every triangle in
+        torch ops (ops/trace_brute.py). cfg.reverse_shadows picks the
+        shadow rays' direction in "fused", "pallas" and "jax", and
+        cfg.fast_light=False finds shadows by the closest-hit traversal in
+        "pallas" and "jax", as JAX's render does. interpret=True runs the
+        kernels' plain versions on the pipeline's device instead of
+        launching the kernels (JAX's Pallas interpreter); "jax" and
+        "bruteforce" have no kernel and ignore it."""
         cfg = self.cfg
-        return self._render(cam, width or cfg.width, height or cfg.height, variant)
+        return self._render(cam, width or cfg.width, height or cfg.height, variant,
+                            interpret=interpret)
 
     def render_band(self, y0: int, rows: int, cam: Optional[Camera] = None,
-                    variant: Optional[str] = None) -> torch.Tensor:
+                    variant: Optional[str] = None, interpret: bool = False) -> torch.Tensor:
         """Render scanlines [y0, y0 + rows) of the configured frame ->
         (rows, W, 3), through the same kernels as render() (JAX
         pipeline.py:160-215). The band keeps the whole frame's camera basis
@@ -127,12 +140,13 @@ class Pipeline:
         whole-frame render, bit for bit: the checkpointed render
         (utils/checkpoint.TileRenderCheckpoint) assembles a frame of them.
         Rows past the frame's last are traced and returned as the basis
-        gives them. "jax" raises NotImplementedError, as render() does."""
+        gives them. `interpret` as in render()."""
         cfg = self.cfg
-        return self._render(cam, cfg.width, cfg.height, variant, int(y0), int(rows))
+        return self._render(cam, cfg.width, cfg.height, variant, int(y0), int(rows),
+                            interpret=interpret)
 
     def _render(self, cam, width: int, height: int, variant, y_offset: int = 0,
-                rows: Optional[int] = None) -> torch.Tensor:
+                rows: Optional[int] = None, interpret: bool = False) -> torch.Tensor:
         cfg = self.cfg
         cam = cam or self.camera()
         variant = self.resolved_variant(variant)
@@ -143,6 +157,11 @@ class Pipeline:
         kw = dict(bounces=cfg.bounces, tile_rows=cfg.tile_rows,
                   tile_cols=cfg.tile_cols, reverse_shadows=cfg.reverse_shadows,
                   y_offset=y_offset, rows=rows)
+        if variant == "jax":
+            return render_ops.render_bvh_jax(
+                self.ds, self.dbvh, cam, width, height, leaf_size=self.leaf_size,
+                stack_depth=self.stack_depth, fast_light=cfg.fast_light, **kw)
+        kw.update(interpret=interpret)
         if variant == "fused":
             fn = render_ops.render_bvh_fused
         else:
@@ -154,13 +173,10 @@ class Pipeline:
 def _check_ported(cfg: RenderConfig) -> None:
     if cfg.bvh_width not in PACKERS:
         raise ValueError(f"bvh_width must be 2, 4 or 8, got {cfg.bvh_width}")
-    unported = {
-        f"leaf_size={cfg.leaf_size}": cfg.leaf_size not in (None, *LEAF_SIZES),
-        f"variant={cfg.variant!r}": cfg.variant not in VARIANTS,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+    if cfg.variant not in VARIANTS:
+        raise ValueError(f"unknown variant {cfg.variant!r}: one of {VARIANTS}")
+    if cfg.leaf_size not in (None, *LEAF_SIZES):
+        raise NotImplementedError(f"not ported yet: leaf_size={cfg.leaf_size}")
 
 
 def _pick_leaf_size(cfg: RenderConfig) -> int:
@@ -252,10 +268,13 @@ def prepare(cfg: RenderConfig, scene: Optional[Scene] = None, device=None) -> Pi
     tables.cmat, which sends both the fused frame and the pass-based
     tracer through the MXU instances; Pipeline.mxu records the choice.
 
-    The scene's spheres go into the DeviceScene (the pass-based and
+    The scene's spheres go into the DeviceScene (the pass-based, packet and
     brute-force paths test them in torch) and into the tables' sphere
-    table (pack_spheres; the fused frame kernel tests them). use_bvh=False
-    builds no BVH: the DeviceScene alone is uploaded."""
+    table (pack_spheres; the fused frame kernel tests them). The packet
+    traversal's tree (Pipeline.dbvh, ops/trace_bvh.device_bvh_from_flat)
+    takes bf16 boxes with bf16_bvh at every width, as JAX's prepare builds
+    it (pipeline.py:382-383), though the width-8 tables stay f32.
+    use_bvh=False builds no BVH: the DeviceScene alone is uploaded."""
     _check_ported(cfg)
     device = _pick_device(device)
     native = None
@@ -330,6 +349,9 @@ def prepare(cfg: RenderConfig, scene: Optional[Scene] = None, device=None) -> Pi
         device=device, leaf_size=leaf_size, compressed=packed.compressed,
         sph=sph, cmat=split_cmat(packed.cmat) if mxu else None,
     )
+    dbvh, _, stack_depth = trace_bvh.device_bvh_from_flat(flat, bf16=cfg.bf16_bvh,
+                                                          device=device)
     return Pipeline(cfg=cfg, scene=scene, ds=ds, flat=flat, tables=tables,
                     build_ms=build_ms, bvh_stats=bvh_stats, stream=stream, mxu=mxu,
-                    builder=builder, leaf_size=leaf_size)
+                    builder=builder, leaf_size=leaf_size, dbvh=dbvh,
+                    stack_depth=stack_depth)

@@ -5,8 +5,8 @@ A tree of nested dicts, tuples, lists and arrays round-trips; a file that
 JAX's save_pytree writes loads with the port's load_pytree and the port's
 file loads with JAX's, with JAX's treedef text (tests/test_checkpoint.py:
 12-22); the resume test of :25-45; render_band's rows equal the whole
-frame's rows bit for bit for "fused", "pallas" and "bruteforce" (:48-62),
-also a band that runs past the frame's last row, and equal JAX's
+frame's rows bit for bit for "fused", "pallas", "bruteforce" and "jax"
+(:48-62), also a band that runs past the frame's last row, and equal JAX's
 render_band(variant="jax") within atol 3e-5; the port's CLI --checkpoint
 renders the frame render() gives, persists, and a rerun renders no band
 again (:65-93).
@@ -99,7 +99,7 @@ def band_pipe(tiny_scene):
     return pipeline.prepare(RenderConfig(**KW), scene=tiny_scene, device="cpu")
 
 
-@pytest.mark.parametrize("variant", ["fused", "pallas", "bruteforce"])
+@pytest.mark.parametrize("variant", ["fused", "pallas", "bruteforce", "jax"])
 def test_render_band_matches_full_frame(variant, band_pipe):
     full = band_pipe.render(variant=variant).numpy()
     assert full.std() > 0.01
@@ -107,15 +107,13 @@ def test_render_band_matches_full_frame(variant, band_pipe):
         band = band_pipe.render_band(y0, rows, variant=variant).numpy()
         assert band.shape == (rows, 64, 3)
         np.testing.assert_array_equal(band, full[y0:y0 + rows])
-    with pytest.raises(NotImplementedError):
-        band_pipe.render_band(0, 8, variant="jax")
 
 
 def test_render_band_matches_jax(tiny_scene, band_pipe):
     jp = j_pipeline.prepare(JConfig(**KW, variant="jax"), scene=tiny_scene)
     for y0 in (0, 16):
         ref = np.asarray(jp.render_band(y0, 16, variant="jax"))
-        for variant in ("fused", "pallas"):
+        for variant in ("fused", "pallas", "jax"):
             band = band_pipe.render_band(y0, 16, variant=variant).numpy()
             np.testing.assert_allclose(band, ref, atol=3e-5)
 

@@ -5,8 +5,10 @@ in-process render() gives, the JAX CLI's metrics record and statistics,
 --presplit (each the frame an in-process render() of its config gives),
 the car scenes' substitutes without a car_only folder, --devices 2 (the
 sharded frame over 2 virtual CPU devices, render()'s BMP), --checkpoint
-(a resumed banded frame), --profile (a trace file), and a non-zero exit
-with NotImplementedError's message for --interpret and --variant jax."""
+(a resumed banded frame), --profile (a trace file), --variant jax (the
+in-process packet-traversal frame's BMP, byte for byte, also over 2
+devices) and --interpret (the BMP of the same run without it, byte for
+byte); without --device the run needs the card."""
 
 import dataclasses
 import json
@@ -74,19 +76,29 @@ def test_stats_as_jax(times):
 
 @pytest.mark.parametrize("flags", [["--interpret"], ["--variant", "jax"]], ids=" ".join)
 def test_unported_flag_exits_nonzero(flags, capsys, tmp_path):
-    argv = ["--device", "cpu", "--width", "32", "--height", "32",
-            "--asset-root", str(tmp_path), *flags]
-    if "--scene" not in flags:
-        argv += ["--synthetic", "16"]
-    assert cli.main(argv) != 0
-    assert "NotImplementedError" in capsys.readouterr().err
+    """The two flags that exited 2 while their paths were not ported now
+    render: --variant jax the in-process render(variant="jax") frame, and
+    --interpret (the kernels' plain versions on the device) the frame of
+    the same run without it, each BMP byte for byte."""
+    argv = ["--device", "cpu", "--width", "32", "--height", "32", "--bounces", "2",
+            "--warmup", "0", "--asset-root", str(tmp_path), "--synthetic", "16"]
+    bmp, plain = tmp_path / "f.bmp", tmp_path / "plain.bmp"
+    assert cli.main(argv + [*flags, "--output", str(bmp)]) == 0
+    assert "NotImplementedError" not in capsys.readouterr().err
+    if "--interpret" in flags:
+        assert cli.main(argv + ["--output", str(plain)]) == 0
+        assert bmp.read_bytes() == plain.read_bytes()
+        return
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv + flags))
+    img = pipeline.prepare(cfg, device="cpu").render(variant="jax").numpy()
+    assert img.std() > 0.01 and bmp.read_bytes() == bmp_bytes(img)
 
 
 SHARDED_ARGV = ["--device", "cpu", "--synthetic", "64", "--width", "64", "--height", "40",
                 "--bounces", "2", "--warmup", "0", "--iterations", "1"]
 
 
-@pytest.mark.parametrize("variant", ["auto", "pallas", "bruteforce"])
+@pytest.mark.parametrize("variant", ["auto", "pallas", "bruteforce", "jax"])
 def test_devices_renders_the_sharded_frame(variant, tmp_path, capsys):
     """--devices 2 --device cpu times render_sharded over 2 virtual CPU
     devices: its BMP is render()'s, the banner and the record say 2."""
@@ -204,15 +216,16 @@ def test_ignored_tpu_flags_render(capsys):
 
 
 def test_module_entry_point_exits_nonzero():
-    """`python -m` runs the CLI: an unported flag exits 2, and without
-    --device the run needs the card (no fallback to the CPU)."""
+    """`python -m` runs the CLI: --device cpu --interpret exits 0, and
+    without --device the run needs the card (no fallback to the CPU)."""
     env = dict(os.environ, PYTHONPATH=REPO)
     run = [sys.executable, "-m", "parallel_ray_tracer_tpu_torch", "--width", "32",
            "--height", "32"]
-    proc = subprocess.run(run + ["--device", "cpu", "--interpret"],
+    proc = subprocess.run(run + ["--device", "cpu", "--interpret", "--synthetic", "16",
+                                 "--bounces", "1", "--warmup", "0"],
                           capture_output=True, text=True, cwd=REPO, env=env,
                           timeout=120)
-    assert proc.returncode == 2 and "NotImplementedError" in proc.stderr
+    assert proc.returncode == 0, proc.stderr
     if not torch.cuda.is_available():
         proc = subprocess.run(run, capture_output=True, text=True, cwd=REPO,
                               env=env, timeout=120)

@@ -9,7 +9,10 @@ occluder gradient present only with soft shadows, and finite; the diff path
 through the port's make_tracer against brute force (atol and rtol 2e-3),
 on the CPU through the kernels' plain versions with `attr`, at width 4 with
 f32 and bf16 boxes, with the C-matrix table (the plain MXU versions), and
-at width 2; kd by finite difference with the attr rows repacked. Also
+at width 2; kd by finite difference with the attr rows repacked; through
+the packet traversal (ops/trace_bvh.make_tracer) against brute force
+(tests/test_diff.py:284-310: the loss within 1e-3, the vertex gradients
+within atol and rtol 1e-3). Also
 tests/test_spheres.py's sphere-radius gradient (finite, nonzero, and
 dt/dr = -1 on the ray through the centre).
 
@@ -45,7 +48,9 @@ from parallel_ray_tracer_tpu_torch import pipeline
 from parallel_ray_tracer_tpu_torch.config import RenderConfig
 from parallel_ray_tracer_tpu_torch.models.camera import default_camera, ray_basis
 from parallel_ray_tracer_tpu_torch.models.device_scene import build_device_scene
-from parallel_ray_tracer_tpu_torch.ops import cuda_trace, diff, shade, trace_brute
+from parallel_ray_tracer_tpu_torch.ops import cuda_trace, diff, shade, trace_brute, trace_bvh
+from parallel_ray_tracer_tpu_torch.ops.bvh import build_bvh
+from parallel_ray_tracer_tpu_torch.ops.bvh_flat import flatten_bvh
 from parallel_ray_tracer_tpu_torch.ops.intersect import ray_sphere
 from parallel_ray_tracer_tpu_torch.ops.pack import pack_attr
 from parallel_ray_tracer_tpu_torch.ops.render import generate_rays_tiled
@@ -225,6 +230,32 @@ def test_tracer_gradients_match_brute(tiny_scene, case):
     assert abs(lp - lb) < 1e-2 * max(1.0, abs(lb))
     np.testing.assert_allclose(_grad(loss_p, verts0).numpy(), _grad(loss_b, verts0).numpy(),
                                atol=2e-3, rtol=2e-3)
+
+
+def test_bvh_gradients_match_brute(tiny_scene):
+    """The differentiable wrapper gives the brute-force gradients whichever
+    tracer supplies the topology: here the packet traversal, one packet of
+    1,024 rays (tests/test_diff.py:284-310)."""
+    arrs, (o, d) = _arrays(tiny_scene), _rays()
+    tv = tiny_scene.triangle_vertices()
+    flat = flatten_bvh(build_bvh(tv, heuristic=6, leaf_threshold=8), tv, leaf_size=8)
+    dbvh, L, depth = trace_bvh.device_bvh_from_flat(flat, device="cpu")
+    verts0 = np.asarray(tiny_scene.verts, np.float32)
+
+    def loss_bvh(verts):
+        ds = build_device_scene(verts, **arrs, slot_map=flat.slot_map, device="cpu")
+        closest_fn, occluded_fn = trace_bvh.make_tracer(dbvh, ds, L, depth, packet=1024)
+        return diff.trace_rays_diff(ds, closest_fn, occluded_fn, o, d, 2).stack(-1).sum()
+
+    def loss_brute(verts):
+        return _render(verts, arrs, o, d).sum()
+
+    with torch.no_grad():
+        lb, lr = (float(f(torch.as_tensor(verts0))) for f in (loss_bvh, loss_brute))
+    assert abs(lb - lr) < 1e-3
+    g_bvh, g_brute = _grad(loss_bvh, verts0).numpy(), _grad(loss_brute, verts0).numpy()
+    assert np.abs(g_brute).max() > 1.0     # non-vacuous
+    np.testing.assert_allclose(g_bvh, g_brute, atol=1e-3, rtol=1e-3)
 
 
 def test_tracer_material_gradient_matches_fd(tiny_scene):

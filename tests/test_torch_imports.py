@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package,
-runs on CUDA unless told otherwise, and refuses what it has not ported."""
+runs on CUDA unless told otherwise, and refuses only the leaf sizes it has
+no kernels for."""
 
 import ast
 import os
@@ -23,7 +24,8 @@ PORT = os.path.join(REPO, "parallel_ray_tracer_tpu_torch")
 
 
 def _port_sources():
-    out = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "compare_frames.py")]
+    out = [os.path.join(REPO, f) for f in ("chip_smoke.py", "compare_frames.py",
+                                           "packet_schedules.py")]
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -64,6 +66,7 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import parallel_ray_tracer_tpu_torch.microbench.mxu_inner\n"
         "import parallel_ray_tracer_tpu_torch.native.builder\n"
         "import parallel_ray_tracer_tpu_torch.ops.diff\n"
+        "import parallel_ray_tracer_tpu_torch.ops.trace_bvh\n"
         "import parallel_ray_tracer_tpu_torch.parallel.sharded\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'parallel_ray_tracer_tpu')]\n"
@@ -86,7 +89,7 @@ def test_prepare_without_device_raises_when_no_cuda():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(variant="jax"), dict(leaf_size=3), dict(leaf_size=16),
+    dict(leaf_size=0), dict(leaf_size=3), dict(leaf_size=16),
 ])
 def test_unported_knobs_raise(kw):
     with pytest.raises(NotImplementedError):
@@ -95,16 +98,18 @@ def test_unported_knobs_raise(kw):
 
 @pytest.mark.parametrize("kw", [
     dict(fast_light=False), dict(presplit=0.1), dict(leaf_size=4),
-    dict(reverse_shadows=False), dict(num_devices=2),
+    dict(reverse_shadows=False), dict(num_devices=2), dict(variant="jax"),
 ])
 def test_ported_knobs_render(kw):
     """The knobs that raised before their paths were ported prepare and
-    render: a synthetic scene's fused or pass-based frame, in frame."""
+    render: a synthetic scene's fused, pass-based or packet-traversal
+    frame, in frame."""
     cfg = RenderConfig(width=32, height=32, bounces=1, synthetic_triangles=64,
                        use_native=False, **kw)
     pipe = pipeline.prepare(cfg, device="cpu")
     assert pipe.leaf_size == (4 if kw.get("leaf_size") == 4 else 8)
-    assert pipe.resolved_variant() == ("pallas" if "fast_light" in kw else "fused")
+    assert pipe.resolved_variant() == kw.get(
+        "variant", "pallas" if "fast_light" in kw else "fused")
     img = pipe.render()
     assert img.shape == (32, 32, 3) and img.std() > 0.01
 

@@ -4,15 +4,17 @@
 The port's mesh of 8 virtual CPU devices (make_mesh(8, device="cpu")) is
 held against JAX's 8-device CPU mesh (tests/conftest.py): round_robin_perm
 equals JAX's; render_sharded over the port's tables (the kernels' plain
-versions, "pallas" and "fused") equals JAX's render_sharded(variant="jax")
-within atol 3e-5 on tests/test_sharded.py's 64x64 2-bounce case and its
-96x32 case (3 tiles on 8 devices: pad tiles); the port's sharded frame
-equals the port's Pipeline.render at the production schedule within atol
-1e-6, rtol 0 (tests/test_sharded.py:94-125), streamed equals resident and
-fast_light=False equals render() bit for bit; the 8-device training step
-equals the 1-device step (loss within 1e-6, vertices within atol 1e-5,
-:309-323) and JAX's 8-device brute step, and garbage in the pad tiles'
-target changes neither the loss nor the step.
+versions, "pallas" and "fused") and over its DeviceBVH (the packet
+traversal, "jax") equals JAX's render_sharded(variant="jax") within atol
+3e-5 on tests/test_sharded.py's 64x64 2-bounce case and its 96x32 case (3
+tiles on 8 devices: pad tiles), and "jax" equals the port's brute force
+within atol 3e-5 there (tests/test_sharded.py:21-53); the port's sharded
+frame equals the port's Pipeline.render at the production schedule within
+atol 1e-6, rtol 0 (tests/test_sharded.py:94-125), streamed equals resident
+and fast_light=False equals render() bit for bit; the 8-device training
+step ("brute", "pallas", "jax") equals the 1-device step (loss within
+1e-6, vertices within atol 1e-5, :309-323) and JAX's 8-device brute step,
+and garbage in the pad tiles' target changes neither the loss nor the step.
 """
 
 import jax
@@ -69,7 +71,12 @@ def pipes(tiny_scene):
 
 def _render(p, mesh, variant, **kw):
     c = p.cfg
-    return sharded.render_sharded(p.ds, p.tables, p.camera(), c.width, c.height, mesh,
+    if variant == "jax":     # the packet traversal takes the pipeline's DeviceBVH
+        data = p.dbvh
+        kw = dict(dict(leaf_size=p.leaf_size, stack_depth=p.stack_depth), **kw)
+    else:
+        data = p.tables
+    return sharded.render_sharded(p.ds, data, p.camera(), c.width, c.height, mesh,
                                   bounces=c.bounces, variant=variant, **kw).numpy()
 
 
@@ -81,15 +88,18 @@ def test_round_robin_perm_as_jax(ntiles, n_dev):
     assert sharded._pad_tiles(5, 4) == j_sharded._pad_tiles(5, 4) == 8
 
 
-@pytest.mark.parametrize("variant", ["pallas", "fused"])
+@pytest.mark.parametrize("variant", ["pallas", "fused", "jax"])
 @pytest.mark.parametrize("case", list(CASES))
 def test_render_sharded_matches_jax(case, variant, pipes, jax_frames, mesh8):
     img = _render(pipes[case], mesh8, variant)
     assert img.std() > 0.01  # non-vacuous: the scene is in frame
     np.testing.assert_allclose(img, jax_frames[case], atol=3e-5)
+    if variant == "jax":     # tests/test_sharded.py:21-53: the oracle
+        brute = pipes[case].render(variant="bruteforce").numpy()
+        np.testing.assert_allclose(img, brute, atol=3e-5)
 
 
-@pytest.mark.parametrize("variant", ["pallas", "fused", "bruteforce"])
+@pytest.mark.parametrize("variant", ["pallas", "fused", "bruteforce", "jax"])
 def test_sharded_equals_render(variant, pipes, mesh8):
     """The production schedule, threaded through, renders render()'s frame
     (tests/test_sharded.py:94-125)."""
@@ -121,8 +131,9 @@ def test_mesh_and_refusals(pipes, mesh8):
     assert mesh8.size == 8 and all(d.type == "cpu" for d in mesh8)
     assert mesh8.local == list(range(8)) and not mesh8.distributed
     p = pipes["64x64"]
-    with pytest.raises(NotImplementedError):
-        _render(p, mesh8, "jax")
+    with pytest.raises(ValueError, match="DeviceBVH"):    # "jax" takes the flat tree
+        sharded.render_sharded(p.ds, p.tables, p.camera(), 64, 64, mesh8, variant="jax",
+                               leaf_size=p.leaf_size, stack_depth=p.stack_depth)
     with pytest.raises(ValueError):
         _render(p, mesh8, "fused", leaf_size=4)
     if not torch.cuda.is_available():  # no path carries on on the CPU
@@ -144,14 +155,16 @@ W, H = 64, 32   # 2 tiles: 6 pad tiles on 8 devices
 @pytest.fixture(scope="module")
 def one_device_steps(tiny_scene, pipes):
     """The 1-device brute and pallas steps' (verts, loss), lr 1e-2."""
-    return {v: _step(tiny_scene, pipes, None, v)(None) for v in ("brute", "pallas")}
+    return {v: _step(tiny_scene, pipes, None, v)(None) for v in ("brute", "pallas", "jax")}
 
 
 def _step(scene, pipes, mesh, variant, lr=1e-2):
     p = pipes["64x64"]
-    kw = {} if variant == "brute" else dict(
-        tracer_data=p.tables.packed_dev, leaf_size=p.tables.leaf_size,
-        slot_map=p.flat.slot_map)
+    kw = {"brute": {},
+          "pallas": dict(tracer_data=p.tables.packed_dev, leaf_size=p.tables.leaf_size,
+                         slot_map=p.flat.slot_map),
+          "jax": dict(tracer_data=p.dbvh, leaf_size=p.leaf_size, stack_depth=p.stack_depth,
+                      slot_map=p.flat.slot_map)}[variant]
     step, prep = sharded.make_train_step(scene, mesh, W, H, bounces=1, lr=lr, variant=variant,
                                          device="cpu", **kw)
 
@@ -164,7 +177,7 @@ def _step(scene, pipes, mesh, variant, lr=1e-2):
     return run
 
 
-@pytest.mark.parametrize("variant", ["brute", "pallas"])
+@pytest.mark.parametrize("variant", ["brute", "pallas", "jax"])
 def test_eight_device_step_matches_one(variant, tiny_scene, pipes, mesh8, one_device_steps):
     run = _step(tiny_scene, pipes, mesh8, variant)
     v8, l8 = run(None)

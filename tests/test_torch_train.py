@@ -11,8 +11,12 @@ at lr = 0. Against JAX: the port's pallas step (the kernels' plain
 versions, with attr) and JAX's make_train_step(variant="pallas",
 interpret=True) on make_mesh(1), at 64x32 and 1 bounce, fed the same state
 through convert.train_inputs_from_numpy: the loss within
-1e-3 * max(1, loss), the updated vertices within atol 1e-5. A mesh of two
-devices trains as one device does. The refusals: variant="jax", an unknown
+1e-3 * max(1, loss), the updated vertices within atol 1e-5; the port's
+jax step (the packet traversal, ops/trace_bvh.py) and JAX's
+make_train_step(variant="jax") the same way, and the port's jax step and
+its FP32 pallas step on the same inputs (the loss within 1e-6 * max(1,
+loss), the vertices within atol 1e-6). A mesh of two devices trains as one
+device does. The refusals: variant="jax" without a DeviceBVH, an unknown
 variant, a device beside a mesh of another, tables on another device than
 the step's.
 """
@@ -107,6 +111,45 @@ def jax_step(tiny_scene, tiny_pipe):
     return state, np.asarray(v1), float(loss)
 
 
+def _jax_step(scene, pipe, **kw):
+    return sharded.make_train_step(scene, None, W, H, variant="jax", tracer_data=pipe.dbvh,
+                                   leaf_size=pipe.leaf_size, stack_depth=pipe.stack_depth,
+                                   slot_map=pipe.flat.slot_map, device="cpu", **kw)
+
+
+def test_jax_step_matches_jax(tiny_scene, tiny_pipe, jax_step):
+    """The packet-traversal step against JAX's make_train_step(variant="jax")
+    on JAX's own DeviceBVH of the same tree, fed the same state."""
+    from parallel_ray_tracer_tpu.ops import trace_bvh as j_tb
+
+    state, _, _ = jax_step
+    jbvh, jL, jS = j_tb.device_bvh_from_flat(tiny_pipe.flat)
+    jstep, jprep = j_sharded.make_train_step(
+        tiny_scene, j_sharded.make_mesh(1), W, H, bounces=1, lr=1e-3, variant="jax",
+        tracer_data=jbvh, leaf_size=jL, stack_depth=jS, slot_map=tiny_pipe.flat.slot_map)
+    v, o_t, d_t, target = jprep()      # the jax_step fixture's state
+    np.testing.assert_array_equal(np.asarray(target) + 0.25, state[3])
+    jv1, jloss = jstep(v, o_t, d_t, target + 0.25)
+    step, _ = _jax_step(tiny_scene, tiny_pipe, bounces=1, lr=1e-3)
+    v1, loss = step(*train_inputs_from_numpy(*state, device="cpu"))
+    assert float(jloss) > 0.01  # non-vacuous
+    assert abs(float(loss) - float(jloss)) < 1e-3 * max(1.0, float(jloss))
+    np.testing.assert_allclose(v1.numpy(), np.asarray(jv1), atol=1e-5)
+
+
+def test_jax_step_matches_pallas_step(tiny_scene, tiny_pipe, jax_step):
+    """The packet-traversal step and the FP32 kernels' step (their plain
+    versions here) find the same hits: the same step, to rounding."""
+    state, _, _ = jax_step
+    inputs = train_inputs_from_numpy(*state, device="cpu")
+    vj, lj = _jax_step(tiny_scene, tiny_pipe, bounces=2, lr=1e-3)[0](*inputs)
+    vp, lp = _pallas_step(tiny_scene, tiny_pipe, bounces=2, lr=1e-3)[0](*inputs)
+    assert float(lp) > 0.01
+    assert abs(float(lj) - float(lp)) < 1e-6 * max(1.0, float(lp))
+    np.testing.assert_allclose(vj.numpy(), vp.numpy(), atol=1e-6)
+    assert np.abs(vj.numpy() - state[0]).max() > 1e-6
+
+
 def test_pallas_step_matches_jax(tiny_scene, tiny_pipe, jax_step):
     state, jv1, jloss = jax_step
     step, _ = _pallas_step(tiny_scene, tiny_pipe, bounces=1, lr=1e-3)
@@ -118,7 +161,7 @@ def test_pallas_step_matches_jax(tiny_scene, tiny_pipe, jax_step):
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(variant="jax"), NotImplementedError),
+    (dict(variant="jax"), ValueError),        # no DeviceBVH
     (dict(variant="bogus"), ValueError),
     (dict(mesh="cpu", device="meta"), ValueError),
 ])
